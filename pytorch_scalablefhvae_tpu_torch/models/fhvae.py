@@ -1,0 +1,238 @@
+"""FHVAE: the recurrent factorized hierarchical VAE, as an ``nn.Module``.
+
+Counterpart of ``models/fhvae.py``. Parameters keep the JAX layout and tree
+names (``z2_lstm.cells.0.w``, ``z2_gauss.mu.w``, ``mu2_table``, ...): an LSTM
+cell is one fused ``w [d_in + H, 4H]`` with the input rows on top, gate
+order i, f, g, o, and forget-gate bias 1.0, so JAX weights load without a
+transpose (``train/checkpoint.py``).
+
+Every forward follows the JAX package's time-major fused dataflow
+(``FHVAE._apply_fused``):
+- x is transposed to ``[T, B, D]`` once;
+- the z2 and z1 encoders run the projection-fused recurrence kernel, and the
+  z1 encoder's z2 input never joins x: its gate block
+  ``z2 @ W[D:D+z2] + b`` is computed once per segment (``xgc``);
+- the decoder's input is the same ``[z1, z2]`` at every frame, so its gate
+  block is computed once per segment and the kernel reads it at every step;
+- the ELBO reduces over the time-major reconstruction.
+
+The recurrences run the CUDA kernels for CUDA tensors and their plain
+versions on the CPU (``ops/lstm_cuda.py``). A stack the kernel does not take
+raises; the TPU path's scan fallback, wavefront schedule, scan unroll and
+VMEM gates have no counterpart here.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from pytorch_scalablefhvae_tpu_torch.models import layers
+from pytorch_scalablefhvae_tpu_torch.models.base import (
+    FHVAEOutputs,
+    assemble_elbo,
+    discriminative_log_qy,
+    resolve_mu2_scoring,
+)
+from pytorch_scalablefhvae_tpu_torch.ops import lstm_cuda
+
+
+class LSTMCell(nn.Module):
+    def __init__(self, d_in: int, hid: int, generator: torch.Generator):
+        super().__init__()
+        limit = math.sqrt(6.0 / (d_in + hid + 4 * hid))
+        self.w = nn.Parameter(layers.uniform((d_in + hid, 4 * hid), limit,
+                                             generator))
+        b = torch.zeros(4 * hid)
+        b[hid:2 * hid] = 1.0  # forget-gate bias 1.0
+        self.b = nn.Parameter(b)
+
+
+class LSTMStack(nn.Module):
+    def __init__(self, d_in: int, widths, generator: torch.Generator):
+        super().__init__()
+        cells, d = [], d_in
+        for w in widths:
+            cells.append(LSTMCell(d, w, generator))
+            d = w
+        self.cells = nn.ModuleList(cells)
+
+    def pairs(self):
+        """``[(w, b), ...]``, the form the recurrence ops take."""
+        return [(c.w, c.b) for c in self.cells]
+
+    def two_layer_ok(self, T: int) -> bool:
+        """The kernel's rule (``_two_layer_ok``): two equal-width layers and
+        at least two steps."""
+        if len(self.cells) != 2:
+            return False
+        w1, w2 = self.cells[0].w, self.cells[1].w
+        hid = w2.shape[1] // 4
+        return w1.shape[1] == w2.shape[1] and w2.shape[0] == 2 * hid and T >= 2
+
+
+class FHVAE(nn.Module):
+    """Recurrent FHVAE; the public surface of the JAX ``FHVAE``."""
+
+    model_type = "fhvae"
+
+    def __init__(self, input_size: int, z1_hus=(128, 128), z2_hus=(128, 128),
+                 z1_dim: int = 16, z2_dim: int = 16, x_hus=(128, 128),
+                 num_seqs: int = 1, pz2_std: float = 0.5,
+                 mu2_init_std: float = 1.0, compute_dtype: str = "float32",
+                 lstm_mm_dtype: str = "bfloat16", feat_dim: int = 80,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if lstm_mm_dtype not in lstm_cuda.MM_DTYPES:
+            raise ValueError(f"lstm_mm_dtype must be one of "
+                             f"{lstm_cuda.MM_DTYPES}")
+        g = generator if generator is not None else torch.Generator()
+        self.input_size = input_size
+        self.z1_hus, self.z2_hus, self.x_hus = (tuple(z1_hus), tuple(z2_hus),
+                                                tuple(x_hus))
+        self.z1_dim, self.z2_dim = z1_dim, z2_dim
+        self.num_seqs = num_seqs
+        self.pz2_std = pz2_std
+        self.compute_dtype = compute_dtype
+        self.lstm_mm_dtype = lstm_mm_dtype
+        self.feat_dim = feat_dim
+        self.z2_lstm = LSTMStack(feat_dim, z2_hus, g)
+        self.z2_gauss = layers.GaussHead(z2_hus[-1], z2_dim, g)
+        self.z1_lstm = LSTMStack(feat_dim + z2_dim, z1_hus, g)
+        self.z1_gauss = layers.GaussHead(z1_hus[-1], z1_dim, g)
+        self.dec_lstm = LSTMStack(z1_dim + z2_dim, x_hus, g)
+        self.dec_gauss = layers.GaussHead(x_hus[-1], feat_dim, g)
+        self.mu2_table = nn.Parameter(
+            mu2_init_std * torch.randn((num_seqs, z2_dim), generator=g))
+
+    @classmethod
+    def from_config(cls, input_size: int, cfg, num_seqs: int,
+                    feat_dim: int = 80, generator=None) -> "FHVAE":
+        """From a ``ModelConfig``; its TPU-only fields (``use_pallas``,
+        ``lstm_pallas``, ``scan_unroll``) have no meaning here."""
+        return cls(input_size, z1_hus=tuple(cfg.z1_hus),
+                   z2_hus=tuple(cfg.z2_hus), z1_dim=cfg.z1_dim,
+                   z2_dim=cfg.z2_dim, x_hus=tuple(cfg.x_hus),
+                   num_seqs=num_seqs, pz2_std=cfg.pz2_std,
+                   mu2_init_std=cfg.mu2_init_std,
+                   compute_dtype=cfg.compute_dtype,
+                   lstm_mm_dtype=cfg.lstm_mm_dtype, feat_dim=feat_dim,
+                   generator=generator)
+
+    @property
+    def pz2_logvar(self) -> float:
+        return float(math.log(self.pz2_std ** 2))
+
+    def model_params(self) -> tuple:
+        return (self.input_size, list(self.z1_hus), list(self.z2_hus),
+                self.z1_dim, self.z2_dim, list(self.x_hus))
+
+    # ------------------------------------------------------------ pieces
+
+    def _check_stacks(self, T: int) -> None:
+        for name in ("z2_lstm", "z1_lstm", "dec_lstm"):
+            if not getattr(self, name).two_layer_ok(T):
+                raise NotImplementedError(
+                    f"{name}: the recurrence kernel takes two equal-width "
+                    f"layers and T >= 2 (got T={T}); other stacks are not yet "
+                    f"ported (ROADMAP.md)")
+
+    def _proj(self, a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype == "bfloat16":
+            a, w = a.to(torch.bfloat16).float(), w.to(torch.bfloat16).float()
+        return a @ w
+
+    def _encode_tm(self, xt, sample, generator):
+        """Both encoders on time-major ``xt [T, B, D]``."""
+        D = xt.shape[2]
+        cdt, mm = self.compute_dtype, self.lstm_mm_dtype
+        _, h2 = lstm_cuda.lstm2_tm_proj(self.z2_lstm.pairs(), xt, None, mm,
+                                        with_tops=False)
+        z2_mu, z2_logvar, z2 = layers.gauss_head(self.z2_gauss, h2, cdt,
+                                                 sample, generator=generator)
+        c1 = self.z1_lstm.cells[0]
+        xg_z = self._proj(z2, c1.w[D:D + z2.shape[-1]]) + c1.b  # [B, 4H]
+        _, h1 = lstm_cuda.lstm2_tm_proj(self.z1_lstm.pairs(), xt, xg_z, mm,
+                                        with_tops=False)
+        z1_mu, z1_logvar, z1 = layers.gauss_head(self.z1_gauss, h1, cdt,
+                                                 sample, generator=generator)
+        return {"z1_mu": z1_mu, "z1_logvar": z1_logvar, "z1": z1,
+                "z2_mu": z2_mu, "z2_logvar": z2_logvar, "z2": z2}
+
+    def _decode_tm(self, z1, z2, T: int):
+        """Decoder: ``(x_mu, x_logvar)``, each time-major ``[T, B, F]``."""
+        B = z1.shape[0]
+        c1 = self.dec_lstm.cells[0]
+        z = torch.cat([z1, z2], dim=-1)
+        xg_c = self._proj(z, c1.w[: z.shape[-1]]) + c1.b  # [B, 4H]
+        tops, _ = lstm_cuda.lstm2_tm(self.dec_lstm.pairs(), xg_c, T=T,
+                                     mm_dtype=self.lstm_mm_dtype)
+        x_mu, x_logvar, _ = layers.gauss_head(
+            self.dec_gauss, tops.reshape(T * B, -1), self.compute_dtype)
+        return (x_mu.reshape(T, B, self.feat_dim),
+                x_logvar.reshape(T, B, self.feat_dim))
+
+    # ------------------------------------------------------------ surface
+
+    def encode(self, x, sample: bool = False,
+               generator: torch.Generator | None = None) -> dict:
+        """Posteriors of both latents for ``x [B, T, D]``."""
+        self._check_stacks(x.shape[1])
+        return self._encode_tm(x.float().transpose(0, 1).contiguous(),
+                               sample, generator)
+
+    def decode(self, z1, z2, num_frames: int | None = None,
+               sample: bool = False, generator=None):
+        """Per-frame Gaussians ``(x_mu, x_logvar, x_sample)``, each
+        ``[B, T, F]``; ``T`` defaults to ``input_size // feat_dim``."""
+        T = num_frames or self.input_size // self.feat_dim
+        self._check_stacks(T)
+        x_mu, x_logvar = (a.transpose(0, 1)
+                          for a in self._decode_tm(z1, z2, T))
+        if not sample:
+            return x_mu, x_logvar, x_mu
+        eps = torch.randn(x_mu.shape, generator=generator,
+                          device=x_mu.device)
+        return x_mu, x_logvar, x_mu + eps * torch.exp(0.5 * x_logvar)
+
+    def encode_z2(self, x) -> torch.Tensor:
+        """Posterior mean of the sequence latent alone, ``[B, z2_dim]``."""
+        self._check_stacks(x.shape[1])
+        xt = x.float().transpose(0, 1).contiguous()
+        _, h2 = lstm_cuda.lstm2_tm_proj(self.z2_lstm.pairs(), xt, None,
+                                        self.lstm_mm_dtype, with_tops=False)
+        return layers.dense(self.z2_gauss.mu, h2, self.compute_dtype)
+
+    def apply(self, x, seq_idx, nsegs, sample: bool = False,
+              mu2_table: torch.Tensor | None = None,
+              generator: torch.Generator | None = None) -> FHVAEOutputs:
+        """The full forward: latents, reconstruction, ELBO terms, log_qy.
+
+        ``x [B, T, D]``, ``seq_idx [B]`` table rows, ``nsegs [B]`` segment
+        counts of each row's sequence. ``mu2_table`` overrides the learned
+        table (a split's MAP estimates). The serving path runs
+        ``sample=False`` and draws nothing.
+        """
+        B, T, _ = x.shape
+        self._check_stacks(T)
+        xt = x.float().transpose(0, 1).contiguous()
+        enc = self._encode_tm(xt, sample, generator)
+        x_mu_tm, x_logvar_tm = self._decode_tm(enc["z1"], enc["z2"], T)
+
+        table, num_real = resolve_mu2_scoring(self, mu2_table)
+        # JAX clamps an out-of-bounds gather; a served request may number
+        # more utterances than the table has rows, and must still run
+        mu2 = table[seq_idx.long().clamp(0, table.shape[0] - 1)]
+        lower_bound, log_px_z, neg_kld_z1, neg_kld_z2, log_pmu2 = assemble_elbo(
+            xt, mu2, enc["z1_mu"], enc["z1_logvar"], enc["z2_mu"],
+            enc["z2_logvar"], x_mu_tm, x_logvar_tm, nsegs,
+            pz2_logvar=self.pz2_logvar, frame_axes=(0, 2))
+        log_qy = discriminative_log_qy(enc["z2_mu"], table, seq_idx,
+                                       self.pz2_logvar, num_real)
+        return FHVAEOutputs(
+            lower_bound=lower_bound, log_qy=log_qy, log_px_z=log_px_z,
+            neg_kld_z1=neg_kld_z1, neg_kld_z2=neg_kld_z2, log_pmu2=log_pmu2,
+            z1_mu=enc["z1_mu"], z2_mu=enc["z2_mu"],
+            x_mu=x_mu_tm.transpose(0, 1), x_logvar=x_logvar_tm.transpose(0, 1))
