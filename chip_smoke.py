@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path once on one GPU and check it.
+"""Drive the PyTorch/CUDA port's serving and training paths on one GPU.
 
     python3 chip_smoke.py        # from the root of a checkout; needs 1 GPU
 
@@ -18,7 +18,20 @@ prints no result line):
    malformed request and a shutdown, check every response, check that the
    three kernel entries were launched during the requests, and hold the
    served latents against the same requests run through the plain versions
-   on the card.
+   on the card;
+2b. the three backward entries against their plain backward at the training
+   shapes (B = 1024), in fp32 and bf16 operands, on the same residuals and
+   cotangents, two launches compared bitwise; the discriminative backward
+   at 4,620 and 281,241 table rows with 7 padded rows, which must get
+   exactly zero gradient;
+4. training: write a preprocessed feature corpus of 4,620 training and 400
+   dev sequences; hold the first three train steps through the kernels
+   against the same steps through the plain versions on the card; time a
+   step's forward, backward and optimizer (CUDA events) and its kernels
+   (torch.profiler); then run the port's ``train`` CLI at its defaults
+   (fhvae, batch 1024, bf16 LSTM operands) for 2 epochs and resume it for a
+   third, checking that the loss is finite and falls, that the resumed run
+   continues the step count, and that all six kernel entries were launched.
 
 The bf16 tolerances sit between the kernels' error and the gap between the
 plain versions in fp32 and in bf16 operand mode, which each run measures: a
@@ -27,12 +40,15 @@ if that gap ever falls below a tolerance. It imports only the port, never
 the JAX package.
 
 The second-to-last line of stdout is a JSON object with one entry per
-kernel entry; the line before it is nvidia-smi's name and power limit; the
-last line is ``{"ok": true, "device": {...}}``.
+kernel entry (``launches`` sums the serve and train runs; ``ms`` and
+``plain_ms`` are the bf16-operand times of the entry's heaviest form); the
+line before it is nvidia-smi's name and power limit; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import shutil
@@ -41,7 +57,7 @@ import sys
 import threading
 import time
 import wave
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 import numpy as np
@@ -58,6 +74,24 @@ TOL_BF16 = 6e-4         # LSTM h2/tops, bf16 operands: an fp32 sum-order change
 TOL_LOG_QY = 1e-3       # log_qy at |logits| ~ 1e2: fp32 sum order over N rows
 TOL_SERVED = 6e-4       # served latents, bf16 operand mode; below the plain
                         # fp32-vs-bf16 gap, checked in every run
+B_TRAIN = 1024          # the fhvae CLI's training batch
+TOL_BWD_FP32 = 1e-4     # LSTM backward, relative Frobenius norm per output:
+                        # fp32 sums over T*B = 20,480 rows in another order
+TOL_BWD_BF16 = 1e-3     # bf16 operands: a gate adjoint on a bf16 rounding
+                        # boundary may round the other way under another
+                        # fp32 sum order and move one row of the step before
+                        # it; the plain fp32-vs-bf16 backward gap is larger
+                        # (~3e-3 at the CPU tests' shapes), checked every run
+TOL_LOG_QY_BWD = 1e-4   # dz2/dmu2, max error over max |ref|: fp32 sum order
+N_DEV = 400             # dev sequences of the training corpus (TIMIT's dev)
+TOL_TRAIN_LOSS = 1e-3   # first train steps, kernels vs plain versions (bf16
+                        # operands), relative: a bf16 rounding flip per sum
+                        # order moves the loss by far less
+TOL_TRAIN_UPDATE = 0.1  # the same, |p_kernels - p_plain| over the norm of
+                        # the 3-step update: Adam's first steps move each
+                        # element by ~lr * sign(g), so an element whose
+                        # gradient is within the kernels' error of zero may
+                        # step the other way
 SOURCES = {
     "lstm2_tm_proj": ("pytorch_scalablefhvae_tpu_torch/csrc/lstm2_fwd.cu",
                       "pytorch_scalablefhvae_tpu/ops/lstm_pallas.py:675"),
@@ -66,6 +100,13 @@ SOURCES = {
     "discriminative_log_qy": (
         "pytorch_scalablefhvae_tpu_torch/csrc/discriminative_fwd.cu",
         "pytorch_scalablefhvae_tpu/ops/discriminative.py:234"),
+    "lstm2_tm_proj_bwd": ("pytorch_scalablefhvae_tpu_torch/csrc/lstm2_bwd.cu",
+                          "pytorch_scalablefhvae_tpu/ops/lstm_pallas.py:582"),
+    "lstm2_tm_bwd": ("pytorch_scalablefhvae_tpu_torch/csrc/lstm2_bwd.cu",
+                     "pytorch_scalablefhvae_tpu/ops/lstm_pallas.py:374"),
+    "discriminative_log_qy_bwd": (
+        "pytorch_scalablefhvae_tpu_torch/csrc/discriminative_bwd.cu",
+        "pytorch_scalablefhvae_tpu/ops/discriminative.py:189"),
 }
 
 
@@ -247,22 +288,177 @@ def phase_kernels() -> dict:
     return results
 
 
+def rel_norm(got, want) -> float:
+    """Largest relative Frobenius-norm difference over paired outputs."""
+    return max(float((a.float() - b.float()).norm()
+                     / b.float().norm().clamp_min(1e-30))
+               for a, b in zip(got, want) if b is not None)
+
+
+def abs_err(got, want) -> float:
+    return max(max_err(a, b) for a, b in zip(got, want) if b is not None)
+
+
+def phase_backward() -> dict:
+    """The three backward entries against their plain backward on the card,
+    at the training shapes, on the same residuals (from the plain forward)
+    and cotangents; two launches compared bitwise."""
+    from pytorch_scalablefhvae_tpu_torch.ops import lstm_cuda
+    from pytorch_scalablefhvae_tpu_torch.ops.discriminative import (
+        _forward_plain,
+        discriminative_log_qy_bwd,
+        discriminative_log_qy_bwd_reference,
+    )
+
+    log(f"== phase 2b: backward kernels against their plain versions "
+        f"(T={T} B={B_TRAIN} D={D} H={H})")
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((T, B_TRAIN, D), generator=g).cuda()
+    z2_stack, z1_stack, dec_stack = (_stack(g, D), _stack(g, D + Z),
+                                     _stack(g, 2 * Z))
+    xgc = torch.randn((B_TRAIN, Z), generator=g).cuda() \
+        @ z1_stack[0][0][D:D + Z] + z1_stack[0][1]
+    xg_c = torch.randn((B_TRAIN, 2 * Z), generator=g).cuda() \
+        @ dec_stack[0][0][:2 * Z] + dec_stack[0][1]
+    g_tops = torch.randn((T, B_TRAIN, H), generator=g).cuda()
+    g_h2 = torch.randn((B_TRAIN, H), generator=g).cuda()
+
+    def split(cells):
+        (w1, b1), (w2, b2) = cells
+        return w1, b1, w1[-H:], w2[:H], w2[H:], b2
+
+    def proj_case(cells, xgc_):
+        w1, b1, w1h, w2x, w2h, b2 = split(cells)
+        xgc_ = b1.reshape(1, -1) if xgc_ is None else xgc_
+        fwd_in = (x, xgc_, w1[:D], w1h, w2x, w2h, b2)
+
+        def run(fn, mm, resid):
+            tops, res = resid
+            return fn(x, xgc_, res, tops, *fwd_in[2:], g_tops, g_h2, mm)
+        return fwd_in, lstm_cuda._proj_forward_plain, run
+
+    def dec_case(cells):
+        w1, b1, w1h, w2x, w2h, b2 = split(cells)
+        fwd_in = (xg_c, T, w1h, w2x, w2h, b2)
+
+        def run(fn, mm, resid):
+            tops, res = resid
+            return fn(xg_c, T, res, tops, w1h, w2x, w2h, b2, g_tops, g_h2, mm)
+        return fwd_in, lstm_cuda._tm_forward_plain, run
+
+    cases = {
+        "lstm2_tm_proj_bwd": {"z2 encoder": proj_case(z2_stack, None),
+                              "z1 encoder, xgc tile": proj_case(z1_stack,
+                                                                xgc)},
+        "lstm2_tm_bwd": {"decoder, const": dec_case(dec_stack)},
+    }
+    results: dict = {}
+    for name, forms in cases.items():
+        kernel = getattr(lstm_cuda, name)
+        plain = getattr(lstm_cuda, name + "_reference")
+        for form, (fwd_in, fwd_plain, run) in forms.items():
+            for mm, tol in (("float32", TOL_BWD_FP32),
+                            ("bfloat16", TOL_BWD_BF16)):
+                tops, _, res = fwd_plain(*fwd_in, mm, with_resid=True)
+                resid = (tops, res)
+                want = run(plain, mm, resid)
+                got = run(kernel, mm, resid)
+                again = run(kernel, mm, resid)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got, again)
+                           if a is not None):
+                    raise AssertionError(f"{name} [{form}, {mm}]: two "
+                                         f"launches differ")
+                err, aerr = rel_norm(got, want), abs_err(got, want)
+                gap = ""
+                if mm == "bfloat16":
+                    gap32 = rel_norm(run(plain, "float32", resid), want)
+                    gap = f"; plain fp32 vs bf16 backward gap {gap32:.3e}"
+                    if not gap32 > tol:
+                        raise AssertionError(
+                            f"{name} [{form}]: the bf16 tolerance {tol} "
+                            f"would pass a kernel that rounded elsewhere "
+                            f"(gap {gap32})")
+                ms = time_ms(lambda: run(kernel, mm, resid))
+                plain_ms = time_ms(lambda: run(plain, mm, resid), iters=3,
+                                   warmup=1)
+                log(f"{name} [{form}, {mm}]: rel-norm err {err:.3e} (tol "
+                    f"{tol:g}), max_abs_err {aerr:.3e}{gap}; bitwise repeat "
+                    f"ok; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+                if not err <= tol:
+                    raise AssertionError(
+                        f"{name} [{form}, {mm}] disagrees with its plain "
+                        f"backward: {err} > {tol}")
+                if mm == "bfloat16":  # the training mode: keep the heaviest
+                    prev = results.get(name)
+                    if prev is None or ms > prev["ms"]:
+                        results[name] = {"max_abs_err": max(
+                            aerr, prev["max_abs_err"] if prev else 0.0),
+                            "ms": ms, "plain_ms": plain_ms, "form": form}
+                    else:
+                        prev["max_abs_err"] = max(prev["max_abs_err"], aerr)
+            torch.cuda.empty_cache()
+
+    pz2_logvar = float(np.log(0.5 ** 2))
+    for n in (N_TABLE, N_LARGE):
+        num_real = n - 7                     # 7 padded rows
+        mu2 = torch.randn((n, Z), generator=g)
+        seq = torch.randint(0, num_real, (B_TRAIN,), generator=g)
+        z2 = (mu2[seq] + 0.5 * torch.randn((B_TRAIN, Z), generator=g)).cuda()
+        seq[5] = n + 3                       # an index outside the table
+        mu2, seq = mu2.cuda(), seq.cuda()
+        gq = torch.randn((B_TRAIN,), generator=g).cuda()
+        _, lse = _forward_plain(z2, mu2, seq, pz2_logvar, num_real)
+        args = (z2, mu2, seq, lse, gq, pz2_logvar, num_real)
+        want = discriminative_log_qy_bwd_reference(*args)
+        got = discriminative_log_qy_bwd(*args)
+        again = discriminative_log_qy_bwd(*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"discriminative_log_qy_bwd at N={n}: two "
+                                 f"launches differ")
+        err = max(max_err(a, b) / float(b.abs().max()) for a, b in
+                  zip(got, want))
+        aerr = abs_err(got, want)
+        padded_zero = bool((got[1][num_real:] == 0).all()
+                           and (want[1][num_real:] == 0).all())
+        ms = time_ms(lambda: discriminative_log_qy_bwd(*args))
+        plain_ms = time_ms(lambda: discriminative_log_qy_bwd_reference(*args),
+                           iters=3, warmup=1)
+        log(f"discriminative_log_qy_bwd [N={n}, 7 padded rows, 1 index "
+            f"outside]: max err / max |ref| {err:.3e} (tol "
+            f"{TOL_LOG_QY_BWD:g}), max_abs_err {aerr:.3e}, padded rows "
+            f"exactly 0: {padded_zero}; bitwise repeat ok; kernel {ms:.3f} "
+            f"ms, plain {plain_ms:.3f} ms")
+        if not (err <= TOL_LOG_QY_BWD and padded_zero):
+            raise AssertionError(
+                f"discriminative_log_qy_bwd at N={n} disagrees with its plain "
+                f"backward: {err} > {TOL_LOG_QY_BWD} or padded rows nonzero")
+        if n == N_TABLE:
+            results["discriminative_log_qy_bwd"] = {
+                "max_abs_err": aerr, "ms": ms, "plain_ms": plain_ms,
+                "form": f"N={n}"}
+        else:
+            r = results["discriminative_log_qy_bwd"]
+            r["max_abs_err"] = max(r["max_abs_err"], aerr)
+        del mu2, want, got, again
+        torch.cuda.empty_cache()
+    return results
+
+
 # --------------------------------------------------------------- phase 3
 
 
 @contextmanager
 def plain_versions():
-    """Route the model through the plain versions (for the reference run)."""
+    """Route the model through the plain versions (for the reference runs);
+    under autograd their Functions run the plain backward."""
     from pytorch_scalablefhvae_tpu_torch.ops import discriminative, lstm_cuda
 
     saved = (lstm_cuda.lstm2_tm_proj, lstm_cuda.lstm2_tm,
              discriminative.discriminative_log_qy)
-    lstm_cuda.lstm2_tm_proj = (
-        lambda cells, x, xgc=None, mm_dtype="float32", with_tops=True:
-        lstm_cuda.lstm2_tm_proj_reference(cells, x, xgc, mm_dtype))
-    lstm_cuda.lstm2_tm = (
-        lambda cells, xg1, T=None, mm_dtype="float32", with_tops=True:
-        lstm_cuda.lstm2_tm_reference(cells, xg1, T, mm_dtype))
+    lstm_cuda.lstm2_tm_proj = lstm_cuda.lstm2_tm_proj_reference
+    lstm_cuda.lstm2_tm = lstm_cuda.lstm2_tm_reference
     discriminative.discriminative_log_qy = \
         discriminative.discriminative_log_qy_reference
     try:
@@ -478,6 +674,243 @@ def phase_serve(workdir: Path) -> dict:
     return launches
 
 
+# --------------------------------------------------------------- phase 4
+
+
+def write_feature_corpus(root: Path, seed: int = 0):
+    """A preprocessed synthetic corpus where the port's ``train`` looks for
+    one: per-utterance ``.npy`` features (80 mels, 150-350 frames, TIMIT's
+    1.5-3.5 s at 100 frames/s) with ``feats.scp`` / ``len.scp``, 4,620
+    training and 400 dev sequences (TIMIT's counts). Each sequence has its
+    own offset (what z2 should find) over a slowly drifting frame content
+    (what z1 should find) and noise. Returns the run's config."""
+    from pytorch_scalablefhvae_tpu_torch.config import (
+        DataConfig,
+        ExperimentConfig,
+        ModelConfig,
+    )
+    from pytorch_scalablefhvae_tpu_torch.train.driver import split_manifests
+
+    cfg = ExperimentConfig(
+        data=DataConfig(dataset="synthetic", mvn_path=str(root / "mvn.json"),
+                        training_batch_size=B_TRAIN),
+        model=ModelConfig(model_type="fhvae"))
+    rng = np.random.default_rng(seed)
+    frames = 0
+    for split, n in (("train", N_TABLE), ("dev", N_DEV)):
+        paths = split_manifests(cfg, root)[split]
+        d = paths["feat_pth"].parent
+        d.mkdir(parents=True)
+        feats, lens = [], []
+        for i, n_frames in enumerate(rng.integers(150, 351, n)):
+            offset = 2.0 * rng.standard_normal((1, D))
+            drift = np.cumsum(0.3 * rng.standard_normal((n_frames, D)), 0)
+            x = (offset + drift + 0.5 * rng.standard_normal((n_frames, D))
+                 ).astype(np.float32)
+            key = f"{split}_{i:05d}"
+            np.save(d / f"{key}.npy", x)
+            feats.append(f"{key} {d / (key + '.npy')}\n")
+            lens.append(f"{key} {n_frames}\n")
+            frames += n_frames
+        paths["feat_pth"].write_text("".join(feats))
+        paths["len_pth"].write_text("".join(lens))
+    log(f"feature corpus: {N_TABLE} train + {N_DEV} dev sequences, {frames} "
+        f"frames of {D} mels")
+    return cfg
+
+
+def train_entries():
+    from pytorch_scalablefhvae_tpu_torch.ops import discriminative, lstm_cuda
+
+    return (lstm_cuda.lstm2_tm_proj, lstm_cuda.lstm2_tm,
+            discriminative.discriminative_log_qy, lstm_cuda.lstm2_tm_proj_bwd,
+            lstm_cuda.lstm2_tm_bwd, discriminative.discriminative_log_qy_bwd)
+
+
+def first_batches_and_model(cfg, root: Path, n: int):
+    """The first ``n`` training batches of epoch 0 on the card, and the
+    model the CLI would start from (seed 0)."""
+    from pytorch_scalablefhvae_tpu_torch.models.base import build_model
+    from pytorch_scalablefhvae_tpu_torch.train.driver import build_loaders
+    from pytorch_scalablefhvae_tpu_torch.train.loop import batch_tensors
+
+    dev = torch.device("cuda")
+    loader, _ = build_loaders(cfg, root, True)
+    loader.set_epoch(0)
+    batches = []
+    for b in loader:
+        batches.append(batch_tensors(b, dev))
+        if len(batches) == n:
+            break
+    model = build_model("fhvae", cfg.data.seg_len * D, cfg.model, N_TABLE,
+                        feat_dim=D,
+                        generator=torch.Generator().manual_seed(0)).to(dev)
+    return batches, model
+
+
+def step_breakdown(cfg, root: Path) -> None:
+    """Device time of 10 warm train steps, split into forward (to the loss),
+    backward and optimizer by CUDA events, and the kernels' share by
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pytorch_scalablefhvae_tpu_torch.models.base import loss_from_outputs
+    from pytorch_scalablefhvae_tpu_torch.train.step import (
+        create_train_state,
+        make_optimizer,
+        step_noise,
+    )
+
+    dev = torch.device("cuda")
+    batches, model = first_batches_and_model(cfg, root, 13)
+    state = create_train_state(model)
+    opt = make_optimizer(1e-3, 0.95, 0.999)
+    stages = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
+
+    def one_step(batch, timed):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        out = model.apply(*batch[:3], sample=True,
+                          noise=step_noise(state, B_TRAIN, dev))
+        loss, _ = loss_from_outputs(out, batch[3], 10.0)
+        ev[1].record()
+        names = list(state.params())
+        grads = torch.autograd.grad(loss, list(state.params().values()))
+        ev[2].record()
+        opt.update(state, dict(zip(names, grads)))
+        state.step += 1
+        ev[3].record()
+        if timed:
+            ev[3].synchronize()
+            for i, k in enumerate(stages):
+                stages[k] += ev[i].elapsed_time(ev[i + 1])
+
+    for b in batches[:3]:
+        one_step(b, False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[3:]:
+            one_step(b, True)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / 10
+    total = sum(stages.values()) / 10
+    log("step breakdown, 10 warm steps at batch 1024 (CUDA events, ms/step): "
+        + ", ".join(f"{k} {v / 10:.3f}" for k, v in stages.items())
+        + f"; events total {total:.3f}, host wall {wall:.3f}")
+    rows = [(e.key, e.device_time_total / 1e3 / 10, e.count // 10)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    log(f"profiler: device busy {busy:.3f} ms of {wall:.3f} ms per step "
+        f"(idle share {1 - busy / wall:.3f}); by kernel (ms/step, "
+        f"launches/step):")
+    for key, ms, n in rows[:14]:
+        log(f"  {ms:8.3f} {n:4d}  {key[:90]}")
+
+
+def compare_first_steps(cfg, root: Path) -> None:
+    """Three train steps from one initial state and the same noise, through
+    the kernels and through the plain versions (whose autograd Functions run
+    the plain backward) on the card."""
+    from pytorch_scalablefhvae_tpu_torch.train.step import (
+        create_train_state,
+        make_optimizer,
+        train_step,
+    )
+
+    batches, model = first_batches_and_model(cfg, root, 3)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    runs = {}
+    for path in ("kernels", "plain"):
+        state = create_train_state(copy.deepcopy(model))
+        opt = make_optimizer(1e-3, 0.95, 0.999)
+        with plain_versions() if path == "plain" else nullcontext():
+            losses = [float(train_step(state, opt, *b, 10.0)["loss"])
+                      for b in batches]
+        runs[path] = (losses, {n: p.detach() for n, p in
+                               state.model.named_parameters()})
+    (lk, pk), (lp, pp) = runs["kernels"], runs["plain"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    upd_err = max(float((pk[n] - pp[n]).norm()
+                        / (pp[n] - start[n]).norm().clamp_min(1e-30))
+                  for n in start)
+    log(f"first 3 steps, kernels vs plain on the card: losses {lk} vs {lp} "
+        f"(max rel diff {loss_err:.3e}, tol {TOL_TRAIN_LOSS:g}); parameter "
+        f"updates differ by {upd_err:.3e} of their norm (tol "
+        f"{TOL_TRAIN_UPDATE:g})")
+    if not (loss_err <= TOL_TRAIN_LOSS and upd_err <= TOL_TRAIN_UPDATE):
+        raise AssertionError("the kernel path's first train steps disagree "
+                             "with the plain versions'")
+
+
+def phase_train(workdir: Path) -> dict:
+    from pytorch_scalablefhvae_tpu_torch.cli.main import main as cli
+    from pytorch_scalablefhvae_tpu_torch.train import checkpoint as ckpt
+
+    log("== phase 4: sfhvae train of the fhvae model on the card (CLI "
+        "defaults, batch 1024)")
+    root = workdir / "data"
+    t0 = time.perf_counter()
+    cfg = write_feature_corpus(root)
+    log(f"corpus written in {time.perf_counter() - t0:.1f} s")
+    compare_first_steps(cfg, root)
+    step_breakdown(cfg, root)
+
+    exp_root = workdir / "experiments"
+    args = ["train", "--dataset", "synthetic", "--preprocessed",
+            "--data-root", str(root), "--mvn-path", cfg.data.mvn_path,
+            "--exp-root", str(exp_root)]
+    entries = train_entries()
+    for e in entries:
+        e.launches = 0
+    t0 = time.perf_counter()
+    if cli(args + ["--epochs", "2"]) != 0:
+        raise AssertionError("train exited non-zero")
+    exp = exp_root / "synthetic_np_fbank" / "fhvae_e2_p10_a10.0"
+    last = exp / "fhvae_synthetic_np_fbank_e1.npz"
+    if cli(args + ["--continue-from", str(last), "--resume-override",
+                   "epochs=3"]) != 0:
+        raise AssertionError("resumed train exited non-zero")
+    seconds = time.perf_counter() - t0
+    launches = {e.__name__: e.launches for e in entries}
+    log(f"launches during training (2 epochs + 1 resumed, dev passes "
+        f"included): {launches}")
+
+    recs = [json.loads(line) for line in
+            (exp / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["train_loss"] for r in recs]
+    steps = [ckpt.read_checkpoint_meta(
+        exp / f"fhvae_synthetic_np_fbank_e{e}.npz")["step"] for e in range(3)]
+    for r in recs:
+        log(f"epoch {r['epoch']}: train loss {r['train_loss']:.4f}, "
+            f"{r['train_steps']} steps in {r['train_seconds']:.3f} s = "
+            f"{r['train_steps'] / r['train_seconds']:.2f} steps/s, "
+            f"{r['train_segments_per_sec']:.1f} segments/s, "
+            f"{1e3 * r['train_seconds'] / r['train_steps']:.2f} ms/step; dev "
+            f"LB {r['val_lower_bound']:.4f}, log_qy {r['val_log_qy']:.4f}")
+    log(f"checkpoint steps {steps}; 3 epochs took {seconds:.1f} s "
+        f"end to end (loading, dev passes and checkpoints included); card "
+        f"{smi_name_power()}")
+    if [r["epoch"] for r in recs] != [0, 1, 2]:
+        raise AssertionError(f"epochs recorded: {[r['epoch'] for r in recs]}")
+    if not (all(np.isfinite(losses)) and losses[1] < losses[0]
+            and np.isfinite(recs[-1]["val_lower_bound"])):
+        raise AssertionError(f"train losses {losses} are not finite and "
+                             f"falling")
+    n = recs[0]["train_steps"]
+    if steps != [n, 2 * n, 3 * n]:
+        raise AssertionError(f"the resumed run did not continue the step "
+                             f"count: {steps}")
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"{name} was not launched by training")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -485,11 +918,13 @@ def main() -> int:
         return 1
     phase_environment()
     results = phase_kernels()
+    results.update(phase_backward())
     workdir = Path(__file__).resolve().parent / "build" / "chip_smoke"
     shutil.rmtree(workdir, ignore_errors=True)
     workdir.mkdir(parents=True)
     try:
-        launches = phase_serve(workdir)
+        by_path = {"serve": phase_serve(workdir),
+                   "train": phase_train(workdir)}
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     if "jax" in sys.modules:
@@ -497,11 +932,12 @@ def main() -> int:
     kernels = []
     for name, r in results.items():
         source, replaces = SOURCES[name]
+        counts = {path: c[name] for path, c in by_path.items() if name in c}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"]})
+            "replaces": replaces, "launches": sum(counts.values()),
+            "launches_by_path": counts, "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "form": r["form"]})
     print(smi_name_power())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,16 @@
 """Command line of the PyTorch/CUDA port: counterpart of ``cli/main.py``.
 
+    python -m pytorch_scalablefhvae_tpu_torch.cli.main train --preprocessed ...
     python -m pytorch_scalablefhvae_tpu_torch.cli.main encode EXP_DIR AUDIO...
     python -m pytorch_scalablefhvae_tpu_torch.cli.main serve EXP_DIR
 
-``encode`` and ``serve`` take the JAX CLI's flags plus ``--device cuda|cpu``
-(default cuda; cuda fails where no GPU is present). The JAX CLI's other
-subcommands exist here only to say that they are not yet ported.
+``train`` takes the JAX CLI's flags (the shared ``cli/args.py``); its
+``--device`` is ``cuda`` (the default) or ``cpu`` here, and the settings
+whose code paths are not yet ported raise (``train/driver.py``
+``check_ported``). ``encode`` and ``serve`` take the JAX CLI's flags plus
+``--device cuda|cpu`` (cuda fails where no GPU is present). The JAX CLI's
+other subcommands exist here only to say that they are not yet ported.
+Exit codes as the JAX CLI's: 0, or 2 when training diverged.
 """
 
 from __future__ import annotations
@@ -13,8 +18,34 @@ from __future__ import annotations
 import argparse
 import sys
 
-NOT_YET_PORTED = ("preprocess", "train", "eval", "probe", "extract",
+NOT_YET_PORTED = ("preprocess", "eval", "probe", "extract",
                   "import-checkpoint", "prep-timit", "prep-librispeech")
+
+
+def _cmd_train(args) -> int:
+    from pytorch_scalablefhvae_tpu.cli.args import config_from_args
+    from pytorch_scalablefhvae_tpu_torch.train.driver import train_from_config
+
+    for flag, value in (("--use-pallas", args.use_pallas),
+                        ("--lstm-pallas", args.lstm_pallas)):
+        if value != "auto":
+            raise NotImplementedError(
+                f"{flag} {value}: the port always runs its CUDA kernels on "
+                f"--device cuda and their plain versions on --device cpu")
+    overrides = {}
+    for item in args.resume_override or []:
+        if "=" not in item:
+            raise SystemExit(
+                f"--resume-override expects FIELD=VALUE, got {item!r}")
+        k, _, v = item.partition("=")
+        overrides[k.strip()] = v.strip()
+    result = train_from_config(
+        config_from_args(args), data_root=args.data_root,
+        exp_root=args.exp_root, is_preprocessed=args.is_preprocessed,
+        continue_from=args.continue_from, finetune=args.finetune,
+        fbank_conf=args.fbank_conf, resume_overrides=overrides or None,
+        device=args.device)
+    return 2 if result.diverged else 0
 
 
 def _cmd_encode(args) -> int:
@@ -58,6 +89,21 @@ def build_parser() -> argparse.ArgumentParser:
         description="ScalableFHVAE on PyTorch/CUDA",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     sub = parser.add_subparsers(dest="command", required=True)
+
+    from pytorch_scalablefhvae_tpu.cli.args import (
+        add_common_flags,
+        add_train_flags,
+    )
+
+    p = sub.add_parser("train", help="Train a model",
+                       formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    add_common_flags(p)
+    add_train_flags(p)
+    # the shared flags' --device defaults to tpu; here it is cuda or cpu
+    (device,) = (a for a in p._actions if a.dest == "device")
+    device.choices = ["cuda", "cpu"]
+    device.help = "cuda runs the CUDA kernels; cpu their plain PyTorch versions"
+    p.set_defaults(fn=_cmd_train, device="cuda")
 
     p = sub.add_parser(
         "encode",

@@ -10,6 +10,9 @@ from pytorch_scalablefhvae_tpu.config import (
     ExperimentConfig,
     FeatureConfig,
     ModelConfig,
+    OptimConfig,
+    TrainConfig,
 )
 
-__all__ = ["DataConfig", "ExperimentConfig", "FeatureConfig", "ModelConfig"]
+__all__ = ["DataConfig", "ExperimentConfig", "FeatureConfig", "ModelConfig",
+           "OptimConfig", "TrainConfig"]

@@ -22,6 +22,8 @@
 // with warp shuffles and write one partial per (row, chunk); a second kernel
 // merges the chunks: m* = max m, s* = sum s e^(m - m*), picked* = sum picked,
 // the same combine as the sharded TPU path (discriminative.py:327-340).
+// The combine also writes the log-sum-exp per row when asked: the backward
+// kernel (discriminative_bwd.cu) recomputes the softmax from it.
 
 #include <cuda_runtime.h>
 
@@ -117,7 +119,9 @@ __global__ void disc_partials_kernel(
 __global__ void disc_combine_kernel(const float* __restrict__ m_part,
                                     const float* __restrict__ s_part,
                                     const float* __restrict__ p_part,
-                                    float* __restrict__ out, int B, int C) {
+                                    float* __restrict__ out,
+                                    float* __restrict__ lse_out, int B,
+                                    int C) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   float m = kNegInf;
@@ -128,7 +132,9 @@ __global__ void disc_combine_kernel(const float* __restrict__ m_part,
     s += s_part[o] * expf(m_part[o] - m);
     picked += p_part[o];
   }
-  out[b] = picked - (m + logf(s));
+  const float lse = m + logf(s);
+  out[b] = picked - lse;
+  if (lse_out != nullptr) lse_out[b] = lse;
 }
 
 }  // namespace
@@ -141,9 +147,10 @@ int sfhvae_disc_max_dim() { return kMaxD; }
 // z2: [B, D] fp32; mu2: [N, D] fp32; seq_idx: [B] int32; m/s/p: [n_chunks, B]
 // fp32 scratch; out: [B] fp32. Chunk c covers table rows
 // [c * chunk, min(N, (c + 1) * chunk)); every chunk must be non-empty.
-// Returns the cudaError_t of the launches.
+// lse: [B] fp32 or null. Returns the cudaError_t of the launches.
 int sfhvae_disc_fwd(const void* z2, const void* mu2, const void* seq_idx,
-                    void* m, void* s, void* p, void* out, int B, int N, int D,
+                    void* m, void* s, void* p, void* out, void* lse, int B,
+                    int N, int D,
                     int num_real, int chunk, int n_chunks, float inv_two_var,
                     void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -157,7 +164,8 @@ int sfhvae_disc_fwd(const void* z2, const void* mu2, const void* seq_idx,
   if (e != cudaSuccess) return e;
   disc_combine_kernel<<<(B + 255) / 256, 256, 0, st>>>(
       static_cast<const float*>(m), static_cast<const float*>(s),
-      static_cast<const float*>(p), static_cast<float*>(out), B, n_chunks);
+      static_cast<const float*>(p), static_cast<float*>(out),
+      static_cast<float*>(lse), B, n_chunks);
   return cudaGetLastError();
 }
 

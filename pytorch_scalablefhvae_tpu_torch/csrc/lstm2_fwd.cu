@@ -6,7 +6,9 @@
 //     one row per batch row (z1 encoder) or one broadcast row (z2 encoder);
 //   - _fwd_kernel / _fwd_call (entry lstm2_pallas_tm): precomputed layer-1
 //     gates with a time stride; stride 0 is the decoder's const mode.
-// Forward only: the backward kernels come with the training path.
+// For training it also writes what the backward kernel (lstm2_bwd.cu) reads:
+// resid [T, B, 3H] = h1 | c1 | c2 per step, fp32 and unrounded (the TPU
+// kernel's _fwd_tail residual stream), beside tops.
 //
 // What bounds it on the H100: every step is a chain of dependent
 // [BT, K] x [K, 4H] products (K = D + H for layer 1, 2H for layer 2). At
@@ -28,78 +30,18 @@
 // bf16 operand mode: the weights arrive as bf16 and h (and x) are rounded to
 // bf16 before each product, with fp32 products, sums, gates and carries —
 // the rounding of the Pallas kernel's _make_ref_dot. The carries kept in
-// shared memory for h are those rounded operands; tops and h2 are written
-// from the unrounded fp32 values.
+// shared memory for h are those rounded operands; tops, h2 and resid are
+// written from the unrounded fp32 values.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <type_traits>
+#include "lstm2_common.cuh"
 
 namespace {
 
-constexpr int kBT = 8;             // batch rows per block
-constexpr int kRPT = 4;            // batch rows per thread
-constexpr int kNRG = kBT / kRPT;   // row groups: blockDim.x = kNRG * H
+using namespace lstm2;
 
-template <typename W>
-__device__ __forceinline__ float load_w(const W* p) {
-  if constexpr (std::is_same<W, __nv_bfloat16>::value) {
-    return __bfloat162float(*p);
-  } else {
-    return *p;
-  }
-}
-
-// The value a matmul operand takes: rounded to bf16 in bf16 mode.
-template <typename W>
-__device__ __forceinline__ float operand(float v) {
-  if constexpr (std::is_same<W, __nv_bfloat16>::value) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  } else {
-    return v;
-  }
-}
-
-__device__ __forceinline__ float sigmoidf_(float v) {
-  return 1.0f / (1.0f + expf(-v));
-}
-
-// acc[g][r] += sum_k a[r][k] * w[k][g*H + u] for the thread's RPT rows.
-template <typename W>
-__device__ __forceinline__ void accumulate(float (&acc)[4][kRPT],
-                                           const float* a, int lda,
-                                           const W* __restrict__ w, int K,
-                                           int H, int u) {
-  const long long H4 = 4LL * H;
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    const W* wk = w + k * H4 + u;
-    const float w0 = load_w(wk);
-    const float w1 = load_w(wk + H);
-    const float w2 = load_w(wk + 2 * H);
-    const float w3 = load_w(wk + 3 * H);
-#pragma unroll
-    for (int r = 0; r < kRPT; ++r) {
-      const float av = a[r * lda + k];
-      acc[0][r] = fmaf(av, w0, acc[0][r]);
-      acc[1][r] = fmaf(av, w1, acc[1][r]);
-      acc[2][r] = fmaf(av, w2, acc[2][r]);
-      acc[3][r] = fmaf(av, w3, acc[3][r]);
-    }
-  }
-}
-
-// Gate order i, f, g, o (models/fhvae.py _cell). Updates c in place and
-// returns the new h.
-__device__ __forceinline__ float cell(float gi, float gf, float gg, float go,
-                                      float* c) {
-  const float c_new = sigmoidf_(gf) * (*c) + sigmoidf_(gi) * tanhf(gg);
-  *c = c_new;
-  return sigmoidf_(go) * tanhf(c_new);
-}
-
-template <typename W>
+// kResid: also write the residual stream (training); the serving
+// instantiation has no residual code at all.
+template <typename W, bool kResid>
 __global__ void lstm2_fwd_kernel(
     const float* __restrict__ x,     // [T, B, D] or null (precomputed gates)
     const float* __restrict__ xadd,  // additive layer-1 gates
@@ -111,6 +53,7 @@ __global__ void lstm2_fwd_kernel(
     const float* __restrict__ b2,    // [4H]
     float* __restrict__ tops,        // [T, B, H] or null
     float* __restrict__ h2_out,      // [B, H]
+    float* __restrict__ resid,       // [T, B, 3H] or null
     int T, int B, int D, int H) {
   extern __shared__ float smem[];
   float* h1 = smem;              // [BT][H], operand form
@@ -122,6 +65,7 @@ __global__ void lstm2_fwd_kernel(
   const int u = threadIdx.x % H;
   const int r0 = (threadIdx.x / H) * kRPT;
   const int row0 = blockIdx.x * kBT;
+  const long long H3 = 3LL * H;
 
   for (int i = threadIdx.x; i < 4 * kBT * H; i += blockDim.x) smem[i] = 0.0f;
 
@@ -153,8 +97,14 @@ __global__ void lstm2_fwd_kernel(
 #pragma unroll
     for (int r = 0; r < kRPT; ++r) {
       const int s = (r0 + r) * H + u;
-      h1[s] = operand<W>(cell(acc[0][r], acc[1][r], acc[2][r], acc[3][r],
-                              &c1[s]));
+      const float h = cell(acc[0][r], acc[1][r], acc[2][r], acc[3][r], &c1[s]);
+      h1[s] = operand<W>(h);
+      const int row = row0 + r0 + r;
+      if (kResid && row < B) {
+        float* rs = resid + ((long long)t * B + row) * H3 + u;
+        rs[0] = h;
+        rs[H] = c1[s];
+      }
     }
     __syncthreads();
 
@@ -174,7 +124,9 @@ __global__ void lstm2_fwd_kernel(
       h2[s] = operand<W>(h);
       const int row = row0 + r0 + r;
       if (row < B) {
-        if (tops != nullptr) tops[((long long)t * B + row) * H + u] = h;
+        const long long o = (long long)t * B + row;
+        if (tops != nullptr) tops[o * H + u] = h;
+        if (kResid) resid[o * H3 + 2 * H + u] = c2[s];
         if (t == T - 1) h2_out[(long long)row * H + u] = h;
       }
     }
@@ -183,27 +135,24 @@ __global__ void lstm2_fwd_kernel(
   }
 }
 
-template <typename W>
+template <typename W, bool kResid>
 cudaError_t launch(const void* x, const void* xadd, long long xadd_t_stride,
                    long long xadd_row_stride, const void* w1x, const void* w1h,
                    const void* w2x, const void* w2h, const void* b2,
-                   void* tops, void* h2_out, int T, int B, int D, int H,
-                   cudaStream_t stream) {
+                   void* tops, void* h2_out, void* resid, int T, int B, int D,
+                   int H, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (4 * kBT * H + kBT * D);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        lstm2_fwd_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
-  }
+  cudaError_t e = allow_smem(lstm2_fwd_kernel<W, kResid>, smem);
+  if (e != cudaSuccess) return e;
   const dim3 grid((B + kBT - 1) / kBT);
   const dim3 block(kNRG * H);
-  lstm2_fwd_kernel<W><<<grid, block, smem, stream>>>(
+  lstm2_fwd_kernel<W, kResid><<<grid, block, smem, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(xadd),
       xadd_t_stride, xadd_row_stride, static_cast<const W*>(w1x),
       static_cast<const W*>(w1h), static_cast<const W*>(w2x),
       static_cast<const W*>(w2h), static_cast<const float*>(b2),
-      static_cast<float*>(tops), static_cast<float*>(h2_out), T, B, D, H);
+      static_cast<float*>(tops), static_cast<float*>(h2_out),
+      static_cast<float*>(resid), T, B, D, H);
   return cudaGetLastError();
 }
 
@@ -211,27 +160,30 @@ cudaError_t launch(const void* x, const void* xadd, long long xadd_t_stride,
 
 extern "C" {
 
-// Threads per block the kernel uses for hidden width H (the wrapper checks it
+// Threads per block the kernels use for hidden width H (the wrapper checks it
 // against the 1024-thread limit).
 int sfhvae_lstm2_threads(int H) { return kNRG * H; }
 
 // x: [T, B, D] fp32 or null; xadd: fp32 gates read at
 // xadd[t * xadd_t_stride + row * xadd_row_stride + col]; weights fp32
 // (bf16 == 0) or bf16 (bf16 != 0); b2 fp32; tops: [T, B, H] fp32 or null;
-// h2_out: [B, H] fp32. Returns the cudaError_t of the launch.
+// h2_out: [B, H] fp32; resid: [T, B, 3H] fp32 or null. Returns the
+// cudaError_t of the launch.
 int sfhvae_lstm2_fwd(const void* x, const void* xadd, long long xadd_t_stride,
                      long long xadd_row_stride, const void* w1x,
                      const void* w1h, const void* w2x, const void* w2h,
-                     const void* b2, void* tops, void* h2_out, int T, int B,
-                     int D, int H, int bf16, void* stream) {
+                     const void* b2, void* tops, void* h2_out, void* resid,
+                     int T, int B, int D, int H, int bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto run = [&](auto launcher) {
+    return launcher(x, xadd, xadd_t_stride, xadd_row_stride, w1x, w1h, w2x,
+                    w2h, b2, tops, h2_out, resid, T, B, D, H, s);
+  };
   if (bf16) {
-    return launch<__nv_bfloat16>(x, xadd, xadd_t_stride, xadd_row_stride, w1x,
-                                 w1h, w2x, w2h, b2, tops, h2_out, T, B, D, H,
-                                 s);
+    return resid ? run(launch<__nv_bfloat16, true>)
+                 : run(launch<__nv_bfloat16, false>);
   }
-  return launch<float>(x, xadd, xadd_t_stride, xadd_row_stride, w1x, w1h, w2x,
-                       w2h, b2, tops, h2_out, T, B, D, H, s);
+  return resid ? run(launch<float, true>) : run(launch<float, false>);
 }
 
 const char* sfhvae_cuda_error_string(int code) {

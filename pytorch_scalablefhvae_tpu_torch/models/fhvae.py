@@ -144,20 +144,23 @@ class FHVAE(nn.Module):
             a, w = a.to(torch.bfloat16).float(), w.to(torch.bfloat16).float()
         return a @ w
 
-    def _encode_tm(self, xt, sample, generator):
+    def _encode_tm(self, xt, sample, generator, noise=None):
         """Both encoders on time-major ``xt [T, B, D]``."""
         D = xt.shape[2]
         cdt, mm = self.compute_dtype, self.lstm_mm_dtype
+        noise = noise or {}
         _, h2 = lstm_cuda.lstm2_tm_proj(self.z2_lstm.pairs(), xt, None, mm,
                                         with_tops=False)
-        z2_mu, z2_logvar, z2 = layers.gauss_head(self.z2_gauss, h2, cdt,
-                                                 sample, generator=generator)
+        z2_mu, z2_logvar, z2 = layers.gauss_head(
+            self.z2_gauss, h2, cdt, sample, eps=noise.get("z2"),
+            generator=generator)
         c1 = self.z1_lstm.cells[0]
         xg_z = self._proj(z2, c1.w[D:D + z2.shape[-1]]) + c1.b  # [B, 4H]
         _, h1 = lstm_cuda.lstm2_tm_proj(self.z1_lstm.pairs(), xt, xg_z, mm,
                                         with_tops=False)
-        z1_mu, z1_logvar, z1 = layers.gauss_head(self.z1_gauss, h1, cdt,
-                                                 sample, generator=generator)
+        z1_mu, z1_logvar, z1 = layers.gauss_head(
+            self.z1_gauss, h1, cdt, sample, eps=noise.get("z1"),
+            generator=generator)
         return {"z1_mu": z1_mu, "z1_logvar": z1_logvar, "z1": z1,
                 "z2_mu": z2_mu, "z2_logvar": z2_logvar, "z2": z2}
 
@@ -207,18 +210,24 @@ class FHVAE(nn.Module):
 
     def apply(self, x, seq_idx, nsegs, sample: bool = False,
               mu2_table: torch.Tensor | None = None,
-              generator: torch.Generator | None = None) -> FHVAEOutputs:
+              generator: torch.Generator | None = None,
+              noise: dict | None = None) -> FHVAEOutputs:
         """The full forward: latents, reconstruction, ELBO terms, log_qy.
 
         ``x [B, T, D]``, ``seq_idx [B]`` table rows, ``nsegs [B]`` segment
         counts of each row's sequence. ``mu2_table`` overrides the learned
         table (a split's MAP estimates). The serving path runs
-        ``sample=False`` and draws nothing.
+        ``sample=False`` and draws nothing. Training runs ``sample=True``:
+        the z2 noise, then the z1 noise, come from ``noise={"z2": eps2 [B,
+        z2], "z1": eps1 [B, z1]}`` when given (the tests hand in the JAX
+        draws) or are drawn from ``generator``, which lives on ``x``'s device.
+        Gradients reach every parameter, the mu2 table through both the ELBO
+        gather and log_qy.
         """
         B, T, _ = x.shape
         self._check_stacks(T)
         xt = x.float().transpose(0, 1).contiguous()
-        enc = self._encode_tm(xt, sample, generator)
+        enc = self._encode_tm(xt, sample, generator, noise)
         x_mu_tm, x_logvar_tm = self._decode_tm(enc["z1"], enc["z2"], T)
 
         table, num_real = resolve_mu2_scoring(self, mu2_table)

@@ -1,6 +1,7 @@
 """Build the port's CUDA sources (``csrc/*.cu``) and load them with ctypes.
 
-``nvcc`` compiles every source into one shared library with a plain C
+``nvcc`` compiles every source (``*.cu``, which include the ``*.cuh``
+headers beside them) into one shared library with a plain C
 interface, for ``sm_90a`` (Hopper), at first use. The library lands in
 ``build/torch_kernels/<hash>/`` of the checkout, keyed by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one loads
@@ -35,11 +36,15 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "sfhvae_lstm2_threads": (_I, [_I]),
     "sfhvae_lstm2_fwd": (_I, [_P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _I, _P]),
+                              _P, _I, _I, _I, _I, _I, _P]),
+    "sfhvae_lstm2_bwd_chunk_rows": (_I, []),
+    "sfhvae_lstm2_bwd": (_I, [_P, _P, _L, _L] + [_P] * 17 + [_I]
+                         + [_P] * 7 + [_I] * 5 + [_P]),
     "sfhvae_disc_rows_per_block": (_I, []),
     "sfhvae_disc_max_dim": (_I, []),
-    "sfhvae_disc_fwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _I, ctypes.c_float, _P]),
+    "sfhvae_disc_fwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, ctypes.c_float, _P]),
+    "sfhvae_disc_bwd": (_I, [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P]),
     "sfhvae_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

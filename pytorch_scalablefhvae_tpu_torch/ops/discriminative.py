@@ -1,19 +1,27 @@
-"""Streaming discriminative log q(y | z2) over the mu2 table (forward).
+"""Streaming discriminative log q(y | z2) over the mu2 table.
 
 Counterpart of ``pytorch_scalablefhvae_tpu/ops/discriminative.py``
-(``discriminative_log_qy_pallas``). For CUDA tensors it runs the kernel in
-``csrc/discriminative_fwd.cu``, which never materializes the ``[B, N]``
-logits; for CPU tensors it runs :func:`discriminative_log_qy_reference`.
-The backward kernel and the sharded form come with later paths.
+(``discriminative_log_qy_pallas`` and its VJP). Two entries, each with its
+plain PyTorch version (``<entry>_reference``):
 
-Semantics shared by both versions, as in the Pallas kernel:
+- :func:`discriminative_log_qy`: the forward (``csrc/discriminative_fwd.cu``),
+  which never materializes the ``[B, N]`` logits; differentiable;
+- :func:`discriminative_log_qy_bwd`: its backward
+  (``csrc/discriminative_bwd.cu``), which recomputes the softmax from the
+  saved log-sum-exp.
+
+Each runs its kernel for CUDA tensors and its plain version for CPU tensors.
+The plain forward is differentiable too, and its backward is the plain
+backward. The sharded form comes with the multi-GPU path.
+
+Semantics shared by all versions, as in the Pallas kernels:
 - rows ``n >= num_real`` (mesh padding) get a -1e30 logit bias, so they
-  leave the log-sum-exp unchanged;
+  leave the log-sum-exp unchanged and get exactly zero gradient;
 - an index outside ``[0, N)`` picks nothing: its log_qy is ``-lse``. A
   served request numbers its utterances 0..n-1 and may hold more of them
   than the trained table has rows; that must not fail.
 
-The kernel's launches are counted in ``discriminative_log_qy.launches``.
+The kernels' launches are counted in ``<entry>.launches``.
 """
 
 from __future__ import annotations
@@ -37,11 +45,8 @@ def _target_blocks(device_index: int) -> int:
     return 4 * props.multi_processor_count
 
 
-def discriminative_log_qy_reference(z2_mu, mu2_table, seq_idx, pz2_logvar,
-                                    num_real=None):
-    """Plain version: the full ``[B, N]`` logits and a log-softmax."""
+def _logits(z2_mu, mu2_table, pz2_logvar, num_real):
     n = mu2_table.shape[0]
-    num_real = n if num_real is None else int(num_real)
     inv_two_var = 0.5 / math.exp(pz2_logvar)
     cross = z2_mu @ mu2_table.T
     sq = (mu2_table * mu2_table).sum(-1)
@@ -49,51 +54,77 @@ def discriminative_log_qy_reference(z2_mu, mu2_table, seq_idx, pz2_logvar,
     if num_real < n:
         col = torch.arange(n, device=logits.device)
         logits = torch.where(col[None, :] < num_real, logits, NEG_INF)
+    return logits
+
+
+def _forward_plain(z2_mu, mu2_table, seq_idx, pz2_logvar, num_real):
+    """The full ``[B, N]`` logits and a log-softmax: ``(log_qy, lse)``."""
+    n = mu2_table.shape[0]
+    logits = _logits(z2_mu, mu2_table, pz2_logvar, num_real)
     lse = torch.logsumexp(logits, dim=-1)
     seq = seq_idx.long()
     inside = (seq >= 0) & (seq < n)
     picked = logits.gather(1, seq.clamp(0, n - 1)[:, None])[:, 0]
-    return torch.where(inside, picked, 0.0) - lse
+    return torch.where(inside, picked, 0.0) - lse, lse
 
 
-def discriminative_log_qy(z2_mu, mu2_table, seq_idx, pz2_logvar,
-                          num_real=None):
-    """``log q(y = seq_idx | z2_mu)``, ``[B]``, under the logits
-    ``-|z2_mu - mu2[n]|^2 / (2 exp(pz2_logvar))`` (the ``|z2_mu|^2`` term
-    cancels in the softmax and is dropped)."""
+def discriminative_log_qy_bwd_reference(z2_mu, mu2_table, seq_idx, lse, g,
+                                        pz2_logvar, num_real):
+    """Plain version of :func:`discriminative_log_qy_bwd`."""
+    n = mu2_table.shape[0]
+    p = torch.exp(_logits(z2_mu, mu2_table, pz2_logvar, num_real)
+                  - lse[:, None])
+    col = torch.arange(n, device=p.device)
+    onehot = (col[None, :] == seq_idx.long()[:, None]).float()
+    dlogits = g[:, None] * (onehot - p)
+    c2 = 1.0 / math.exp(pz2_logvar)  # 2 / (2 sigma^2)
+    dz2 = c2 * (dlogits @ mu2_table)
+    dmu2 = c2 * (dlogits.T @ z2_mu - mu2_table * dlogits.sum(0)[:, None])
+    return dz2, dmu2
+
+
+def _check(z2_mu, mu2_table, seq_idx, *more):
     B, D = z2_mu.shape
-    N = mu2_table.shape[0]
     if mu2_table.dim() != 2 or mu2_table.shape[1] != D or seq_idx.shape != (B,):
         raise ValueError(
             f"shapes: z2_mu {tuple(z2_mu.shape)}, mu2_table "
             f"{tuple(mu2_table.shape)}, seq_idx {tuple(seq_idx.shape)}")
-    if z2_mu.device.type == "cpu":
-        return discriminative_log_qy_reference(z2_mu, mu2_table, seq_idx,
-                                               pz2_logvar, num_real)
+    for t in more:
+        if t is not None and t.shape != (B,):
+            raise ValueError(f"per-row input of shape {tuple(t.shape)}; "
+                             f"expected ({B},)")
+
+
+def _library(z2_mu, mu2_table, seq_idx, *more):
+    """Check the tensors the kernels take; returns the loaded library."""
     dev = z2_mu.device
     if dev.type != "cuda":
-        raise ValueError(f"the discriminative kernel runs on CUDA tensors, "
+        raise ValueError(f"the discriminative kernels run on CUDA tensors, "
                          f"not {dev}")
-    for t in (z2_mu, mu2_table):
+    for t in (z2_mu, mu2_table, *more):
         if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(
-                f"the discriminative kernel takes contiguous float32 tensors "
+                f"the discriminative kernels take contiguous float32 tensors "
                 f"on {dev}; got {t.dtype} {tuple(t.shape)} on {t.device}")
     if seq_idx.device != dev:
         raise ValueError(f"seq_idx is on {seq_idx.device}, not {dev}")
-    if torch.is_grad_enabled() and (z2_mu.requires_grad
-                                    or mu2_table.requires_grad):
-        raise NotImplementedError(
-            "the discriminative kernel is forward-only: its backward comes "
-            "with the training slice (ROADMAP.md); run under "
-            "torch.inference_mode()")
     lib = _build.library()
+    D = z2_mu.shape[1]
     if D > lib.sfhvae_disc_max_dim():
-        raise ValueError(f"z2 width {D} exceeds the kernel's "
+        raise ValueError(f"z2 width {D} exceeds the kernels' "
                          f"{lib.sfhvae_disc_max_dim()}")
-    if N == 0:
+    if mu2_table.shape[0] == 0:
         raise ValueError("the mu2 table is empty")
-    num_real = N if num_real is None else int(num_real)
+    return lib
+
+
+def _forward_kernel(z2_mu, mu2_table, seq_idx, pz2_logvar, num_real,
+                    with_lse):
+    """Run ``csrc/discriminative_fwd.cu``: ``(log_qy, lse | None)``."""
+    lib = _library(z2_mu, mu2_table, seq_idx)
+    B, D = z2_mu.shape
+    N = mu2_table.shape[0]
+    dev = z2_mu.device
     row_tiles = -(-B // lib.sfhvae_disc_rows_per_block())
     n_chunks = max(1, min(-(-N // _TILE),
                           -(-_target_blocks(dev.index) // max(row_tiles, 1))))
@@ -102,16 +133,97 @@ def discriminative_log_qy(z2_mu, mu2_table, seq_idx, pz2_logvar,
     seq32 = seq_idx.to(torch.int32).contiguous()
     part = torch.empty((3, n_chunks, B), device=dev, dtype=torch.float32)
     out = torch.empty((B,), device=dev, dtype=torch.float32)
+    lse = torch.empty((B,), device=dev, dtype=torch.float32) if with_lse else None
     if B == 0:
-        return out
+        return out, lse
     code = lib.sfhvae_disc_fwd(
         z2_mu.data_ptr(), mu2_table.data_ptr(), seq32.data_ptr(),
         part[0].data_ptr(), part[1].data_ptr(), part[2].data_ptr(),
-        out.data_ptr(), B, N, D, num_real, chunk, n_chunks,
-        0.5 / math.exp(pz2_logvar), torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), None if lse is None else lse.data_ptr(), B, N, D,
+        num_real, chunk, n_chunks, 0.5 / math.exp(pz2_logvar),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, "discriminative_log_qy")
     discriminative_log_qy.launches += 1
-    return out
+    return out, lse
+
+
+def discriminative_log_qy_bwd(z2_mu, mu2_table, seq_idx, lse, g, pz2_logvar,
+                              num_real):
+    """Backward of :func:`discriminative_log_qy` (the VJP ``_bwd_call``):
+    ``(dz2 [B, Dz], dmu2 [N, Dz])`` for the cotangent ``g [B]`` of log_qy,
+    given the forward's log-sum-exp ``lse [B]``."""
+    _check(z2_mu, mu2_table, seq_idx, lse, g)
+    if z2_mu.device.type == "cpu":
+        return discriminative_log_qy_bwd_reference(
+            z2_mu, mu2_table, seq_idx, lse, g, pz2_logvar, num_real)
+    g = g.contiguous()
+    lib = _library(z2_mu, mu2_table, seq_idx, lse, g)
+    B, D = z2_mu.shape
+    N = mu2_table.shape[0]
+    dz2 = torch.empty_like(z2_mu)
+    dmu2 = torch.empty_like(mu2_table)
+    seq32 = seq_idx.to(torch.int32).contiguous()
+    code = lib.sfhvae_disc_bwd(
+        z2_mu.data_ptr(), mu2_table.data_ptr(), seq32.data_ptr(),
+        lse.data_ptr(), g.data_ptr(), dz2.data_ptr(), dmu2.data_ptr(), B, N,
+        D, int(num_real), 0.5 / math.exp(pz2_logvar),
+        torch.cuda.current_stream(z2_mu.device).cuda_stream)
+    _build.check(code, "discriminative_log_qy_bwd")
+    discriminative_log_qy_bwd.launches += 1
+    return dz2, dmu2
+
+
+class _LogQyFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, z2_mu, mu2_table, seq_idx, pz2_logvar, num_real, plain):
+        if plain:
+            out, lse = _forward_plain(z2_mu, mu2_table, seq_idx, pz2_logvar,
+                                      num_real)
+        else:
+            out, lse = _forward_kernel(z2_mu, mu2_table, seq_idx, pz2_logvar,
+                                       num_real, True)
+        ctx.save_for_backward(z2_mu, mu2_table, seq_idx, lse)
+        ctx.pz2_logvar, ctx.num_real, ctx.plain = pz2_logvar, num_real, plain
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        bwd = (discriminative_log_qy_bwd_reference if ctx.plain
+               else discriminative_log_qy_bwd)
+        dz2, dmu2 = bwd(*ctx.saved_tensors, g, ctx.pz2_logvar, ctx.num_real)
+        return dz2, dmu2, None, None, None, None
+
+
+def _log_qy(plain, z2_mu, mu2_table, seq_idx, pz2_logvar, num_real):
+    _check(z2_mu, mu2_table, seq_idx)
+    num_real = mu2_table.shape[0] if num_real is None else int(num_real)
+    if torch.is_grad_enabled() and (z2_mu.requires_grad
+                                    or mu2_table.requires_grad):
+        return _LogQyFn.apply(z2_mu, mu2_table, seq_idx, pz2_logvar,
+                              num_real, plain)
+    if plain:
+        return _forward_plain(z2_mu, mu2_table, seq_idx, pz2_logvar,
+                              num_real)[0]
+    return _forward_kernel(z2_mu, mu2_table, seq_idx, pz2_logvar, num_real,
+                           False)[0]
+
+
+def discriminative_log_qy(z2_mu, mu2_table, seq_idx, pz2_logvar,
+                          num_real=None):
+    """``log q(y = seq_idx | z2_mu)``, ``[B]``, under the logits
+    ``-|z2_mu - mu2[n]|^2 / (2 exp(pz2_logvar))`` (the ``|z2_mu|^2`` term
+    cancels in the softmax and is dropped)."""
+    return _log_qy(z2_mu.device.type == "cpu", z2_mu, mu2_table, seq_idx,
+                   pz2_logvar, num_real)
+
+
+def discriminative_log_qy_reference(z2_mu, mu2_table, seq_idx, pz2_logvar,
+                                    num_real=None):
+    """Plain version of :func:`discriminative_log_qy`: the full ``[B, N]``
+    logits and a log-softmax (backward:
+    :func:`discriminative_log_qy_bwd_reference`)."""
+    return _log_qy(True, z2_mu, mu2_table, seq_idx, pz2_logvar, num_real)
 
 
 discriminative_log_qy.launches = 0
+discriminative_log_qy_bwd.launches = 0

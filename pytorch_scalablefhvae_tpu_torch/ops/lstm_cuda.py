@@ -1,10 +1,16 @@
 """Two-layer LSTM recurrence for the FHVAE stacks: CUDA kernel wrappers.
 
-Counterpart of ``pytorch_scalablefhvae_tpu/ops/lstm_pallas.py`` (forward
-only; the backward kernels come with the training path). Both entries run
-the kernel in ``csrc/lstm2_fwd.cu`` for CUDA tensors and their plain PyTorch
-versions (``*_reference``) for CPU tensors; nothing falls back from one to
-the other.
+Counterpart of ``pytorch_scalablefhvae_tpu/ops/lstm_pallas.py``. Four
+entries, each with its plain PyTorch version (``<entry>_reference``):
+
+- :func:`lstm2_tm_proj`, :func:`lstm2_tm`: the forward entries
+  (``csrc/lstm2_fwd.cu``), differentiable;
+- :func:`lstm2_tm_proj_bwd`, :func:`lstm2_tm_bwd`: their backward
+  (``csrc/lstm2_bwd.cu``), which the forward entries' autograd Functions call.
+
+Each entry runs its kernel for CUDA tensors and its plain version for CPU
+tensors; nothing falls back from one to the other. The plain version of a
+forward entry is differentiable too, and its backward is the plain backward.
 
 A stack is given as ``cells = [(w1, b1), (w2, b2)]`` in the JAX layout:
 ``w1 [d_in + H, 4H]`` with the input rows on top and the recurrent rows
@@ -13,7 +19,15 @@ last, ``w2 [2H, 4H]``, gate order i, f, g, o. Time-major everywhere:
 
 ``mm_dtype="bfloat16"`` rounds the matmul operands (weights, h, x) to bf16
 while products, sums, gates and carries stay fp32 (``_make_ref_dot`` in the
-Pallas module); ``"float32"`` keeps every operand fp32.
+Pallas module); ``"float32"`` keeps every operand fp32. The backward rounds
+where ``_make_bwd_fns`` does: both operands of every product (the gate
+adjoints ``dgates`` included), while the bias and input-gate gradients sum
+the unrounded fp32 ``dgates``. Torch autograd through the plain forward
+would round the product results instead and keep ``dgates`` fp32, a
+different function, so the plain backward is an explicit reverse-time loop.
+
+Under autograd a forward entry saves its residuals (``resid [T, B, 3H]`` =
+h1 | c1 | c2 per step, and tops); without it the serving call writes none.
 
 Each entry counts its kernel launches in ``<entry>.launches``.
 """
@@ -27,13 +41,18 @@ from pytorch_scalablefhvae_tpu_torch.ops import _build
 MM_DTYPES = ("float32", "bfloat16")
 
 
-def _mm(a: torch.Tensor, w: torch.Tensor, mm_dtype: str) -> torch.Tensor:
+def _round(mm_dtype: str):
+    """The value a matmul operand takes in ``mm_dtype``."""
     if mm_dtype == "bfloat16":
         # bf16 x bf16 products are exact in fp32: round the operands, then
         # multiply and accumulate in fp32
-        a = a.to(torch.bfloat16).float()
-        w = w.to(torch.bfloat16).float()
-    return a @ w
+        return lambda a: a.to(torch.bfloat16).float()
+    return lambda a: a
+
+
+def _mm(a: torch.Tensor, w: torch.Tensor, mm_dtype: str) -> torch.Tensor:
+    r = _round(mm_dtype)
+    return r(a) @ r(w)
 
 
 def _cell(gates: torch.Tensor, c: torch.Tensor):
@@ -42,35 +61,333 @@ def _cell(gates: torch.Tensor, c: torch.Tensor):
     return torch.sigmoid(o) * torch.tanh(c), c
 
 
-def _recurrence(g1_at, T: int, B: int, cells, mm_dtype: str):
-    (w1, _), (w2, b2) = cells
-    H = w2.shape[1] // 4
-    w1h, w2x, w2h = w1[-H:], w2[:H], w2[H:]
-    h1 = c1 = h2 = c2 = w2.new_zeros(B, H)
-    tops = []
+def _cell_bwd(gates, c_prev, c_new, dh, dc):
+    """Adjoint of :func:`_cell` (``_cell_bwd`` of the Pallas module):
+    ``(dgates [B, 4H], dc_prev)``."""
+    gi, gf, gg, go = gates.chunk(4, dim=-1)
+    i, f, o = torch.sigmoid(gi), torch.sigmoid(gf), torch.sigmoid(go)
+    g = torch.tanh(gg)
+    tc = torch.tanh(c_new)
+    do = dh * tc * o * (1.0 - o)
+    dc_tot = dc + dh * o * (1.0 - tc * tc)
+    di = dc_tot * g * i * (1.0 - i)
+    df = dc_tot * c_prev * f * (1.0 - f)
+    dg = dc_tot * i * (1.0 - g * g)
+    return torch.cat([di, df, dg, do], dim=-1), dc_tot * f
+
+
+# ------------------------------------------------------- plain versions
+
+
+def _recurrence(g1_at, T: int, B: int, w1h, w2x, w2h, b2, mm_dtype: str,
+                with_resid: bool = False):
+    """The forward recurrence; ``(tops, h2, resid | None)``."""
+    H = w2x.shape[1] // 4
+    h1 = c1 = h2 = c2 = w2x.new_zeros(B, H)
+    tops, resid = [], []
     for t in range(T):
         h1, c1 = _cell(g1_at(t) + _mm(h1, w1h, mm_dtype), c1)
         h2, c2 = _cell(_mm(h1, w2x, mm_dtype) + _mm(h2, w2h, mm_dtype) + b2,
                        c2)
         tops.append(h2)
-    return torch.stack(tops), h2
+        if with_resid:
+            resid.append(torch.cat([h1, c1, c2], dim=-1))
+    return torch.stack(tops), h2, torch.stack(resid) if with_resid else None
 
 
-def lstm2_tm_proj_reference(cells, x, xgc=None, mm_dtype="float32"):
-    """Plain version of :func:`lstm2_tm_proj`."""
-    (w1, b1), _ = cells
+def _proj_forward_plain(x, xgc, w1x, w1h, w2x, w2h, b2, mm_dtype,
+                        with_resid=False):
     T, B, D = x.shape
-    xgc = b1.reshape(1, -1) if xgc is None else xgc
-    xp = _mm(x.reshape(T * B, D), w1[:D], mm_dtype).reshape(T, B, -1) + xgc
-    return _recurrence(lambda t: xp[t], T, B, cells, mm_dtype)
+    xp = _mm(x.reshape(T * B, D), w1x, mm_dtype).reshape(T, B, -1) + xgc
+    return _recurrence(lambda t: xp[t], T, B, w1h, w2x, w2h, b2, mm_dtype,
+                       with_resid)
 
 
-def lstm2_tm_reference(cells, xg1, T=None, mm_dtype="float32"):
-    """Plain version of :func:`lstm2_tm`."""
+def _tm_forward_plain(xg1, T, w1h, w2x, w2h, b2, mm_dtype,
+                      with_resid=False):
     if xg1.dim() == 2:
-        return _recurrence(lambda t: xg1, T, xg1.shape[0], cells, mm_dtype)
-    return _recurrence(lambda t: xg1[t], xg1.shape[0], xg1.shape[1], cells,
-                       mm_dtype)
+        return _recurrence(lambda t: xg1, T, xg1.shape[0], w1h, w2x, w2h, b2,
+                           mm_dtype, with_resid)
+    return _recurrence(lambda t: xg1[t], T, xg1.shape[1], w1h, w2x, w2h, b2,
+                       mm_dtype, with_resid)
+
+
+def _bwd_plain(g1_at, T, B, resid, tops, w1h, w2x, w2h, b2, g_tops, g_h2,
+               mm_dtype):
+    """The reverse-time adjoint shared by both forms, rounding where
+    ``_make_bwd_fns`` does. Returns ``(dgates1 [T, B, 4H], dw1h, dw2x, dw2h,
+    db2)``; ``g1_at(t)`` recomputes the layer-1 input gates of step t."""
+    r = _round(mm_dtype)
+    H = w1h.shape[0]
+    w1h_r, w2x_r, w2h_r = r(w1h), r(w2x), r(w2h)
+    zero = resid.new_zeros(B, H)
+    dh1 = dc1 = dc2 = zero
+    dh2 = zero if g_h2 is None else g_h2
+    dg1, dg2 = [None] * T, [None] * T
+    for t in range(T - 1, -1, -1):
+        h1_t, c1_t, c2_t = resid[t].split(H, dim=-1)
+        if t > 0:
+            h1_p, c1_p, c2_p = resid[t - 1].split(H, dim=-1)
+            h2_p = tops[t - 1]
+        else:
+            h1_p = c1_p = c2_p = h2_p = zero
+        g2 = r(h1_t) @ w2x_r + r(h2_p) @ w2h_r + b2
+        dh2_tot = dh2 if g_tops is None else dh2 + g_tops[t]
+        d2, dc2 = _cell_bwd(g2, c2_p, c2_t, dh2_tot, dc2)
+        dh2 = r(d2) @ w2h_r.T
+        g1 = g1_at(t) + r(h1_p) @ w1h_r
+        dh1_tot = dh1 + r(d2) @ w2x_r.T
+        d1, dc1 = _cell_bwd(g1, c1_p, c1_t, dh1_tot, dc1)
+        dh1 = r(d1) @ w1h_r.T
+        dg1[t], dg2[t] = d1, d2
+    dg1, dg2 = torch.stack(dg1), torch.stack(dg2)
+    h1 = resid[..., :H]
+
+    def tn(a, g):  # sum over the (t, b) rows of a^T g
+        return r(a).reshape(-1, a.shape[-1]).T @ r(g).reshape(-1, g.shape[-1])
+
+    return (dg1, tn(h1[:-1], dg1[1:]), tn(h1, dg2), tn(tops[:-1], dg2[1:]),
+            dg2.sum((0, 1)))
+
+
+def lstm2_tm_proj_bwd_reference(x, xgc, resid, tops, w1x, w1h, w2x, w2h, b2,
+                                g_tops, g_h2, mm_dtype="float32",
+                                need_dx=True):
+    """Plain version of :func:`lstm2_tm_proj_bwd`."""
+    r = _round(mm_dtype)
+    T, B, _ = x.shape
+    g1_at = lambda t: _mm(x[t], w1x, mm_dtype) + xgc  # noqa: E731
+    dg1, dw1h, dw2x, dw2h, db2 = _bwd_plain(g1_at, T, B, resid, tops, w1h, w2x,
+                                            w2h, b2, g_tops, g_h2, mm_dtype)
+    flat = dg1.reshape(T * B, -1)
+    dx = (r(flat) @ r(w1x).T).reshape(x.shape) if need_dx else None
+    dxgc = (dg1.sum((0, 1)).reshape(1, -1) if xgc.shape[0] == 1
+            else dg1.sum(0))
+    dw1x = r(x.reshape(T * B, -1)).T @ r(flat)
+    return dx, dxgc, dw1x, dw1h, dw2x, dw2h, db2
+
+
+def lstm2_tm_bwd_reference(xg1, T, resid, tops, w1h, w2x, w2h, b2, g_tops,
+                           g_h2, mm_dtype="float32"):
+    """Plain version of :func:`lstm2_tm_bwd`."""
+    const = xg1.dim() == 2
+    B = xg1.shape[0] if const else xg1.shape[1]
+    g1_at = (lambda t: xg1) if const else (lambda t: xg1[t])
+    dg1, dw1h, dw2x, dw2h, db2 = _bwd_plain(g1_at, T, B, resid, tops, w1h, w2x,
+                                            w2h, b2, g_tops, g_h2, mm_dtype)
+    return (dg1.sum(0) if const else dg1), dw1h, dw2x, dw2h, db2
+
+
+# -------------------------------------------------------------- kernels
+
+
+def _check_cuda(*tensors: torch.Tensor) -> None:
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"the LSTM kernels run on CUDA tensors, not {dev}")
+    for t in tensors:
+        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(
+                f"the LSTM kernels take contiguous float32 tensors on one "
+                f"device; got {t.dtype} {tuple(t.shape)} on {t.device}"
+                f"{'' if t.is_contiguous() else ' (not contiguous)'}")
+
+
+def _library(H: int, mm_dtype: str):
+    if mm_dtype not in MM_DTYPES:
+        raise ValueError(f"mm_dtype must be one of {MM_DTYPES}")
+    lib = _build.library()
+    if lib.sfhvae_lstm2_threads(H) > 1024:
+        raise ValueError(f"hidden width {H} exceeds the kernels' block size")
+    return lib
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _xadd_strides(xadd: torch.Tensor, T: int, proj: bool) -> tuple[int, int]:
+    """(time stride, row stride) of the additive layer-1 gate block: the
+    bias row or a ``[B, 4H]`` block repeat at every step; ``[T, B, 4H]``
+    gates advance a block per step."""
+    H4 = xadd.shape[-1]
+    if xadd.dim() == 3:
+        return xadd.shape[1] * H4, H4
+    return 0, (0 if proj and xadd.shape[0] == 1 else H4)
+
+
+def _forward_kernel(entry, x, xadd, T, w1x, w1h, w2x, w2h, b2, mm_dtype,
+                    with_tops, with_resid):
+    """Run ``csrc/lstm2_fwd.cu``; returns (tops | None, h2, resid | None)."""
+    H = w1h.shape[0]
+    B = xadd.shape[-2] if xadd.dim() == 3 or x is None else x.shape[1]
+    D = 0 if x is None else x.shape[2]
+    _check_cuda(*(t for t in (x, xadd, w1x, w1h, w2x, w2h, b2)
+                  if t is not None))
+    lib = _library(H, mm_dtype)
+    wdt = torch.bfloat16 if mm_dtype == "bfloat16" else torch.float32
+    w1x, w1h, w2x, w2h = (None if w is None else w.to(wdt).contiguous()
+                          for w in (w1x, w1h, w2x, w2h))
+    dev = xadd.device
+    tops = (torch.empty((T, B, H), device=dev, dtype=torch.float32)
+            if with_tops or with_resid else None)
+    h2 = torch.empty((B, H), device=dev, dtype=torch.float32)
+    resid = (torch.empty((T, B, 3 * H), device=dev, dtype=torch.float32)
+             if with_resid else None)
+    t_stride, row_stride = _xadd_strides(xadd, T, x is not None)
+    if B > 0 and T > 0:
+        code = lib.sfhvae_lstm2_fwd(
+            _ptr(x), xadd.data_ptr(), t_stride, row_stride, _ptr(w1x),
+            w1h.data_ptr(), w2x.data_ptr(), w2h.data_ptr(), b2.data_ptr(),
+            _ptr(tops), h2.data_ptr(), _ptr(resid), T, B, D, H,
+            int(mm_dtype == "bfloat16"),
+            torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(code, entry.__name__)
+        entry.launches += 1
+    return tops, h2, resid
+
+
+def _backward_kernel(entry, x, xadd, T, resid, tops, w1x, w1h, w2x, w2h, b2,
+                     g_tops, g_h2, mm_dtype, need_dx):
+    """Run ``csrc/lstm2_bwd.cu``. Returns ``(dx | None, dxadd, dw1x | None,
+    dw1h, dw2x, dw2h, db2)``; dxadd has the shape of ``xadd``."""
+    H = w1h.shape[0]
+    H4 = 4 * H
+    B = resid.shape[1]
+    D = 0 if x is None else x.shape[2]
+    g_tops = None if g_tops is None else g_tops.contiguous()
+    g_h2 = None if g_h2 is None else g_h2.contiguous()
+    _check_cuda(*(t for t in (resid, tops, x, xadd, w1x, w1h, w2x, w2h, b2,
+                              g_tops, g_h2) if t is not None))
+    lib = _library(H, mm_dtype)
+    wdt = torch.bfloat16 if mm_dtype == "bfloat16" else torch.float32
+    w1x_k, w1h_k, w2x_k, w2h_k = (None if w is None else w.to(wdt).contiguous()
+                                  for w in (w1x, w1h, w2x, w2h))
+    w1hT, w2xT, w2hT = (w.t().contiguous() for w in (w1h_k, w2x_k, w2h_k))
+    dev = resid.device
+
+    def empty(*shape):
+        return torch.empty(shape, device=dev, dtype=torch.float32)
+
+    t_stride, row_stride = _xadd_strides(xadd, T, x is not None)
+    dg1, dg2 = empty(T, B, H4), empty(T, B, H4)
+    if t_stride:          # per-step gates: their gradient is dgates1
+        mode, dxadd = 0, dg1
+    elif row_stride:      # one [B, 4H] block for every step: sum over t
+        mode, dxadd = 1, empty(B, H4)
+    else:                 # the bias row: sum over t and rows
+        mode, dxadd = 2, empty(1, H4)
+    dx = empty(*x.shape) if x is not None and need_dx else None
+    dw1x = empty(D, H4) if x is not None else None
+    dw1h, dw2x, dw2h, db2 = empty(H, H4), empty(H, H4), empty(H, H4), empty(H4)
+    rows = lib.sfhvae_lstm2_bwd_chunk_rows()
+    part = empty(-(-(T * B) // rows) * max(D, H) * H4)
+    rowsum = empty(B, H4)
+    if B > 0 and T > 0:
+        code = lib.sfhvae_lstm2_bwd(
+            _ptr(x), xadd.data_ptr(), t_stride, row_stride, resid.data_ptr(),
+            tops.data_ptr(), _ptr(g_tops), _ptr(g_h2), _ptr(w1x_k),
+            w1h_k.data_ptr(), w2x_k.data_ptr(), w2h_k.data_ptr(),
+            w1hT.data_ptr(), w2xT.data_ptr(), w2hT.data_ptr(),
+            _ptr(w1x if dx is not None else None), b2.data_ptr(),
+            dg1.data_ptr(), dg2.data_ptr(), _ptr(dx), dxadd.data_ptr(), mode,
+            _ptr(dw1x), dw1h.data_ptr(), dw2x.data_ptr(), dw2h.data_ptr(),
+            db2.data_ptr(), part.data_ptr(), rowsum.data_ptr(), T, B, D, H,
+            int(mm_dtype == "bfloat16"),
+            torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(code, entry.__name__)
+        entry.launches += 1
+    return dx, dxadd, dw1x, dw1h, dw2x, dw2h, db2
+
+
+def lstm2_tm_proj_bwd(x, xgc, resid, tops, w1x, w1h, w2x, w2h, b2, g_tops,
+                      g_h2, mm_dtype="float32", need_dx=True):
+    """Backward of :func:`lstm2_tm_proj` (the VJP ``_bwd_call_p``).
+
+    Takes the forward's inputs (``x [T, B, D]``, ``xgc [B or 1, 4H]``, the
+    weight blocks ``w1x [D, 4H]``, ``w1h``, ``w2x``, ``w2h [H, 4H]``,
+    ``b2 [4H]``), its residuals (``resid [T, B, 3H]``, ``tops [T, B, H]``)
+    and the cotangents of ``tops`` and ``h2`` (``None`` means zero).
+    Returns ``(dx | None, dxgc, dw1x, dw1h, dw2x, dw2h, db2)``.
+    """
+    if x.device.type == "cpu":
+        return lstm2_tm_proj_bwd_reference(x, xgc, resid, tops, w1x, w1h, w2x,
+                                           w2h, b2, g_tops, g_h2, mm_dtype,
+                                           need_dx)
+    return _backward_kernel(lstm2_tm_proj_bwd, x, xgc, x.shape[0], resid,
+                            tops, w1x, w1h, w2x, w2h, b2, g_tops, g_h2,
+                            mm_dtype, need_dx)
+
+
+def lstm2_tm_bwd(xg1, T, resid, tops, w1h, w2x, w2h, b2, g_tops, g_h2,
+                 mm_dtype="float32"):
+    """Backward of :func:`lstm2_tm` (the VJP ``_bwd_call``). Returns
+    ``(dxg1, dw1h, dw2x, dw2h, db2)``; in const mode (``xg1 [B, 4H]``)
+    ``dxg1`` is summed over the T steps."""
+    if xg1.device.type == "cpu":
+        return lstm2_tm_bwd_reference(xg1, T, resid, tops, w1h, w2x, w2h, b2,
+                                      g_tops, g_h2, mm_dtype)
+    _, dxg1, _, dw1h, dw2x, dw2h, db2 = _backward_kernel(
+        lstm2_tm_bwd, None, xg1, T, resid, tops, None, w1h, w2x, w2h, b2,
+        g_tops, g_h2, mm_dtype, False)
+    return dxg1, dw1h, dw2x, dw2h, db2
+
+
+# ------------------------------------------------------------- autograd
+
+
+class _ProjFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, xgc, w1x, w1h, w2x, w2h, b2, mm_dtype, plain):
+        if plain:
+            tops, h2, resid = _proj_forward_plain(
+                x, xgc, w1x, w1h, w2x, w2h, b2, mm_dtype, with_resid=True)
+        else:
+            tops, h2, resid = _forward_kernel(
+                lstm2_tm_proj, x, xgc, x.shape[0], w1x, w1h, w2x, w2h, b2,
+                mm_dtype, True, True)
+        ctx.save_for_backward(x, xgc, resid, tops, w1x, w1h, w2x, w2h, b2)
+        ctx.mm_dtype, ctx.plain = mm_dtype, plain
+        ctx.set_materialize_grads(False)
+        return tops, h2
+
+    @staticmethod
+    def backward(ctx, g_tops, g_h2):
+        bwd = lstm2_tm_proj_bwd_reference if ctx.plain else lstm2_tm_proj_bwd
+        grads = bwd(*ctx.saved_tensors, g_tops, g_h2, ctx.mm_dtype,
+                    ctx.needs_input_grad[0])
+        return (*grads, None, None)
+
+
+class _TmFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xg1, w1h, w2x, w2h, b2, T, mm_dtype, plain):
+        if plain:
+            tops, h2, resid = _tm_forward_plain(xg1, T, w1h, w2x, w2h, b2,
+                                                mm_dtype, with_resid=True)
+        else:
+            tops, h2, resid = _forward_kernel(lstm2_tm, None, xg1, T, None,
+                                              w1h, w2x, w2h, b2, mm_dtype,
+                                              True, True)
+        ctx.save_for_backward(xg1, resid, tops, w1h, w2x, w2h, b2)
+        ctx.T, ctx.mm_dtype, ctx.plain = T, mm_dtype, plain
+        ctx.set_materialize_grads(False)
+        return tops, h2
+
+    @staticmethod
+    def backward(ctx, g_tops, g_h2):
+        xg1, resid, tops, w1h, w2x, w2h, b2 = ctx.saved_tensors
+        bwd = lstm2_tm_bwd_reference if ctx.plain else lstm2_tm_bwd
+        grads = bwd(xg1, ctx.T, resid, tops, w1h, w2x, w2h, b2, g_tops, g_h2,
+                    ctx.mm_dtype)
+        return (*grads, None, None, None)
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+# ----------------------------------------------------------------- entries
 
 
 def _stack_shapes(cells, d_x: int) -> int:
@@ -86,52 +403,46 @@ def _stack_shapes(cells, d_x: int) -> int:
     return H
 
 
-def _check_cuda(*tensors: torch.Tensor) -> None:
-    dev = tensors[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"the LSTM kernel runs on CUDA tensors, not {dev}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "the LSTM kernel is forward-only: its backward comes with the "
-            "training slice (ROADMAP.md); run under torch.inference_mode()")
-    for t in tensors:
-        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(
-                f"the LSTM kernel takes contiguous float32 tensors on one "
-                f"device; got {t.dtype} {tuple(t.shape)} on {t.device}"
-                f"{'' if t.is_contiguous() else ' (not contiguous)'}")
+def _proj(plain: bool, cells, x, xgc, mm_dtype, with_tops):
+    T, B, D = x.shape
+    H = _stack_shapes(cells, D)
+    (w1, b1), (w2, b2) = cells
+    if xgc is None:
+        xgc = b1.reshape(1, 4 * H)
+    if xgc.dim() != 2 or xgc.shape[1] != 4 * H or xgc.shape[0] not in (1, B):
+        raise ValueError(f"xgc must be [{B}, {4 * H}] or [1, {4 * H}]; got "
+                         f"{tuple(xgc.shape)}")
+    args = (x, xgc, w1[:D], w1[-H:], w2[:H], w2[H:], b2)
+    if _needs_grad(*args):
+        tops, h2 = _ProjFn.apply(*args, mm_dtype, plain)
+    elif plain:
+        tops, h2, _ = _proj_forward_plain(*args, mm_dtype)
+    else:
+        tops, h2, _ = _forward_kernel(lstm2_tm_proj, x, xgc, T, *args[2:],
+                                      mm_dtype, with_tops, False)
+    return (tops if with_tops else None), h2
 
 
-def _launch(entry, cells, x, xadd, t_stride, row_stride, T, B, D, mm_dtype,
-            with_tops):
-    """Run ``csrc/lstm2_fwd.cu`` on CUDA tensors; returns (tops|None, h2)."""
-    if mm_dtype not in MM_DTYPES:
-        raise ValueError(f"mm_dtype must be one of {MM_DTYPES}")
+def _tm(plain: bool, cells, xg1, T, mm_dtype, with_tops):
+    if xg1.dim() == 2:
+        if T is None:
+            raise ValueError("const mode ([B, 4H] gates) needs T")
+    else:
+        T = xg1.shape[0]
+    H = _stack_shapes(cells, 0)
+    if xg1.shape[-1] != 4 * H:
+        raise ValueError(f"xg1 last dim must be {4 * H}; got "
+                         f"{tuple(xg1.shape)}")
     (w1, _), (w2, b2) = cells
-    H = w2.shape[1] // 4
-    _check_cuda(*(t for t in (x, xadd, w1, w2, b2) if t is not None))
-    lib = _build.library()
-    if lib.sfhvae_lstm2_threads(H) > 1024:
-        raise ValueError(f"hidden width {H} exceeds the kernel's block size")
-    wdt = torch.bfloat16 if mm_dtype == "bfloat16" else torch.float32
-    w1 = w1.to(wdt).contiguous()
-    w2 = w2.to(wdt).contiguous()
-    w1h, w2x, w2h = w1[-H:], w2[:H], w2[H:]
-    dev = xadd.device
-    tops = (torch.empty((T, B, H), device=dev, dtype=torch.float32)
-            if with_tops else None)
-    h2 = torch.empty((B, H), device=dev, dtype=torch.float32)
-    if B > 0 and T > 0:
-        code = lib.sfhvae_lstm2_fwd(
-            None if x is None else x.data_ptr(), xadd.data_ptr(), t_stride,
-            row_stride, w1.data_ptr(), w1h.data_ptr(), w2x.data_ptr(),
-            w2h.data_ptr(), b2.data_ptr(),
-            None if tops is None else tops.data_ptr(), h2.data_ptr(),
-            T, B, D, H, int(mm_dtype == "bfloat16"),
-            torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(code, entry.__name__)
-        entry.launches += 1
-    return tops, h2
+    args = (xg1, w1[-H:], w2[:H], w2[H:], b2)
+    if _needs_grad(*args):
+        tops, h2 = _TmFn.apply(*args, T, mm_dtype, plain)
+    elif plain:
+        tops, h2, _ = _tm_forward_plain(xg1, T, *args[1:], mm_dtype)
+    else:
+        tops, h2, _ = _forward_kernel(lstm2_tm, None, xg1, T, None, *args[1:],
+                                      mm_dtype, with_tops, False)
+    return (tops if with_tops else None), h2
 
 
 def lstm2_tm_proj(cells, x, xgc=None, mm_dtype="float32", with_tops=True):
@@ -142,21 +453,16 @@ def lstm2_tm_proj(cells, x, xgc=None, mm_dtype="float32", with_tops=True):
     of the input's non-x part plus the layer-1 bias; ``None`` means the bias
     row ``b1`` alone. Returns ``(tops [T, B, H] | None, h2 [B, H])``; with
     ``with_tops=False`` the kernel skips the tops write (the encoders need
-    only h2).
+    only h2) unless autograd needs tops as a residual.
     """
-    T, B, D = x.shape
-    H = _stack_shapes(cells, D)
-    if xgc is None:
-        xgc = cells[0][1].reshape(1, 4 * H)
-    if xgc.dim() != 2 or xgc.shape[1] != 4 * H or xgc.shape[0] not in (1, B):
-        raise ValueError(f"xgc must be [{B}, {4 * H}] or [1, {4 * H}]; got "
-                         f"{tuple(xgc.shape)}")
-    if x.device.type == "cpu":
-        tops, h2 = lstm2_tm_proj_reference(cells, x, xgc, mm_dtype)
-        return (tops if with_tops else None), h2
-    row_stride = 0 if xgc.shape[0] == 1 else 4 * H
-    return _launch(lstm2_tm_proj, cells, x, xgc, 0, row_stride, T, B, D,
-                   mm_dtype, with_tops)
+    return _proj(x.device.type == "cpu", cells, x, xgc, mm_dtype, with_tops)
+
+
+def lstm2_tm_proj_reference(cells, x, xgc=None, mm_dtype="float32",
+                            with_tops=True):
+    """Plain version of :func:`lstm2_tm_proj` (backward:
+    :func:`lstm2_tm_proj_bwd_reference`)."""
+    return _proj(True, cells, x, xgc, mm_dtype, with_tops)
 
 
 def lstm2_tm(cells, xg1, T=None, mm_dtype="float32", with_tops=True):
@@ -168,24 +474,17 @@ def lstm2_tm(cells, xg1, T=None, mm_dtype="float32", with_tops=True):
     block at every step and no ``[T, B, 4H]`` broadcast exists.
     Returns ``(tops [T, B, H] | None, h2 [B, H])``.
     """
-    const = xg1.dim() == 2
-    if const:
-        if T is None:
-            raise ValueError("const mode ([B, 4H] gates) needs T")
-        B = xg1.shape[0]
-    else:
-        T, B = xg1.shape[0], xg1.shape[1]
-    H = _stack_shapes(cells, 0)
-    if xg1.shape[-1] != 4 * H:
-        raise ValueError(f"xg1 last dim must be {4 * H}; got "
-                         f"{tuple(xg1.shape)}")
-    if xg1.device.type == "cpu":
-        tops, h2 = lstm2_tm_reference(cells, xg1, T, mm_dtype)
-        return (tops if with_tops else None), h2
-    t_stride = 0 if const else B * 4 * H
-    return _launch(lstm2_tm, cells, None, xg1, t_stride, 4 * H, T, B, 0,
-                   mm_dtype, with_tops)
+    return _tm(xg1.device.type == "cpu", cells, xg1, T, mm_dtype, with_tops)
+
+
+def lstm2_tm_reference(cells, xg1, T=None, mm_dtype="float32",
+                       with_tops=True):
+    """Plain version of :func:`lstm2_tm` (backward:
+    :func:`lstm2_tm_bwd_reference`)."""
+    return _tm(True, cells, xg1, T, mm_dtype, with_tops)
 
 
 lstm2_tm_proj.launches = 0
 lstm2_tm.launches = 0
+lstm2_tm_proj_bwd.launches = 0
+lstm2_tm_bwd.launches = 0

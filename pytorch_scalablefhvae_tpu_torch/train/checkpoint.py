@@ -1,21 +1,27 @@
 """Checkpoints: read the JAX package's, write the port's own.
 
-Counterpart of ``train/checkpoint.py`` (load side, plus the port's save).
+Counterpart of ``train/checkpoint.py``.
 
 The JAX ``.npz`` holds positional arrays ``leaf_0 .. leaf_{n-1}`` in the
 order of ``jax.tree_util.tree_leaves(TrainState)`` plus a JSON sidecar.
-``TrainState``'s params come first, and tree flattening orders dict keys
-sorted and list items in order, so the name of each parameter leaf is
-reckoned here in plain Python (:func:`jax_leaf_names`) without jax.
+Tree flattening orders dict keys sorted and list items in order, so the
+name of each parameter leaf is reckoned here in plain Python
+(:func:`jax_leaf_names`) without jax, and a whole JAX ``TrainState`` —
+params, then the Adam ``count``, ``mu`` and ``nu`` (the clip has no state),
+then ``step`` and the PRNG key — maps onto the port's
+(:func:`train_state_from_jax`): a JAX run resumes in the port.
 
 The port writes the same file names (``<model>_<run>_e<epoch>.npz`` plus
 sidecar, and a ``best_model_`` copy) but with named arrays, one per
-``state_dict`` key, and ``"format": "torch_named"`` in the sidecar.
-Orbax checkpoint directories are not yet ported.
+``state_dict`` key, plus ``adam_mu.<name>``, ``adam_nu.<name>``,
+``adam_count`` and ``step`` when it saves a training state, and
+``"format": "torch_named"`` in the sidecar. Orbax checkpoint directories are
+not yet ported.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import re
@@ -27,6 +33,7 @@ import torch
 
 _SCHEMA_VERSION = 1
 PORT_FORMAT = "torch_named"
+_MU, _NU, _COUNT, _STEP = "adam_mu.", "adam_nu.", "adam_count", "step"
 
 
 # ---------------------------------------------------------------- naming
@@ -145,15 +152,114 @@ def load_params(checkpoint_file, model: torch.nn.Module) -> dict:
     return meta
 
 
+def train_state_from_jax(leaves, names) -> dict:
+    """A JAX ``TrainState``'s leaves (``tree_leaves`` order) -> the port's:
+    ``{"params", "mu", "nu"}`` (name -> array) plus ``count`` and ``step``.
+    ``names`` are the parameter names in leaf order
+    (:func:`jax_leaf_names`)."""
+    n = len(names)
+    if len(leaves) != 3 * n + 3:
+        raise ValueError(
+            f"a JAX TrainState of {n} parameters has {3 * n + 3} leaves "
+            f"(params, Adam count/mu/nu, step, PRNG key); got {len(leaves)}")
+    return {
+        "params": dict(zip(names, leaves[:n])),
+        "count": int(np.asarray(leaves[n])),
+        "mu": dict(zip(names, leaves[n + 1:2 * n + 1])),
+        "nu": dict(zip(names, leaves[2 * n + 1:3 * n + 1])),
+        "step": int(np.asarray(leaves[3 * n + 1])),
+    }
+
+
+def corpus_fingerprint(seq_keys) -> str:
+    """Order-sensitive fingerprint of a corpus's sequence keys (the JAX
+    package's, so either package's checkpoints compare): the mu2 table pairs
+    row i with sequence i by position."""
+    h = hashlib.blake2b(digest_size=16)
+    for k in seq_keys:
+        h.update(str(k).encode())
+        h.update(b"\n")
+    return h.hexdigest()
+
+
+def check_same_corpus(meta: dict, expected_num_seqs: int | None,
+                      checkpoint_file,
+                      expected_fingerprint: str | None = None) -> None:
+    """Refuse to resume onto another corpus: the mu2 table is per-sequence
+    state (``--finetune`` is the cross-corpus path). Sidecars without the
+    keys skip the check."""
+    saved = meta.get("num_seqs")
+    if (saved is not None and expected_num_seqs is not None
+            and int(saved) != int(expected_num_seqs)):
+        raise ValueError(
+            f"Checkpoint {checkpoint_file} was trained on a corpus of {saved} "
+            f"sequences but this run has {expected_num_seqs}: the mu2 table "
+            f"is per-sequence state and cannot transfer. Use --finetune to "
+            f"reuse the encoder/decoder weights with a fresh table.")
+    saved_fp = meta.get("corpus_fingerprint")
+    if (saved_fp is not None and expected_fingerprint is not None
+            and saved_fp != expected_fingerprint):
+        raise ValueError(
+            f"Checkpoint {checkpoint_file} was trained on a corpus whose "
+            f"ordered sequence keys differ from this run's: the mu2 table "
+            f"pairs rows with sequences by position. Use --finetune to reuse "
+            f"the encoder/decoder weights with a fresh table.")
+
+
+def load_train_state(checkpoint_file, state, finetune: bool = False,
+                     expected_num_seqs: int | None = None,
+                     expected_fingerprint: str | None = None) -> dict:
+    """Restore a training state (in place) from a port or JAX ``.npz``.
+
+    The parameters always load. Unless ``finetune``, the Adam moments, count
+    and step load too and ``meta["start_epoch"]`` is the saved epoch + 1;
+    with ``finetune`` the optimizer state stays fresh, the history is
+    dropped and training starts at epoch 0. A non-finetune load onto another
+    corpus raises (:func:`check_same_corpus`). Returns the sidecar meta.
+    """
+    checkpoint_file = Path(checkpoint_file)
+    meta = load_params(checkpoint_file, state.model)
+    if finetune:
+        return dict(meta, start_epoch=0, values={}, best_val_lb=-np.inf,
+                    best_epoch=0)
+    check_same_corpus(meta, expected_num_seqs, checkpoint_file,
+                      expected_fingerprint)
+    names = jax_leaf_names(state.mu)
+    with np.load(checkpoint_file) as z:
+        if meta.get("format") == PORT_FORMAT:
+            missing = [k for k in (_COUNT, _STEP) if k not in z.files]
+            if missing:
+                raise ValueError(f"{checkpoint_file} holds no training state "
+                                 f"(no {missing}); resume needs one, or use "
+                                 f"--finetune")
+            saved = {"mu": {n: z[_MU + n] for n in names},
+                     "nu": {n: z[_NU + n] for n in names},
+                     "count": int(z[_COUNT]), "step": int(z[_STEP])}
+        else:
+            saved = train_state_from_jax(
+                [z[f"leaf_{i}"] for i in range(meta["num_leaves"])], names)
+    for key in ("mu", "nu"):
+        target = getattr(state, key)
+        for n in names:
+            arr = saved[key][n]
+            if arr.shape != tuple(target[n].shape) and n.endswith("mu2_table"):
+                arr = _adapt_rows(arr, target[n].shape[0])
+            target[n].copy_(torch.from_numpy(np.asarray(arr, np.float32)))
+    state.count, state.step = saved["count"], saved["step"]
+    return dict(meta, start_epoch=meta["epoch"] + 1)
+
+
 # ------------------------------------------------------------------ save
 
 
 def save_checkpoint(checkpoint_dir, model: torch.nn.Module, *, model_type: str,
                     model_params: tuple, run_info: str, epoch: int,
                     best_epoch: int, best_val_lb: float, values: dict,
-                    extra_meta: dict | None = None) -> Path:
+                    extra_meta: dict | None = None, train_state=None,
+                    summary_vals: dict | None = None) -> Path:
     """Write ``<model>_<run_info>_e<epoch>.npz`` with one named array per
-    parameter, its sidecar, and a ``best_model_`` copy when this epoch is
+    parameter (plus the Adam moments, count and step of ``train_state``
+    when given), its sidecar, and a ``best_model_`` copy when this epoch is
     the best. Both files are committed by rename, so a killed save leaves
     no truncated checkpoint for discovery to find."""
     checkpoint_dir = Path(checkpoint_dir)
@@ -163,6 +269,12 @@ def save_checkpoint(checkpoint_dir, model: torch.nn.Module, *, model_type: str,
     meta_path = checkpoint_dir / f"{f_str}.json"
     arrays = {k: v.detach().cpu().numpy()
               for k, v in model.state_dict().items()}
+    if train_state is not None:
+        for n in train_state.mu:
+            arrays[_MU + n] = train_state.mu[n].cpu().numpy()
+            arrays[_NU + n] = train_state.nu[n].cpu().numpy()
+        arrays[_COUNT] = np.int32(train_state.count)
+        arrays[_STEP] = np.int32(train_state.step)
     tmp = checkpoint_dir / f".{f_str}.npz.{os.getpid()}.tmp"
     try:
         with open(tmp, "wb") as fh:
@@ -175,7 +287,10 @@ def save_checkpoint(checkpoint_dir, model: torch.nn.Module, *, model_type: str,
         "model_type": model_type, "model_params": list(model_params),
         "epoch": epoch, "best_epoch": best_epoch,
         "best_val_lb": float(best_val_lb), "values": values,
-        "num_leaves": len(arrays), **(extra_meta or {}),
+        "summary_vals": summary_vals or {}, "num_leaves": len(arrays),
+        **({} if train_state is None else {"step": train_state.step,
+                                           "seed": train_state.seed}),
+        **(extra_meta or {}),
     }
     meta_tmp = checkpoint_dir / f".{f_str}.json.{os.getpid()}.tmp"
     meta_tmp.write_text(json.dumps(meta, indent=2))

@@ -6,7 +6,7 @@ installed; there, skip the JAX-side conftest:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
-chip_smoke.py checks the same kernels at the serving shapes.
+chip_smoke.py checks the same kernels at the serving and training shapes.
 """
 
 import numpy as np
@@ -82,3 +82,110 @@ def test_discriminative_matches_plain(cuda):
     got = discriminative.discriminative_log_qy(*args)
     want = discriminative.discriminative_log_qy_reference(*args)
     assert float((got - want).abs().max()) <= 1e-4
+
+
+def rel_norm(got, want) -> float:
+    return max(float((a - b).norm() / b.norm().clamp_min(1e-30))
+               for a, b in zip(got, want) if b is not None)
+
+
+# Backward, relative Frobenius norm per output: fp32 sum-order noise in fp32;
+# in bf16 a gate adjoint on a rounding boundary may round the other way under
+# another sum order (tests/test_torch_lstm_bwd.py), so 1e-3, which the plain
+# fp32-vs-bf16 backward gap must exceed (checked here)
+@pytest.mark.parametrize("mm,tol", [("float32", 1e-5), ("bfloat16", 1e-3)])
+def test_lstm_backward_entries_match_plain(cuda, mm, tol):
+    g = torch.Generator().manual_seed(2)
+    cells = stack(g, D + 4, cuda)
+    (w1, b1), (w2, b2) = cells
+    w = (w1[:D], w1[-H:], w2[:H], w2[H:], b2)
+    x = torch.randn((T, B, D), generator=g).to(cuda)
+    xgc = torch.randn((B, 4 * H), generator=g).to(cuda)
+    g_tops = torch.randn((T, B, H), generator=g).to(cuda)
+    g_h2 = torch.randn((B, H), generator=g).to(cuda)
+    cases = []
+    for xg in (b1.reshape(1, -1), xgc):
+        tops, _, res = lstm_cuda._proj_forward_plain(x, xg, *w, mm,
+                                                       with_resid=True)
+        cases.append(("lstm2_tm_proj_bwd",
+                      lambda fn, m, xg=xg, tops=tops, res=res: fn(
+                          x, xg, res, tops, *w, g_tops, g_h2, m)))
+    for xg1 in (xgc, torch.randn((T, B, 4 * H), generator=g).to(cuda)):
+        tops, _, res = lstm_cuda._tm_forward_plain(xg1, T, *w[1:], mm,
+                                                   with_resid=True)
+        cases.append(("lstm2_tm_bwd",
+                      lambda fn, m, xg1=xg1, tops=tops, res=res: fn(
+                          xg1, T, res, tops, *w[1:], g_tops, None, m)))
+    for name, call in cases:
+        before = getattr(lstm_cuda, name).launches
+        got = call(getattr(lstm_cuda, name), mm)
+        again = call(getattr(lstm_cuda, name), mm)
+        want = call(getattr(lstm_cuda, name + "_reference"), mm)
+        torch.cuda.synchronize()
+        assert getattr(lstm_cuda, name).launches == before + 2
+        assert all(torch.equal(a, b) for a, b in zip(got, again)
+                   if a is not None), name  # no atomics: the same bits
+        assert rel_norm(got, want) <= tol, name
+        if mm == "bfloat16":
+            f32 = call(getattr(lstm_cuda, name + "_reference"), "float32")
+            assert rel_norm(f32, want) > tol, name
+
+
+def test_discriminative_backward_matches_plain(cuda):
+    g = torch.Generator().manual_seed(3)
+    n, num_real = 3001, 2990
+    mu2 = torch.randn((n, 16), generator=g)
+    seq = torch.randint(0, num_real, (B,), generator=g)
+    z2 = mu2[seq] + 0.5 * torch.randn((B, 16), generator=g)
+    seq[3] = n + 5
+    gq = torch.randn((B,), generator=g)
+    z2, mu2, seq, gq = (t.to(cuda) for t in (z2, mu2, seq, gq))
+    logvar = float(np.log(0.25))
+    _, lse = discriminative._forward_plain(z2, mu2, seq, logvar, num_real)
+    args = (z2, mu2, seq, lse, gq, logvar, num_real)
+    before = discriminative.discriminative_log_qy_bwd.launches
+    got = discriminative.discriminative_log_qy_bwd(*args)
+    again = discriminative.discriminative_log_qy_bwd(*args)
+    want = discriminative.discriminative_log_qy_bwd_reference(*args)
+    assert discriminative.discriminative_log_qy_bwd.launches == before + 2
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, b)
+        assert float((a - c).abs().max()) <= 1e-4 * float(c.abs().max())
+    assert (got[1][num_real:] == 0).all()
+
+
+def test_model_gradients_through_kernels_match_plain(cuda):
+    """One backward of the whole model's loss on the card: through the
+    kernels' Functions and through the plain versions (fp32 operands)."""
+    from pytorch_scalablefhvae_tpu_torch.models.base import loss_from_outputs
+    from pytorch_scalablefhvae_tpu_torch.models.fhvae import FHVAE
+
+    model = FHVAE(T * 8, z1_hus=(H, H), z2_hus=(H, H), x_hus=(H, H),
+                  z1_dim=4, z2_dim=4, num_seqs=50, feat_dim=8,
+                  lstm_mm_dtype="float32",
+                  generator=torch.Generator().manual_seed(4)).to(cuda)
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((B, T, 8), generator=g).to(cuda)
+    seq = torch.randint(0, 50, (B,), generator=g).to(cuda)
+    nsegs = torch.full((B,), 3.0, device=cuda)
+    noise = {"z2": torch.randn((B, 4), generator=g).to(cuda),
+             "z1": torch.randn((B, 4), generator=g).to(cuda)}
+
+    def grads():
+        out = model.apply(x, seq, nsegs, sample=True, noise=noise)
+        loss, _ = loss_from_outputs(out, torch.ones(B, device=cuda), 10.0)
+        return torch.autograd.grad(loss, list(model.parameters()))
+
+    got = grads()
+    saved = (lstm_cuda.lstm2_tm_proj, lstm_cuda.lstm2_tm,
+             discriminative.discriminative_log_qy)
+    lstm_cuda.lstm2_tm_proj = lstm_cuda.lstm2_tm_proj_reference
+    lstm_cuda.lstm2_tm = lstm_cuda.lstm2_tm_reference
+    discriminative.discriminative_log_qy = \
+        discriminative.discriminative_log_qy_reference
+    try:
+        want = grads()
+    finally:
+        (lstm_cuda.lstm2_tm_proj, lstm_cuda.lstm2_tm,
+         discriminative.discriminative_log_qy) = saved
+    assert rel_norm(got, want) <= 1e-4

@@ -19,6 +19,10 @@ PORT_MODULES = [
     "pytorch_scalablefhvae_tpu_torch.eval.evaluate",
     "pytorch_scalablefhvae_tpu_torch.models.fhvae",
     "pytorch_scalablefhvae_tpu_torch.train.checkpoint",
+    "pytorch_scalablefhvae_tpu_torch.train.step",
+    "pytorch_scalablefhvae_tpu_torch.train.loop",
+    "pytorch_scalablefhvae_tpu_torch.train.driver",
+    "pytorch_scalablefhvae_tpu_torch.train.metrics",
     "pytorch_scalablefhvae_tpu_torch.ops.lstm_cuda",
     "pytorch_scalablefhvae_tpu_torch.ops.discriminative",
 ]
