@@ -24,14 +24,26 @@ prints no result line):
    cotangents, two launches compared bitwise; the discriminative backward
    at 4,620 and 281,241 table rows with 7 padded rows, which must get
    exactly zero gradient;
+2c. ``windowed_chunk_gather`` against its plain version at the dev MAP
+   pass's shape (128 chunks of 16 windows, seg_len 20, stride 8, D 80) on a
+   100,000-row store and on a store of TIMIT-train size, whose last chunks
+   run into the staged slack: a copy, so equal bit for bit, and two
+   launches equal;
 4. training: write a preprocessed feature corpus of 4,620 training and 400
    dev sequences; hold the first three train steps through the kernels
-   against the same steps through the plain versions on the card; time a
-   step's forward, backward and optimizer (CUDA events) and its kernels
-   (torch.profiler); then run the port's ``train`` CLI at its defaults
-   (fhvae, batch 1024, bf16 LSTM operands) for 2 epochs and resume it for a
-   third, checking that the loss is finite and falls, that the resumed run
-   continues the step count, and that all six kernel entries were launched.
+   against the same steps through the plain versions on the card, and the
+   device-resident tier's first three steps against the host loader's (equal
+   bit for bit), and the staged dev pass against itself (bit for bit) and
+   the host's; time a step's forward, backward and optimizer (CUDA events)
+   and its kernels (torch.profiler), and each tier's data path beside the
+   other; then run the port's ``train`` CLI at its defaults (fhvae, batch
+   1024, bf16 LSTM operands, ``--data-placement auto``, which stages the
+   store and the dev split on the card) for 2 epochs and resume it for a
+   third, checking that the data was device-resident, that the loss is
+   finite and falls, that the resumed run continues the step count, and
+   that all seven kernel entries were launched; last, one epoch with
+   ``--data-placement host``, whose train loss must equal the device run's
+   epoch 0 and whose dev bound must agree with it.
 
 The bf16 tolerances sit between the kernels' error and the gap between the
 plain versions in fp32 and in bf16 operand mode, which each run measures: a
@@ -41,7 +53,9 @@ the JAX package.
 
 The second-to-last line of stdout is a JSON object with one entry per
 kernel entry (``launches`` sums the serve and train runs; ``ms`` and
-``plain_ms`` are the bf16-operand times of the entry's heaviest form); the
+``plain_ms`` are the bf16-operand times of the entry's heaviest form, and
+for ``windowed_chunk_gather`` the device time per call at the dev MAP
+shape); the
 line before it is nvidia-smi's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -49,6 +63,7 @@ line before it is nvidia-smi's name and power limit; the last line is
 from __future__ import annotations
 
 import copy
+import io
 import json
 import os
 import shutil
@@ -57,7 +72,7 @@ import sys
 import threading
 import time
 import wave
-from contextlib import contextmanager, nullcontext
+from contextlib import contextmanager, nullcontext, redirect_stdout
 from pathlib import Path
 
 import numpy as np
@@ -92,6 +107,10 @@ TOL_TRAIN_UPDATE = 0.1  # the same, |p_kernels - p_plain| over the norm of
                         # element by ~lr * sign(g), so an element whose
                         # gradient is within the kernels' error of zero may
                         # step the other way
+TOL_DEV_LB = 1e-5       # dev bound, device vs host tier, relative: the device
+                        # MAP table sums in fp32, the host's in fp64
+SPB, SEG, SHIFT = 16, 20, 8   # the dev MAP pass's chunks: spb, seg_len, stride
+TIMIT_FRAMES = 1_254_584      # frames of the training corpus below
 SOURCES = {
     "lstm2_tm_proj": ("pytorch_scalablefhvae_tpu_torch/csrc/lstm2_fwd.cu",
                       "pytorch_scalablefhvae_tpu/ops/lstm_pallas.py:675"),
@@ -107,6 +126,9 @@ SOURCES = {
     "discriminative_log_qy_bwd": (
         "pytorch_scalablefhvae_tpu_torch/csrc/discriminative_bwd.cu",
         "pytorch_scalablefhvae_tpu/ops/discriminative.py:189"),
+    "windowed_chunk_gather": (
+        "pytorch_scalablefhvae_tpu_torch/csrc/window_gather.cu",
+        "pytorch_scalablefhvae_tpu/ops/window_gather_pallas.py:88"),
 }
 
 
@@ -134,6 +156,24 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 50) -> float:
+    """Device time per call: the card's kernel time over ``iters`` calls,
+    summed by torch.profiler, so the host's issue time between launches is
+    left out (it bounds a call that takes microseconds on the card)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) \
+        / 1e3 / iters
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -446,6 +486,72 @@ def phase_backward() -> dict:
     return results
 
 
+def phase_gather() -> dict:
+    """``windowed_chunk_gather`` against its plain version: one dev MAP
+    batch (2048 windows in 128 chunks) on two stores; the last two chunks
+    are the last sequence's (150 frames), the second of which runs into the
+    staged slack and must read zeros there."""
+    from pytorch_scalablefhvae_tpu_torch.data.device_store import (
+        STORE_TAIL_SLACK,
+    )
+    from pytorch_scalablefhvae_tpu_torch.ops.window_gather import (
+        windowed_chunk_gather,
+        windowed_chunk_gather_reference,
+    )
+
+    log(f"== phase 2c: windowed_chunk_gather against its plain version "
+        f"(C=128 spb={SPB} seg_len={SEG} stride={SHIFT} D={D})")
+    region = (SPB - 1) * SHIFT + SEG
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    results: dict = {}
+    for form, frames in (("100,000-row store", 100_000),
+                         ("TIMIT-train-size store", TIMIT_FRAMES)):
+        store = torch.zeros((frames + STORE_TAIL_SLACK, D), device="cuda")
+        store[:frames] = torch.randn((frames, D), generator=gen,
+                                     device="cuda")
+        last = frames - 150
+        starts = torch.cat([
+            torch.randint(0, frames - region, (126,), generator=gen,
+                          device="cuda").sort().values,
+            torch.tensor([last, last + SPB * SHIFT], device="cuda")])
+
+        def kernel():
+            return windowed_chunk_gather(store, starts, SPB, SEG, SHIFT)
+
+        def plain():
+            return windowed_chunk_gather_reference(store, starts, SPB, SEG,
+                                                   SHIFT)
+
+        got, again, want = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        # windows 3.. of the last chunk start past the frames: all slack
+        slack_zero = bool((got[-SPB + 3:] == 0).all())
+        if not (torch.equal(got, want) and torch.equal(got, again)
+                and slack_zero):
+            raise AssertionError(
+                f"windowed_chunk_gather [{form}] differs from its plain "
+                f"version or between launches (max_abs_err {err}), or read "
+                f"nonzero slack ({slack_zero})")
+        ms, plain_ms = device_ms(kernel), device_ms(plain)
+        call_ms = time_ms(kernel, iters=100, warmup=5)
+        plain_call_ms = time_ms(plain, iters=20)
+        moved = 128 * (region + SPB * SEG) * D * 4
+        log(f"windowed_chunk_gather [{form}]: equal to the plain version and "
+            f"between two launches; slack rows read 0; device time per call "
+            f"(profiler) kernel {ms:.4f} ms ({moved / ms / 1e6:.1f} GB/s of "
+            f"{moved / 1e6:.1f} MB read + written), plain {plain_ms:.4f} ms; "
+            f"per call back to back (CUDA events, host issue included) "
+            f"kernel {call_ms:.4f} ms, plain {plain_call_ms:.4f} ms")
+        if not results:  # the dev MAP shape the report line keeps
+            results["windowed_chunk_gather"] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "form": f"C=128, {form}"}
+        del store, got, again, want
+        torch.cuda.empty_cache()
+    return results
+
+
 # --------------------------------------------------------------- phase 3
 
 
@@ -720,17 +826,30 @@ def write_feature_corpus(root: Path, seed: int = 0):
 
 
 def train_entries():
-    from pytorch_scalablefhvae_tpu_torch.ops import discriminative, lstm_cuda
+    from pytorch_scalablefhvae_tpu_torch.ops import (
+        discriminative,
+        lstm_cuda,
+        window_gather,
+    )
 
     return (lstm_cuda.lstm2_tm_proj, lstm_cuda.lstm2_tm,
             discriminative.discriminative_log_qy, lstm_cuda.lstm2_tm_proj_bwd,
-            lstm_cuda.lstm2_tm_bwd, discriminative.discriminative_log_qy_bwd)
+            lstm_cuda.lstm2_tm_bwd, discriminative.discriminative_log_qy_bwd,
+            window_gather.windowed_chunk_gather)
+
+
+def seeded_model(cfg):
+    """The model the CLI starts from (seed 0), on the card."""
+    from pytorch_scalablefhvae_tpu_torch.models.base import build_model
+
+    return build_model("fhvae", cfg.data.seg_len * D, cfg.model, N_TABLE,
+                       feat_dim=D,
+                       generator=torch.Generator().manual_seed(0)).cuda()
 
 
 def first_batches_and_model(cfg, root: Path, n: int):
     """The first ``n`` training batches of epoch 0 on the card, and the
     model the CLI would start from (seed 0)."""
-    from pytorch_scalablefhvae_tpu_torch.models.base import build_model
     from pytorch_scalablefhvae_tpu_torch.train.driver import build_loaders
     from pytorch_scalablefhvae_tpu_torch.train.loop import batch_tensors
 
@@ -742,10 +861,23 @@ def first_batches_and_model(cfg, root: Path, n: int):
         batches.append(batch_tensors(b, dev))
         if len(batches) == n:
             break
-    model = build_model("fhvae", cfg.data.seg_len * D, cfg.model, N_TABLE,
-                        feat_dim=D,
-                        generator=torch.Generator().manual_seed(0)).to(dev)
-    return batches, model
+    return batches, seeded_model(cfg)
+
+
+def staged_epoch0(cfg, root: Path):
+    """The training loader, its store staged on the card, and epoch 0's
+    plan there: the device tier's view of the same batches."""
+    from pytorch_scalablefhvae_tpu_torch.data.device_store import (
+        DeviceDataSource,
+    )
+    from pytorch_scalablefhvae_tpu_torch.train.driver import build_loaders
+
+    loader, _ = build_loaders(cfg, root, True)
+    source = DeviceDataSource(loader.dataset.store, torch.device("cuda"))
+    loader.set_epoch(0)
+    plan, arrays = source.stage_epoch(loader.dataset, loader._order(),
+                                      loader.batch_size)
+    return loader, source, plan, arrays
 
 
 def step_breakdown(cfg, root: Path) -> None:
@@ -847,6 +979,198 @@ def compare_first_steps(cfg, root: Path) -> None:
                              "with the plain versions'")
 
 
+def compare_tiers_first_steps(cfg, root: Path) -> None:
+    """Three train steps through the kernels from one initial state and the
+    same noise, fed by the host loader and gathered from the staged store:
+    the same batches, so the same bits."""
+    from pytorch_scalablefhvae_tpu_torch.train.device_step import (
+        device_train_step,
+    )
+    from pytorch_scalablefhvae_tpu_torch.train.step import (
+        create_train_state,
+        make_optimizer,
+        train_step,
+    )
+
+    batches, model = first_batches_and_model(cfg, root, 3)
+    _, source, plan, arrays = staged_epoch0(cfg, root)
+    runs = {}
+    for tier in ("host", "device"):
+        state = create_train_state(copy.deepcopy(model))
+        opt = make_optimizer(1e-3, 0.95, 0.999)
+        if tier == "host":
+            losses = [float(train_step(state, opt, *b, 10.0)["loss"])
+                      for b in batches]
+        else:
+            losses = [float(device_train_step(
+                state, opt, source.data, arrays, i * B_TRAIN, plan.n_real,
+                10.0, batch_size=B_TRAIN, seg_len=cfg.data.seg_len)["loss"])
+                for i in range(3)]
+        runs[tier] = (losses, state)
+    (lh, sh), (ld, sd) = runs["host"], runs["device"]
+    same = lh == ld and all(
+        torch.equal(a, b) for a, b in zip(
+            [*sh.params().values(), *sh.mu.values(), *sh.nu.values()],
+            [*sd.params().values(), *sd.mu.values(), *sd.nu.values()]))
+    log(f"first 3 steps, device tier vs host loader on the card (kernels): "
+        f"losses {ld} vs {lh}; parameters and Adam moments equal bit for "
+        f"bit: {same}")
+    if not same:
+        raise AssertionError("the device tier's first train steps differ "
+                             "from the host loader's")
+    del source, arrays
+    torch.cuda.empty_cache()
+
+
+def check_dev_pass(cfg, root: Path) -> None:
+    """The staged dev split's pass at the seeded model (the chunked MAP pass
+    through ``windowed_chunk_gather``, then the eval pass): two runs give
+    the same bits, and it agrees with the host loader's dev pass."""
+    from pytorch_scalablefhvae_tpu_torch.train.driver import build_loaders
+    from pytorch_scalablefhvae_tpu_torch.train.loop import (
+        dev_pass,
+        device_dev_pass,
+        stage_split,
+    )
+
+    dev = torch.device("cuda")
+    _, dev_loader = build_loaders(cfg, root, True)
+    split = stage_split(dev_loader, dev)
+    if split.chunked is None:
+        raise AssertionError("the dev split's MAP pass is not the chunked one")
+    model = seeded_model(cfg)
+    runs, seconds = [], []
+    for fn in (lambda: device_dev_pass(model, split, 10.0),
+               lambda: device_dev_pass(model, split, 10.0),
+               lambda: dev_pass(model, dev_loader, 10.0, dev)):
+        t0 = time.perf_counter()
+        runs.append(fn())
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    a, b, host = runs
+    err = max(abs(a[k] - host[k]) / abs(host[k]) for k in host)
+    log(f"dev pass at the seeded model: staged split (chunked MAP) "
+        f"{seconds[0]:.3f} / {seconds[1]:.3f} s, two runs equal bit for bit: "
+        f"{a == b}; host loader {seconds[2]:.3f} s; largest relative "
+        f"difference of a metric {err:.3e} (tol {TOL_DEV_LB:g}); LB "
+        f"{a['lower_bound']!r} vs {host['lower_bound']!r}")
+    if a != b or not err <= TOL_DEV_LB:
+        raise AssertionError("the staged dev pass does not repeat or "
+                             "disagrees with the host dev pass")
+    del split
+    torch.cuda.empty_cache()
+
+
+def tier_breakdown(cfg, root: Path) -> None:
+    """Each tier's data path and step, as the epoch runners drive them: the
+    host loader's pinned copy and a loss sync every step, against the
+    on-card gather and a loss check one step late. 10 warm steps each:
+    CUDA events per stage, host wall, and the device's busy and idle share
+    by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pytorch_scalablefhvae_tpu_torch.models.base import loss_from_outputs
+    from pytorch_scalablefhvae_tpu_torch.train.device_step import batch_views
+    from pytorch_scalablefhvae_tpu_torch.train.loop import batch_tensors
+    from pytorch_scalablefhvae_tpu_torch.train.step import (
+        create_train_state,
+        make_optimizer,
+        step_noise,
+    )
+
+    dev = torch.device("cuda")
+    loader, source, plan, arrays = staged_epoch0(cfg, root)
+    model = seeded_model(cfg)
+    for tier in ("host", "device"):
+        state = create_train_state(copy.deepcopy(model))
+        opt = make_optimizer(1e-3, 0.95, 0.999)
+        batches = iter(loader)
+
+        def one_step(i):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            ev[0].record()
+            if tier == "host":
+                feats, seq, nsegs, w = batch_tensors(next(batches), dev)
+            else:
+                feats, seq, nsegs, w = batch_views(
+                    source.data, *arrays, i * B_TRAIN, plan.n_real,
+                    batch_size=B_TRAIN, seg_len=cfg.data.seg_len)
+            ev[1].record()
+            out = state.model.apply(feats, seq, nsegs, sample=True,
+                                    noise=step_noise(state, B_TRAIN, dev))
+            loss, _ = loss_from_outputs(out, w, 10.0)
+            ev[2].record()
+            names = list(state.params())
+            grads = torch.autograd.grad(loss, list(state.params().values()))
+            ev[3].record()
+            opt.update(state, dict(zip(names, grads)))
+            state.step += 1
+            ev[4].record()
+            return loss.detach(), ev
+
+        for i in range(3):
+            float(one_step(i)[0])
+        torch.cuda.synchronize()
+        events, pending = [], None
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(3, 13):
+                loss, ev = one_step(i)
+                events.append(ev)
+                if tier == "host":
+                    float(loss)
+                else:
+                    if pending is not None:
+                        float(pending)
+                    pending = loss
+            if pending is not None:
+                float(pending)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / 10
+        batches.close()
+        stages = {k: sum(ev[j].elapsed_time(ev[j + 1]) for ev in events) / 10
+                  for j, k in enumerate(("data", "forward", "backward",
+                                         "optimizer"))}
+        busy = sum(e.device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) \
+            / 1e3 / 10
+        log(f"{tier} tier, 10 warm steps at batch 1024 with its data path "
+            f"(CUDA events, ms/step): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+            + f"; host wall {wall:.3f}; profiler: device busy {busy:.3f} ms "
+            f"(idle share {1 - busy / wall:.3f}); {B_TRAIN / wall * 1e3:.1f} "
+            f"segments/s")
+    del source, arrays
+    torch.cuda.empty_cache()
+
+
+class _Tee(io.TextIOBase):
+    """Write to every stream given (a run's stdout, kept and shown)."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for s in self.streams:
+            s.write(text)
+        return len(text)
+
+    def flush(self):
+        for s in self.streams:
+            s.flush()
+
+
+def run_cli(cli, args) -> str:
+    """Run the port's CLI; fails when it exits non-zero. Returns its stdout."""
+    out = io.StringIO()
+    with redirect_stdout(_Tee(sys.stdout, out)):
+        rc = cli(args)
+    if rc != 0:
+        raise AssertionError(f"train {' '.join(args[-4:])} exited {rc}")
+    return out.getvalue()
+
+
 def phase_train(workdir: Path) -> dict:
     from pytorch_scalablefhvae_tpu_torch.cli.main import main as cli
     from pytorch_scalablefhvae_tpu_torch.train import checkpoint as ckpt
@@ -858,7 +1182,10 @@ def phase_train(workdir: Path) -> dict:
     cfg = write_feature_corpus(root)
     log(f"corpus written in {time.perf_counter() - t0:.1f} s")
     compare_first_steps(cfg, root)
+    compare_tiers_first_steps(cfg, root)
+    check_dev_pass(cfg, root)
     step_breakdown(cfg, root)
+    tier_breakdown(cfg, root)
 
     exp_root = workdir / "experiments"
     args = ["train", "--dataset", "synthetic", "--preprocessed",
@@ -868,17 +1195,19 @@ def phase_train(workdir: Path) -> dict:
     for e in entries:
         e.launches = 0
     t0 = time.perf_counter()
-    if cli(args + ["--epochs", "2"]) != 0:
-        raise AssertionError("train exited non-zero")
+    out = run_cli(cli, args + ["--epochs", "2"])
     exp = exp_root / "synthetic_np_fbank" / "fhvae_e2_p10_a10.0"
     last = exp / "fhvae_synthetic_np_fbank_e1.npz"
-    if cli(args + ["--continue-from", str(last), "--resume-override",
-                   "epochs=3"]) != 0:
-        raise AssertionError("resumed train exited non-zero")
+    out += run_cli(cli, args + ["--continue-from", str(last),
+                                "--resume-override", "epochs=3"])
     seconds = time.perf_counter() - t0
     launches = {e.__name__: e.launches for e in entries}
     log(f"launches during training (2 epochs + 1 resumed, dev passes "
         f"included): {launches}")
+    for line in ("Training data device-resident", "Dev split device-resident"):
+        if out.count(line) != 2:
+            raise AssertionError(f"the default train runs did not log "
+                                 f"{line!r} once each")
 
     recs = [json.loads(line) for line in
             (exp / "metrics.jsonl").read_text().splitlines()]
@@ -908,6 +1237,27 @@ def phase_train(workdir: Path) -> dict:
     for name, count in launches.items():
         if count <= 0:
             raise AssertionError(f"{name} was not launched by training")
+
+    # one epoch from the host loader: the same batches, so the same loss
+    host_root = workdir / "experiments_host"
+    out = run_cli(cli, args[:-1] + [str(host_root), "--data-placement",
+                                    "host", "--epochs", "1"])
+    if "device-resident" in out:
+        raise AssertionError("--data-placement host staged data on the card")
+    host = json.loads((host_root / "synthetic_np_fbank" / "fhvae_e1_p10_a10.0"
+                       / "metrics.jsonl").read_text().splitlines()[0])
+    lb_err = abs(host["val_lower_bound"] - recs[0]["val_lower_bound"]) \
+        / abs(host["val_lower_bound"])
+    log(f"epoch 0, device tier vs host loader: train loss "
+        f"{recs[0]['train_loss']!r} vs {host['train_loss']!r}; dev LB "
+        f"{recs[0]['val_lower_bound']!r} vs {host['val_lower_bound']!r} "
+        f"(relative difference {lb_err:.3e}, tol {TOL_DEV_LB:g}); segments/s "
+        f"{recs[0]['train_segments_per_sec']:.1f} (device tier) vs "
+        f"{host['train_segments_per_sec']:.1f} (host loader), card "
+        f"{smi_name_power()}")
+    if host["train_loss"] != recs[0]["train_loss"] or not lb_err <= TOL_DEV_LB:
+        raise AssertionError("the host loader's epoch 0 disagrees with the "
+                             "device tier's")
     return launches
 
 
@@ -919,6 +1269,7 @@ def main() -> int:
     phase_environment()
     results = phase_kernels()
     results.update(phase_backward())
+    results.update(phase_gather())
     workdir = Path(__file__).resolve().parent / "build" / "chip_smoke"
     shutil.rmtree(workdir, ignore_errors=True)
     workdir.mkdir(parents=True)

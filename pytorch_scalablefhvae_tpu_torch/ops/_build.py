@@ -1,8 +1,9 @@
 """Build the port's CUDA sources (``csrc/*.cu``) and load them with ctypes.
 
 ``nvcc`` compiles every source (``*.cu``, which include the ``*.cuh``
-headers beside them) into one shared library with a plain C
-interface, for ``sm_90a`` (Hopper), at first use. The library lands in
+headers beside them) for ``sm_90a`` (Hopper) at first use, one ``nvcc -c``
+per source, all started together, and links the objects into one shared
+library with a plain C interface. The library lands in
 ``build/torch_kernels/<hash>/`` of the checkout, keyed by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one loads
 in milliseconds. nvcc's ``-Xptxas -v`` report (registers, shared memory,
@@ -20,14 +21,15 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 LIB_NAME = "libsfhvae_torch_kernels.so"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -45,6 +47,8 @@ _SIGNATURES = {
     "sfhvae_disc_fwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, ctypes.c_float, _P]),
     "sfhvae_disc_bwd": (_I, [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P]),
+    "sfhvae_window_gather_max_smem": (_I, []),
+    "sfhvae_window_gather": (_I, [_P, _P, _P, _L] + [_I] * 6 + [_P]),
     "sfhvae_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -74,25 +78,40 @@ def library_path() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
 
 
+def _run(cmd: list[str]) -> str:
+    """Run one nvcc command; its stderr, or a raise with it on failure."""
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stderr}")
+    return proc.stderr
+
+
 def build() -> Path:
-    """Compile ``csrc/*.cu`` unless this exact build exists; raises with
-    nvcc's stderr when the compile fails."""
+    """Compile ``csrc/*.cu`` unless this exact build exists: every source
+    compiles in its own ``nvcc -c``, all at once, then one link; raises with
+    nvcc's stderr when a step fails."""
     out = library_path()
     if out.is_file():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    srcs = sources()
+    # nvcc tells an object from other inputs by its ".o" suffix
+    objs = [out.with_name(f".{s.stem}.{os.getpid()}.o") for s in srcs]
+    nvcc = _nvcc()
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stderr}")
-        (out.parent / "build.log").write_text(proc.stderr)
+        with ThreadPoolExecutor(len(srcs)) as pool:
+            logs = list(pool.map(_run, [
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                for s, o in zip(srcs, objs)]))
+        _run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)])
+        (out.parent / "build.log").write_text("".join(logs))
         os.replace(tmp, out)
     finally:
-        tmp.unlink(missing_ok=True)
+        for p in (tmp, *objs):
+            p.unlink(missing_ok=True)
     return out
 
 

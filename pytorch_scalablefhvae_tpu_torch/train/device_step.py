@@ -1,0 +1,190 @@
+"""Steps and passes that gather their batches from the device-resident store.
+
+Counterpart of ``pytorch_scalablefhvae_tpu/train/device_step.py`` on one
+device. Instead of a ``[B, seg_len, D]`` batch shipped from the host every
+step, these take the staged store (``data/device_store.py``) and the epoch's
+index plan on the device, and build each batch there:
+
+- :func:`batch_views`: the shared prologue (plan slice at ``off``, weight
+  mask from ``n_real``, segment gather, clipped ``nsegs`` lookup);
+- :func:`device_train_step`: one optimizer step (K = 1) through the port's
+  ``train_step``;
+- :func:`device_eval_pass`: per-batch weighted metric sums over a split,
+  stacked on the device;
+- :func:`device_map_pass` (array plan) and :func:`device_map_pass_chunked`
+  (the chunk layout, gathered by the ``windowed_chunk_gather`` kernel): a
+  split's MAP mu2 table, accumulated in fp32 on the device.
+
+PyTorch runs eagerly, so where the JAX package jits a scan, these loop over
+batches in Python; nothing leaves the device until the caller fetches it.
+Padding rows of a plan are (sequence 0, frame 0) with weight 0, so given the
+same permutation the steps train exactly as the host loader does.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pytorch_scalablefhvae_tpu_torch.data.device_store import STORE_TAIL_SLACK
+from pytorch_scalablefhvae_tpu_torch.ops.window_gather import (
+    windowed_chunk_gather,
+)
+from pytorch_scalablefhvae_tpu_torch.train.step import eval_step, train_step
+
+
+def gather_segments(store, starts, seg_len: int):
+    """``[B, seg_len, D]`` windows ``store[starts[b] + t]``: a plain gather,
+    as the JAX package's ``jnp.take`` outside any kernel."""
+    return store[starts[:, None]
+                 + torch.arange(seg_len, device=store.device)[None, :]]
+
+
+def batch_views(store, seq_idx_all, starts_all, nsegs_tab, off: int,
+                n_real: int, *, batch_size: int, seg_len: int):
+    """``(feats, seq_idx, nsegs, weight)`` of the plan's rows ``[off, off +
+    batch_size)``: rows at plan positions ``>= n_real`` get weight 0;
+    ``nsegs`` is ``None`` when ``nsegs_tab`` is."""
+    seq_idx = seq_idx_all[off:off + batch_size]
+    starts = starts_all[off:off + batch_size]
+    pos = off + torch.arange(batch_size, device=store.device)
+    weight = (pos < n_real).to(torch.float32)
+    feats = gather_segments(store, starts, seg_len)
+    if nsegs_tab is None:
+        return feats, seq_idx, None, weight
+    nsegs = nsegs_tab[seq_idx.clamp(0, nsegs_tab.shape[0] - 1)]
+    return feats, seq_idx, nsegs, weight
+
+
+def device_train_step(state, optimizer, store, plan, off: int, n_real: int,
+                      alpha: float, *, batch_size: int, seg_len: int,
+                      noise: dict | None = None) -> dict:
+    """One optimizer step in place on the plan's batch at ``off``;
+    ``plan = (seq_idx_all, starts_all, nsegs_tab)``. Returns the step's
+    metrics (0-dim tensors on the device)."""
+    seq_idx_all, starts_all, nsegs_tab = plan
+    feats, seq_idx, nsegs, weight = batch_views(
+        store, seq_idx_all, starts_all, nsegs_tab, off, n_real,
+        batch_size=batch_size, seg_len=seg_len)
+    return train_step(state, optimizer, feats, seq_idx, nsegs, weight, alpha,
+                      noise=noise)
+
+
+@torch.inference_mode()
+def device_eval_pass(model, store, plan, n_real: int, alpha: float,
+                     table: torch.Tensor | None, *, batch_size: int,
+                     seg_len: int, n_batches: int) -> dict:
+    """Weighted sums of every metric and the row count (``count``) per
+    batch, each stacked ``[n_batches]`` on the device, scored against
+    ``table`` when given."""
+    seq_idx_all, starts_all, nsegs_tab = plan
+    stacked: dict[str, list] = {}
+    for b in range(n_batches):
+        feats, seq_idx, nsegs, weight = batch_views(
+            store, seq_idx_all, starts_all, nsegs_tab, b * batch_size, n_real,
+            batch_size=batch_size, seg_len=seg_len)
+        sums = eval_step(model, feats, seq_idx, nsegs, weight, alpha, table)
+        for k, v in sums.items():
+            stacked.setdefault(k, []).append(v)
+    return {k: torch.stack(v) for k, v in stacked.items()}
+
+
+@torch.inference_mode()
+def _map_scan(model, batch_fn, n_batches: int, num_rows: int,
+              r_ratio: float, device) -> torch.Tensor:
+    """The MAP passes' shared body: encode each batch's z2 means, sum them
+    and the valid counts per table row in fp32, then the closed-form MAP
+    mean ``sum / (count + pz2_var / pmu2_var)``. ``batch_fn(b) -> (feats,
+    seq_idx, valid)``. ``index_put_`` with ``accumulate`` adds duplicate rows
+    in a fixed order (on CUDA it sorts the indices and runs no atomics), so
+    two passes give the same bits."""
+    sums = torch.zeros((num_rows, model.z2_dim), device=device)
+    counts = torch.zeros((num_rows,), device=device)
+    for b in range(n_batches):
+        feats, seq_idx, valid = batch_fn(b)
+        z2_mu = model.encode_z2(feats)
+        sums.index_put_((seq_idx,), z2_mu * valid[:, None], accumulate=True)
+        counts.index_put_((seq_idx,), valid, accumulate=True)
+    return sums / (counts + r_ratio)[:, None]
+
+
+def device_map_pass(model, store, seq_idx_all, starts_all, n_real: int, *,
+                    seg_len: int, batch_size: int, n_batches: int,
+                    num_rows: int, pz2_var: float,
+                    pmu2_var: float = 1.0) -> torch.Tensor:
+    """A split's ``[num_rows, z2_dim]`` MAP mu2 table from the array plan
+    (``make_device_map_pass``)."""
+
+    def batch_fn(b):
+        feats, seq_idx, _, valid = batch_views(
+            store, seq_idx_all, starts_all, None, b * batch_size, n_real,
+            batch_size=batch_size, seg_len=seg_len)
+        return feats, seq_idx, valid
+
+    return _map_scan(model, batch_fn, n_batches, num_rows,
+                     pz2_var / pmu2_var, store.device)
+
+
+def chunk_layout(sel_starts, sel_nsegs, *, spb: int, seg_shift: int,
+                 rows: int, chunk_skip: int = 1):
+    """The chunked schedule of ``rows`` windows (a multiple of ``spb``):
+    sequence ``k`` owns ``ceil(ceil(nsegs[k] / spb) / chunk_skip)`` chunks
+    of ``spb`` consecutive windows; its selected chunk ``j`` is original
+    chunk ``j * chunk_skip``. Returns ``(seq_all [rows], valid [rows] f32,
+    chunk_starts [rows // spb])``: padding chunks past the real ones start
+    at frame 0, and a window is valid when it lies inside its sequence and
+    its chunk is real."""
+    dev = sel_starts.device
+    nseg = sel_nsegs.to(torch.long)
+    chunks = (nseg + spb - 1) // spb
+    cps = (chunks + chunk_skip - 1) // chunk_skip
+    cumc = torch.cumsum(cps, 0)
+    n_chunks_real = cumc[-1]
+    q = torch.arange(rows // spb, device=dev)
+    k_q = torch.searchsorted(cumc, q, right=True).clamp(max=nseg.shape[0] - 1)
+    prev = torch.where(k_q > 0, cumc[(k_q - 1).clamp(min=0)], 0)
+    qj = (q - prev) * chunk_skip  # original chunk index within its sequence
+    chunk_starts = sel_starts.to(torch.long)[k_q] + qj * (spb * seg_shift)
+    chunk_starts = torch.where(q < n_chunks_real, chunk_starts, 0)
+    seq_all = k_q.repeat_interleave(spb, output_size=rows)
+    j_in_seq = (qj.repeat_interleave(spb, output_size=rows) * spb
+                + torch.arange(spb, device=dev).repeat(rows // spb))
+    real_chunk = q.repeat_interleave(spb, output_size=rows) < n_chunks_real
+    valid = ((j_in_seq < nseg[seq_all]) & real_chunk).to(torch.float32)
+    return seq_all, valid, chunk_starts
+
+
+def device_map_pass_chunked(model, store, sel_starts, sel_nsegs, *,
+                            seg_len: int, seg_shift: int, batch_size: int,
+                            n_batches: int, num_rows: int, pz2_var: float,
+                            spb: int = 16, pmu2_var: float = 1.0,
+                            chunk_skip: int = 1) -> torch.Tensor:
+    """A split's MAP mu2 table over the chunked schedule of
+    :func:`chunk_layout` (``make_device_map_pass_chunked``): each batch's
+    ``batch_size / spb`` chunks are gathered by ``windowed_chunk_gather``,
+    one region copy per chunk. ``sel_starts [K]`` are the sequences' first
+    frames in the staged store, ``sel_nsegs [K]`` their window counts. The
+    store must keep ``(spb - 1) * seg_shift + seg_len`` rows of slack past
+    its last frame. ``chunk_skip > 1`` encodes every ``chunk_skip``-th
+    chunk only (a hierarchical round's MAP init)."""
+    B = batch_size
+    if B % spb:
+        raise ValueError(f"batch_size {B} must be a multiple of spb {spb}")
+    region = (spb - 1) * seg_shift + seg_len
+    if region > STORE_TAIL_SLACK:
+        raise ValueError(
+            f"chunk region (spb-1)*seg_shift+seg_len = {region} exceeds the "
+            f"staged store's tail slack ({STORE_TAIL_SLACK}); lower spb or "
+            f"use the array-plan MAP pass")
+    cpb = B // spb
+    seq_all, valid_all, chunk_starts = chunk_layout(
+        sel_starts, sel_nsegs, spb=spb, seg_shift=seg_shift,
+        rows=n_batches * B, chunk_skip=chunk_skip)
+
+    def batch_fn(b):
+        feats = windowed_chunk_gather(
+            store, chunk_starts[b * cpb:(b + 1) * cpb], spb, seg_len,
+            seg_shift)
+        return feats, seq_all[b * B:(b + 1) * B], valid_all[b * B:(b + 1) * B]
+
+    return _map_scan(model, batch_fn, n_batches, num_rows,
+                     pz2_var / pmu2_var, store.device)

@@ -12,7 +12,8 @@ imports no jax; ``split_manifests`` says where a preprocessed corpus's
 ``feats.scp`` / ``len.scp`` live.
 
 :func:`check_ported` refuses every setting whose code path is not yet
-ported, naming ``ROADMAP.md``; the host loader is the one data tier.
+ported, naming ``ROADMAP.md``. The data tier (the device-resident store or
+the host loader) is resolved by ``train/loop.py``.
 """
 
 from __future__ import annotations
@@ -31,10 +32,10 @@ from pytorch_scalablefhvae_tpu_torch.config import ExperimentConfig
 from pytorch_scalablefhvae_tpu_torch.train.loop import TrainResult, run_training
 
 
-def check_ported(config: ExperimentConfig, verbose: bool = True) -> None:
+def check_ported(config: ExperimentConfig) -> None:
     """Raise ``NotImplementedError`` (naming ROADMAP.md) for a setting the
-    port does not run yet. ``data_placement="auto"`` trains from the host
-    loader, the one tier ported (the saved config keeps "auto")."""
+    port does not run yet. ``--epoch-plan device`` is refused rather than
+    ignored: on the device-resident tier it means an in-graph shuffle."""
     t, d = config.train, config.data
     refused = {
         "--model-type simple_fhvae": config.model.model_type == "simple_fhvae",
@@ -49,8 +50,8 @@ def check_ported(config: ExperimentConfig, verbose: bool = True) -> None:
         "--tensorboard": t.tensorboard,
         "--visdom": t.plot_curves,
         "--extractor jax": config.features.extractor == "jax",
-        f"--data-placement {d.data_placement}": d.data_placement in (
-            "device", "stream"),
+        "--data-placement stream": d.data_placement == "stream",
+        "--epoch-plan device": d.epoch_plan == "device",
         f"--transfer-dtype {d.transfer_dtype}": d.transfer_dtype != "float32",
     }
     for flag, hit in refused.items():
@@ -59,9 +60,6 @@ def check_ported(config: ExperimentConfig, verbose: bool = True) -> None:
                 f"{flag} is not yet ported to PyTorch (ROADMAP.md); train "
                 f"with the JAX CLI, python -m pytorch_scalablefhvae_tpu.cli."
                 f"main train")
-    if d.data_placement == "auto" and verbose:
-        print("data placement auto -> host: the device-resident data tier "
-              "is not yet ported (ROADMAP.md)")
 
 
 def build_loaders(config: ExperimentConfig, data_root: str | Path = ".",
@@ -119,7 +117,7 @@ def train_from_config(config: ExperimentConfig, data_root: str | Path = ".",
         raise ValueError(
             "--resume-override only applies when resuming (--continue-from); "
             "set the flag directly for a fresh run")
-    check_ported(config, verbose)
+    check_ported(config)
     if (config.features.data_format == "kaldi"
             and config.features.fbank_conf_kwargs is None
             and Path(fbank_conf).exists()):

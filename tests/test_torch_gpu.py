@@ -13,7 +13,11 @@ import numpy as np
 import pytest
 import torch
 
-from pytorch_scalablefhvae_tpu_torch.ops import discriminative, lstm_cuda
+from pytorch_scalablefhvae_tpu_torch.ops import (
+    discriminative,
+    lstm_cuda,
+    window_gather,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -189,3 +193,64 @@ def test_model_gradients_through_kernels_match_plain(cuda):
         (lstm_cuda.lstm2_tm_proj, lstm_cuda.lstm2_tm,
          discriminative.discriminative_log_qy) = saved
     assert rel_norm(got, want) <= 1e-4
+
+
+# a copy: the kernel must equal its plain version bit for bit. D 80 takes
+# the 16-byte path; D 6, and a store that is not 16-byte aligned, the
+# 4-byte one
+@pytest.mark.parametrize("d,offset", [(80, 0), (6, 0), (8, 1)],
+                         ids=["16-byte copies", "D*4 % 16 != 0", "unaligned"])
+def test_window_gather_matches_plain(cuda, d, offset):
+    g = torch.Generator().manual_seed(6)
+    n, spb, seg_len, stride = 700, 16, 20, 8
+    flat = torch.randn((n * d + offset,), generator=g).to(cuda)
+    store = flat[offset:].view(n, d)
+    region = (spb - 1) * stride + seg_len
+    # the last chunks run past the store's end: those rows read zero
+    starts = torch.tensor([0, 3, 250, n - region, n - region + 7, n - 1],
+                          device=cuda)
+    fn = window_gather.windowed_chunk_gather
+    before = fn.launches
+    got = fn(store, starts, spb, seg_len, stride)
+    again = fn(store, starts, spb, seg_len, stride)
+    want = window_gather.windowed_chunk_gather_reference(store, starts, spb,
+                                                         seg_len, stride)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    assert torch.equal(got, want) and torch.equal(got, again)
+    assert not got[-spb:, 1:].any()
+
+
+def test_chunked_map_pass_through_the_kernel(cuda):
+    """The dev MAP pass on the card: through the gather kernel and through
+    the plain gather, equal; two passes give the same bits."""
+    from pytorch_scalablefhvae_tpu_torch.models.fhvae import FHVAE
+    from pytorch_scalablefhvae_tpu_torch.train import device_step
+
+    g = torch.Generator().manual_seed(7)
+    lens = torch.randint(20, 90, (37,), generator=g)
+    nsegs = (lens - 20) // 8 + 1
+    starts = torch.cumsum(lens, 0) - lens
+    rows = int(lens.sum())
+    store = torch.zeros((rows + 256, 8))
+    store[:rows] = torch.randn((rows, 8), generator=g)
+    model = FHVAE(20 * 8, z1_hus=(H, H), z2_hus=(H, H), x_hus=(H, H),
+                  z1_dim=4, z2_dim=4, num_seqs=37, feat_dim=8,
+                  generator=torch.Generator().manual_seed(8)).to(cuda)
+    padded = int(((nsegs + 15) // 16 * 16).sum())
+    kw = dict(seg_len=20, seg_shift=8, batch_size=64,
+              n_batches=-(-padded // 64), num_rows=37, pz2_var=0.25)
+    args = (model, store.to(cuda), starts.to(cuda), nsegs.to(cuda))
+    before = window_gather.windowed_chunk_gather.launches
+    got = device_step.device_map_pass_chunked(*args, **kw)
+    again = device_step.device_map_pass_chunked(*args, **kw)
+    assert window_gather.windowed_chunk_gather.launches \
+        == before + 2 * kw["n_batches"]
+    saved = device_step.windowed_chunk_gather
+    device_step.windowed_chunk_gather = \
+        window_gather.windowed_chunk_gather_reference
+    try:
+        want = device_step.device_map_pass_chunked(*args, **kw)
+    finally:
+        device_step.windowed_chunk_gather = saved
+    assert torch.equal(got, again) and torch.equal(got, want)

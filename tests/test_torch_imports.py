@@ -14,17 +14,20 @@ from pytorch_scalablefhvae_tpu_torch.utils.device import resolve_device
 PORT_MODULES = [
     "pytorch_scalablefhvae_tpu_torch.cli.main",
     "pytorch_scalablefhvae_tpu_torch.config",
+    "pytorch_scalablefhvae_tpu_torch.data.device_store",
     "pytorch_scalablefhvae_tpu_torch.eval.serve",
     "pytorch_scalablefhvae_tpu_torch.eval.encode",
     "pytorch_scalablefhvae_tpu_torch.eval.evaluate",
     "pytorch_scalablefhvae_tpu_torch.models.fhvae",
     "pytorch_scalablefhvae_tpu_torch.train.checkpoint",
     "pytorch_scalablefhvae_tpu_torch.train.step",
+    "pytorch_scalablefhvae_tpu_torch.train.device_step",
     "pytorch_scalablefhvae_tpu_torch.train.loop",
     "pytorch_scalablefhvae_tpu_torch.train.driver",
     "pytorch_scalablefhvae_tpu_torch.train.metrics",
     "pytorch_scalablefhvae_tpu_torch.ops.lstm_cuda",
     "pytorch_scalablefhvae_tpu_torch.ops.discriminative",
+    "pytorch_scalablefhvae_tpu_torch.ops.window_gather",
 ]
 
 

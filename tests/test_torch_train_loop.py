@@ -199,7 +199,7 @@ def test_divergence_exits_2(corpus, tmp_path, capsys):
     ["--legacy"], ["--steps-per-dispatch", "4"], ["--ckpt-every-steps", "5"],
     ["--max-steps", "3"], ["--profile-dir", "prof"], ["--tensorboard"],
     ["--visdom"], ["--extractor", "jax"], ["--model-type", "simple_fhvae"],
-    ["--data-placement", "device"], ["--data-placement", "stream"],
+    ["--epoch-plan", "device"], ["--data-placement", "stream"],
     ["--transfer-dtype", "bfloat16"], ["--lstm-pallas", "never"],
 ], ids=lambda f: " ".join(f))
 def test_unported_flag_raises(corpus, tmp_path, flags):
