@@ -27,5 +27,5 @@ quality:
 	bash misc/repro_quality.sh
 
 clean:
-	rm -f pytorch_scalablefhvae_tpu/native/*.so
+	rm -f pytorch_scalablefhvae_tpu/native/*.so pytorch_scalablefhvae_tpu_torch/native/*.so
 	find . -name __pycache__ -type d -exec rm -rf {} + 2>/dev/null || true

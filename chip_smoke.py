@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths on one GPU.
+"""Drive the PyTorch/CUDA port's serving, extraction and training paths on
+one GPU.
 
     python3 chip_smoke.py        # from the root of a checkout; needs 1 GPU
 
@@ -16,9 +17,17 @@ prints no result line):
    stats, a seeded port checkpoint with 4,620 table rows), start the port's
    ``serve`` on piped streams, send a ping, three encode requests, one
    malformed request and a shutdown, check every response, check that the
-   three kernel entries were launched during the requests, and hold the
+   three model kernel entries were launched during the requests, and hold the
    served latents against the same requests run through the plain versions
-   on the card;
+   on the card. Then the same again from a copy of the experiment whose
+   config says ``extractor: "jax"``: the features are computed on the card
+   through ``fused_logmel_frames``, which must have been launched; the
+   card's features are held against the host extractor's and the served
+   latents against the first run's;
+3b. the port's CLI, ``extract`` over manifests of the served WAVs and
+   ``preprocess`` of the synthetic corpus, each with ``--extractor jax`` on
+   the card and with ``--extractor numpy``: manifests and frame counts
+   equal, features within the stated limit;
 2b. the three backward entries against their plain backward at the training
    shapes (B = 1024), in fp32 and bf16 operands, on the same residuals and
    cotangents, two launches compared bitwise; the discriminative backward
@@ -29,6 +38,10 @@ prints no result line):
    100,000-row store and on a store of TIMIT-train size, whose last chunks
    run into the staged slack: a copy, so equal bit for bit, and two
    launches equal;
+2d. ``fused_logmel_frames`` against its plain version at the serving batch's
+   shape (32 utterances of 205 frames), a ragged N, one frame, silent frames
+   (at the default floor and at one below them) and a 40-band bank; a
+   rectangular window in place of the Hamming one must miss the limit;
 4. training: write a preprocessed feature corpus of 4,620 training and 400
    dev sequences; hold the first three train steps through the kernels
    against the same steps through the plain versions on the card, and the
@@ -52,11 +65,19 @@ if that gap ever falls below a tolerance. It imports only the port, never
 the JAX package.
 
 The second-to-last line of stdout is a JSON object with one entry per
-kernel entry (``launches`` sums the serve and train runs; ``ms`` and
-``plain_ms`` are the bf16-operand times of the entry's heaviest form, and
-for ``windowed_chunk_gather`` the device time per call at the dev MAP
-shape); the
-line before it is nvidia-smi's name and power limit; the last line is
+kernel entry. ``launches`` sums ``launches_by_path``: the counts of the
+``extractor: "jax"`` serve run (``serve``), the numpy-extractor serve run
+(``serve_numpy``), the CLI extraction (``preprocess``) and the train runs
+(``train``), each set to 0 just before its path and read just after. ``ms``
+and ``plain_ms`` are the bf16-operand times of an LSTM entry's heaviest form,
+and for ``windowed_chunk_gather`` and ``fused_logmel_frames`` the device time
+per call by torch.profiler; ``bound_ms`` is the least time the card could
+take for the same inputs (their bytes once over 3.35 TB/s, or the products'
+operations over 989 TFLOP/s for bf16 operands and 67 TFLOP/s for fp32,
+whichever is larger; ``bound_by`` says which); ``library_ms`` times the one
+PyTorch call that computes the same function where there is one (a row
+gather for ``windowed_chunk_gather``), else null. The line before it is
+nvidia-smi's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -129,7 +150,31 @@ SOURCES = {
     "windowed_chunk_gather": (
         "pytorch_scalablefhvae_tpu_torch/csrc/window_gather.cu",
         "pytorch_scalablefhvae_tpu/ops/window_gather_pallas.py:88"),
+    "fused_logmel_frames": (
+        "pytorch_scalablefhvae_tpu_torch/csrc/fbank_logmel.cu",
+        "pytorch_scalablefhvae_tpu/ops/fbank_pallas.py:152"),
 }
+N_FFT, N_BINS = 400, 201      # 25 ms at 16 kHz; n_fft // 2 + 1 DFT bins
+N_SERVE_FRAMES = 32 * 205     # one serving batch: 32 utterances in the
+                              # 32,768-sample bucket, 1 + 32768 // 160 frames
+TOL_LOGMEL = 2e-4       # log-mel, kernel vs plain version, absolute: the limit
+                        # the JAX package holds its TPU kernel to against its
+                        # jnp mirror (the order of a 400-term fp32 sum)
+TOL_FEATS = 2e-3        # log-mel features, device chain (fp32 DFT by products)
+                        # vs host extractor (float64 FFT), absolute and
+                        # relative: the JAX package's own limit between its
+                        # two extractors is 2e-2 where the bin carries energy;
+                        # read 6.0e-4 (NVIDIA H100 80GB HBM3, 700 W)
+TOL_SERVED_JAX = 2e-3   # served latents, extractor "jax" vs "numpy", absolute:
+                        # the features differ by fp32 round-off (up to 6e-4 in
+                        # the log-mel), which the bf16 operand rounding of the
+                        # LSTMs can flip into one more bf16 step of h; read
+                        # 3.6e-4 to 4.2e-4 (NVIDIA H100 80GB HBM3, 700 W)
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense): the bound
+# of a kernel is the larger of its bytes over the memory rate and its
+# operations over the rate for their operand type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 
 
 def log(*parts) -> None:
@@ -178,6 +223,31 @@ def device_ms(fn, iters: int = 50) -> float:
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def tensor_bytes(*objs) -> int:
+    """Bytes of every tensor in (nested) ``objs``, each counted once."""
+    seen, total, todo = set(), 0, list(objs)
+    while todo:
+        o = todo.pop()
+        if isinstance(o, torch.Tensor):
+            if o.data_ptr() not in seen:
+                seen.add(o.data_ptr())
+                total += o.numel() * o.element_size()
+        elif isinstance(o, (tuple, list)):
+            todo.extend(o)
+    return total
+
+
+def bound(nbytes: float, flops: float, operands: str) -> dict:
+    """The least time the card could take: every input read and every output
+    written once at the memory rate, or the operations at the peak rate for
+    their operand type, whichever is larger."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS[operands] * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": None}
 
 
 # --------------------------------------------------------------- phase 1
@@ -245,20 +315,30 @@ def phase_kernels() -> dict:
     xg_c = torch.randn((B, 2 * Z), generator=g).cuda() @ dec_stack[0][0][:2 * Z] \
         + dec_stack[0][1]
 
+    # per form: the call, its inputs (for the bytes of the bound) and the
+    # multiply-adds of its products: per step and row 4H gate columns over a
+    # depth of D + H (layer 1; H alone where the input's part is given) and
+    # 2H (layer 2)
     cases = {
         "lstm2_tm_proj": {
-            "z2 encoder": lambda fn, mm: fn(z2_stack, x, None, mm),
-            "z1 encoder, xgc tile": lambda fn, mm: fn(z1_stack, x, xgc, mm),
+            "z2 encoder": (lambda fn, mm: fn(z2_stack, x, None, mm),
+                           (z2_stack, x), D + 3 * H),
+            "z1 encoder, xgc tile": (
+                lambda fn, mm: fn(z1_stack, x, xgc, mm),
+                ([(z1_stack[0][0][:D], z1_stack[0][0][D + Z:]), z1_stack[1]],
+                 x, xgc), D + 3 * H),
         },
         "lstm2_tm": {
-            "decoder, const": lambda fn, mm: fn(dec_stack, xg_c, T, mm),
+            "decoder, const": (
+                lambda fn, mm: fn(dec_stack, xg_c, T, mm),
+                ([dec_stack[0][0][2 * Z:], dec_stack[1]], xg_c), 3 * H),
         },
     }
     results: dict = {}
     for name, forms in cases.items():
         kernel = getattr(lstm_cuda, name)
         plain = getattr(lstm_cuda, name + "_reference")
-        for form, call in forms.items():
+        for form, (call, inputs, depth) in forms.items():
             refs = {mm: call(plain, mm) for mm in ("float32", "bfloat16")}
             gap = max(max_err(a, b) for a, b in zip(refs["float32"],
                                                     refs["bfloat16"]))
@@ -287,7 +367,9 @@ def phase_kernels() -> dict:
                     if prev is None or ms > prev["ms"]:
                         results[name] = {"max_abs_err": max(
                             err, prev["max_abs_err"] if prev else 0.0),
-                            "ms": ms, "plain_ms": plain_ms, "form": form}
+                            "ms": ms, "plain_ms": plain_ms, "form": form,
+                            **bound(tensor_bytes(inputs, tops_k, h2_k),
+                                    2 * T * B * 4 * H * depth, "bfloat16")}
                     else:
                         prev["max_abs_err"] = max(prev["max_abs_err"], err)
 
@@ -317,9 +399,13 @@ def phase_kernels() -> dict:
                 f"discriminative_log_qy at N={n} disagrees with its plain "
                 f"version: {err} > {TOL_LOG_QY}")
         if n == N_TABLE:  # the table size the served experiment uses
+            # B x N squared distances over Z (a subtract and a multiply-add
+            # each, counted as 2 * B * N * Z), fp32 outside the tensor cores
             results["discriminative_log_qy"] = {
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "form": f"N={n}"}
+                "form": f"N={n}",
+                **bound(tensor_bytes(z2, mu2, seq, k_out), 2 * B * n * Z,
+                        "float32")}
         else:
             results["discriminative_log_qy"]["max_abs_err"] = max(
                 results["discriminative_log_qy"]["max_abs_err"], err)
@@ -375,7 +461,10 @@ def phase_backward() -> dict:
         def run(fn, mm, resid):
             tops, res = resid
             return fn(x, xgc_, res, tops, *fwd_in[2:], g_tops, g_h2, mm)
-        return fwd_in, lstm_cuda._proj_forward_plain, run
+        # multiply-adds per step, row and gate column: the gates recomputed
+        # (D + 3H deep), the adjoints through W2x, W2h, W1h (3H), the four
+        # weight gradients (D + 3H) and dx (D)
+        return fwd_in, lstm_cuda._proj_forward_plain, run, 3 * D + 9 * H
 
     def dec_case(cells):
         w1, b1, w1h, w2x, w2h, b2 = split(cells)
@@ -384,7 +473,9 @@ def phase_backward() -> dict:
         def run(fn, mm, resid):
             tops, res = resid
             return fn(xg_c, T, res, tops, w1h, w2x, w2h, b2, g_tops, g_h2, mm)
-        return fwd_in, lstm_cuda._tm_forward_plain, run
+        # as above without an input product: 3H recomputed, 3H adjoints, 3H
+        # of weight gradients
+        return fwd_in, lstm_cuda._tm_forward_plain, run, 9 * H
 
     cases = {
         "lstm2_tm_proj_bwd": {"z2 encoder": proj_case(z2_stack, None),
@@ -396,7 +487,7 @@ def phase_backward() -> dict:
     for name, forms in cases.items():
         kernel = getattr(lstm_cuda, name)
         plain = getattr(lstm_cuda, name + "_reference")
-        for form, (fwd_in, fwd_plain, run) in forms.items():
+        for form, (fwd_in, fwd_plain, run, depth) in forms.items():
             for mm, tol in (("float32", TOL_BWD_FP32),
                             ("bfloat16", TOL_BWD_BF16)):
                 tops, _, res = fwd_plain(*fwd_in, mm, with_resid=True)
@@ -434,7 +525,11 @@ def phase_backward() -> dict:
                     if prev is None or ms > prev["ms"]:
                         results[name] = {"max_abs_err": max(
                             aerr, prev["max_abs_err"] if prev else 0.0),
-                            "ms": ms, "plain_ms": plain_ms, "form": form}
+                            "ms": ms, "plain_ms": plain_ms, "form": form,
+                            **bound(tensor_bytes(fwd_in, resid, g_tops, g_h2,
+                                                 got),
+                                    2 * T * B_TRAIN * 4 * H * depth,
+                                    "bfloat16")}
                     else:
                         prev["max_abs_err"] = max(prev["max_abs_err"], aerr)
             torch.cuda.empty_cache()
@@ -475,9 +570,13 @@ def phase_backward() -> dict:
                 f"discriminative_log_qy_bwd at N={n} disagrees with its plain "
                 f"backward: {err} > {TOL_LOG_QY_BWD} or padded rows nonzero")
         if n == N_TABLE:
+            # the logits recomputed, then dz2 and dmu2: three B x N x Z
+            # passes of multiply-adds, fp32
             results["discriminative_log_qy_bwd"] = {
                 "max_abs_err": aerr, "ms": ms, "plain_ms": plain_ms,
-                "form": f"N={n}"}
+                "form": f"N={n}",
+                **bound(tensor_bytes(args, got), 6 * B_TRAIN * n * Z,
+                        "float32")}
         else:
             r = results["discriminative_log_qy_bwd"]
             r["max_abs_err"] = max(r["max_abs_err"], aerr)
@@ -537,18 +636,120 @@ def phase_gather() -> dict:
         call_ms = time_ms(kernel, iters=100, warmup=5)
         plain_call_ms = time_ms(plain, iters=20)
         moved = 128 * (region + SPB * SEG) * D * 4
+        # the one PyTorch call for the same function: a row gather by a
+        # ready-made index (used nowhere in the port; it reads every window
+        # row from the store again, and rows outside the store would need a
+        # mask besides)
+        idx = (starts[:, None, None]
+               + SHIFT * torch.arange(SPB, device="cuda")[None, :, None]
+               + torch.arange(SEG, device="cuda")[None, None, :]).reshape(-1)
+        library_ms = device_ms(lambda: torch.index_select(store, 0, idx))
         log(f"windowed_chunk_gather [{form}]: equal to the plain version and "
             f"between two launches; slack rows read 0; device time per call "
             f"(profiler) kernel {ms:.4f} ms ({moved / ms / 1e6:.1f} GB/s of "
             f"{moved / 1e6:.1f} MB read + written), plain {plain_ms:.4f} ms; "
             f"per call back to back (CUDA events, host issue included) "
-            f"kernel {call_ms:.4f} ms, plain {plain_call_ms:.4f} ms")
+            f"kernel {call_ms:.4f} ms, plain {plain_call_ms:.4f} ms; "
+            f"torch.index_select by a ready index {library_ms:.4f} ms")
         if not results:  # the dev MAP shape the report line keeps
             results["windowed_chunk_gather"] = {
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "form": f"C=128, {form}"}
+                "form": f"C=128, {form}",
+                **bound(moved + starts.numel() * 8, 0, "float32"),
+                "library_ms": library_ms}
         del store, got, again, want
         torch.cuda.empty_cache()
+    return results
+
+
+def phase_logmel() -> dict:
+    """``fused_logmel_frames`` against ``logmel_frames_reference`` on the
+    card: the serving batch's shape, a ragged N, one frame, silent frames
+    that reach the log floor (and a floor below them), and a 40-band bank.
+    A rectangular window in place of the Hamming one must miss the limit."""
+    from pytorch_scalablefhvae_tpu_torch.features.dsp_torch import (
+        _spectral_consts,
+    )
+    from pytorch_scalablefhvae_tpu_torch.ops.fbank_cuda import (
+        fused_logmel_frames,
+        logmel_frames_reference,
+    )
+
+    log(f"== phase 2d: fused_logmel_frames against its plain version "
+        f"(n_fft={N_FFT} K={N_BINS} M={D})")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    results: dict = {}
+    for form, n, n_mels, silent, floor in (
+            ("serving batch", N_SERVE_FRAMES, D, 0, -20.0),
+            ("ragged N", 1641, D, 0, -20.0),
+            ("one frame", 1, D, 0, -20.0),
+            ("silent frames", 300, D, 100, -20.0),
+            ("silent frames, floor -50", 300, D, 100, -50.0),
+            ("40 mel bands", 1000, 40, 0, -20.0)):
+        w, C, S, _, fb_t = _spectral_consts(16000, N_FFT, N_FFT, "hamming",
+                                            n_mels, "slaney", True, dev)
+        # frames of a pre-emphasized speech-like signal: noise with a level
+        # per frame over four decades
+        frames = torch.randn((n, N_FFT), generator=gen, device="cuda") \
+            * torch.logspace(-3, 1, max(n, 2), device="cuda")[:n, None]
+        frames[:silent] = 0.0
+        args = (frames, w, C, S, fb_t)
+        got = fused_logmel_frames(*args, log_floor=floor)
+        again = fused_logmel_frames(*args, log_floor=floor)
+        want = logmel_frames_reference(*args, log_floor=floor)
+        wrong = fused_logmel_frames(frames, torch.ones_like(w), C, S, fb_t,
+                                    log_floor=floor)
+        torch.cuda.synchronize()
+        err, miss = max_err(got, want), max_err(wrong, want)
+        floored = int((got == floor).sum())
+        log(f"fused_logmel_frames [{form}, N={n}]: max_abs_err {err:.3e} (tol "
+            f"{TOL_LOGMEL:g}); two launches equal: {torch.equal(got, again)}; "
+            f"{floored} of {got.numel()} values at the floor {floor}; a "
+            f"rectangular window misses by {miss:.3e}")
+        if not (got.shape == (n, n_mels) and torch.isfinite(got).all()
+                and torch.equal(got, again) and err <= TOL_LOGMEL):
+            raise AssertionError(
+                f"fused_logmel_frames [{form}] disagrees with its plain "
+                f"version or between launches: {err} > {TOL_LOGMEL}")
+        if silent and floor == -20.0 and not bool((got[:silent] == floor).all()):
+            raise AssertionError("silent frames did not reach the log floor")
+        if silent and floor == -50.0 and floored:
+            # a silent band sums to about 1e-17: above this floor
+            raise AssertionError("silent frames fell to a floor below them")
+        if not miss > TOL_LOGMEL:
+            raise AssertionError(
+                f"fused_logmel_frames [{form}]: the limit {TOL_LOGMEL} would "
+                f"pass a kernel with the wrong window (it misses by {miss})")
+        if not results:  # the serving shape the report line keeps
+            def kernel():
+                return fused_logmel_frames(*args)
+
+            def plain():
+                return logmel_frames_reference(*args)
+
+            ms, plain_ms = device_ms(kernel, iters=20), device_ms(plain, iters=20)
+            call_ms = time_ms(kernel)
+            plain_call_ms = time_ms(plain)
+            # the three products (cos, sin, mel) as multiply-adds, fp32
+            # outside the tensor cores; frames read and log-mel written once,
+            # the bases and the bank read once
+            flops = 2 * n * N_FFT * N_BINS * 2 + 2 * n * N_BINS * n_mels
+            b = bound(tensor_bytes(args, got), flops, "float32")
+            log(f"fused_logmel_frames [{form}]: device time per call "
+                f"(profiler) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; per "
+                f"call back to back (CUDA events) kernel {call_ms:.4f} ms, "
+                f"plain {plain_call_ms:.4f} ms; bound {b['bound_ms']:.4f} ms "
+                f"by {b['bound_by']} ({flops / 1e9:.2f} GFLOP fp32, "
+                f"{tensor_bytes(args, got) / 1e6:.1f} MB): "
+                f"{flops / ms / 1e9:.1f} TFLOP/s, "
+                f"{b['bound_ms'] / ms:.3f} of the bound")
+            results["fused_logmel_frames"] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "form": f"N={n}, n_fft {N_FFT}, {n_mels} mels", **b}
+        else:
+            r = results["fused_logmel_frames"]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
     return results
 
 
@@ -682,12 +883,23 @@ class Server:
             raise RuntimeError(f"server did not exit cleanly: {self.rc}")
 
 
-def phase_serve(workdir: Path) -> dict:
-    from pytorch_scalablefhvae_tpu_torch.eval.encode import EncodeSession
-    from pytorch_scalablefhvae_tpu_torch.ops import discriminative, lstm_cuda
+def serve_entries():
+    from pytorch_scalablefhvae_tpu_torch.ops import (
+        discriminative,
+        fbank_cuda,
+        lstm_cuda,
+    )
 
-    log("== phase 3: sfhvae serve of the fhvae model on the card")
-    exp, wav_dir = make_experiment(workdir)
+    return (lstm_cuda.lstm2_tm_proj, lstm_cuda.lstm2_tm,
+            discriminative.discriminative_log_qy,
+            fbank_cuda.fused_logmel_frames)
+
+
+def serve_three(exp: Path, wav_dir: Path, out_dir: Path):
+    """Start the port's ``serve`` on ``exp``; a ping, three encode requests
+    (the first writes its latents to ``out_dir``), a malformed request and a
+    shutdown, each response checked. Returns the three responses, their
+    times and the kernel launches counted during the three requests."""
     t0 = time.perf_counter()
     server = Server(exp)
     ready = server.read()
@@ -698,15 +910,14 @@ def phase_serve(workdir: Path) -> dict:
     if not (pong.get("ok") and pong.get("batch_size") == B):
         raise AssertionError(f"bad ping response: {pong}")
 
-    entries = (lstm_cuda.lstm2_tm_proj, lstm_cuda.lstm2_tm,
-               discriminative.discriminative_log_qy)
+    entries = serve_entries()
     for e in entries:
         e.launches = 0
     responses, seconds = [], []
     for i in range(3):
         req = {"id": f"r{i}", "inputs": [str(wav_dir)]}
         if i == 0:
-            req["output_dir"] = str(workdir / "served")
+            req["output_dir"] = str(out_dir)
         resp, dt = server.ask(json.dumps(req))
         responses.append(resp)
         seconds.append(dt)
@@ -737,9 +948,65 @@ def phase_serve(workdir: Path) -> dict:
         for key in ("mu2_map", "z1_seq_mean"):
             if resp[key] != responses[0][key]:
                 raise AssertionError(f"r{i} {key} differs from r0")
+
+    segs = responses[0]["segments"]
+    p50 = float(np.median(seconds[1:]))
+    log(f"requests: {segs} segments, {n_utts} utterances each; times "
+        f"{[round(s, 4) for s in seconds]} s; warm p50 {p50:.4f} s, "
+        f"{segs / p50:.1f} segments/s")
+    for i, resp in enumerate(responses):
+        st, fs = resp["seconds"], resp["features_seconds"]
+        log(f"r{i} stages (host clock): audio read {fs['audio']:.4f} s + "
+            f"features {fs['features']:.4f} s + MVN and segmenting "
+            f"{fs['segments']:.4f} s = {st['features']:.4f} s, batches + "
+            f"model + copies {st['latents']:.4f} s, summaries "
+            f"{st['summaries']:.4f} s; the features stage's share of the "
+            f"request {st['features'] / seconds[i]:.3f}, the extractor's "
+            f"{fs['features'] / seconds[i]:.3f}")
+    return responses, seconds, launches
+
+
+def load_served(out_dir: Path) -> dict:
+    with np.load(out_dir / "latents.npz") as z:
+        return {k: z[k] for k in ("z1_mu", "z2_mu", "mu2_map", "z1_seq_mean")}
+
+
+def by_utterance(out_dir: Path) -> dict:
+    """The served latents in the order of the utterances' names: the host
+    extractors keep the request's order, the batched one sorts by length, so
+    two runs are compared utterance by utterance."""
+    with np.load(out_dir / "latents.npz") as z:
+        lat = {k: z[k] for k in ("z1_mu", "z2_mu", "mu2_map", "z1_seq_mean",
+                                 "seq_idx")}
+    names = json.loads((out_dir / "sequences.json").read_text())
+    order = np.argsort(names)
+    rows = np.concatenate([np.flatnonzero(lat["seq_idx"] == i) for i in order])
+    return {"z1_mu": lat["z1_mu"][rows], "z2_mu": lat["z2_mu"][rows],
+            "mu2_map": lat["mu2_map"][order],
+            "z1_seq_mean": lat["z1_seq_mean"][order]}
+
+
+def phase_serve(workdir: Path) -> dict:
+    """The same three requests served twice: from an experiment whose config
+    says ``extractor: "numpy"`` (features on the host) and from its copy that
+    says ``"jax"`` (the batched chain on the card, through
+    ``fused_logmel_frames``). Returns each run's launches."""
+    from pytorch_scalablefhvae_tpu_torch.config import ExperimentConfig
+    from pytorch_scalablefhvae_tpu_torch.eval.encode import EncodeSession
+    from pytorch_scalablefhvae_tpu_torch.features.dsp_torch import (
+        featurize_signals,
+    )
+    from pytorch_scalablefhvae_tpu_torch.features.extract import generate_feat
+    from pytorch_scalablefhvae_tpu_torch.utils.audio_io import read_audio
+
+    log("== phase 3: sfhvae serve of the fhvae model on the card, extractor "
+        "numpy (host features)")
+    exp, wav_dir = make_experiment(workdir)
+    _, _, launches = serve_three(exp, wav_dir, workdir / "served")
     for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} was not launched by the requests")
+        if (n <= 0) != (name == "fused_logmel_frames"):
+            raise AssertionError(
+                f"extractor numpy: {name} was launched {n} times")
 
     # the same request through the plain versions on the card, in the
     # served bf16 operand mode and in fp32 (the gap the tolerance must be
@@ -749,9 +1016,7 @@ def phase_serve(workdir: Path) -> dict:
         ref = session.encode([str(wav_dir)], verbose=False)
         session.model.lstm_mm_dtype = "float32"
         ref32 = session.encode([str(wav_dir)], verbose=False)
-    with np.load(workdir / "served" / "latents.npz") as z:
-        served = {k: z[k] for k in ("z1_mu", "z2_mu", "mu2_map",
-                                    "z1_seq_mean")}
+    served = load_served(workdir / "served")
     errs = {k: float(np.abs(served[k] - ref[k]).max()) for k in served}
     gap = max(float(np.abs(ref32[k] - ref[k]).max()) for k in served)
     log(f"served latents vs plain versions on the card: {errs} "
@@ -764,20 +1029,117 @@ def phase_serve(workdir: Path) -> dict:
     if not all(e <= TOL_SERVED for e in errs.values()):
         raise AssertionError(f"served latents disagree: {errs}")
 
-    segs = responses[0]["segments"]
-    warm = sorted(seconds[1:])
-    p50 = float(np.median(warm))
-    log(f"requests: {segs} segments, {n_utts} utterances each; times "
-        f"{[round(s, 4) for s in seconds]} s; warm p50 {p50:.4f} s, "
-        f"{segs / p50:.1f} segments/s")
-    for i, resp in enumerate(responses):
-        st = resp["seconds"]
-        log(f"r{i} stages (host clock): audio read + features + segmenting "
-            f"{st['features']:.4f} s, batches + model + copies "
-            f"{st['latents']:.4f} s, summaries {st['summaries']:.4f} s; "
-            f"features' share of the request "
-            f"{st['features'] / seconds[i]:.3f}")
-    return launches
+    log("== phase 3, again: the same experiment with extractor jax (features "
+        "on the card)")
+    exp_jax = workdir / "exp_jax"
+    shutil.copytree(exp, exp_jax)
+    cfg = json.loads((exp / "config.json").read_text())
+    cfg["features"]["extractor"] = "jax"
+    ExperimentConfig.from_dict(cfg).save(exp_jax / "config.json")
+
+    # the extractor alone first: the card's features against the host's
+    signals = {p.stem: read_audio(p)[0] for p in sorted(wav_dir.glob("*.wav"))}
+    on_card = featurize_signals(signals, 16000, device="cuda")
+    worst = 0.0
+    for k, y in signals.items():
+        host = generate_feat("fbank", y, 16000)
+        if on_card[k].shape != host.shape:
+            raise AssertionError(f"{k}: {on_card[k].shape} frames on the "
+                                 f"card, {host.shape} on the host")
+        diff = np.abs(on_card[k] - host)
+        worst = max(worst, float(diff.max()))
+        if not (diff <= TOL_FEATS + TOL_FEATS * np.abs(host)).all():
+            raise AssertionError(f"{k}: features differ by {diff.max()}")
+    log(f"features of {len(signals)} utterances, card (fused kernel) vs host "
+        f"extractor: frame counts equal, max abs difference {worst:.3e} (tol "
+        f"{TOL_FEATS:g} absolute and relative)")
+
+    _, _, launches_jax = serve_three(exp_jax, wav_dir, workdir / "served_jax")
+    for name, n in launches_jax.items():
+        if n <= 0:
+            raise AssertionError(f"extractor jax: {name} was not launched by "
+                                 f"the requests")
+    served_jax = by_utterance(workdir / "served_jax")
+    served = by_utterance(workdir / "served")
+    errs = {k: float(np.abs(served_jax[k] - served[k]).max()) for k in served}
+    log(f"served latents, extractor jax vs extractor numpy: {errs} (tol "
+        f"{TOL_SERVED_JAX:g})")
+    if not all(e <= TOL_SERVED_JAX for e in errs.values()):
+        raise AssertionError(f"the two extractors' latents disagree: {errs}")
+    return {"serve": launches_jax, "serve_numpy": launches}
+
+
+def phase_preprocess(workdir: Path) -> dict:
+    """The port's CLI with ``--extractor jax`` on the card against
+    ``--extractor numpy``: ``extract`` over manifests of the served WAVs and
+    ``preprocess`` of the synthetic corpus. Frame counts equal, values
+    within ``TOL_FEATS``."""
+    from pytorch_scalablefhvae_tpu_torch.cli.main import main as cli
+    from pytorch_scalablefhvae_tpu_torch.ops.fbank_cuda import (
+        fused_logmel_frames,
+    )
+    from pytorch_scalablefhvae_tpu_torch.utils.manifest import read_scp
+
+    log("== phase 3b: sfhvae extract and preprocess, --extractor jax on the "
+        "card against --extractor numpy")
+    wavs = sorted((workdir / "wav").glob("*.wav"))
+    splits = {"train": wavs[:160], "dev": wavs[160:180], "test": wavs[180:]}
+    roots = {}
+    for extractor in ("numpy", "jax"):
+        roots[extractor] = workdir / f"extract_{extractor}"
+        for split, files in splits.items():
+            d = roots[extractor] / split
+            d.mkdir(parents=True)
+            (d / "wav.scp").write_text(
+                "".join(f"{p.stem} {p}\n" for p in files))
+    fused_logmel_frames.launches = 0
+    seconds = {}
+    for extractor, root in roots.items():
+        t0 = time.perf_counter()
+        run_cli(cli, ["extract", str(root), "--dataset", "synthetic",
+                      "--extractor", extractor])
+        seconds[extractor] = time.perf_counter() - t0
+    pre = {}
+    for extractor in ("numpy", "jax"):
+        pre[extractor] = workdir / f"pre_{extractor}"
+        run_cli(cli, ["preprocess", "--dataset", "synthetic", "--data-root",
+                      str(pre[extractor]), "--synthetic-speakers", "8",
+                      "--synthetic-utts", "4", "--extractor", extractor])
+    launches = fused_logmel_frames.launches
+    if launches <= 0:
+        raise AssertionError("--extractor jax did not launch "
+                             "fused_logmel_frames")
+
+    worst, n_utts = 0.0, 0
+    for a, b in ((roots["jax"], roots["numpy"]),
+                 (pre["jax"] / "synthetic_np_fbank",
+                  pre["numpy"] / "synthetic_np_fbank")):
+        for split in splits:
+            got_len = (a / split / "len.scp").read_text()
+            if got_len != (b / split / "len.scp").read_text() or not got_len:
+                raise AssertionError(f"{a.name}/{split}: len.scp differs "
+                                     f"between the extractors")
+            want = read_scp(b / split / "feats.scp")
+            got = read_scp(a / split / "feats.scp")
+            if list(got) != list(want):
+                raise AssertionError(f"{a.name}/{split}: feats.scp order")
+            for k in want:
+                x, y = np.load(got[k]), np.load(want[k])
+                diff = np.abs(x - y)
+                worst = max(worst, float(diff.max()))
+                n_utts += 1
+                if x.shape != y.shape or \
+                        not (diff <= TOL_FEATS + TOL_FEATS * np.abs(y)).all():
+                    raise AssertionError(f"{k}: features differ by "
+                                         f"{diff.max()}")
+    log(f"extract + preprocess: {n_utts} utterances, manifests and frame "
+        f"counts equal, max abs difference {worst:.3e} (tol {TOL_FEATS:g} "
+        f"absolute and relative); extract of 200 utterances took "
+        f"{seconds['jax']:.3f} s with --extractor jax (audio read and .npy "
+        f"writes included, first call uploads the constants) and "
+        f"{seconds['numpy']:.3f} s with --extractor numpy; "
+        f"fused_logmel_frames launched {launches} times")
+    return {"fused_logmel_frames": launches}
 
 
 # --------------------------------------------------------------- phase 4
@@ -1167,7 +1529,7 @@ def run_cli(cli, args) -> str:
     with redirect_stdout(_Tee(sys.stdout, out)):
         rc = cli(args)
     if rc != 0:
-        raise AssertionError(f"train {' '.join(args[-4:])} exited {rc}")
+        raise AssertionError(f"{args[0]} {' '.join(args[-4:])} exited {rc}")
     return out.getvalue()
 
 
@@ -1270,12 +1632,14 @@ def main() -> int:
     results = phase_kernels()
     results.update(phase_backward())
     results.update(phase_gather())
+    results.update(phase_logmel())
     workdir = Path(__file__).resolve().parent / "build" / "chip_smoke"
     shutil.rmtree(workdir, ignore_errors=True)
     workdir.mkdir(parents=True)
     try:
-        by_path = {"serve": phase_serve(workdir),
-                   "train": phase_train(workdir)}
+        by_path = phase_serve(workdir)
+        by_path["preprocess"] = phase_preprocess(workdir)
+        by_path["train"] = phase_train(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     if "jax" in sys.modules:
@@ -1288,7 +1652,9 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(counts.values()),
             "launches_by_path": counts, "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "form": r["form"]})
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "form": r["form"]})
     print(smi_name_power())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

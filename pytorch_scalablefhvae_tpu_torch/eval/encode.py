@@ -2,7 +2,8 @@
 ``eval/encode.py``.
 
 Decode audio -> features with the run's exact feature config (the host
-numpy/Kaldi extractors shared with the JAX package) -> the run's MVN stats
+numpy/Kaldi extractors, or for ``extractor: "jax"`` the batched chain of
+``features/dsp_torch.py`` on the session's device) -> the run's MVN stats
 -> fixed-shape segment batches -> ``FHVAE.apply`` on the device -> per-segment
 z1/z2 posterior means, per-utterance mu2 MAP estimates and mean z1.
 """
@@ -15,11 +16,11 @@ from pathlib import Path
 
 import numpy as np
 
-from pytorch_scalablefhvae_tpu.data.feature_store import FeatureStore
-from pytorch_scalablefhvae_tpu.data.loader import SegmentLoader
-from pytorch_scalablefhvae_tpu.data.segments import SegmentDataset
-from pytorch_scalablefhvae_tpu.utils.audio_io import read_audio
-from pytorch_scalablefhvae_tpu.utils.manifest import read_scp
+from pytorch_scalablefhvae_tpu_torch.data.feature_store import FeatureStore
+from pytorch_scalablefhvae_tpu_torch.data.loader import SegmentLoader
+from pytorch_scalablefhvae_tpu_torch.data.segments import SegmentDataset
+from pytorch_scalablefhvae_tpu_torch.utils.audio_io import read_audio
+from pytorch_scalablefhvae_tpu_torch.utils.manifest import read_scp
 from pytorch_scalablefhvae_tpu_torch.eval.latents import (
     estimate_mu2,
     extract_latents,
@@ -99,7 +100,7 @@ def _featurize(y: np.ndarray, sr: int, fcfg) -> np.ndarray:
     the training pipeline uses, so served features cannot drift from the
     trained ones."""
     if fcfg.data_format == "kaldi":
-        from pytorch_scalablefhvae_tpu.features.kaldi_fbank import kaldi_fbank
+        from pytorch_scalablefhvae_tpu_torch.features.kaldi_fbank import kaldi_fbank
 
         # the run's parsed fbank conf wins over FeatureConfig defaults
         kw = dict(
@@ -119,7 +120,7 @@ def _featurize(y: np.ndarray, sr: int, fcfg) -> np.ndarray:
         kw.update(conf_kw)
         kw["dither"] = 0.0  # deterministic inference
         return kaldi_fbank(y, sr, **kw)
-    from pytorch_scalablefhvae_tpu.features.extract import generate_feat
+    from pytorch_scalablefhvae_tpu_torch.features.extract import generate_feat
 
     return generate_feat(fcfg.feat_type, y, sr, fcfg.win_t, fcfg.hop_t,
                          fcfg.n_mels, window=fcfg.window,
@@ -171,18 +172,13 @@ class EncodeSession:
         return _encode_request(
             self.config, self.model, self._mvn_params, inputs,
             output_dir=output_dir, batch_size=self.batch_size,
-            sample_rate=sample_rate, verbose=verbose)
+            sample_rate=sample_rate, verbose=verbose, device=self.device)
 
 
 def _encode_request(config, model, mvn_params, inputs, output_dir=None,
                     batch_size: int = 2048, sample_rate: int | None = None,
-                    verbose: bool = True) -> dict:
+                    verbose: bool = True, device="cuda") -> dict:
     fcfg = config.features
-    if fcfg.extractor == "jax" and fcfg.data_format != "kaldi":
-        raise NotImplementedError(
-            "extractor 'jax' (the batched on-device log-mel chain and its "
-            "fbank kernel, fused_logmel_frames) is not yet ported (ROADMAP.md); "
-            "the run's features can be rebuilt with extractor 'numpy'")
 
     t0 = time.perf_counter()
     audio = _collect_audio(inputs if isinstance(inputs, (list, tuple))
@@ -208,11 +204,32 @@ def _encode_request(config, model, mvn_params, inputs, output_dir=None,
                 f"Inconsistent sample rate for {key}: {sr} vs {locked_sr} "
                 f"(pass --sample-rate to resample everything to one rate)")
         signals[key] = y
+    t_audio = time.perf_counter()
+
+    if fcfg.extractor == "jax" and fcfg.data_format != "kaldi":
+        # bulk serving path: the same batched on-device STFT+mel helper
+        # preprocessing uses (features/dsp_torch.featurize_signals)
+        from pytorch_scalablefhvae_tpu_torch.features.dsp_torch import (
+            featurize_signals,
+        )
+
+        raw = featurize_signals(signals, locked_sr, ftype=fcfg.feat_type,
+                                win_t=fcfg.win_t, hop_t=fcfg.hop_t,
+                                n_mels=fcfg.n_mels, window=fcfg.window,
+                                preemphasis=fcfg.preemphasis,
+                                mel_norm=fcfg.mel_norm,
+                                log_floor_mel=fcfg.log_floor_mel,
+                                log_floor_spec=fcfg.log_floor_spec,
+                                fbank_pallas=getattr(fcfg, "fbank_pallas",
+                                                     "auto"),
+                                device=device)
+    else:
+        raw = {k: _featurize(y, locked_sr, fcfg) for k, y in signals.items()}
+    t_feat = time.perf_counter()
 
     feats: dict[str, np.ndarray] = {}
     skipped = []
-    for key, y in signals.items():
-        f = _featurize(y, locked_sr, fcfg)
+    for key, f in raw.items():
         if len(f) < min_frames:
             skipped.append(key)
             continue
@@ -245,13 +262,20 @@ def _encode_request(config, model, mvn_params, inputs, output_dir=None,
         # per-utterance summaries
         "seconds": {"features": t1 - t0, "latents": t2 - t1,
                     "summaries": time.perf_counter() - t2},
+        # the features stage split: the audio read (host), the extractor
+        # (host, or the device for extractor "jax"; ends on a copy to the
+        # host), and MVN + segmenting
+        "features_seconds": {"audio": t_audio - t0,
+                             "features": t_feat - t_audio,
+                             "segments": t1 - t_feat},
     }
     if output_dir is not None:
         out = Path(output_dir)
         out.mkdir(parents=True, exist_ok=True)
         np.savez(out / "latents.npz",
                  **{k: v for k, v in result.items()
-                    if k not in ("sequences", "seconds")})
+                    if k not in ("sequences", "seconds",
+                                 "features_seconds")})
         (out / "sequences.json").write_text(json.dumps(store.seq_keys))
         if verbose:
             print(f"Encoded {store.num_seqs} utterances "

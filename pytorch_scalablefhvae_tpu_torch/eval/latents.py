@@ -1,7 +1,7 @@
 """Latent extraction and mu2 MAP estimation: counterpart of
 ``eval/latents.py``.
 
-``extract_latents`` runs the shared ``SegmentLoader``'s fixed-shape batches
+``extract_latents`` runs the ``SegmentLoader``'s fixed-shape batches
 through ``FHVAE.apply(sample=False)``; ``estimate_mu2`` and
 ``sequence_mean_z1`` are the JAX package's numpy code.
 """
@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pytorch_scalablefhvae_tpu.data.loader import SegmentLoader
+from pytorch_scalablefhvae_tpu_torch.data.loader import SegmentLoader
 
 
 def extract_latents(model, loader: SegmentLoader) -> dict[str, np.ndarray]:

@@ -9,13 +9,17 @@ encode requests line by line on stdin:
     response: {"id": "r1", "ok": true, "utterances": N, "segments": M,
                "sequences": [...], "mu2_map": [[...]...],
                "z1_seq_mean": [[...]...], "output_dir": "out/r1",
-               "seconds": {"features": .., "latents": .., "summaries": ..}}
+               "seconds": {"features": .., "latents": .., "summaries": ..},
+               "features_seconds": {"audio": .., "features": ..,
+                                    "segments": ..}}
 
 Per-utterance summaries return inline; per-segment latents go to
 ``output_dir`` (``latents.npz`` + ``sequences.json``) when requested.
 ``seconds`` is this port's addition to the response: the wall time of the
-request's stages (host features, then batches + model + copies, then the
-summaries).
+request's stages (features, then batches + model + copies, then the
+summaries). ``features_seconds`` splits the first: the audio read (always on
+the host), the extractor (the host's, or with ``extractor: "jax"`` the
+batched chain on the device), and MVN + segmenting.
 
 Control: {"cmd": "ping"} -> {"ok": true, "model_type": ..., ...};
 {"cmd": "shutdown"} (or EOF) ends the loop. A malformed or failing request
@@ -56,6 +60,7 @@ def _response_for(session: EncodeSession, req: dict) -> dict:
         "z1_seq_mean": result["z1_seq_mean"].tolist(),
         "output_dir": str(Path(out_dir)) if out_dir else None,
         "seconds": result["seconds"],
+        "features_seconds": result["features_seconds"],
     }
 
 

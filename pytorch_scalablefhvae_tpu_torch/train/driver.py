@@ -7,9 +7,10 @@ changed deliberately only through ``--resume-override``, and the run keeps
 writing into the checkpoint's directory.
 
 The host data layer (corpus prep, features, the packed ``FeatureStore``,
-``SegmentDataset``, ``SegmentLoader``) is the JAX package's own, which
-imports no jax; ``split_manifests`` says where a preprocessed corpus's
-``feats.scp`` / ``len.scp`` live.
+``SegmentDataset``, ``SegmentLoader``) is this package's own copy of the JAX
+package's; ``split_manifests`` says where a preprocessed corpus's
+``feats.scp`` / ``len.scp`` live. Without ``--preprocessed`` the features are
+extracted first, the ``jax`` extractor's on the run's device.
 
 :func:`check_ported` refuses every setting whose code path is not yet
 ported, naming ``ROADMAP.md``. The data tier (the device-resident store or
@@ -21,10 +22,10 @@ from __future__ import annotations
 import dataclasses
 from pathlib import Path
 
-from pytorch_scalablefhvae_tpu.data.feature_store import FeatureStore
-from pytorch_scalablefhvae_tpu.data.loader import SegmentLoader
-from pytorch_scalablefhvae_tpu.data.segments import SegmentDataset
-from pytorch_scalablefhvae_tpu.features.pipeline import (
+from pytorch_scalablefhvae_tpu_torch.data.feature_store import FeatureStore
+from pytorch_scalablefhvae_tpu_torch.data.loader import SegmentLoader
+from pytorch_scalablefhvae_tpu_torch.data.segments import SegmentDataset
+from pytorch_scalablefhvae_tpu_torch.features.pipeline import (
     preprocess_data,
     split_manifests,
 )
@@ -49,7 +50,6 @@ def check_ported(config: ExperimentConfig) -> None:
         "--profile-dir": t.profile_dir is not None,
         "--tensorboard": t.tensorboard,
         "--visdom": t.plot_curves,
-        "--extractor jax": config.features.extractor == "jax",
         "--data-placement stream": d.data_placement == "stream",
         "--epoch-plan device": d.epoch_plan == "device",
         f"--transfer-dtype {d.transfer_dtype}": d.transfer_dtype != "float32",
@@ -64,7 +64,8 @@ def check_ported(config: ExperimentConfig) -> None:
 
 def build_loaders(config: ExperimentConfig, data_root: str | Path = ".",
                   is_preprocessed: bool = True,
-                  fbank_conf: str | Path = "./misc/fbank.conf"
+                  fbank_conf: str | Path = "./misc/fbank.conf",
+                  device: str = "cuda"
                   ) -> tuple[SegmentLoader, SegmentLoader]:
     """The shuffled training loader and the ordered dev loader."""
     dcfg = config.data
@@ -75,7 +76,8 @@ def build_loaders(config: ExperimentConfig, data_root: str | Path = ".",
         if dcfg.raw_data_dir is None and dcfg.dataset != "synthetic":
             raise ValueError("You must provide a raw data location if the "
                              "data is not preprocessed!")
-        paths = preprocess_data(config, root=data_root, fbank_conf=fbank_conf)
+        paths = preprocess_data(config, root=data_root, fbank_conf=fbank_conf,
+                                device=device)
 
     def make_loader(split: str, batch_size: int, shuffle: bool):
         pack_cache = (None if dcfg.pack_cache_dir is None
@@ -123,7 +125,7 @@ def train_from_config(config: ExperimentConfig, data_root: str | Path = ".",
             and Path(fbank_conf).exists()):
         # persist the parsed conf in the run's config: encode/serve rebuild
         # features from the config alone
-        from pytorch_scalablefhvae_tpu.features.kaldi_fbank import (
+        from pytorch_scalablefhvae_tpu_torch.features.kaldi_fbank import (
             fbank_kwargs_from_conf,
             parse_fbank_conf,
         )
@@ -146,7 +148,8 @@ def train_from_config(config: ExperimentConfig, data_root: str | Path = ".",
                 suffix = "_finetune" if n == 1 else f"_finetune{n}"
                 exp_dir = base.with_name(base.name + suffix)
     train_loader, dev_loader = build_loaders(config, data_root,
-                                             is_preprocessed, fbank_conf)
+                                             is_preprocessed, fbank_conf,
+                                             device=device)
     return run_training(config, train_loader, dev_loader, exp_dir,
                         continue_from=continue_from, finetune=finetune,
                         device=device, verbose=verbose)

@@ -27,7 +27,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from pytorch_scalablefhvae_tpu.data.loader import SegmentLoader
+from pytorch_scalablefhvae_tpu_torch.data.loader import SegmentLoader
 from pytorch_scalablefhvae_tpu_torch.config import ExperimentConfig
 from pytorch_scalablefhvae_tpu_torch.data.device_store import (
     STORE_TAIL_SLACK,

@@ -56,7 +56,9 @@ def test_sources_compile_together_then_link_once(fake):
     out = _build.build()
     assert out == _build.library_path() and out.read_text() == "built"
     srcs = _build.sources()
-    assert len(srcs) >= 2
+    assert [s.name for s in srcs] == [
+        "discriminative_bwd.cu", "discriminative_fwd.cu", "fbank_logmel.cu",
+        "lstm2_bwd.cu", "lstm2_fwd.cu", "window_gather.cu"]
     runs = calls(fake)
     compiles = [r for r in runs if "-c" in r["args"]]
     links = [r for r in runs if "-shared" in r["args"]]
@@ -80,3 +82,16 @@ def test_a_failed_compile_raises_and_leaves_nothing(fake, monkeypatch):
     with pytest.raises(RuntimeError, match="error: window_gather.cu"):
         _build.build()
     assert not any(p.is_file() for p in _build.BUILD_ROOT.rglob("*"))
+
+
+def test_every_c_entry_has_a_signature_and_every_signature_an_entry():
+    """The ctypes table and the sources' ``extern "C"`` entries name the same
+    functions: a missing signature would pass pointers as 32-bit ints."""
+    import re
+
+    declared = set()
+    for src in _build.sources():
+        body = src.read_text().split('extern "C" {', 1)[1]
+        declared |= set(re.findall(r"^(?:int|long long|const char\*) (sfhvae_\w+)\(",
+                                   body, flags=re.M))
+    assert declared == set(_build._SIGNATURES)

@@ -15,6 +15,7 @@ import torch
 
 from pytorch_scalablefhvae_tpu_torch.ops import (
     discriminative,
+    fbank_cuda,
     lstm_cuda,
     window_gather,
 )
@@ -254,3 +255,90 @@ def test_chunked_map_pass_through_the_kernel(cuda):
     finally:
         device_step.windowed_chunk_gather = saved
     assert torch.equal(got, again) and torch.equal(got, want)
+
+
+def logmel_inputs(dev, n, n_fft=400, n_mels=80, seed=9):
+    from pytorch_scalablefhvae_tpu_torch.features import dsp_torch
+
+    w, C, S, _, fb_t = dsp_torch._spectral_consts(
+        16000, n_fft, n_fft, "hamming", n_mels, "slaney", True, dev)
+    g = torch.Generator().manual_seed(seed)
+    frames = (0.1 * torch.randn((n, n_fft), generator=g)).to(dev)
+    return frames, w, C, S, fb_t
+
+
+# 2e-4 on the log-mel: the limit the JAX package holds its TPU kernel to
+# against its jnp mirror; the order of a 400-term float32 sum differs
+@pytest.mark.parametrize("n,n_fft,n_mels", [
+    (6560, 400, 80), (1641, 400, 80), (1, 400, 80), (300, 400, 40),
+    (77, 512, 80), (50, 101, 16)],
+    ids=["serving", "ragged", "one frame", "40 mels", "n_fft 512",
+         "odd n_fft"])
+def test_fused_logmel_matches_plain(cuda, n, n_fft, n_mels):
+    args = logmel_inputs(cuda, n, n_fft, n_mels)
+    fn = fbank_cuda.fused_logmel_frames
+    before = fn.launches
+    got = fn(*args)
+    again = fn(*args)
+    want = fbank_cuda.logmel_frames_reference(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    assert got.shape == (n, n_mels) and torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    assert float((got - want).abs().max()) <= 2e-4
+    # the limit can fail: a rectangular window misses it
+    wrong = fn(args[0], torch.ones_like(args[1]), *args[2:])
+    assert float((wrong - want).abs().max()) > 2e-4
+
+
+@pytest.mark.parametrize("log_floor", [-20.0, -50.0])
+def test_fused_logmel_silent_frames(cuda, log_floor):
+    """All-zero frames among live ones: the floor where it lies above the
+    tiny sum (about -39), the sum itself below, never -inf or NaN."""
+    args = logmel_inputs(cuda, 70)
+    args[0][5:40] = 0.0
+    got = fbank_cuda.fused_logmel_frames(*args, log_floor=log_floor)
+    want = fbank_cuda.logmel_frames_reference(*args, log_floor=log_floor)
+    assert torch.isfinite(got).all()
+    if log_floor == -20.0:
+        assert bool((got[5:40] == log_floor).all())
+    assert float((got - want).abs().max()) <= 2e-4
+
+
+def test_fused_logmel_refusals_and_empty(cuda):
+    frames, w, C, S, fb_t = logmel_inputs(cuda, 8)
+    fn = fbank_cuda.fused_logmel_frames
+    before = fn.launches
+    assert fn(frames[:0], w, C, S, fb_t).shape == (0, 80)
+    assert fn.launches == before  # nothing to launch
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(frames.t().contiguous().t(), w, C, S, fb_t)
+    with pytest.raises(ValueError, match="float32"):
+        fn(frames.half(), w, C, S, fb_t)
+    with pytest.raises(ValueError, match="is on"):
+        fn(frames, w.cpu(), C, S, fb_t)
+    with pytest.raises(NotImplementedError, match="inference-only"):
+        fn(frames.clone().requires_grad_(), w, C, S, fb_t)
+    big = logmel_inputs(cuda, 4, n_fft=2048)
+    with pytest.raises(ValueError, match="shared memory"):
+        fn(*big)
+
+
+def test_batched_features_on_the_card_match_the_cpu(cuda):
+    """The whole chain on the card (kernel) against the CPU (plain version),
+    ragged lengths and a short row; ``never`` is refused on the card."""
+    from pytorch_scalablefhvae_tpu_torch.features import dsp_torch
+
+    g = torch.Generator().manual_seed(10)
+    y = (0.1 * torch.randn((5, 20000), generator=g)).numpy()
+    lengths = np.array([20000, 16385, 9000, 150, 1], np.int32)
+    before = fbank_cuda.fused_logmel_frames.launches
+    got, nf = dsp_torch.batched_features(y, lengths, sr=16000, device=cuda)
+    want, nf_want = dsp_torch.batched_features(y, lengths, sr=16000,
+                                               device="cpu")
+    assert fbank_cuda.fused_logmel_frames.launches == before + 1
+    assert torch.equal(nf.cpu(), nf_want)
+    assert float((got.cpu() - want).abs().max()) <= 3e-4
+    with pytest.raises(NotImplementedError, match="never"):
+        dsp_torch.batched_features(y, lengths, sr=16000, device=cuda,
+                                   fbank_pallas="never")

@@ -112,6 +112,7 @@ def test_serve_protocol(exp_dir, wav_dir, tmp_path):
     assert np.asarray(r1["mu2_map"]).shape == (NSEQ + 2, 4)
     assert np.isfinite(np.asarray(r1["z1_seq_mean"])).all()
     assert set(r1["seconds"]) == {"features", "latents", "summaries"}
+    assert set(r1["features_seconds"]) == {"audio", "features", "segments"}
     with np.load(tmp_path / "r1" / "latents.npz") as z:
         assert len(z["z1_mu"]) == r1["segments"]
     assert out[3]["ok"] is False and "inputs" in out[3]["error"]
@@ -131,10 +132,35 @@ def test_cli_encode_and_not_ported(exp_dir, wav_dir, tmp_path, capsys):
     assert "not yet ported" in capsys.readouterr().err
 
 
-def test_jax_extractor_is_refused(exp_dir, wav_dir, tmp_path):
+@pytest.mark.parametrize("fbank_pallas", ["auto", "always"])
+def test_jax_extractor_matches_jax_session(exp_dir, wav_dir, fbank_pallas):
+    """A run whose config says ``extractor: "jax"``: the JAX session runs its
+    batched chain (``always``: the Pallas kernel in interpret mode), the port
+    ``features/dsp_torch.py`` on the CPU, at the same weights.
+
+    Limit 2e-4 where the numpy extractor's test has 1e-4: there both sides
+    read identical features; here the two chains' log-mels differ by float32
+    round-off (up to 3e-4, ``tests/test_torch_fbank.py``), halved by this
+    run's MVN (std 2.0) before the model sees them."""
     cfg = ExperimentConfig.load(exp_dir / "config.json")
-    cfg = cfg.replace(features=FeatureConfig(n_mels=N_MELS, extractor="jax"))
+    cfg = cfg.replace(features=FeatureConfig(
+        n_mels=N_MELS, extractor="jax", fbank_pallas=fbank_pallas))
+    jax_session = JaxSession(exp_dir, batch_size=16)
+    jax_session.config = cfg
+    want = jax_session.encode([str(wav_dir)], verbose=False)
     session = EncodeSession(exp_dir, batch_size=16, device="cpu")
-    session.config = cfg
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        session.encode([str(wav_dir)], verbose=False)
+    session.config = type(session.config).from_json(cfg.to_json())
+    got = session.encode([str(wav_dir)], verbose=False)
+    assert got["sequences"] == want["sequences"]
+    np.testing.assert_array_equal(got["seq_idx"], want["seq_idx"])
+    for k in ("mu2_map", "z1_seq_mean", "z1_mu", "z2_mu"):
+        np.testing.assert_allclose(got[k], want[k], atol=2e-4, rtol=0,
+                                   err_msg=k)
+    # and the host extractor's answer is the same request within the
+    # features' own distance
+    host = EncodeSession(exp_dir, batch_size=16, device="cpu").encode(
+        [str(wav_dir)], verbose=False)
+    np.testing.assert_array_equal(got["seq_idx"], host["seq_idx"])
+    np.testing.assert_allclose(got["z1_mu"], host["z1_mu"], atol=2e-3, rtol=0)
+    assert set(got["features_seconds"]) == {"audio", "features", "segments"}
+    assert all(v >= 0 for v in got["features_seconds"].values())

@@ -6,8 +6,9 @@ plain backward) at small widths. Checks: the loss falls and the epoch
 checkpoints, the best-model copy and finite dev metrics are written; a run
 resumed after one epoch equals an uninterrupted one bit for bit; the dev
 pass matches the JAX package's on the same parameters and loader; a JAX
-``TrainState`` checkpoint resumes in the port; divergence exits 2; and every
-setting not yet ported raises.
+``TrainState`` checkpoint resumes in the port; divergence exits 2; every
+setting not yet ported raises; and the port's own ``preprocess`` / ``extract``
+with ``--extractor jax`` write what the JAX package's ``prepare_jax`` writes.
 """
 
 import json
@@ -20,6 +21,7 @@ import torch
 from pytorch_scalablefhvae_tpu.config import (
     DataConfig,
     ExperimentConfig,
+    FeatureConfig,
     ModelConfig,
     TrainConfig,
 )
@@ -198,10 +200,70 @@ def test_divergence_exits_2(corpus, tmp_path, capsys):
     ["--hierarchical"], ["--mesh", "2,1"], ["--ckpt-backend", "orbax"],
     ["--legacy"], ["--steps-per-dispatch", "4"], ["--ckpt-every-steps", "5"],
     ["--max-steps", "3"], ["--profile-dir", "prof"], ["--tensorboard"],
-    ["--visdom"], ["--extractor", "jax"], ["--model-type", "simple_fhvae"],
+    ["--visdom"], ["--model-type", "simple_fhvae"],
     ["--epoch-plan", "device"], ["--data-placement", "stream"],
     ["--transfer-dtype", "bfloat16"], ["--lstm-pallas", "never"],
 ], ids=lambda f: " ".join(f))
 def test_unported_flag_raises(corpus, tmp_path, flags):
     with pytest.raises(NotImplementedError):
         main(train_args(corpus, tmp_path, *flags))
+
+
+def load_split(root, split):
+    """``{utt: features}`` and the two manifests' texts for one split."""
+    d = root / RUN / split
+    feats = {line.split()[0]: np.load(line.split()[1])
+             for line in (d / "feats.scp").read_text().splitlines()}
+    return feats, (d / "feats.scp").read_text(), (d / "len.scp").read_text()
+
+
+@pytest.mark.parametrize("command", ["preprocess", "extract"])
+def test_jax_extractor_cli_matches_prepare_jax(tmp_path, monkeypatch, command):
+    """``preprocess --extractor jax --device cpu`` (and ``extract`` over the
+    manifests it left) against the JAX package's ``preprocess_data`` with the
+    same config: the same utterances in ``wav.scp`` order, equal frame counts,
+    values within 3e-4 (float32 round-off of the two chains,
+    ``tests/test_torch_fbank.py``)."""
+    cfg = ExperimentConfig(
+        features=FeatureConfig(extractor="jax", n_mels=24),
+        data=DataConfig(dataset="synthetic", synthetic_speakers=3,
+                        synthetic_utts=3))
+    # relative roots, so both runs write the same paths into the manifests
+    (tmp_path / "jax").mkdir()
+    monkeypatch.chdir(tmp_path / "jax")
+    preprocess_data(cfg, root="r")
+    (tmp_path / "port").mkdir()
+    monkeypatch.chdir(tmp_path / "port")
+    flags = ["--dataset", "synthetic", "--extractor", "jax", "--mels", "24",
+             "--device", "cpu"]
+    assert main(["preprocess", *flags, "--data-root", "r",
+                 "--synthetic-speakers", "3", "--synthetic-utts", "3"]) == 0
+    if command == "extract":
+        for f in (tmp_path / "port" / "r" / RUN).glob("*/*"):
+            if f.suffix == ".npy" or f.name in ("feats.scp", "len.scp"):
+                f.unlink()
+        assert main(["extract", f"r/{RUN}", *flags]) == 0
+    for split in ("train", "dev", "test"):
+        got, got_scp, got_len = load_split(tmp_path / "port" / "r", split)
+        want, want_scp, want_len = load_split(tmp_path / "jax" / "r", split)
+        assert got_scp == want_scp and got_len == want_len and got
+        for k in want:
+            assert got[k].shape == want[k].shape and got[k].dtype == np.float32
+            np.testing.assert_allclose(got[k], want[k], atol=3e-4, rtol=3e-4,
+                                       err_msg=k)
+
+
+def test_train_without_preprocessed_extracts_with_the_jax_extractor(tmp_path):
+    """``train`` without ``--preprocessed``: the corpus is made and its
+    features extracted inline, by the ``jax`` extractor on the run's device."""
+    root = tmp_path / "data"
+    args = [a for a in train_args(root, tmp_path / "exp", "--epochs", "1",
+                                  "--extractor", "jax")
+            if a != "--preprocessed"]
+    args[args.index("--mvn-path") + 1] = str(tmp_path / "mvn.json")
+    assert main(args) == 0
+    assert (root / RUN / "train" / "feats.scp").exists()
+    (m,) = metrics(exp_dir(tmp_path / "exp", 1))
+    assert np.isfinite(m["train_loss"])
+    cfg = json.loads((exp_dir(tmp_path / "exp", 1) / "config.json").read_text())
+    assert cfg["features"]["extractor"] == "jax"
