@@ -42,6 +42,15 @@ prints no result line):
    shape (32 utterances of 205 frames), a ragged N, one frame, silent frames
    (at the default floor and at one below them) and a 40-band bank; a
    rectangular window in place of the Hamming one must miss the limit;
+2e. kernel #7, the sharded discriminative entry, in one process: the
+   per-shard partials kernel launched once per shard with its row offset, the
+   shards merged with the torch ops the entry itself uses, and the per-shard
+   backward, for 2, 4 and 8 shards of a 4,620-row table (padded to 4,624 at
+   8) and 4 shards of a 281,241-row one (padded to 281,244), against the
+   plain versions of the single-table forward and backward on the whole
+   unpadded table; padded rows must get exactly zero gradient, shards made
+   only of padding (5 rows over 8 shards) must leave the result unchanged
+   bit for bit, and the plain partials fed offset 0 must miss the limit;
 4. training: write a preprocessed feature corpus of 4,620 training and 400
    dev sequences; hold the first three train steps through the kernels
    against the same steps through the plain versions on the card, and the
@@ -56,7 +65,27 @@ prints no result line):
    finite and falls, that the resumed run continues the step count, and
    that all seven kernel entries were launched; last, one epoch with
    ``--data-placement host``, whose train loss must equal the device run's
-   epoch 0 and whose dev bound must agree with it.
+   epoch 0 and whose dev bound must agree with it;
+5. the mesh path, ``train --mesh d,m``, at the same width and on the same
+   corpus. The machine has one card, so the four ranks of a ``2,2`` mesh
+   share it (``--dist-backend gloo``); this script is their launcher
+   (``parallel/launch.run_ranks``) and every rank runs the CLI with
+   ``--distributed``. Inside the ranks: kernel #7's entry forward and
+   backward through the real process groups against its plain version; the
+   first three steps' loss and update against the single-device steps; the
+   time of a step and of its all-reduces (four processes time-slicing one
+   card: no multi-GPU throughput, and no scaling figure is derived); then one
+   epoch through the CLI, whose train loss and dev bound must agree with the
+   single-device epoch 0 and whose replicated parameters the loop itself
+   holds equal bit for bit across the ranks; #7's forward and backward must
+   have been launched once per step and rank, #6 and #8 never. The epoch's
+   checkpoint is then resumed for one epoch by ``train --mesh 1,2`` (the CLI
+   starts the two ranks itself) and on one device. Last, one epoch of
+   ``--mesh 1,1 --distributed --dist-backend nccl`` in one rank, so that
+   NCCL's MAX and SUM all-reduces run on the card.
+
+``python3 chip_smoke.py --only 2e,5`` runs the environment phase and the
+phases named (while working on one); with no arguments all run.
 
 The bf16 tolerances sit between the kernels' error and the gap between the
 plain versions in fp32 and in bf16 operand mode, which each run measures: a
@@ -67,8 +96,9 @@ the JAX package.
 The second-to-last line of stdout is a JSON object with one entry per
 kernel entry. ``launches`` sums ``launches_by_path``: the counts of the
 ``extractor: "jax"`` serve run (``serve``), the numpy-extractor serve run
-(``serve_numpy``), the CLI extraction (``preprocess``) and the train runs
-(``train``), each set to 0 just before its path and read just after. ``ms``
+(``serve_numpy``), the CLI extraction (``preprocess``), the train runs
+(``train``) and the mesh run's rank 0 (``mesh``: the ``2,2`` epoch), each set
+to 0 just before its path and read just after. ``ms``
 and ``plain_ms`` are the bf16-operand times of an LSTM entry's heaviest form,
 and for ``windowed_chunk_gather`` and ``fused_logmel_frames`` the device time
 per call by torch.profiler; ``bound_ms`` is the least time the card could
@@ -154,6 +184,17 @@ SOURCES = {
         "pytorch_scalablefhvae_tpu_torch/csrc/fbank_logmel.cu",
         "pytorch_scalablefhvae_tpu/ops/fbank_pallas.py:152"),
 }
+SOURCES["discriminative_log_qy_sharded"] = (
+    SOURCES["discriminative_log_qy"][0],
+    "pytorch_scalablefhvae_tpu/ops/discriminative.py:288")
+SOURCES["discriminative_log_qy_sharded_bwd"] = (
+    SOURCES["discriminative_log_qy_bwd"][0],
+    "pytorch_scalablefhvae_tpu/ops/discriminative.py:343")
+TOL_SHARDED = 1e-4      # merged log_qy of the shards vs the plain single table,
+                        # absolute; dz2/dmu2 relative Frobenius norm
+MESH = (2, 2)           # phase 5: four ranks sharing the card
+TOL_MESH_EPOCH = 1e-3   # epoch train loss and dev bound, mesh vs one device,
+                        # relative: bf16 LSTM operands at another batch shape
 N_FFT, N_BINS = 400, 201      # 25 ms at 16 kHz; n_fft // 2 + 1 DFT bins
 N_SERVE_FRAMES = 32 * 205     # one serving batch: 32 utterances in the
                               # 32,768-sample bucket, 1 + 32768 // 160 frames
@@ -750,6 +791,152 @@ def phase_logmel() -> dict:
         else:
             r = results["fused_logmel_frames"]
             r["max_abs_err"] = max(r["max_abs_err"], err)
+    return results
+
+
+def phase_sharded() -> dict:
+    """Kernel #7 in one process: per-shard partials with offsets, merged as
+    the entry merges them, and the per-shard backward, against the plain
+    single-table forward and backward on the whole unpadded table."""
+    from pytorch_scalablefhvae_tpu_torch.ops.discriminative import (
+        _forward_plain,
+        combine_shard_partials,
+        discriminative_log_qy_bwd_reference,
+        discriminative_log_qy_sharded_bwd,
+        shard_partials,
+        shard_partials_reference,
+    )
+    from pytorch_scalablefhvae_tpu_torch.parallel.mesh import padded_num_seqs
+
+    log("== phase 2e: the sharded discriminative entry (kernel #7), shard by "
+        "shard in one process")
+    g = torch.Generator().manual_seed(4)
+    pz2_logvar = float(np.log(0.5 ** 2))
+    results: dict = {}
+    # (table rows, shards, batch rows); the last is the mesh path's shape:
+    # a rank of the (2, 2) mesh scores 512 rows against 2,310 table rows
+    for n, m, b in ((N_TABLE, 2, B_TRAIN), (N_TABLE, 4, B_TRAIN),
+                    (N_TABLE, 8, B_TRAIN), (N_LARGE, 4, B_TRAIN),
+                    (5, 8, B_TRAIN), (N_TABLE, MESH[1], B_TRAIN // MESH[0])):
+        n_pad = padded_num_seqs(n, m)
+        per = n_pad // m
+        mu2 = torch.randn((n, Z), generator=g)
+        seq = torch.randint(0, n, (b,), generator=g)
+        z2 = (mu2[seq] + 0.5 * torch.randn((b, Z), generator=g)).cuda()
+        seq[5] = n_pad + 3                   # an index outside the table
+        gq = torch.randn((b,), generator=g).cuda()
+        mu2, seq = mu2.cuda(), seq.cuda()
+        padded = torch.zeros((n_pad, Z), device="cuda")
+        padded[:n] = mu2
+        shards = [padded[j * per:(j + 1) * per].contiguous()
+                  for j in range(m)]
+
+        def partials(fn, offsets):
+            return [fn(z2, shards[j], seq, pz2_logvar, n, offsets[j])
+                    for j in range(m)]
+
+        offsets = [j * per for j in range(m)]
+        parts = partials(shard_partials, offsets)
+        got, lse = combine_shard_partials(parts)
+        want, want_lse = _forward_plain(z2, mu2, seq, pz2_logvar, n)
+        plain, _ = combine_shard_partials(partials(shard_partials_reference,
+                                                   offsets))
+        wrong, _ = combine_shard_partials(partials(shard_partials_reference,
+                                                   [0] * m))
+        torch.cuda.synchronize()
+        err, lse_err = max_err(got, want), max_err(lse, want_lse)
+        plain_err, miss = max_err(plain, want), max_err(wrong, want)
+        # shards made only of padding: m = -1e30 exactly, and the merge
+        # without them gives the same bits
+        empty = [j for j in range(m) if offsets[j] >= n]
+        if empty:
+            real = [p_ for j, p_ in enumerate(parts) if j not in empty]
+            same = all(torch.equal(a, b_) for a, b_ in
+                       zip(combine_shard_partials(real), (got, lse)))
+            floor = all(bool((parts[j][0] == -1e30).all()) for j in empty)
+            log(f"  N={n}, m={m}: shards {empty} hold only padding; their m "
+                f"is exactly -1e30: {floor}; the merge without them gives "
+                f"the same bits: {same}")
+            if not (same and floor):
+                raise AssertionError("an all-padding shard changed the "
+                                     "merged result")
+
+        dz2 = torch.zeros_like(z2)
+        dmu2 = []
+        for j in range(m):
+            dz2_j, dmu2_j = discriminative_log_qy_sharded_bwd(
+                z2, shards[j], seq, lse, gq, pz2_logvar, n, offsets[j])
+            dz2 += dz2_j
+            dmu2.append(dmu2_j)
+        dmu2 = torch.cat(dmu2)
+        want_bwd = discriminative_log_qy_bwd_reference(
+            z2, mu2, seq, want_lse, gq, pz2_logvar, n)
+        torch.cuda.synchronize()
+        bwd_err = rel_norm((dz2, dmu2[:n]), want_bwd)
+        bwd_aerr = abs_err((dz2, dmu2[:n]), want_bwd)
+        padded_zero = bool((dmu2[n:] == 0).all())
+
+        def fwd_kernel():
+            return shard_partials(z2, shards[0], seq, pz2_logvar, n, 0)
+
+        def fwd_plain():
+            return shard_partials_reference(z2, shards[0], seq, pz2_logvar,
+                                            n, 0)
+
+        def bwd_kernel():
+            return discriminative_log_qy_sharded_bwd(
+                z2, shards[0], seq, lse, gq, pz2_logvar, n, 0)
+
+        def bwd_plain():
+            return discriminative_log_qy_bwd_reference(
+                z2, shards[0], seq, lse, gq, pz2_logvar, n, 0)
+
+        ms, plain_ms = time_ms(fwd_kernel), time_ms(fwd_plain, iters=5)
+        bms, bplain_ms = time_ms(bwd_kernel), time_ms(bwd_plain, iters=3,
+                                                      warmup=1)
+        # the card's own time: a call of a few microseconds is bounded by
+        # the host's launch time when calls follow back to back
+        on_card = [device_ms(f, iters=20) for f in
+                   (fwd_kernel, fwd_plain, bwd_kernel, bwd_plain)]
+        fb = bound(tensor_bytes(z2, shards[0], seq, parts[0]),
+                   2 * b * per * Z, "float32")
+        bb = bound(tensor_bytes(z2, shards[0], seq, lse, gq, dz2, dmu2[:per]),
+                   6 * b * per * Z, "float32")
+        log(f"discriminative_log_qy_sharded [N={n} padded to {n_pad}, m={m}, "
+            f"B={b}, 1 index outside]: merged log_qy max_abs_err {err:.3e}, "
+            f"lse {lse_err:.3e} (tol {TOL_SHARDED:g}; the plain partials "
+            f"merged the same way: {plain_err:.3e}; fed offset 0 they miss by "
+            f"{miss:.3e}); backward rel-norm err {bwd_err:.3e} (tol "
+            f"{TOL_SHARDED:g}), max_abs_err {bwd_aerr:.3e}, padded rows "
+            f"exactly 0: {padded_zero}; one shard of {per} rows: forward "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{fb['bound_ms']:.5f} ms by {fb['bound_by']}; backward kernel "
+            f"{bms:.4f} ms, plain {bplain_ms:.4f} ms, bound "
+            f"{bb['bound_ms']:.5f} ms by {bb['bound_by']} (CUDA events, "
+            f"calls back to back); device time per call by the profiler: "
+            f"forward kernel {on_card[0]:.4f} ms, plain {on_card[1]:.4f} ms, "
+            f"backward kernel {on_card[2]:.4f} ms, plain {on_card[3]:.4f} ms")
+        if not (torch.isfinite(got).all() and err <= TOL_SHARDED
+                and lse_err <= TOL_SHARDED * max(1.0, float(want_lse.abs().max()))
+                and bwd_err <= TOL_SHARDED and padded_zero):
+            raise AssertionError(
+                f"the sharded entry at N={n}, m={m} disagrees with the plain "
+                f"single table")
+        if m > 1 and n > m and not miss > TOL_SHARDED:
+            raise AssertionError(
+                f"N={n}, m={m}: the limit {TOL_SHARDED} would pass partials "
+                f"that ignore the row offset (they miss by {miss})")
+        form = f"one shard of {per} rows (N={n}, m={m}), B={b}"
+        for name, e, t, pt, bd in (
+                ("discriminative_log_qy_sharded", err, ms, plain_ms, fb),
+                ("discriminative_log_qy_sharded_bwd", bwd_aerr, bms,
+                 bplain_ms, bb)):
+            prev = results.get(name, {"max_abs_err": 0.0})
+            # the last case, the mesh path's shape, is the one reported
+            results[name] = {"max_abs_err": max(prev["max_abs_err"], e),
+                             "ms": t, "plain_ms": pt, "form": form, **bd}
+        del mu2, padded, shards, parts, dmu2, want_bwd
+        torch.cuda.empty_cache()
     return results
 
 
@@ -1533,16 +1720,14 @@ def run_cli(cli, args) -> str:
     return out.getvalue()
 
 
-def phase_train(workdir: Path) -> dict:
+def phase_train(workdir: Path, cfg) -> tuple[dict, dict]:
+    """Returns the launches of the train runs and epoch 0's metrics."""
     from pytorch_scalablefhvae_tpu_torch.cli.main import main as cli
     from pytorch_scalablefhvae_tpu_torch.train import checkpoint as ckpt
 
     log("== phase 4: sfhvae train of the fhvae model on the card (CLI "
         "defaults, batch 1024)")
     root = workdir / "data"
-    t0 = time.perf_counter()
-    cfg = write_feature_corpus(root)
-    log(f"corpus written in {time.perf_counter() - t0:.1f} s")
     compare_first_steps(cfg, root)
     compare_tiers_first_steps(cfg, root)
     check_dev_pass(cfg, root)
@@ -1620,26 +1805,398 @@ def phase_train(workdir: Path) -> dict:
     if host["train_loss"] != recs[0]["train_loss"] or not lb_err <= TOL_DEV_LB:
         raise AssertionError("the host loader's epoch 0 disagrees with the "
                              "device tier's")
-    return launches
+    return launches, recs[0]
 
 
-def main() -> int:
+# --------------------------------------------------------------- phase 5
+
+
+def mesh_entries():
+    from pytorch_scalablefhvae_tpu_torch.ops import discriminative
+
+    return (*train_entries(), discriminative.discriminative_log_qy_sharded,
+            discriminative.discriminative_log_qy_sharded_bwd)
+
+
+def _timed_all_reduces(mesh_module):
+    """Wrap ``torch.distributed.all_reduce`` (as the mesh calls it) with a
+    pair of CUDA events and the host clock; returns ``(records, restore)``."""
+    dist = mesh_module.dist
+    real, records = dist.all_reduce, []
+
+    def timed(t, *a, **kw):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        t0 = time.perf_counter()
+        ev[0].record()
+        out = real(t, *a, **kw)
+        ev[1].record()
+        records.append((ev, time.perf_counter() - t0, t.numel() * 4))
+        return out
+
+    dist.all_reduce = timed
+
+    def restore():
+        dist.all_reduce = real
+
+    return records, restore
+
+
+def _mesh_rank(workdir: str) -> int:
+    """One rank of phase 5's ``2,2`` mesh (its process group is up)."""
+    import torch.distributed as dist
+
+    from pytorch_scalablefhvae_tpu_torch.cli.main import main as cli
+    from pytorch_scalablefhvae_tpu_torch.config import ExperimentConfig
+    from pytorch_scalablefhvae_tpu_torch.ops import discriminative as disc
+    from pytorch_scalablefhvae_tpu_torch.parallel import mesh as mesh_module
+    from pytorch_scalablefhvae_tpu_torch.parallel.sharded_step import (
+        make_sharded_train_step,
+    )
+    from pytorch_scalablefhvae_tpu_torch.train.step import (
+        create_train_state,
+        make_optimizer,
+    )
+    from pytorch_scalablefhvae_tpu_torch.utils.device import resolve_device
+
+    work = Path(workdir)
+    rank = dist.get_rank()
+    dev = resolve_device(f"cuda:{torch.cuda.current_device()}")
+    mesh = mesh_module.make_mesh(MESH, dev)
+
+    def say(*parts):
+        if rank == 0:
+            log(*parts)
+
+    def agree(ok: bool, what: str):
+        """Raise on every rank when any rank saw a failure."""
+        bad = torch.tensor([0.0 if ok else 1.0], device=dev)
+        dist.all_reduce(bad)
+        if float(bad):
+            raise AssertionError(f"{what} (on {int(bad)} of the ranks)")
+
+    # (a) the entry through the real groups against its plain version and
+    # against the plain single table, on this rank's rows
+    g = torch.Generator().manual_seed(5)
+    pz2_logvar = float(np.log(0.5 ** 2))
+    n_pad = mesh_module.padded_num_seqs(N_TABLE, MESH[1])
+    table = torch.zeros((n_pad, Z))
+    table[:N_TABLE] = torch.randn((N_TABLE, Z), generator=g)
+    seq = torch.randint(0, N_TABLE, (B_TRAIN,), generator=g)
+    z2 = table[seq] + 0.5 * torch.randn((B_TRAIN, Z), generator=g)
+    gq = torch.randn((B_TRAIN,), generator=g)
+    rows = mesh.local_rows(B_TRAIN)
+    shard = table[mesh.table_rows(n_pad)].to(dev)
+    outs = {}
+    for name in ("discriminative_log_qy_sharded",
+                 "discriminative_log_qy_sharded_reference"):
+        z = z2[rows].to(dev).requires_grad_()
+        t = shard.clone().requires_grad_()
+        out = getattr(disc, name)(z, t, seq[rows].to(dev), pz2_logvar, mesh,
+                                  N_TABLE)
+        outs[name] = (out.detach(), *torch.autograd.grad(
+            out, (z, t), gq[rows].to(dev)))
+    whole = disc.discriminative_log_qy_reference(
+        z2[rows].to(dev), table[:N_TABLE].to(dev), seq[rows].to(dev),
+        pz2_logvar)
+    got, want = outs.values()
+    errs = (max_err(got[0], want[0]), max_err(got[0], whole),
+            rel_norm(got[1:], want[1:]))
+    say(f"kernel #7's entry through the process groups of the {MESH} mesh "
+        f"(rank 0's view: 512 rows, shard of {shard.shape[0]}): log_qy "
+        f"max_abs_err vs its plain version {errs[0]:.3e}, vs the plain "
+        f"single table {errs[1]:.3e} (tol {TOL_SHARDED:g}); dz2, dmu2 "
+        f"rel-norm err {errs[2]:.3e} (tol {TOL_SHARDED:g})")
+    agree(all(e <= TOL_SHARDED for e in errs),
+          "the sharded entry disagrees with its plain version")
+
+    # (b) the first three steps against the single-device steps
+    ref = torch.load(work / "single_steps.pt")
+    cfg = ExperimentConfig.load(work / "config.json")
+    model = mesh_module.shard_model(seeded_model(cfg).cpu(), mesh).to(dev)
+    state = create_train_state(model)
+    step = make_sharded_train_step(state, make_optimizer(1e-3, 0.95, 0.999),
+                                   10.0, mesh)
+    batches = [tuple(t.to(dev) for t in b) for b in ref["batches"]]
+    for e in mesh_entries():
+        e.launches = 0
+    losses = [float(step(*b)["loss"]) for b in batches[:3]]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"]))
+    params = dict(model.named_parameters())
+    params["mu2_table"], = mesh_module.gather_table_rows(
+        mesh, params["mu2_table"])
+    params["mu2_table"] = params["mu2_table"][:N_TABLE]
+    upd_err = max(float(
+        (params[n].detach().cpu() - ref["params"][n]).norm()
+        / (ref["params"][n] - ref["start"][n]).norm().clamp_min(1e-30))
+        for n in ref["start"])
+    equal = mesh_module.replicas_equal(mesh, [
+        p for n, p in model.named_parameters()
+        if not mesh_module.is_sharded(n, p)])
+    counts = {e.__name__: e.launches for e in mesh_entries()}
+    say(f"first 3 steps on the {MESH} mesh vs one device: losses {losses} vs "
+        f"{ref['losses']} (max rel diff {loss_err:.3e}, tol "
+        f"{TOL_TRAIN_LOSS:g}); parameter updates differ by {upd_err:.3e} of "
+        f"their norm (tol {TOL_TRAIN_UPDATE:g}); replicated parameters equal "
+        f"bit for bit on the ranks: {equal}; rank 0's launches {counts}")
+    agree(loss_err <= TOL_TRAIN_LOSS and upd_err <= TOL_TRAIN_UPDATE and equal
+          and counts["discriminative_log_qy_sharded"] == 3
+          and counts["discriminative_log_qy_sharded_bwd"] == 3
+          and counts["discriminative_log_qy_bwd"] == 0,
+          "the mesh's first train steps disagree with one device's")
+
+    # (c) a step's time and its all-reduces: four processes time-slicing
+    # one card, reported as such
+    records, restore = _timed_all_reduces(mesh_module)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches[3:]:
+            step(*b)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / len(batches[3:]) * 1e3
+    finally:
+        restore()
+    n_steps = len(batches[3:])
+    dev_ms = sum(a.elapsed_time(b) for (a, b), _, _ in records) / n_steps
+    host_ms = sum(h for _, h, _ in records) / n_steps * 1e3
+    biggest = max(nb for _, _, nb in records)
+    say(f"{MESH} mesh, gloo, four processes time-slicing one card (no "
+        f"multi-GPU throughput): {n_steps} steps at batch {B_TRAIN}, "
+        f"{wall:.3f} ms/step host wall on rank 0; "
+        f"{len(records) // n_steps} all-reduces per step take "
+        f"{dev_ms:.3f} ms/step between CUDA events and {host_ms:.3f} ms/step "
+        f"on the host clock; the largest moves {biggest / 1e6:.2f} MB")
+    del state, model, step, batches
+    torch.cuda.empty_cache()
+
+    # (d) one epoch through the CLI, this process being a launched rank
+    for e in mesh_entries():
+        e.launches = 0
+    args = json.loads((work / "train_args.json").read_text())
+    rc = cli(args + ["--exp-root", str(work / "experiments_mesh"), "--mesh",
+                     f"{MESH[0]},{MESH[1]}", "--distributed",
+                     "--dist-backend", "gloo", "--epochs", "1"])
+    (work / f"rank{rank}.json").write_text(json.dumps(
+        {"rc": rc, "launches": {e.__name__: e.launches
+                                for e in mesh_entries()}}))
+    return rc
+
+
+def _nccl_rank(workdir: str) -> int:
+    """A one-rank ``--mesh 1,1`` run on NCCL: the all-reduces run on
+    the card (MAX and SUM, fp32) although there is nobody to reduce with."""
+    from pytorch_scalablefhvae_tpu_torch.cli.main import main as cli
+    from pytorch_scalablefhvae_tpu_torch.ops import discriminative as disc
+
+    work = Path(workdir)
+    args = json.loads((work / "train_args.json").read_text())
+    rc = cli(args + ["--exp-root", str(work / "experiments_nccl"), "--mesh",
+                     "1,1", "--distributed", "--dist-backend", "nccl",
+                     "--epochs", "1"])
+    (work / "nccl.json").write_text(json.dumps({
+        "rc": rc, "fwd": disc.discriminative_log_qy_sharded.launches,
+        "bwd": disc.discriminative_log_qy_sharded_bwd.launches}))
+    return rc
+
+
+def single_device_steps(cfg, root: Path, work: Path, n_cmp: int = 3,
+                        n_more: int = 8) -> None:
+    """The first ``n_cmp`` steps on one device through the kernels: their
+    batches (and ``n_more`` more, for timing), losses and parameters, saved
+    for the mesh's ranks to compare with."""
+    from pytorch_scalablefhvae_tpu_torch.train.step import (
+        create_train_state,
+        make_optimizer,
+        train_step,
+    )
+
+    batches, model = first_batches_and_model(cfg, root, n_cmp + n_more)
+    start = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+    state = create_train_state(model)
+    opt = make_optimizer(1e-3, 0.95, 0.999)
+    losses = [float(train_step(state, opt, *b, 10.0)["loss"])
+              for b in batches[:n_cmp]]
+    torch.save({"batches": [tuple(t.cpu() for t in b) for b in batches],
+                "losses": losses, "start": start,
+                "params": {n: p.detach().cpu()
+                           for n, p in model.named_parameters()}},
+               work / "single_steps.pt")
+    cfg.save(work / "config.json")
+
+
+def read_metrics(exp_root: Path, epochs: int) -> list[dict]:
+    path = (exp_root / "synthetic_np_fbank" / f"fhvae_e{epochs}_p10_a10.0"
+            / "metrics.jsonl")
+    return [json.loads(line) for line in path.read_text().splitlines()]
+
+
+def phase_mesh(workdir: Path, cfg, single_epoch0: dict | None) -> dict:
+    from pytorch_scalablefhvae_tpu_torch.cli.main import main as cli
+    from pytorch_scalablefhvae_tpu_torch.parallel.launch import run_ranks
+    from pytorch_scalablefhvae_tpu_torch.train import checkpoint as ckpt
+
+    log(f"== phase 5: sfhvae train --mesh {MESH[0]},{MESH[1]} --dist-backend "
+        f"gloo: {MESH[0] * MESH[1]} ranks sharing the card, batch {B_TRAIN} "
+        f"({B_TRAIN // MESH[0]} rows per rank), {N_TABLE} mu2 rows "
+        f"({N_TABLE // MESH[1]} per rank)")
+    root = workdir / "data"
+    args = ["train", "--dataset", "synthetic", "--preprocessed",
+            "--data-root", str(root), "--mvn-path", cfg.data.mvn_path]
+    (workdir / "train_args.json").write_text(json.dumps(args))
+    if single_epoch0 is None:
+        run_cli(cli, args + ["--exp-root", str(workdir / "experiments_one"),
+                             "--epochs", "1"])
+        single_epoch0 = read_metrics(workdir / "experiments_one", 1)[0]
+    single_device_steps(cfg, root, workdir)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    world = MESH[0] * MESH[1]
+    codes = run_ranks(_mesh_rank, world, (str(workdir),), backend="gloo",
+                      device="cuda", timeout_s=120, join_timeout_s=600)
+    log(f"the {world} ranks exited with {codes} after "
+        f"{time.perf_counter() - t0:.1f} s")
+    if codes != [0] * world:
+        raise AssertionError(f"the mesh's ranks exited with {codes}")
+    ranks = [json.loads((workdir / f"rank{r}.json").read_text())
+             for r in range(world)]
+    rec = read_metrics(workdir / "experiments_mesh", 1)[0]
+    steps = int(rec["train_steps"])
+    errs = {k: abs(rec[k] - single_epoch0[k]) / abs(single_epoch0[k])
+            for k in ("train_loss", "val_lower_bound", "val_log_qy")}
+    log(f"epoch 0 on the {MESH} mesh vs one device: train loss "
+        f"{rec['train_loss']!r} vs {single_epoch0['train_loss']!r}, dev LB "
+        f"{rec['val_lower_bound']!r} vs {single_epoch0['val_lower_bound']!r} "
+        f"(relative differences {errs}, tol {TOL_MESH_EPOCH:g}); {steps} "
+        f"steps in {rec['train_seconds']:.3f} s = "
+        f"{1e3 * rec['train_seconds'] / steps:.2f} ms/step, "
+        f"{rec['train_segments_per_sec']:.1f} segments/s with four processes "
+        f"time-slicing one card (one process on it: "
+        f"{single_epoch0['train_segments_per_sec']:.1f}); card "
+        f"{smi_name_power()}")
+    if not all(e <= TOL_MESH_EPOCH for e in errs.values()):
+        raise AssertionError(f"the mesh's epoch disagrees with one device's: "
+                             f"{errs}")
+    for r, info in enumerate(ranks):
+        c = info["launches"]
+        log(f"rank {r} launches during the mesh epoch (dev pass included): "
+            f"{c}")
+        if not (c["discriminative_log_qy_sharded"] == steps
+                and c["discriminative_log_qy_sharded_bwd"] == steps
+                and c["discriminative_log_qy_bwd"] == 0
+                and c["windowed_chunk_gather"] == 0
+                and c["discriminative_log_qy"] > 0
+                and min(c["lstm2_tm_proj"], c["lstm2_tm"],
+                        c["lstm2_tm_proj_bwd"], c["lstm2_tm_bwd"]) > 0):
+            raise AssertionError(
+                f"rank {r}: kernel #7 must be launched once per step forward "
+                f"and backward, #6 and #8 never, the others at least once")
+
+    # (e) the checkpoint moves to another mesh and to one device
+    exp = workdir / "experiments_mesh" / "synthetic_np_fbank" \
+        / "fhvae_e1_p10_a10.0"
+    first = exp / "fhvae_synthetic_np_fbank_e0.npz"
+    with np.load(first) as z:
+        rows = z["mu2_table"].shape[0], z["adam_mu.mu2_table"].shape[0]
+    resumed = {}
+    for shape in ((1, 2), (1, 1)):
+        copy_dir = workdir / f"resume_{shape[0]}_{shape[1]}"
+        shutil.copytree(exp, copy_dir)
+        run_cli(cli, ["train", "--dataset", "synthetic", "--preprocessed",
+                      "--data-root", str(root), "--dist-backend", "gloo",
+                      "--continue-from", str(copy_dir / first.name),
+                      "--resume-override", "epochs=2", "--resume-override",
+                      f"mesh_shape={shape[0]},{shape[1]}"])
+        rec1 = [json.loads(line) for line in
+                (copy_dir / "metrics.jsonl").read_text().splitlines()][-1]
+        meta = ckpt.read_checkpoint_meta(
+            copy_dir / "fhvae_synthetic_np_fbank_e1.npz")
+        resumed[shape] = rec1
+        log(f"epoch 1 resumed from the {MESH} checkpoint on mesh {shape}: "
+            f"train loss {rec1['train_loss']!r}, dev LB "
+            f"{rec1['val_lower_bound']!r}, step {meta['step']}, "
+            f"{1e3 * rec1['train_seconds'] / rec1['train_steps']:.2f} "
+            f"ms/step")
+        if not (rec1["epoch"] == 1 and meta["step"] == 2 * steps
+                and np.isfinite(rec1["train_loss"])
+                and rec1["train_loss"] < rec["train_loss"]):
+            raise AssertionError(f"the resume on mesh {shape} did not "
+                                 f"continue the run")
+    a, b = resumed[(1, 2)], resumed[(1, 1)]
+    gap = abs(a["train_loss"] - b["train_loss"]) / abs(b["train_loss"])
+    log(f"the checkpoint holds {rows[0]} table rows and {rows[1]} moment "
+        f"rows; the two resumed epochs' train losses differ by {gap:.3e} "
+        f"relative (tol {TOL_MESH_EPOCH:g})")
+    if rows != (N_TABLE, N_TABLE) or not gap <= TOL_MESH_EPOCH:
+        raise AssertionError("the mesh checkpoint does not resume the same "
+                             "on another mesh and on one device")
+
+    # NCCL: one rank, all-reduces run on the card
+    codes = run_ranks(_nccl_rank, 1, (str(workdir),), backend="nccl",
+                      device="cuda", timeout_s=120, join_timeout_s=300)
+    info = json.loads((workdir / "nccl.json").read_text()) \
+        if (workdir / "nccl.json").exists() else None
+    log(f"--mesh 1,1 --distributed --dist-backend nccl, one rank: exit "
+        f"{codes}, {info}")
+    nccl = read_metrics(workdir / "experiments_nccl", 1)[0]
+    gap = abs(nccl["train_loss"] - single_epoch0["train_loss"]) \
+        / abs(single_epoch0["train_loss"])
+    log(f"its epoch 0 train loss {nccl['train_loss']!r} differs from the run "
+        f"without a mesh by {gap:.3e} relative (tol {TOL_MESH_EPOCH:g}); "
+        f"{1e3 * nccl['train_seconds'] / nccl['train_steps']:.2f} ms/step")
+    if codes != [0] or info["fwd"] != steps or info["bwd"] != steps \
+            or not gap <= TOL_MESH_EPOCH:
+        raise AssertionError("the one-rank NCCL run failed, did not go "
+                             "through kernel #7, or disagrees with the run "
+                             "without a mesh")
+    return ranks[0]["launches"]
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--only", default=None,
+                        help="comma-separated phases to run after phase 1 "
+                             "(2, 2b, 2c, 2d, 2e, 3, 3b, 4, 5); default all")
+    only = parser.parse_args(argv).only
+    only = None if only is None else set(only.split(","))
+
+    def on(phase: str) -> bool:
+        return only is None or phase in only
+
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
               "needs a GPU", file=sys.stderr)
         return 1
     phase_environment()
-    results = phase_kernels()
-    results.update(phase_backward())
-    results.update(phase_gather())
-    results.update(phase_logmel())
+    results: dict = {}
+    for phase, fn in (("2", phase_kernels), ("2b", phase_backward),
+                      ("2c", phase_gather), ("2d", phase_logmel),
+                      ("2e", phase_sharded)):
+        if on(phase):
+            results.update(fn())
     workdir = Path(__file__).resolve().parent / "build" / "chip_smoke"
     shutil.rmtree(workdir, ignore_errors=True)
     workdir.mkdir(parents=True)
+    by_path: dict = {}
     try:
-        by_path = phase_serve(workdir)
-        by_path["preprocess"] = phase_preprocess(workdir)
-        by_path["train"] = phase_train(workdir)
+        if on("3"):
+            by_path.update(phase_serve(workdir))
+        if on("3b"):
+            if not on("3"):
+                write_corpus(workdir / "wav")
+            by_path["preprocess"] = phase_preprocess(workdir)
+        if on("4") or on("5"):
+            t0 = time.perf_counter()
+            cfg = write_feature_corpus(workdir / "data")
+            log(f"corpus written in {time.perf_counter() - t0:.1f} s")
+        epoch0 = None
+        if on("4"):
+            by_path["train"], epoch0 = phase_train(workdir, cfg)
+        if on("5"):
+            by_path["mesh"] = phase_mesh(workdir, cfg, epoch0)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     if "jax" in sys.modules:
@@ -1655,6 +2212,10 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "form": r["form"]})
+    if only is None:
+        for k in kernels:
+            if k["launches"] <= 0:
+                raise AssertionError(f"{k['name']} was launched by no path")
     print(smi_name_power())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,14 @@ extractors only ``--extractor jax`` (batched on the CUDA device) uses the
 device; the host extractors ignore it. ``train`` raises for the settings
 whose code paths are not yet ported (``train/driver.py`` ``check_ported``).
 ``encode`` and ``serve`` take the JAX CLI's flags plus ``--device``.
+``train --mesh d,m`` trains on ``d * m`` ranks, one process each: batch
+rows split over the ``d`` data ranks, the mu2 table row-sharded over the
+``m`` model ranks (``parallel/``). On one machine the command starts its
+ranks itself; under a launcher that set ``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT`` every rank runs the
+command with ``--distributed``. ``--dist-backend nccl`` (the default) gives
+every rank a card of its own; ``gloo`` lets ranks share a card and is what
+``--device cpu`` needs.
 ``prep-timit`` and ``prep-librispeech`` write the corpus manifests. ``eval``,
 ``probe`` and ``import-checkpoint`` exist here only to say that they are not
 yet ported. Exit codes as the JAX CLI's: 0, or 2 when training diverged.
@@ -82,16 +90,7 @@ def _cmd_prep_librispeech(args) -> int:
     return 0
 
 
-def _cmd_train(args) -> int:
-    from pytorch_scalablefhvae_tpu_torch.cli.args import config_from_args
-    from pytorch_scalablefhvae_tpu_torch.train.driver import train_from_config
-
-    for flag, value in (("--use-pallas", args.use_pallas),
-                        ("--lstm-pallas", args.lstm_pallas)):
-        if value != "auto":
-            raise NotImplementedError(
-                f"{flag} {value}: the port always runs its CUDA kernels on "
-                f"--device cuda and their plain versions on --device cpu")
+def _resume_overrides(args) -> dict | None:
     overrides = {}
     for item in args.resume_override or []:
         if "=" not in item:
@@ -99,13 +98,73 @@ def _cmd_train(args) -> int:
                 f"--resume-override expects FIELD=VALUE, got {item!r}")
         k, _, v = item.partition("=")
         overrides[k.strip()] = v.strip()
+    return overrides or None
+
+
+def _train(args, device: str) -> int:
+    """One process's training run on ``device``: the whole run, or one rank
+    of a mesh whose process group is up."""
+    from pytorch_scalablefhvae_tpu_torch.cli.args import config_from_args
+    from pytorch_scalablefhvae_tpu_torch.train.driver import train_from_config
+
     result = train_from_config(
         config_from_args(args), data_root=args.data_root,
         exp_root=args.exp_root, is_preprocessed=args.is_preprocessed,
         continue_from=args.continue_from, finetune=args.finetune,
-        fbank_conf=args.fbank_conf, resume_overrides=overrides or None,
-        device=args.device)
+        fbank_conf=args.fbank_conf, resume_overrides=_resume_overrides(args),
+        device=device)
     return 2 if result.diverged else 0
+
+
+def _train_rank(args) -> int:
+    """A rank of a mesh: join the launcher's process group (or keep the one
+    this process is in), take the rank's device, train."""
+    from pytorch_scalablefhvae_tpu_torch.parallel.launch import init_from_env
+
+    return _train(args, init_from_env(args.dist_backend, args.device,
+                                      args.dist_timeout))
+
+
+def _cmd_train(args) -> int:
+    import os
+
+    from pytorch_scalablefhvae_tpu_torch.cli.args import config_from_args
+    from pytorch_scalablefhvae_tpu_torch.parallel.launch import run_ranks
+    from pytorch_scalablefhvae_tpu_torch.parallel.mesh import (
+        validate_multihost_mesh,
+    )
+    from pytorch_scalablefhvae_tpu_torch.train.driver import resolve_run_config
+
+    for flag, value in (("--use-pallas", args.use_pallas),
+                        ("--lstm-pallas", args.lstm_pallas)):
+        if value != "auto":
+            raise NotImplementedError(
+                f"{flag} {value}: the port always runs its CUDA kernels on "
+                f"--device cuda and their plain versions on --device cpu")
+    # the mesh that trains: on a resume the saved config's, unless overridden
+    config = resolve_run_config(config_from_args(args), args.continue_from,
+                                _resume_overrides(args), verbose=False)
+    d, m = config.train.mesh_shape
+    if args.distributed:
+        world = int(os.environ.get("WORLD_SIZE", 1))
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+        if world > local:
+            validate_multihost_mesh((d, m), world // local, local)
+        return _train_rank(args)
+    if d * m == 1:
+        return _train(args, args.device)
+    if args.device == "cuda":
+        # once, before the ranks start: they would each run nvcc otherwise
+        from pytorch_scalablefhvae_tpu_torch.ops import _build
+
+        _build.build()
+    codes = run_ranks(_train_rank, d * m, (args,), backend=args.dist_backend,
+                      device=args.device, timeout_s=args.dist_timeout)
+    if len(set(codes)) != 1 or codes[0] not in (0, 2):
+        print(f"sfhvae train --mesh {d},{m}: the ranks exited with {codes}",
+              file=sys.stderr)
+        return 1
+    return codes[0]
 
 
 def _cmd_encode(args) -> int:
@@ -166,6 +225,21 @@ def build_parser() -> argparse.ArgumentParser:
                        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     add_common_flags(p)
     add_train_flags(p)
+    p.add_argument("--distributed", action="store_true",
+                   help="This process is one rank of a --mesh run that a "
+                        "launcher started: join the process group named by "
+                        "RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and "
+                        "MASTER_PORT. Without it, --mesh d,m starts its d*m "
+                        "ranks on this machine itself")
+    p.add_argument("--dist-backend", type=str, default="nccl",
+                   choices=["nccl", "gloo"],
+                   help="torch.distributed backend of a --mesh run: nccl "
+                        "gives every rank a card of its own; gloo lets ranks "
+                        "share a card (rank %% device count) and is the one "
+                        "for --device cpu")
+    p.add_argument("--dist-timeout", type=float, default=600.0,
+                   help="Seconds a rank waits in a collective before the "
+                        "run fails")
     p.set_defaults(fn=_cmd_train)
 
     p = sub.add_parser(

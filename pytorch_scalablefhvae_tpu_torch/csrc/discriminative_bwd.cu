@@ -12,6 +12,14 @@
 // so their p underflows to exactly 0 and their dmu2 is exactly 0; an index
 // outside the table matches no row, as in the forward.
 //
+// The same kernels serve the sharded form (bwd_local of
+// discriminative_log_qy_pallas_sharded, discriminative.py:343): mu2 is then
+// one rank's row shard whose first row is global row row_offset, lse is the
+// log-sum-exp over the whole table, padding is judged by the global row and
+// the pick by seq_idx == row_offset + n. dz2 is this shard's part (the ranks
+// of the model group add theirs); dmu2 is the shard's own. The single table
+// passes row_offset 0.
+//
 // What bounds it on the H100: like the forward, 2 * B * N * D FMAs for the
 // logits plus B * N exps, and as many FMAs again for the two products; the
 // table fits in L2. The TPU kernel walks the table in order and accumulates
@@ -45,7 +53,7 @@ __global__ void disc_bwd_mu_kernel(
     const float* __restrict__ lse,    // [B]
     const float* __restrict__ g,      // [B]
     float* __restrict__ dmu2,         // [N, D]
-    int B, int N, int D, int num_real, float inv_two_var) {
+    int B, int N, int D, int num_real, int row_offset, float inv_two_var) {
   __shared__ float zt[kTile * (kMaxD + 1)];  // row stride D + 1
   __shared__ float lt[kTile];
   __shared__ float gt[kTile];
@@ -62,7 +70,8 @@ __global__ void disc_bwd_mu_kernel(
     m[k] = (row_ok && k < D) ? mu2[(long long)n * D + k] : 0.0f;
     sq = fmaf(m[k], m[k], sq);
   }
-  const float bias = n < num_real ? 0.0f : kNegInf;
+  const int gn = row_offset + n;  // this row in the whole table
+  const float bias = gn < num_real ? 0.0f : kNegInf;
 
   float acc[kMaxD];
 #pragma unroll
@@ -92,7 +101,7 @@ __global__ void disc_bwd_mu_kernel(
         }
         const float logit = inv_two_var * (2.0f * cross - sq) + bias;
         const float p = expf(logit - lt[b]);
-        const float dl = gt[b] * ((st[b] == n ? 1.0f : 0.0f) - p);
+        const float dl = gt[b] * ((st[b] == gn ? 1.0f : 0.0f) - p);
         colsum += dl;
 #pragma unroll
         for (int k = 0; k < kMaxD; ++k) {
@@ -126,7 +135,7 @@ __global__ void disc_bwd_z_kernel(
     const float* __restrict__ lse,    // [B]
     const float* __restrict__ g,      // [B]
     float* __restrict__ dz2,          // [B, D]
-    int B, int N, int D, int num_real, float inv_two_var) {
+    int B, int N, int D, int num_real, int row_offset, float inv_two_var) {
   __shared__ float tile[kTile * (kMaxD + 1)];
   __shared__ float sq[kTile];
 
@@ -172,7 +181,7 @@ __global__ void disc_bwd_z_kernel(
         for (int k = 0; k < kMaxD; ++k) {
           if (k < D) cross = fmaf(z[k], row[k], cross);
         }
-        const int gn = n0 + n;
+        const int gn = row_offset + n0 + n;
         const float logit = inv_two_var * (2.0f * cross - sq[n]) +
                             (gn < num_real ? 0.0f : kNegInf);
         const float p = expf(logit - lse_b);
@@ -203,26 +212,28 @@ __global__ void disc_bwd_z_kernel(
 extern "C" {
 
 // z2: [B, D] fp32; mu2: [N, D] fp32; seq_idx: [B] int32; lse, g: [B] fp32;
-// dz2: [B, D] fp32; dmu2: [N, D] fp32. D <= sfhvae_disc_max_dim(). Returns
-// the cudaError_t of the launches.
+// dz2: [B, D] fp32; dmu2: [N, D] fp32. D <= sfhvae_disc_max_dim(). mu2's first
+// row is row row_offset of the whole table (0 for a single table); num_real
+// and seq_idx count in the whole table. Returns the cudaError_t of the
+// launches.
 int sfhvae_disc_bwd(const void* z2, const void* mu2, const void* seq_idx,
                     const void* lse, const void* g, void* dz2, void* dmu2,
-                    int B, int N, int D, int num_real, float inv_two_var,
-                    void* stream) {
+                    int B, int N, int D, int num_real, int row_offset,
+                    float inv_two_var, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   disc_bwd_mu_kernel<<<(N + kMuRows - 1) / kMuRows, kMuRows * kMuLanes, 0,
                        st>>>(
       static_cast<const float*>(z2), static_cast<const float*>(mu2),
       static_cast<const int*>(seq_idx), static_cast<const float*>(lse),
       static_cast<const float*>(g), static_cast<float*>(dmu2), B, N, D,
-      num_real, inv_two_var);
+      num_real, row_offset, inv_two_var);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   disc_bwd_z_kernel<<<(B + kZRows - 1) / kZRows, kZRows * 32, 0, st>>>(
       static_cast<const float*>(z2), static_cast<const float*>(mu2),
       static_cast<const int*>(seq_idx), static_cast<const float*>(lse),
       static_cast<const float*>(g), static_cast<float*>(dz2), B, N, D,
-      num_real, inv_two_var);
+      num_real, row_offset, inv_two_var);
   return cudaGetLastError();
 }
 

@@ -24,6 +24,16 @@
 // the same combine as the sharded TPU path (discriminative.py:327-340).
 // The combine also writes the log-sum-exp per row when asked: the backward
 // kernel (discriminative_bwd.cu) recomputes the softmax from it.
+//
+// The sharded form (entry discriminative_log_qy_pallas_sharded,
+// discriminative.py:288) is sfhvae_disc_partials below: the table is one
+// rank's row shard, whose first row is global row row_offset. Padding is
+// judged by the global row (row_offset + n >= num_real) and the pick by
+// seq_idx - row_offset, so a sequence another shard owns picks nothing here.
+// Its chunk merge stops at (m, s, picked); the ranks of the model group then
+// merge theirs by the same rule with two all-reduces. A shard made only of
+// padding reports m = -1e30 exactly (the bias absorbs every logit in fp32)
+// and s = its row count, and e^(m - m*) is then exactly 0.
 
 #include <cuda_runtime.h>
 
@@ -42,7 +52,8 @@ __global__ void disc_partials_kernel(
     float* __restrict__ m_out,         // [C, B]
     float* __restrict__ s_out,         // [C, B]
     float* __restrict__ p_out,         // [C, B]
-    int B, int N, int D, int num_real, int chunk, float inv_two_var) {
+    int B, int N, int D, int num_real, int row_offset, int chunk,
+    float inv_two_var) {
   __shared__ float tile[kTile * (kMaxD + 1)];  // row stride D + 1: no bank
   __shared__ float sq[kTile];                  // conflicts between rows
 
@@ -57,7 +68,9 @@ __global__ void disc_partials_kernel(
   for (int k = 0; k < kMaxD; ++k) {
     z[k] = (row_ok && k < D) ? z2[(long long)b * D + k] : 0.0f;
   }
-  const int y = row_ok ? seq_idx[b] : -1;
+  // the picked row and the first padded row, in this shard's numbering
+  const int y = row_ok ? seq_idx[b] - row_offset : -1;
+  const int n_real = num_real - row_offset;
 
   float m = kNegInf, s = 0.0f, picked = 0.0f;
   for (int n0 = n_begin; n0 < n_end; n0 += kTile) {
@@ -86,7 +99,7 @@ __global__ void disc_partials_kernel(
       }
       const int gn = n0 + n;
       const float logit = inv_two_var * (2.0f * cross - sq[n]) +
-                          (gn < num_real ? 0.0f : kNegInf);
+                          (gn < n_real ? 0.0f : kNegInf);
       if (logit > m) {
         s = s * expf(m - logit) + 1.0f;
         m = logit;
@@ -116,6 +129,23 @@ __global__ void disc_partials_kernel(
   }
 }
 
+// One row's chunk partials merged: m* = max m, s* = sum s e^(m - m*),
+// picked* = sum picked.
+__device__ __forceinline__ void merge_chunks(
+    const float* __restrict__ m_part, const float* __restrict__ s_part,
+    const float* __restrict__ p_part, int b, int B, int C, float& m, float& s,
+    float& picked) {
+  m = kNegInf;
+  for (int c = 0; c < C; ++c) m = fmaxf(m, m_part[(long long)c * B + b]);
+  s = 0.0f;
+  picked = 0.0f;
+  for (int c = 0; c < C; ++c) {
+    const long long o = (long long)c * B + b;
+    s += s_part[o] * expf(m_part[o] - m);
+    picked += p_part[o];
+  }
+}
+
 __global__ void disc_combine_kernel(const float* __restrict__ m_part,
                                     const float* __restrict__ s_part,
                                     const float* __restrict__ p_part,
@@ -124,17 +154,27 @@ __global__ void disc_combine_kernel(const float* __restrict__ m_part,
                                     int C) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  float m = kNegInf;
-  for (int c = 0; c < C; ++c) m = fmaxf(m, m_part[(long long)c * B + b]);
-  float s = 0.0f, picked = 0.0f;
-  for (int c = 0; c < C; ++c) {
-    const long long o = (long long)c * B + b;
-    s += s_part[o] * expf(m_part[o] - m);
-    picked += p_part[o];
-  }
+  float m, s, picked;
+  merge_chunks(m_part, s_part, p_part, b, B, C, m, s, picked);
   const float lse = m + logf(s);
   out[b] = picked - lse;
   if (lse_out != nullptr) lse_out[b] = lse;
+}
+
+// The sharded form's merge: it stops at this shard's (m, s, picked) per row.
+__global__ void disc_merge_kernel(const float* __restrict__ m_part,
+                                  const float* __restrict__ s_part,
+                                  const float* __restrict__ p_part,
+                                  float* __restrict__ m_out,
+                                  float* __restrict__ s_out,
+                                  float* __restrict__ p_out, int B, int C) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  float m, s, picked;
+  merge_chunks(m_part, s_part, p_part, b, B, C, m, s, picked);
+  m_out[b] = m;
+  s_out[b] = s;
+  p_out[b] = picked;
 }
 
 }  // namespace
@@ -158,14 +198,39 @@ int sfhvae_disc_fwd(const void* z2, const void* mu2, const void* seq_idx,
   disc_partials_kernel<<<grid, kRows * kLanes, 0, st>>>(
       static_cast<const float*>(z2), static_cast<const float*>(mu2),
       static_cast<const int*>(seq_idx), static_cast<float*>(m),
-      static_cast<float*>(s), static_cast<float*>(p), B, N, D, num_real, chunk,
-      inv_two_var);
+      static_cast<float*>(s), static_cast<float*>(p), B, N, D, num_real, 0,
+      chunk, inv_two_var);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   disc_combine_kernel<<<(B + 255) / 256, 256, 0, st>>>(
       static_cast<const float*>(m), static_cast<const float*>(s),
       static_cast<const float*>(p), static_cast<float*>(out),
       static_cast<float*>(lse), B, n_chunks);
+  return cudaGetLastError();
+}
+
+// The sharded form: mu2 is one rank's shard [N, D] whose first row is global
+// row row_offset; num_real counts the real rows of the whole table; seq_idx
+// holds global rows. m/s/p: [n_chunks, B] scratch as above; m_out, s_out,
+// p_out: [B] fp32, this shard's online max, rescaled sum and picked logit.
+int sfhvae_disc_partials(const void* z2, const void* mu2, const void* seq_idx,
+                         void* m, void* s, void* p, void* m_out, void* s_out,
+                         void* p_out, int B, int N, int D, int num_real,
+                         int row_offset, int chunk, int n_chunks,
+                         float inv_two_var, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((B + kRows - 1) / kRows, n_chunks);
+  disc_partials_kernel<<<grid, kRows * kLanes, 0, st>>>(
+      static_cast<const float*>(z2), static_cast<const float*>(mu2),
+      static_cast<const int*>(seq_idx), static_cast<float*>(m),
+      static_cast<float*>(s), static_cast<float*>(p), B, N, D, num_real,
+      row_offset, chunk, inv_two_var);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  disc_merge_kernel<<<(B + 255) / 256, 256, 0, st>>>(
+      static_cast<const float*>(m), static_cast<const float*>(s),
+      static_cast<const float*>(p), static_cast<float*>(m_out),
+      static_cast<float*>(s_out), static_cast<float*>(p_out), B, n_chunks);
   return cudaGetLastError();
 }
 

@@ -14,7 +14,9 @@ package's: ``EpochPlan``, ``build_epoch_plan``, ``STORE_TAIL_SLACK``,
 ``data/stream_store.py``). :func:`resolve_tier` picks the run's tier from
 them. Not ported yet (``ROADMAP.md``): the streamed tier, bfloat16/int8
 staging, the on-device epoch plan (``make_device_epoch_plan``) and a store
-sharded over a mesh.
+sharded over a mesh (``--shard-device-store``): on a mesh every rank stages
+the whole store, the JAX package's default, and gathers its rows of each
+planned batch from it.
 """
 
 from __future__ import annotations
@@ -214,24 +216,28 @@ def resolve_data_mode(
     return "device" if fits else "host"
 
 
-def resolve_tier(placement: str, store, max_bytes: int) -> str:
+def resolve_tier(placement: str, store, max_bytes: int,
+                 verbose: bool = True) -> str:
     """The run's data tier, ``"device"`` or ``"host"``, as
     ``resolve_data_mode`` decides it on one device: ``host`` is the loader;
     ``device`` stages the store or raises its ``ValueError`` when it
     is over ``max_bytes``; ``auto`` stages it when it fits. Where ``auto``
     would stream (over budget), the streamed tier is not ported, so the run
-    keeps the host loader and says so. The store stages as float32."""
+    keeps the host loader and says so (where ``verbose``: one rank of a mesh
+    says it). The store stages as float32 and, on a mesh, whole on every
+    rank."""
     mode = resolve_data_mode(placement, store, max_bytes=max_bytes)
     if mode == "stream":
         if placement != "auto":
             raise NotImplementedError(
                 f"--data-placement {placement} is not yet ported to PyTorch "
                 f"(ROADMAP.md, item 7)")
-        print(f"data placement auto: the packed store "
-              f"({store.data.nbytes / 1e6:.0f} MB) "
-              f"is over the device-store budget ({max_bytes / 1e6:.0f} MB) "
-              f"and the streamed tier is not yet ported (ROADMAP.md, item "
-              f"7); training from the host loader")
+        if verbose:
+            print(f"data placement auto: the packed store "
+                  f"({store.data.nbytes / 1e6:.0f} MB) is over the "
+                  f"device-store budget ({max_bytes / 1e6:.0f} MB) and the "
+                  f"streamed tier is not yet ported (ROADMAP.md, item 7); "
+                  f"training from the host loader")
         return "host"
     return mode
 

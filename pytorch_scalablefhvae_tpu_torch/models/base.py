@@ -32,10 +32,16 @@ class FHVAEOutputs(NamedTuple):
 
 
 def discriminative_log_qy(z2_mu, mu2_table, seq_idx, pz2_logvar: float,
-                          num_real: int | None = None) -> torch.Tensor:
+                          num_real: int | None = None,
+                          mesh=None) -> torch.Tensor:
     """log q(y | z2): the streaming CUDA kernel for CUDA tensors, its plain
     version for CPU tensors (``ops/discriminative.py``). Rows at or past
-    ``num_real`` are padding and leave the log-sum-exp unchanged."""
+    ``num_real`` are padding and leave the log-sum-exp unchanged. With a
+    ``mesh``, ``mu2_table`` is this rank's row shard of the table: the kernel
+    streams the shard and the model group merges the partials."""
+    if mesh is not None:
+        return _disc.discriminative_log_qy_sharded(
+            z2_mu, mu2_table, seq_idx, float(pz2_logvar), mesh, num_real)
     return _disc.discriminative_log_qy(z2_mu, mu2_table, seq_idx,
                                        float(pz2_logvar), num_real)
 
@@ -59,16 +65,21 @@ def assemble_elbo(x, mu2, z1_mu, z1_logvar, z2_mu, z2_logvar, x_mu, x_logvar,
 
 
 def resolve_mu2_scoring(model, mu2_table: torch.Tensor | None):
-    """The mu2 table a forward scores against, and its real-row count.
+    """``(table, num_real, mesh)``: the mu2 table a forward scores against,
+    its real-row count, and the mesh it is sharded over or ``None``.
 
     Without an override the learned table scores with the model's real
-    sequence count (rows past it are padding); an override table (a split's
-    MAP estimates) is unpadded. The mesh-sharded form comes with the
-    multi-GPU path.
+    sequence count (rows past it are padding) and, in a mesh run, through
+    the model's mesh: the model then holds only its rank's row shard. An
+    override table (a split's MAP estimates) is unpadded and replicated:
+    every rank scores its batch rows against all of it with the single-table
+    kernel. (The JAX package drops to its jnp form there only because a bare
+    Pallas call has no GSPMD partitioning rule; ranks that each launch their
+    own kernel have no such limit.)
     """
     if mu2_table is None:
-        return model.mu2_table, model.num_seqs
-    return mu2_table, mu2_table.shape[0]
+        return model.mu2_table, model.num_seqs, model.shard_mesh
+    return mu2_table, mu2_table.shape[0], None
 
 
 # the exact key set of the metrics dict loss_from_outputs returns
@@ -76,10 +87,16 @@ METRIC_KEYS = ("loss", "lower_bound", "log_qy", "log_px_z",
                "neg_kld_z1", "neg_kld_z2", "log_pmu2")
 
 
-def loss_from_outputs(out: FHVAEOutputs, weight: torch.Tensor, alpha: float):
+def loss_from_outputs(out: FHVAEOutputs, weight: torch.Tensor, alpha: float,
+                      mesh=None):
     """Training loss ``-mean(lower_bound + alpha * log_qy)`` over the rows
-    with weight 1; returns ``(loss, metrics)`` with keys ``METRIC_KEYS``."""
-    denom = torch.clamp(weight.sum(), min=1.0)
+    with weight 1; returns ``(loss, metrics)`` with keys ``METRIC_KEYS``.
+    With a ``mesh``, ``out`` and ``weight`` are this rank's batch rows and
+    the mean divides by the whole batch's weight (summed over the data
+    group): every value is then this rank's part, and the parts of a data
+    group add up to the batch's."""
+    total = weight.sum() if mesh is None else mesh.data_sum(weight.sum())
+    denom = torch.clamp(total, min=1.0)
 
     def wmean(v):
         return (v * weight).sum() / denom

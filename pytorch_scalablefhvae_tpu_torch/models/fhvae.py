@@ -37,6 +37,7 @@ from pytorch_scalablefhvae_tpu_torch.models.base import (
     resolve_mu2_scoring,
 )
 from pytorch_scalablefhvae_tpu_torch.ops import lstm_cuda
+from pytorch_scalablefhvae_tpu_torch.parallel.mesh import gather_rows
 
 
 class LSTMCell(nn.Module):
@@ -94,6 +95,10 @@ class FHVAE(nn.Module):
                                                 tuple(x_hus))
         self.z1_dim, self.z2_dim = z1_dim, z2_dim
         self.num_seqs = num_seqs
+        # a mesh run pads the table to a multiple of its model axis and
+        # keeps one row shard of it here (parallel.mesh.shard_model)
+        self.num_seqs_padded = num_seqs
+        self.shard_mesh = None
         self.pz2_std = pz2_std
         self.compute_dtype = compute_dtype
         self.lstm_mm_dtype = lstm_mm_dtype
@@ -124,6 +129,12 @@ class FHVAE(nn.Module):
     @property
     def pz2_logvar(self) -> float:
         return float(math.log(self.pz2_std ** 2))
+
+    @property
+    def table_rows(self) -> int:
+        """Rows of the mu2 table held here: all of them, or a mesh rank's
+        shard of the padded table."""
+        return self.mu2_table.shape[0]
 
     def model_params(self) -> tuple:
         return (self.input_size, list(self.z1_hus), list(self.z2_hus),
@@ -216,7 +227,10 @@ class FHVAE(nn.Module):
 
         ``x [B, T, D]``, ``seq_idx [B]`` table rows, ``nsegs [B]`` segment
         counts of each row's sequence. ``mu2_table`` overrides the learned
-        table (a split's MAP estimates). The serving path runs
+        table (a split's MAP estimates). In a mesh run (``shard_mesh``) the
+        learned table is this rank's row shard: its rows are gathered and
+        scored through the model group, and all ranks of a model group must
+        pass the same batch rows. The serving path runs
         ``sample=False`` and draws nothing. Training runs ``sample=True``:
         the z2 noise, then the z1 noise, come from ``noise={"z2": eps2 [B,
         z2], "z1": eps1 [B, z1]}`` when given (the tests hand in the JAX
@@ -230,16 +244,20 @@ class FHVAE(nn.Module):
         enc = self._encode_tm(xt, sample, generator, noise)
         x_mu_tm, x_logvar_tm = self._decode_tm(enc["z1"], enc["z2"], T)
 
-        table, num_real = resolve_mu2_scoring(self, mu2_table)
+        table, num_real, mesh = resolve_mu2_scoring(self, mu2_table)
         # JAX clamps an out-of-bounds gather; a served request may number
         # more utterances than the table has rows, and must still run
-        mu2 = table[seq_idx.long().clamp(0, table.shape[0] - 1)]
+        if mesh is None:
+            mu2 = table[seq_idx.long().clamp(0, table.shape[0] - 1)]
+        else:
+            mu2 = gather_rows(
+                table, seq_idx.long().clamp(0, self.num_seqs_padded - 1), mesh)
         lower_bound, log_px_z, neg_kld_z1, neg_kld_z2, log_pmu2 = assemble_elbo(
             xt, mu2, enc["z1_mu"], enc["z1_logvar"], enc["z2_mu"],
             enc["z2_logvar"], x_mu_tm, x_logvar_tm, nsegs,
             pz2_logvar=self.pz2_logvar, frame_axes=(0, 2))
         log_qy = discriminative_log_qy(enc["z2_mu"], table, seq_idx,
-                                       self.pz2_logvar, num_real)
+                                       self.pz2_logvar, num_real, mesh)
         return FHVAEOutputs(
             lower_bound=lower_bound, log_qy=log_qy, log_px_z=log_px_z,
             neg_kld_z1=neg_kld_z1, neg_kld_z2=neg_kld_z2, log_pmu2=log_pmu2,

@@ -1,25 +1,40 @@
 """Streaming discriminative log q(y | z2) over the mu2 table.
 
 Counterpart of ``pytorch_scalablefhvae_tpu/ops/discriminative.py``
-(``discriminative_log_qy_pallas`` and its VJP). Two entries, each with its
-plain PyTorch version (``<entry>_reference``):
+(``discriminative_log_qy_pallas``, its VJP, and
+``discriminative_log_qy_pallas_sharded``). Four entries, each with its plain
+PyTorch version (``<entry>_reference``):
 
 - :func:`discriminative_log_qy`: the forward (``csrc/discriminative_fwd.cu``),
   which never materializes the ``[B, N]`` logits; differentiable;
 - :func:`discriminative_log_qy_bwd`: its backward
   (``csrc/discriminative_bwd.cu``), which recomputes the softmax from the
-  saved log-sum-exp.
+  saved log-sum-exp;
+- :func:`discriminative_log_qy_sharded`: the forward over a ``(data, model)``
+  mesh of ranks (``parallel/mesh.py``). Every rank holds one row shard of the
+  table; the same streaming kernel runs on the shard with the shard's row
+  offset and stops at the online partials ``(m, s, picked)`` per batch row
+  (:func:`shard_partials`), which the ranks of the model group merge with two
+  all-reduces: ``m* = max m``, then the sum of ``[s e^(m - m*), picked]``;
+  ``log_qy = picked* - (m* + log s*)``. Differentiable;
+- :func:`discriminative_log_qy_sharded_bwd`: the per-shard backward from the
+  log-sum-exp over the whole table: ``dz2`` is the shard's part (the
+  autograd Function adds the model group's), ``dmu2`` the shard's own for
+  this rank's batch rows. The caller sums ``dmu2`` over the data group: the
+  train step does so for every gradient at once (``train/step.py``).
 
 Each runs its kernel for CUDA tensors and its plain version for CPU tensors.
-The plain forward is differentiable too, and its backward is the plain
-backward. The sharded form comes with the multi-GPU path.
+The plain forwards are differentiable too, and their backward is the plain
+backward.
 
 Semantics shared by all versions, as in the Pallas kernels:
 - rows ``n >= num_real`` (mesh padding) get a -1e30 logit bias, so they
   leave the log-sum-exp unchanged and get exactly zero gradient;
 - an index outside ``[0, N)`` picks nothing: its log_qy is ``-lse``. A
   served request numbers its utterances 0..n-1 and may hold more of them
-  than the trained table has rows; that must not fail.
+  than the trained table has rows; that must not fail;
+- a shard made only of padding reports ``m = -1e30`` exactly, and
+  ``e^(m - m*)`` is then exactly 0: it leaves the merged result unchanged.
 
 The kernels' launches are counted in ``<entry>.launches``.
 """
@@ -68,14 +83,30 @@ def _forward_plain(z2_mu, mu2_table, seq_idx, pz2_logvar, num_real):
     return torch.where(inside, picked, 0.0) - lse, lse
 
 
+def shard_partials_reference(z2_mu, mu2_local, seq_idx, pz2_logvar, num_real,
+                             row_offset):
+    """Plain version of :func:`shard_partials`: the full ``[B, N_loc]``
+    logits, their max, the sum of their exponentials and a masked gather."""
+    n = mu2_local.shape[0]
+    logits = _logits(z2_mu, mu2_local, pz2_logvar, num_real - row_offset)
+    m = logits.max(dim=-1).values
+    s = torch.exp(logits - m[:, None]).sum(-1)
+    local = seq_idx.long() - row_offset
+    inside = (local >= 0) & (local < n)
+    picked = logits.gather(1, local.clamp(0, n - 1)[:, None])[:, 0]
+    return m, s, torch.where(inside, picked, 0.0)
+
+
 def discriminative_log_qy_bwd_reference(z2_mu, mu2_table, seq_idx, lse, g,
-                                        pz2_logvar, num_real):
-    """Plain version of :func:`discriminative_log_qy_bwd`."""
+                                        pz2_logvar, num_real, row_offset=0):
+    """Plain version of :func:`discriminative_log_qy_bwd` and, with the
+    shard's ``row_offset`` and the whole table's ``lse``, of
+    :func:`discriminative_log_qy_sharded_bwd`."""
     n = mu2_table.shape[0]
-    p = torch.exp(_logits(z2_mu, mu2_table, pz2_logvar, num_real)
+    p = torch.exp(_logits(z2_mu, mu2_table, pz2_logvar, num_real - row_offset)
                   - lse[:, None])
     col = torch.arange(n, device=p.device)
-    onehot = (col[None, :] == seq_idx.long()[:, None]).float()
+    onehot = (col[None, :] == (seq_idx.long() - row_offset)[:, None]).float()
     dlogits = g[:, None] * (onehot - p)
     c2 = 1.0 / math.exp(pz2_logvar)  # 2 / (2 sigma^2)
     dz2 = c2 * (dlogits @ mu2_table)
@@ -118,6 +149,15 @@ def _library(z2_mu, mu2_table, seq_idx, *more):
     return lib
 
 
+def _chunks(lib, B: int, N: int, dev) -> tuple[int, int]:
+    """``(chunk, n_chunks)``: how the forward kernel cuts ``N`` table rows."""
+    row_tiles = -(-B // lib.sfhvae_disc_rows_per_block())
+    n_chunks = max(1, min(-(-N // _TILE),
+                          -(-_target_blocks(dev.index) // max(row_tiles, 1))))
+    chunk = -(-N // n_chunks)
+    return chunk, -(-N // chunk)  # no empty chunk
+
+
 def _forward_kernel(z2_mu, mu2_table, seq_idx, pz2_logvar, num_real,
                     with_lse):
     """Run ``csrc/discriminative_fwd.cu``: ``(log_qy, lse | None)``."""
@@ -125,11 +165,7 @@ def _forward_kernel(z2_mu, mu2_table, seq_idx, pz2_logvar, num_real,
     B, D = z2_mu.shape
     N = mu2_table.shape[0]
     dev = z2_mu.device
-    row_tiles = -(-B // lib.sfhvae_disc_rows_per_block())
-    n_chunks = max(1, min(-(-N // _TILE),
-                          -(-_target_blocks(dev.index) // max(row_tiles, 1))))
-    chunk = -(-N // n_chunks)
-    n_chunks = -(-N // chunk)  # no empty chunk
+    chunk, n_chunks = _chunks(lib, B, N, dev)
     seq32 = seq_idx.to(torch.int32).contiguous()
     part = torch.empty((3, n_chunks, B), device=dev, dtype=torch.float32)
     out = torch.empty((B,), device=dev, dtype=torch.float32)
@@ -147,15 +183,15 @@ def _forward_kernel(z2_mu, mu2_table, seq_idx, pz2_logvar, num_real,
     return out, lse
 
 
-def discriminative_log_qy_bwd(z2_mu, mu2_table, seq_idx, lse, g, pz2_logvar,
-                              num_real):
-    """Backward of :func:`discriminative_log_qy` (the VJP ``_bwd_call``):
-    ``(dz2 [B, Dz], dmu2 [N, Dz])`` for the cotangent ``g [B]`` of log_qy,
-    given the forward's log-sum-exp ``lse [B]``."""
+def _backward(entry, z2_mu, mu2_table, seq_idx, lse, g, pz2_logvar, num_real,
+              row_offset):
+    """Run ``csrc/discriminative_bwd.cu`` on CUDA tensors (counted on
+    ``entry``), the plain backward on CPU tensors."""
     _check(z2_mu, mu2_table, seq_idx, lse, g)
     if z2_mu.device.type == "cpu":
         return discriminative_log_qy_bwd_reference(
-            z2_mu, mu2_table, seq_idx, lse, g, pz2_logvar, num_real)
+            z2_mu, mu2_table, seq_idx, lse, g, pz2_logvar, num_real,
+            row_offset)
     g = g.contiguous()
     lib = _library(z2_mu, mu2_table, seq_idx, lse, g)
     B, D = z2_mu.shape
@@ -166,11 +202,20 @@ def discriminative_log_qy_bwd(z2_mu, mu2_table, seq_idx, lse, g, pz2_logvar,
     code = lib.sfhvae_disc_bwd(
         z2_mu.data_ptr(), mu2_table.data_ptr(), seq32.data_ptr(),
         lse.data_ptr(), g.data_ptr(), dz2.data_ptr(), dmu2.data_ptr(), B, N,
-        D, int(num_real), 0.5 / math.exp(pz2_logvar),
+        D, int(num_real), int(row_offset), 0.5 / math.exp(pz2_logvar),
         torch.cuda.current_stream(z2_mu.device).cuda_stream)
-    _build.check(code, "discriminative_log_qy_bwd")
-    discriminative_log_qy_bwd.launches += 1
+    _build.check(code, entry.__name__)
+    entry.launches += 1
     return dz2, dmu2
+
+
+def discriminative_log_qy_bwd(z2_mu, mu2_table, seq_idx, lse, g, pz2_logvar,
+                              num_real):
+    """Backward of :func:`discriminative_log_qy` (the VJP ``_bwd_call``):
+    ``(dz2 [B, Dz], dmu2 [N, Dz])`` for the cotangent ``g [B]`` of log_qy,
+    given the forward's log-sum-exp ``lse [B]``."""
+    return _backward(discriminative_log_qy_bwd, z2_mu, mu2_table, seq_idx, lse,
+                     g, pz2_logvar, num_real, 0)
 
 
 class _LogQyFn(torch.autograd.Function):
@@ -225,5 +270,136 @@ def discriminative_log_qy_reference(z2_mu, mu2_table, seq_idx, pz2_logvar,
     return _log_qy(True, z2_mu, mu2_table, seq_idx, pz2_logvar, num_real)
 
 
+# ----------------------------------------------------------- sharded form
+
+
+def shard_partials(z2_mu, mu2_local, seq_idx, pz2_logvar, num_real,
+                   row_offset):
+    """One shard's online partials ``(m, s, picked)``, each ``[B]``:
+    the largest logit of ``z2_mu`` against the shard's rows, the sum of
+    ``e^(logit - m)`` and the logit of row ``seq_idx - row_offset`` (0 when
+    another shard owns it). ``mu2_local [N_loc, Dz]`` holds the whole
+    table's rows ``[row_offset, row_offset + N_loc)``; ``num_real`` counts
+    the whole table's real rows; ``seq_idx`` holds rows of the whole table.
+    The streaming kernel for CUDA tensors, the plain version on the CPU."""
+    _check(z2_mu, mu2_local, seq_idx)
+    if z2_mu.device.type == "cpu":
+        return shard_partials_reference(z2_mu, mu2_local, seq_idx, pz2_logvar,
+                                        num_real, row_offset)
+    lib = _library(z2_mu, mu2_local, seq_idx)
+    B, D = z2_mu.shape
+    N = mu2_local.shape[0]
+    dev = z2_mu.device
+    chunk, n_chunks = _chunks(lib, B, N, dev)
+    seq32 = seq_idx.to(torch.int32).contiguous()
+    part = torch.empty((3, n_chunks, B), device=dev, dtype=torch.float32)
+    out = torch.empty((3, B), device=dev, dtype=torch.float32)
+    if B == 0:
+        return out[0], out[1], out[2]
+    code = lib.sfhvae_disc_partials(
+        z2_mu.data_ptr(), mu2_local.data_ptr(), seq32.data_ptr(),
+        part[0].data_ptr(), part[1].data_ptr(), part[2].data_ptr(),
+        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), B, N, D,
+        int(num_real), int(row_offset), chunk, n_chunks,
+        0.5 / math.exp(pz2_logvar), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(code, "discriminative_log_qy_sharded")
+    discriminative_log_qy_sharded.launches += 1
+    return out[0], out[1], out[2]
+
+
+def _rescaled(m, s, picked, m_glob):
+    """One shard's terms of the merged sums: ``[s e^(m - m*), picked]``."""
+    return torch.stack([s * torch.exp(m - m_glob), picked])
+
+
+def _finish(m_glob, total):
+    lse = m_glob + torch.log(total[0])
+    return total[1] - lse, lse
+
+
+def merge_shard_partials(m, s, picked, all_max, all_sum):
+    """``(log_qy, lse)`` from one shard's partials and the two reductions
+    over the shards: ``m* = all_max(m)``, then ``all_sum`` of the stacked
+    ``[s e^(m - m*), picked]``."""
+    m_glob = all_max(m)
+    return _finish(m_glob, all_sum(_rescaled(m, s, picked, m_glob)))
+
+
+def combine_shard_partials(parts):
+    """:func:`merge_shard_partials` over the partials of all shards held in
+    one process (what the ranks of a model group compute together)."""
+    m_glob = torch.stack([p[0] for p in parts]).max(dim=0).values
+    return _finish(m_glob, sum(_rescaled(*p, m_glob) for p in parts))
+
+
+def discriminative_log_qy_sharded_bwd(z2_mu, mu2_local, seq_idx, lse, g,
+                                      pz2_logvar, num_real, row_offset):
+    """Per-shard backward of :func:`discriminative_log_qy_sharded`
+    (``bwd_local``): ``(dz2 part [B, Dz], dmu2 [N_loc, Dz])`` for the
+    cotangent ``g [B]``, given the log-sum-exp ``lse [B]`` over the whole
+    table. The shards' ``dz2`` parts add up to ``dz2``."""
+    return _backward(discriminative_log_qy_sharded_bwd, z2_mu, mu2_local,
+                     seq_idx, lse, g, pz2_logvar, num_real, row_offset)
+
+
+class _ShardedLogQyFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, z2_mu, mu2_local, seq_idx, pz2_logvar, num_real, mesh,
+                plain):
+        offset = mesh.model_index * mu2_local.shape[0]
+        partials = shard_partials_reference if plain else shard_partials
+        out, lse = merge_shard_partials(
+            *partials(z2_mu, mu2_local, seq_idx, pz2_logvar, num_real, offset),
+            mesh.model_max, mesh.model_sum)
+        ctx.save_for_backward(z2_mu, mu2_local, seq_idx, lse)
+        ctx.args = (pz2_logvar, num_real, offset)
+        ctx.mesh, ctx.plain = mesh, plain
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        bwd = (discriminative_log_qy_bwd_reference if ctx.plain
+               else discriminative_log_qy_sharded_bwd)
+        dz2, dmu2 = bwd(*ctx.saved_tensors, g, *ctx.args)
+        return ctx.mesh.model_sum(dz2), dmu2, None, None, None, None, None
+
+
+def _log_qy_sharded(plain, z2_mu, mu2_local, seq_idx, pz2_logvar, mesh,
+                    num_real):
+    _check(z2_mu, mu2_local, seq_idx)
+    if num_real is None:
+        num_real = mu2_local.shape[0] * mesh.shape[1]
+    return _ShardedLogQyFn.apply(z2_mu, mu2_local, seq_idx, float(pz2_logvar),
+                                 int(num_real), mesh, plain)
+
+
+def discriminative_log_qy_sharded(z2_mu, mu2_local, seq_idx, pz2_logvar, mesh,
+                                  num_real=None):
+    """``log q(y = seq_idx | z2_mu)``, ``[B]``, against a mu2 table that is
+    row-sharded over the model axis of ``mesh`` (``parallel.mesh.Mesh``).
+
+    Called by every rank with its batch rows ``z2_mu [B, Dz]``, ``seq_idx
+    [B]`` (rows of the whole table) and its shard ``mu2_local [N_pad / m,
+    Dz]``, whose first row is row ``model_index * N_pad / m`` of the table
+    padded to a multiple of ``m`` (``parallel.mesh.padded_num_seqs``);
+    ``num_real`` counts the real rows. The ranks of a model group must hold
+    the same batch rows. Gradients: ``dz2`` is summed over the model group;
+    ``dmu2`` is the shard's gradient from this rank's batch rows, and the
+    caller sums it over the data group."""
+    return _log_qy_sharded(z2_mu.device.type == "cpu", z2_mu, mu2_local,
+                           seq_idx, pz2_logvar, mesh, num_real)
+
+
+def discriminative_log_qy_sharded_reference(z2_mu, mu2_local, seq_idx,
+                                            pz2_logvar, mesh, num_real=None):
+    """Plain version of :func:`discriminative_log_qy_sharded`: the same
+    reductions around :func:`shard_partials_reference` (backward:
+    :func:`discriminative_log_qy_bwd_reference` with the shard's offset)."""
+    return _log_qy_sharded(True, z2_mu, mu2_local, seq_idx, pz2_logvar, mesh,
+                           num_real)
+
+
 discriminative_log_qy.launches = 0
 discriminative_log_qy_bwd.launches = 0
+discriminative_log_qy_sharded.launches = 0
+discriminative_log_qy_sharded_bwd.launches = 0

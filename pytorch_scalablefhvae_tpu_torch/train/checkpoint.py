@@ -17,6 +17,12 @@ sidecar, and a ``best_model_`` copy) but with named arrays, one per
 ``adam_count`` and ``step`` when it saves a training state, and
 ``"format": "torch_named"`` in the sidecar. Orbax checkpoint directories are
 not yet ported.
+
+A mesh run (``parallel/mesh.py``) saves from rank 0 the whole mu2 table and
+its moments, padded to the run's model axis and gathered over the model
+group; a load fits the rows to the loading run's padding and keeps the
+rank's shard, so a checkpoint moves between mesh shapes and to one device,
+and a JAX mesh run's checkpoint loads the same way.
 """
 
 from __future__ import annotations
@@ -30,6 +36,11 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from pytorch_scalablefhvae_tpu_torch.parallel.mesh import (
+    gather_table_rows,
+    is_sharded,
+)
 
 _SCHEMA_VERSION = 1
 PORT_FORMAT = "torch_named"
@@ -114,6 +125,14 @@ def _adapt_rows(arr: np.ndarray, rows: int) -> np.ndarray:
     return np.pad(arr, ((0, rows - arr.shape[0]), (0, 0)))
 
 
+def _fit_table(arr: np.ndarray, model) -> np.ndarray:
+    """A saved mu2 table (or moment of it) for ``model``: its rows fitted to
+    the model's padding and, in a mesh run, the rank's shard of them."""
+    arr = _adapt_rows(arr, model.num_seqs_padded)
+    mesh = model.shard_mesh
+    return arr if mesh is None else arr[mesh.table_rows(arr.shape[0])]
+
+
 def load_params(checkpoint_file, model: torch.nn.Module) -> dict:
     """Load a JAX or port ``.npz`` checkpoint's parameters into ``model``
     (in place, on the model's device); returns the sidecar meta."""
@@ -140,13 +159,12 @@ def load_params(checkpoint_file, model: torch.nn.Module) -> dict:
     loaded = {}
     for name, arr in arrays.items():
         want = tuple(target[name].shape)
+        if (name.endswith("mu2_table") and arr.ndim == 2
+                and arr.shape[1] == want[1]):
+            arr = _fit_table(arr, model)
         if arr.shape != want:
-            if (name.endswith("mu2_table") and arr.ndim == 2
-                    and arr.shape[1] == want[1]):
-                arr = _adapt_rows(arr, want[0])
-            else:
-                raise ValueError(f"{name}: checkpoint {arr.shape} vs model "
-                                 f"{want}")
+            raise ValueError(f"{name}: checkpoint {arr.shape} vs model "
+                             f"{want}")
         loaded[name] = torch.from_numpy(np.asarray(arr, np.float32))
     model.load_state_dict(loaded)
     return meta
@@ -242,8 +260,8 @@ def load_train_state(checkpoint_file, state, finetune: bool = False,
         target = getattr(state, key)
         for n in names:
             arr = saved[key][n]
-            if arr.shape != tuple(target[n].shape) and n.endswith("mu2_table"):
-                arr = _adapt_rows(arr, target[n].shape[0])
+            if n.endswith("mu2_table"):
+                arr = _fit_table(arr, state.model)
             target[n].copy_(torch.from_numpy(np.asarray(arr, np.float32)))
     state.count, state.step = saved["count"], saved["step"]
     return dict(meta, start_epoch=meta["epoch"] + 1)
@@ -261,18 +279,28 @@ def save_checkpoint(checkpoint_dir, model: torch.nn.Module, *, model_type: str,
     parameter (plus the Adam moments, count and step of ``train_state``
     when given), its sidecar, and a ``best_model_`` copy when this epoch is
     the best. Both files are committed by rename, so a killed save leaves
-    no truncated checkpoint for discovery to find."""
+    no truncated checkpoint for discovery to find. In a mesh run every rank
+    calls this (the row-sharded leaves are gathered over the model group)
+    and rank 0 alone writes."""
     checkpoint_dir = Path(checkpoint_dir)
-    checkpoint_dir.mkdir(parents=True, exist_ok=True)
     f_str = f"{model_type}_{run_info}_e{epoch}"
     npz_path = checkpoint_dir / f"{f_str}.npz"
     meta_path = checkpoint_dir / f"{f_str}.json"
-    arrays = {k: v.detach().cpu().numpy()
-              for k, v in model.state_dict().items()}
+    tensors = dict(model.state_dict())
     if train_state is not None:
         for n in train_state.mu:
-            arrays[_MU + n] = train_state.mu[n].cpu().numpy()
-            arrays[_NU + n] = train_state.nu[n].cpu().numpy()
+            tensors[_MU + n] = train_state.mu[n]
+            tensors[_NU + n] = train_state.nu[n]
+    mesh = getattr(model, "shard_mesh", None)
+    if mesh is not None:
+        sharded = [k for k, v in tensors.items() if is_sharded(k, v)]
+        tensors.update(zip(sharded, gather_table_rows(
+            mesh, *(tensors[k] for k in sharded))))
+        if mesh.rank != 0:
+            return npz_path
+    checkpoint_dir.mkdir(parents=True, exist_ok=True)
+    arrays = {k: v.detach().cpu().numpy() for k, v in tensors.items()}
+    if train_state is not None:
         arrays[_COUNT] = np.int32(train_state.count)
         arrays[_STEP] = np.int32(train_state.step)
     tmp = checkpoint_dir / f".{f_str}.npz.{os.getpid()}.tmp"

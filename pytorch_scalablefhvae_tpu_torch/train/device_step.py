@@ -1,7 +1,6 @@
 """Steps and passes that gather their batches from the device-resident store.
 
-Counterpart of ``pytorch_scalablefhvae_tpu/train/device_step.py`` on one
-device. Instead of a ``[B, seg_len, D]`` batch shipped from the host every
+Counterpart of ``pytorch_scalablefhvae_tpu/train/device_step.py``. Instead of a ``[B, seg_len, D]`` batch shipped from the host every
 step, these take the staged store (``data/device_store.py``) and the epoch's
 index plan on the device, and build each batch there:
 
@@ -19,6 +18,11 @@ PyTorch runs eagerly, so where the JAX package jits a scan, these loop over
 batches in Python; nothing leaves the device until the caller fetches it.
 Padding rows of a plan are (sequence 0, frame 0) with weight 0, so given the
 same permutation the steps train exactly as the host loader does.
+
+On a mesh of ranks the store is replicated on every rank and a rank gathers
+only its rows of each planned batch (:func:`rank_views`); the eval sums and
+the MAP sums are added up over the data group. The chunked MAP pass does not
+run on a mesh (as in the JAX loop): the array-plan pass does.
 """
 
 from __future__ import annotations
@@ -28,6 +32,10 @@ import torch
 from pytorch_scalablefhvae_tpu_torch.data.device_store import STORE_TAIL_SLACK
 from pytorch_scalablefhvae_tpu_torch.ops.window_gather import (
     windowed_chunk_gather,
+)
+from pytorch_scalablefhvae_tpu_torch.parallel.mesh import DATA_AXIS
+from pytorch_scalablefhvae_tpu_torch.parallel.sharded_step import (
+    sum_eval_over_data,
 )
 from pytorch_scalablefhvae_tpu_torch.train.step import eval_step, train_step
 
@@ -55,48 +63,59 @@ def batch_views(store, seq_idx_all, starts_all, nsegs_tab, off: int,
     return feats, seq_idx, nsegs, weight
 
 
+def rank_views(mesh, store, seq_idx_all, starts_all, nsegs_tab, off: int,
+               n_real: int, *, batch_size: int, seg_len: int):
+    """:func:`batch_views` of the rows this rank takes of the plan's batch
+    at ``off`` (all of them without a ``mesh``)."""
+    if mesh is not None:
+        rows = mesh.local_rows(batch_size)
+        off, batch_size = off + rows.start, rows.stop - rows.start
+    return batch_views(store, seq_idx_all, starts_all, nsegs_tab, off, n_real,
+                       batch_size=batch_size, seg_len=seg_len)
+
+
 def device_train_step(state, optimizer, store, plan, off: int, n_real: int,
                       alpha: float, *, batch_size: int, seg_len: int,
-                      noise: dict | None = None) -> dict:
+                      noise: dict | None = None, mesh=None) -> dict:
     """One optimizer step in place on the plan's batch at ``off``;
     ``plan = (seq_idx_all, starts_all, nsegs_tab)``. Returns the step's
     metrics (0-dim tensors on the device)."""
-    seq_idx_all, starts_all, nsegs_tab = plan
-    feats, seq_idx, nsegs, weight = batch_views(
-        store, seq_idx_all, starts_all, nsegs_tab, off, n_real,
-        batch_size=batch_size, seg_len=seg_len)
+    feats, seq_idx, nsegs, weight = rank_views(
+        mesh, store, *plan, off, n_real, batch_size=batch_size,
+        seg_len=seg_len)
     return train_step(state, optimizer, feats, seq_idx, nsegs, weight, alpha,
-                      noise=noise)
+                      noise=noise, mesh=mesh)
 
 
 @torch.inference_mode()
 def device_eval_pass(model, store, plan, n_real: int, alpha: float,
                      table: torch.Tensor | None, *, batch_size: int,
-                     seg_len: int, n_batches: int) -> dict:
+                     seg_len: int, n_batches: int, mesh=None) -> dict:
     """Weighted sums of every metric and the row count (``count``) per
     batch, each stacked ``[n_batches]`` on the device, scored against
     ``table`` when given."""
-    seq_idx_all, starts_all, nsegs_tab = plan
     stacked: dict[str, list] = {}
     for b in range(n_batches):
-        feats, seq_idx, nsegs, weight = batch_views(
-            store, seq_idx_all, starts_all, nsegs_tab, b * batch_size, n_real,
-            batch_size=batch_size, seg_len=seg_len)
+        feats, seq_idx, nsegs, weight = rank_views(
+            mesh, store, *plan, b * batch_size, n_real, batch_size=batch_size,
+            seg_len=seg_len)
         sums = eval_step(model, feats, seq_idx, nsegs, weight, alpha, table)
         for k, v in sums.items():
             stacked.setdefault(k, []).append(v)
-    return {k: torch.stack(v) for k, v in stacked.items()}
+    out = {k: torch.stack(v) for k, v in stacked.items()}
+    return out if mesh is None else sum_eval_over_data(mesh, out)
 
 
 @torch.inference_mode()
 def _map_scan(model, batch_fn, n_batches: int, num_rows: int,
-              r_ratio: float, device) -> torch.Tensor:
+              r_ratio: float, device, mesh=None) -> torch.Tensor:
     """The MAP passes' shared body: encode each batch's z2 means, sum them
     and the valid counts per table row in fp32, then the closed-form MAP
     mean ``sum / (count + pz2_var / pmu2_var)``. ``batch_fn(b) -> (feats,
     seq_idx, valid)``. ``index_put_`` with ``accumulate`` adds duplicate rows
     in a fixed order (on CUDA it sorts the indices and runs no atomics), so
-    two passes give the same bits."""
+    two passes give the same bits. With a ``mesh`` each rank encodes its
+    rows and the sums and counts are added up over the data group."""
     sums = torch.zeros((num_rows, model.z2_dim), device=device)
     counts = torch.zeros((num_rows,), device=device)
     for b in range(n_batches):
@@ -104,24 +123,27 @@ def _map_scan(model, batch_fn, n_batches: int, num_rows: int,
         z2_mu = model.encode_z2(feats)
         sums.index_put_((seq_idx,), z2_mu * valid[:, None], accumulate=True)
         counts.index_put_((seq_idx,), valid, accumulate=True)
+    if mesh is not None:
+        mesh.all_reduce_(sums, DATA_AXIS)
+        mesh.all_reduce_(counts, DATA_AXIS)
     return sums / (counts + r_ratio)[:, None]
 
 
 def device_map_pass(model, store, seq_idx_all, starts_all, n_real: int, *,
                     seg_len: int, batch_size: int, n_batches: int,
                     num_rows: int, pz2_var: float,
-                    pmu2_var: float = 1.0) -> torch.Tensor:
+                    pmu2_var: float = 1.0, mesh=None) -> torch.Tensor:
     """A split's ``[num_rows, z2_dim]`` MAP mu2 table from the array plan
     (``make_device_map_pass``)."""
 
     def batch_fn(b):
-        feats, seq_idx, _, valid = batch_views(
-            store, seq_idx_all, starts_all, None, b * batch_size, n_real,
-            batch_size=batch_size, seg_len=seg_len)
+        feats, seq_idx, _, valid = rank_views(
+            mesh, store, seq_idx_all, starts_all, None, b * batch_size,
+            n_real, batch_size=batch_size, seg_len=seg_len)
         return feats, seq_idx, valid
 
     return _map_scan(model, batch_fn, n_batches, num_rows,
-                     pz2_var / pmu2_var, store.device)
+                     pz2_var / pmu2_var, store.device, mesh)
 
 
 def chunk_layout(sel_starts, sel_nsegs, *, spb: int, seg_shift: int,

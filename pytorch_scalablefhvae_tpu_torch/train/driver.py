@@ -14,13 +14,17 @@ extracted first, the ``jax`` extractor's on the run's device.
 
 :func:`check_ported` refuses every setting whose code path is not yet
 ported, naming ``ROADMAP.md``. The data tier (the device-resident store or
-the host loader) is resolved by ``train/loop.py``.
+the host loader) is resolved by ``train/loop.py``, which also runs the mesh
+branch: on a mesh every rank calls :func:`train_from_config` with its own
+device (``cli/main.py`` starts the ranks).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from pathlib import Path
+
+import torch.distributed as dist
 
 from pytorch_scalablefhvae_tpu_torch.data.feature_store import FeatureStore
 from pytorch_scalablefhvae_tpu_torch.data.loader import SegmentLoader
@@ -38,10 +42,14 @@ def check_ported(config: ExperimentConfig) -> None:
     port does not run yet. ``--epoch-plan device`` is refused rather than
     ignored: on the device-resident tier it means an in-graph shuffle."""
     t, d = config.train, config.data
+    on_mesh = tuple(t.mesh_shape) != (1, 1)
     refused = {
         "--model-type simple_fhvae": config.model.model_type == "simple_fhvae",
+        "--mesh with --hierarchical": on_mesh and t.sample_hierarchical,
+        "--mesh with --steps-per-dispatch > 1":
+            on_mesh and t.steps_per_dispatch > 1,
+        "--shard-device-store": d.shard_device_store,
         "--hierarchical": t.sample_hierarchical,
-        "--mesh": tuple(t.mesh_shape) != (1, 1),
         "--ckpt-backend orbax": t.ckpt_backend == "orbax",
         "--legacy": t.legacy,
         "--steps-per-dispatch > 1": t.steps_per_dispatch > 1,
@@ -95,15 +103,13 @@ def build_loaders(config: ExperimentConfig, data_root: str | Path = ".",
             make_loader("dev", dcfg.dev_batch_size, False))
 
 
-def train_from_config(config: ExperimentConfig, data_root: str | Path = ".",
-                      exp_root: str | Path = "./experiments",
-                      is_preprocessed: bool = False,
-                      continue_from: str | Path | None = None,
-                      finetune: bool = False,
-                      fbank_conf: str | Path = "./misc/fbank.conf",
-                      verbose: bool = True,
-                      resume_overrides: dict | None = None,
-                      device: str = "cuda") -> TrainResult:
+def resolve_run_config(config: ExperimentConfig,
+                       continue_from: str | Path | None = None,
+                       resume_overrides: dict | None = None,
+                       verbose: bool = True) -> ExperimentConfig:
+    """The config the run trains with: on a resume the saved ``config.json``
+    beside the checkpoint, changed only by ``resume_overrides`` (a resume on
+    another mesh: ``mesh_shape=1,2``); checked by :func:`check_ported`."""
     if continue_from is not None:
         saved = Path(continue_from).parent / "config.json"
         if saved.exists():
@@ -120,6 +126,22 @@ def train_from_config(config: ExperimentConfig, data_root: str | Path = ".",
             "--resume-override only applies when resuming (--continue-from); "
             "set the flag directly for a fresh run")
     check_ported(config)
+    return config
+
+
+def train_from_config(config: ExperimentConfig, data_root: str | Path = ".",
+                      exp_root: str | Path = "./experiments",
+                      is_preprocessed: bool = False,
+                      continue_from: str | Path | None = None,
+                      finetune: bool = False,
+                      fbank_conf: str | Path = "./misc/fbank.conf",
+                      verbose: bool = True,
+                      resume_overrides: dict | None = None,
+                      device: str = "cuda") -> TrainResult:
+    in_group = dist.is_initialized()
+    verbose = verbose and (not in_group or dist.get_rank() == 0)
+    config = resolve_run_config(config, continue_from, resume_overrides,
+                                verbose)
     if (config.features.data_format == "kaldi"
             and config.features.fbank_conf_kwargs is None
             and Path(fbank_conf).exists()):
@@ -147,6 +169,12 @@ def train_from_config(config: ExperimentConfig, data_root: str | Path = ".",
                 n += 1
                 suffix = "_finetune" if n == 1 else f"_finetune{n}"
                 exp_dir = base.with_name(base.name + suffix)
+    if in_group and not is_preprocessed:
+        # one rank extracts the features; the others wait and read them
+        if dist.get_rank() == 0:
+            build_loaders(config, data_root, False, fbank_conf, device=device)
+        dist.barrier()
+        is_preprocessed = True
     train_loader, dev_loader = build_loaders(config, data_root,
                                              is_preprocessed, fbank_conf,
                                              device=device)

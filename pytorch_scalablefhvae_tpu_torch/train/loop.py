@@ -1,4 +1,5 @@
-"""The training loop: counterpart of ``train/loop.py`` on one device.
+"""The training loop: counterpart of ``train/loop.py``, on one device or on a
+mesh of ranks.
 
 Separate pieces rather than the JAX package's one ``run_training`` body:
 :func:`run_epoch` (the host loader: one pass over the shuffled training
@@ -11,6 +12,14 @@ against a MAP-estimated mu2 table), :func:`stage_split` +
 :func:`save_epoch` (the checkpoint policy), :func:`check_best` /
 :func:`check_terminate` (early stopping), and :func:`run_training`, which
 resolves the data tier and strings them together.
+
+On a mesh (``parallel/mesh.py``; ``--mesh d,m``, one process per rank) every
+rank runs this same loop in step: it pads and shards the mu2 table, takes its
+rows of every batch on either data tier, and splits both dev passes over the
+data ranks when the dev batch size divides by ``d`` (else every rank runs
+them whole). All decisions (divergence, best epoch, early stopping) are
+taken from all-reduced values, so the ranks take them together; rank 0 alone
+prints, writes ``metrics.jsonl`` and the checkpoints.
 
 Hierarchical rounds, the streamed tier, K-step dispatch, mid-epoch
 checkpoints and profiling are not ported yet (``ROADMAP.md``;
@@ -26,6 +35,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pytorch_scalablefhvae_tpu_torch.data.loader import SegmentLoader
 from pytorch_scalablefhvae_tpu_torch.config import ExperimentConfig
@@ -37,6 +47,12 @@ from pytorch_scalablefhvae_tpu_torch.data.device_store import (
     resolve_tier,
 )
 from pytorch_scalablefhvae_tpu_torch.models.base import build_model
+from pytorch_scalablefhvae_tpu_torch.parallel.mesh import (
+    is_sharded,
+    make_mesh,
+    replicas_equal,
+    shard_model,
+)
 from pytorch_scalablefhvae_tpu_torch.train import checkpoint as ckpt
 from pytorch_scalablefhvae_tpu_torch.train.device_step import (
     device_eval_pass,
@@ -95,10 +111,14 @@ class TrainResult:
     diverged: bool = False
 
 
-def batch_tensors(b, device: torch.device):
+def batch_tensors(b, device: torch.device, mesh=None):
     """``(feats, seq_idx, nsegs, weight)`` of a loader batch on ``device``:
-    for a GPU, one pinned host copy and an asynchronous transfer each."""
+    for a GPU, one pinned host copy and an asynchronous transfer each. With
+    a ``mesh``, this rank's rows of the batch only."""
     arrays = (b.feats, b.seq_idx, b.nsegs, b.weight)
+    if mesh is not None:
+        rows = mesh.local_rows(len(b.weight))
+        arrays = tuple(a[rows] for a in arrays)
     if device.type == "cpu":
         return tuple(torch.from_numpy(a) for a in arrays)
     return tuple(torch.from_numpy(a).pin_memory().to(device, non_blocking=True)
@@ -106,7 +126,8 @@ def batch_tensors(b, device: torch.device):
 
 
 def run_epoch(state: TrainState, optimizer: Optimizer, loader: SegmentLoader,
-              alpha: float, device: torch.device, epoch: int) -> EpochStats:
+              alpha: float, device: torch.device, epoch: int,
+              mesh=None) -> EpochStats:
     """One epoch of train steps over ``loader``'s order for ``epoch``.
 
     Every step's loss comes back to the host (one scalar, the only sync per
@@ -115,8 +136,9 @@ def run_epoch(state: TrainState, optimizer: Optimizer, loader: SegmentLoader,
     loss_sum, count, steps = 0.0, 0, 0
     t0 = time.perf_counter()
     for b in loader:
-        metrics = train_step(state, optimizer, *batch_tensors(b, device),
-                             alpha)
+        metrics = train_step(state, optimizer,
+                             *batch_tensors(b, device, mesh), alpha,
+                             mesh=mesh)
         loss = float(metrics["loss"])
         steps += 1
         if not math.isfinite(loss):
@@ -132,8 +154,8 @@ def run_epoch(state: TrainState, optimizer: Optimizer, loader: SegmentLoader,
 
 def run_device_epoch(state: TrainState, optimizer: Optimizer,
                      source: DeviceDataSource, loader: SegmentLoader,
-                     alpha: float, device: torch.device,
-                     epoch: int) -> EpochStats:
+                     alpha: float, device: torch.device, epoch: int,
+                     mesh=None) -> EpochStats:
     """One epoch of train steps gathered from the staged store, over the
     host loader's own permutation for ``epoch``, so both tiers train on the
     same batches.
@@ -152,7 +174,7 @@ def run_device_epoch(state: TrainState, optimizer: Optimizer,
     for b in range(plan.n_batches):
         metrics = device_train_step(
             state, optimizer, source.data, arrays, b * B, plan.n_real, alpha,
-            batch_size=B, seg_len=ds.seg_len)
+            batch_size=B, seg_len=ds.seg_len, mesh=mesh)
         if pending is not None:
             losses.append(float(pending))
             if not math.isfinite(losses[-1]):
@@ -184,38 +206,48 @@ def _map_table(sums: np.ndarray, counts: np.ndarray, pz2_var: float,
 
 def estimate_split_mu2(model, loader: SegmentLoader, num_seqs: int,
                        pz2_var: float, device: torch.device,
-                       pmu2_var: float = 1.0) -> np.ndarray:
+                       pmu2_var: float = 1.0, mesh=None) -> np.ndarray:
     """MAP-estimate a split's mu2 table from the z2 encoder's means:
     ``mu2[y] = sum(z2_mu of y's segments) / (nsegs(y) + pz2_var/pmu2_var)``,
-    accumulated on the host in fp64."""
+    accumulated on the host in fp64. With a ``mesh`` each rank encodes its
+    rows of every batch and the sums are added up over the data group."""
     sums = np.zeros((num_seqs, model.z2_dim), dtype=np.float64)
     counts = np.zeros(num_seqs, dtype=np.float64)
     for b in loader:
-        z2 = encode_step(model, batch_tensors(b, device)[0]).cpu().numpy()
-        real = b.weight > 0
-        np.add.at(sums, b.seq_idx[real], z2[real])
-        np.add.at(counts, b.seq_idx[real], 1.0)
+        z2 = encode_step(model, batch_tensors(b, device, mesh)[0]) \
+            .cpu().numpy()
+        rows = (slice(None) if mesh is None
+                else mesh.local_rows(len(b.weight)))
+        seq_idx, real = b.seq_idx[rows], b.weight[rows] > 0
+        np.add.at(sums, seq_idx[real], z2[real])
+        np.add.at(counts, seq_idx[real], 1.0)
+    if mesh is not None:
+        sums, counts = mesh.data_sum_host(sums, counts)
     return _map_table(sums, counts, pz2_var, pmu2_var)
 
 
 def evaluate_split(model, loader: SegmentLoader, alpha: float,
-                   device: torch.device,
-                   table: torch.Tensor | None = None) -> dict[str, float]:
+                   device: torch.device, table: torch.Tensor | None = None,
+                   mesh=None) -> dict[str, float]:
     """Exact weighted means of every metric over a split (sums and counts
-    accumulated in fp64), scored against ``table`` when given."""
+    accumulated in fp64), scored against ``table`` when given. With a
+    ``mesh`` each rank scores its rows of every batch and the totals are
+    added up over the data group."""
 
     def per_batch():
         for b in loader:
-            sums = eval_step(model, *batch_tensors(b, device), alpha, table)
+            sums = eval_step(model, *batch_tensors(b, device, mesh), alpha,
+                             table)
             yield sums.keys(), torch.stack(list(sums.values())).double() \
                 .cpu().tolist()
 
-    return split_means(per_batch())
+    return split_means(per_batch(), mesh)
 
 
-def split_means(per_batch) -> dict[str, float]:
+def split_means(per_batch, mesh=None) -> dict[str, float]:
     """Weighted means from ``(keys, values)`` of each batch's metric sums
-    (``count`` among the keys), added in batch order in fp64."""
+    (``count`` among the keys), added in batch order in fp64; with a
+    ``mesh`` the ranks' totals are added up over the data group first."""
     totals: dict[str, float] = {}
     count = 0.0
     for keys, vals in per_batch:
@@ -224,20 +256,24 @@ def split_means(per_batch) -> dict[str, float]:
                 count += v
             else:
                 totals[k] = totals.get(k, 0.0) + v
+    if mesh is not None and totals:
+        summed, = mesh.data_sum_host(np.array([count, *totals.values()]))
+        count, totals = summed[0], dict(zip(totals, summed[1:].tolist()))
     if count == 0:
         return {k: float("nan") for k in ("loss", "lower_bound", "log_qy")}
     return {k: v / count for k, v in totals.items()}
 
 
 def dev_pass(model, loader: SegmentLoader, alpha: float,
-             device: torch.device) -> dict[str, float]:
+             device: torch.device, mesh=None) -> dict[str, float]:
     """The per-epoch dev lower bound: held-out sequences have no rows in the
-    learned table, so they are scored against their MAP estimates."""
+    learned table, so they are scored against their MAP estimates. With a
+    ``mesh`` both passes split their batches over the data ranks."""
     pz2_var = float(math.exp(model.pz2_logvar))
     table = estimate_split_mu2(model, loader, loader.dataset.num_seqs,
-                               pz2_var, device)
+                               pz2_var, device, mesh=mesh)
     return evaluate_split(model, loader, alpha, device,
-                          table=torch.from_numpy(table).to(device))
+                          table=torch.from_numpy(table).to(device), mesh=mesh)
 
 
 MAP_SPB = 16  # windows per chunk of the chunked dev MAP pass
@@ -256,16 +292,17 @@ class DeviceSplit:
     chunked: tuple | None
 
 
-def stage_split(loader: SegmentLoader, device: torch.device) -> DeviceSplit:
+def stage_split(loader: SegmentLoader, device: torch.device,
+                mesh_run: bool = False) -> DeviceSplit:
     """Stage ``loader``'s split (ordered) on ``device``. Its MAP pass is the
     chunked one when windows are deterministic, the batch is a multiple of
-    ``MAP_SPB`` and a chunk's region fits the store's slack, as the JAX loop
-    decides it."""
+    ``MAP_SPB``, a chunk's region fits the store's slack and the run is not a
+    mesh run, as the JAX loop decides it."""
     ds, B = loader.dataset, loader.batch_size
     source = DeviceDataSource(ds.store, device)
     plan, arrays = source.stage_epoch(ds, np.arange(len(ds)), B)
     chunked = None
-    if (not ds.rand_seg and B % MAP_SPB == 0
+    if (not mesh_run and not ds.rand_seg and B % MAP_SPB == 0
             and (MAP_SPB - 1) * ds.seg_shift + ds.seg_len <= STORE_TAIL_SLACK):
         padded = int((-(-ds.nsegs // MAP_SPB) * MAP_SPB).sum())
         chunked = (source.upload(ds.store.seq_starts, torch.long),
@@ -274,11 +311,12 @@ def stage_split(loader: SegmentLoader, device: torch.device) -> DeviceSplit:
     return DeviceSplit(loader, source, plan, arrays, chunked)
 
 
-def device_dev_pass(model, split: DeviceSplit,
-                    alpha: float) -> dict[str, float]:
+def device_dev_pass(model, split: DeviceSplit, alpha: float,
+                    mesh=None) -> dict[str, float]:
     """:func:`dev_pass` over a staged split: the MAP table (fp32 sums on the
     device) and the scoring pass stay on the device; the per-batch sums come
-    back in one fetch and are added as :func:`evaluate_split` adds them."""
+    back in one fetch and are added as :func:`evaluate_split` adds them.
+    With a ``mesh`` each rank takes its rows of every batch."""
     ds, B = split.loader.dataset, split.loader.batch_size
     store, plan = split.source.data, split.plan
     pz2_var = float(math.exp(model.pz2_logvar))
@@ -292,10 +330,10 @@ def device_dev_pass(model, split: DeviceSplit,
         table = device_map_pass(
             model, store, split.arrays[0], split.arrays[1], plan.n_real,
             seg_len=ds.seg_len, batch_size=B, n_batches=plan.n_batches,
-            num_rows=ds.num_seqs, pz2_var=pz2_var)
+            num_rows=ds.num_seqs, pz2_var=pz2_var, mesh=mesh)
     stacked = device_eval_pass(model, store, split.arrays, plan.n_real, alpha,
                                table, batch_size=B, seg_len=ds.seg_len,
-                               n_batches=plan.n_batches)
+                               n_batches=plan.n_batches, mesh=mesh)
     keys = list(stacked)
     mat = torch.stack([stacked[k] for k in keys]).double().cpu()
     return split_means((keys, row) for row in mat.T.tolist())
@@ -303,7 +341,7 @@ def device_dev_pass(model, split: DeviceSplit,
 
 def stage_device_tier(config: ExperimentConfig, train_loader: SegmentLoader,
                       dev_loader: SegmentLoader, device: torch.device,
-                      verbose: bool):
+                      verbose: bool, mesh_run: bool = False):
     """The staged training store, and the staged dev split where it fits
     what the budget leaves (``"auto"`` against the rest, so that a train
     store that barely fits never runs out of memory for the dev split),
@@ -318,7 +356,7 @@ def stage_device_tier(config: ExperimentConfig, train_loader: SegmentLoader,
             "auto", dev_store,
             max_bytes=max(config.data.device_store_max_bytes - staged, 0)):
         return source, None
-    split = stage_split(dev_loader, device)
+    split = stage_split(dev_loader, device, mesh_run)
     if verbose:
         print(f"Dev split device-resident ({dev_store.data.nbytes / 1e6:.0f} "
               f"MB staged)")
@@ -349,23 +387,47 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
     checkpoint each, early stopping by patience. A non-finite training loss
     stops the run with ``diverged`` set, before that epoch is saved. The
     data tier is resolved first (:func:`resolve_tier`): the device-resident
-    store, or the host loader."""
+    store, or the host loader. A mesh run (``config.train.mesh_shape`` other
+    than ``(1, 1)``, or an initialised ``torch.distributed``) is one call of
+    this on every rank, each with its own ``device``."""
     exp_dir = Path(exp_dir)
-    exp_dir.mkdir(parents=True, exist_ok=True)
-    config.save(exp_dir / "config.json")
     dev = resolve_device(device)
+    mesh = None
+    if tuple(config.train.mesh_shape) != (1, 1) or dist.is_initialized():
+        mesh = make_mesh(tuple(config.train.mesh_shape), dev)
+        if train_loader.batch_size % mesh.shape[0]:
+            raise ValueError(
+                f"the data axis ({mesh.shape[0]}) must divide the training "
+                f"batch size ({train_loader.batch_size})")
+    first = mesh is None or mesh.rank == 0  # the rank that prints and writes
+    verbose = verbose and first
+    if first:
+        exp_dir.mkdir(parents=True, exist_ok=True)
+        config.save(exp_dir / "config.json")
 
     ds = train_loader.dataset
     source, dev_split = None, None
     if resolve_tier(config.data.data_placement, ds.store,
-                    config.data.device_store_max_bytes) == "device":
+                    config.data.device_store_max_bytes,
+                    verbose=first) == "device":
         source, dev_split = stage_device_tier(config, train_loader,
-                                              dev_loader, dev, verbose)
+                                              dev_loader, dev, verbose,
+                                              mesh_run=mesh is not None)
     seg_len, dim, num_seqs = ds.seg_len, ds.store.dim, ds.num_seqs
     seed = config.train.seed
     model = build_model(config.model.model_type, seg_len * dim, config.model,
                         num_seqs, feat_dim=dim,
                         generator=torch.Generator().manual_seed(seed))
+    # both dev passes split over the data ranks when they can
+    dev_mesh = None
+    if mesh is not None:
+        model = shard_model(model, mesh)
+        if dev_loader.batch_size % mesh.shape[0] == 0:
+            dev_mesh = mesh
+        if verbose:
+            print(f"Training on mesh {{'data': {mesh.shape[0]}, 'model': "
+                  f"{mesh.shape[1]}}}: {model.num_seqs_padded} mu2 rows, "
+                  f"{model.table_rows} per rank")
     state = create_train_state(model.to(dev), seed=seed)
     optimizer = make_optimizer(config.optim.learning_rate,
                                config.optim.beta_one, config.optim.beta_two)
@@ -386,7 +448,7 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
             print(f"Resumed from {continue_from} at epoch {start_epoch} "
                   f"(step {state.step})")
 
-    writer = MetricWriter(exp_dir, config.run_id())
+    writer = MetricWriter(exp_dir, config.run_id()) if first else None
     extra = {"num_seqs": num_seqs, "feat_dim": dim, "seg_len": seg_len,
              "corpus_fingerprint": corpus_fp}
     result = TrainResult(state, best_epoch, best_val_lb, start_epoch - 1,
@@ -394,20 +456,27 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
     for epoch in range(start_epoch, config.train.epochs):
         if source is not None:
             stats = run_device_epoch(state, optimizer, source, train_loader,
-                                     alpha, dev, epoch)
+                                     alpha, dev, epoch, mesh)
         else:
             stats = run_epoch(state, optimizer, train_loader, alpha, dev,
-                              epoch)
+                              epoch, mesh)
         if stats.diverged:
-            print("Training diverged")
+            if first:
+                print("Training diverged")
             result.diverged, result.last_epoch = True, epoch
             return result
+        if mesh is not None and not replicas_equal(mesh, [
+                p for n, p in state.params().items() if not is_sharded(n, p)]):
+            raise RuntimeError(
+                f"epoch {epoch}: the replicated parameters differ between "
+                f"the ranks of the mesh")
         if verbose:
             print(f"====> Epoch {epoch}: train loss {stats.train_loss:.4f}, "
                   f"{stats.steps} steps in {stats.seconds:.2f} s "
                   f"({stats.segments_per_sec:.1f} segments/s)")
-        val = (device_dev_pass(model, dev_split, alpha) if dev_split
-               is not None else dev_pass(model, dev_loader, alpha, dev))
+        val = (device_dev_pass(model, dev_split, alpha, dev_mesh) if dev_split
+               is not None else dev_pass(model, dev_loader, alpha, dev,
+                                         dev_mesh))
         if verbose:
             print(f"====> Validation set loss: {val['loss']:.4f}  "
                   f"LB: {val['lower_bound']:.4f}")
@@ -427,7 +496,8 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
             "val_neg_kld_z2": val.get("neg_kld_z2", float("nan")),
             "val_log_pmu2": val.get("log_pmu2", float("nan")),
         }
-        writer.write_epoch(epoch, scalars)
+        if first:
+            writer.write_epoch(epoch, scalars)
         if check_best(val["lower_bound"], best_val_lb):
             best_epoch, best_val_lb = epoch, val["lower_bound"]
         save_epoch(exp_dir, state, config, epoch, best_epoch, best_val_lb,

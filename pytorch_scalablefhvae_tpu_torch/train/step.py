@@ -12,6 +12,14 @@ step seeds a fresh generator on the batch's device from ``(seed, step)``, so
 a resumed run draws what an uninterrupted one would, and no generator state
 is saved. The two frameworks' generators give different numbers; the tests
 hand the JAX draws in through ``noise``.
+
+On a mesh of ranks (``parallel/mesh.py``) the same functions take this
+rank's batch rows and a ``mesh``: the loss divides by the whole batch's
+weight, every gradient is summed over the data group exactly once (one
+all-reduce of all of them, the step's metrics riding along), the clip's
+global norm counts replicated leaves once and adds the table shards' squares
+over the model group, and the noise is drawn for the whole batch, of which
+the rank keeps its rows: a ``(d, m)`` step is the single-device step.
 """
 
 from __future__ import annotations
@@ -22,6 +30,10 @@ import numpy as np
 import torch
 
 from pytorch_scalablefhvae_tpu_torch.models.base import loss_from_outputs
+from pytorch_scalablefhvae_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    is_sharded,
+)
 from pytorch_scalablefhvae_tpu_torch.train.checkpoint import jax_leaf_names
 
 
@@ -74,13 +86,19 @@ class Optimizer:
     eps: float = 1e-8
 
     @torch.no_grad()
-    def update(self, state: TrainState, grads: dict[str, torch.Tensor]):
+    def update(self, state: TrainState, grads: dict[str, torch.Tensor],
+               mesh=None):
         names = state.names
         params = state.params()
         p = [params[n] for n in names]
         g = [grads[n] for n in names]
         if self.grad_clip_norm is not None:
-            norm = torch.sqrt(sum(torch.sum(x * x) for x in g))
+            squares = [torch.sum(x * x) for x in g]
+            if mesh is not None:
+                # a row-sharded leaf's squares add up over the model group
+                squares = [mesh.model_sum(q) if is_sharded(n, x) else q
+                           for n, x, q in zip(names, g, squares)]
+            norm = torch.sqrt(sum(squares))
             scale = torch.where(norm < self.grad_clip_norm,
                                 torch.ones_like(norm),
                                 self.grad_clip_norm / norm)
@@ -114,31 +132,56 @@ def noise_seed(seed: int, step: int) -> int:
     return ((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF)
 
 
-def step_noise(state: TrainState, batch: int,
-               device: torch.device) -> dict[str, torch.Tensor]:
-    """This step's reparameterization noise: z2's draw, then z1's."""
+def step_noise(state: TrainState, batch: int, device: torch.device,
+               mesh=None) -> dict[str, torch.Tensor]:
+    """This step's reparameterization noise: z2's draw, then z1's. With a
+    ``mesh``, ``batch`` is this rank's row count: the draw is the whole
+    batch's and the rank keeps its rows."""
     model = state.model
     g = torch.Generator(device=device)
     g.manual_seed(noise_seed(state.seed, state.step))
+    rows = slice(None)
+    if mesh is not None:
+        batch *= mesh.shape[0]
+        rows = mesh.local_rows(batch)
     eps2 = torch.randn((batch, model.z2_dim), generator=g, device=device)
     eps1 = torch.randn((batch, model.z1_dim), generator=g, device=device)
-    return {"z2": eps2, "z1": eps1}
+    return {"z2": eps2[rows], "z1": eps1[rows]}
+
+
+def _sum_over_data(mesh, grads: list, metrics: dict):
+    """Every gradient and metric summed over the data group in one
+    all-reduce of their concatenation."""
+    parts = [*grads, *metrics.values()]
+    flat = mesh.all_reduce_(torch.cat([t.detach().reshape(-1) for t in parts]),
+                            DATA_AXIS)
+    out, at = [], 0
+    for t in parts:
+        out.append(flat[at:at + t.numel()].view(t.shape))
+        at += t.numel()
+    return out[:len(grads)], dict(zip(metrics, out[len(grads):]))
 
 
 def train_step(state: TrainState, optimizer: Optimizer, feats, seq_idx, nsegs,
-               weight, alpha: float, noise: dict | None = None) -> dict:
+               weight, alpha: float, noise: dict | None = None,
+               mesh=None) -> dict:
     """One optimizer step in place; returns the step's metrics (0-dim
-    tensors on the batch's device, keys ``METRIC_KEYS``)."""
+    tensors on the batch's device, keys ``METRIC_KEYS``). With a ``mesh``
+    the batch arrays (and ``noise``) are this rank's rows and the model is
+    the rank's (``parallel.mesh.shard_model``); the metrics returned are the
+    whole batch's, the same on every rank."""
     if noise is None:
-        noise = step_noise(state, feats.shape[0], feats.device)
+        noise = step_noise(state, feats.shape[0], feats.device, mesh)
     out = state.model.apply(feats, seq_idx, nsegs, sample=True, noise=noise)
-    loss, metrics = loss_from_outputs(out, weight, alpha)
+    loss, metrics = loss_from_outputs(out, weight, alpha, mesh)
     params = state.params()
     grads = torch.autograd.grad(loss, list(params.values()),
                                 allow_unused=True)
-    optimizer.update(state, {
-        n: torch.zeros_like(p) if g is None else g
-        for (n, p), g in zip(params.items(), grads)})
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(params.values(), grads)]
+    if mesh is not None:
+        grads, metrics = _sum_over_data(mesh, grads, metrics)
+    optimizer.update(state, dict(zip(params, grads)), mesh)
     state.step += 1
     return {k: v.detach() for k, v in metrics.items()}
 
@@ -147,7 +190,9 @@ def train_step(state: TrainState, optimizer: Optimizer, feats, seq_idx, nsegs,
 def eval_step(model, feats, seq_idx, nsegs, weight, alpha: float,
               table: torch.Tensor | None = None) -> dict:
     """Posterior-mean forward: weighted sums of every metric plus the row
-    count ``count``, so a caller accumulates exact split means."""
+    count ``count``, so a caller accumulates exact split means. In a mesh
+    run the sums are those of the rows given; the caller adds the data
+    group's."""
     out = model.apply(feats, seq_idx, nsegs, sample=False, mu2_table=table)
     _, metrics = loss_from_outputs(out, weight, alpha)
     n = weight.sum()

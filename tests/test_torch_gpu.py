@@ -98,6 +98,49 @@ def rel_norm(got, want) -> float:
 # in bf16 a gate adjoint on a rounding boundary may round the other way under
 # another sum order (tests/test_torch_lstm_bwd.py), so 1e-3, which the plain
 # fp32-vs-bf16 backward gap must exceed (checked here)
+@pytest.mark.parametrize("n,m", [(203, 4), (37, 8), (5, 8)])
+def test_sharded_discriminative_matches_plain(cuda, n, m):
+    """Kernel #7 shard by shard: the partials kernel with each shard's row
+    offset, merged as the entry merges them, and the per-shard backward,
+    against the plain single-table forward and backward on the unpadded
+    table; padded rows get exactly zero gradient; launches are counted."""
+    from pytorch_scalablefhvae_tpu_torch.parallel.mesh import padded_num_seqs
+
+    g = torch.Generator().manual_seed(7)
+    pz2 = float(np.log(0.25))
+    n_pad = padded_num_seqs(n, m)
+    per = n_pad // m
+    table = torch.zeros((n_pad, 16))
+    table[:n] = torch.randn((n, 16), generator=g)
+    seq = torch.randint(0, n, (B,), generator=g)
+    z2 = (table[seq] + 0.5 * torch.randn((B, 16), generator=g)).to(cuda)
+    seq[2] = n_pad + 1  # outside the table: picks nothing on any shard
+    gq = torch.randn((B,), generator=g).to(cuda)
+    table, seq = table.to(cuda), seq.to(cuda)
+    shards = [table[j * per:(j + 1) * per].contiguous() for j in range(m)]
+    fwd, bwd = (discriminative.discriminative_log_qy_sharded,
+                discriminative.discriminative_log_qy_sharded_bwd)
+    before = fwd.launches, bwd.launches
+    parts = [discriminative.shard_partials(z2, shards[j], seq, pz2, n,
+                                           j * per) for j in range(m)]
+    got, lse = discriminative.combine_shard_partials(parts)
+    back = [bwd(z2, shards[j], seq, lse, gq, pz2, n, j * per)
+            for j in range(m)]
+    assert (fwd.launches, bwd.launches) == (before[0] + m, before[1] + m)
+    want, want_lse = discriminative._forward_plain(z2, table[:n], seq, pz2, n)
+    want_dz2, want_dmu2 = discriminative.discriminative_log_qy_bwd_reference(
+        z2, table[:n], seq, want_lse, gq, pz2, n)
+    dmu2 = torch.cat([b[1] for b in back])
+    assert float((got - want).abs().max()) <= 1e-4
+    torch.testing.assert_close(sum(b[0] for b in back), want_dz2, rtol=1e-3,
+                               atol=1e-4)
+    torch.testing.assert_close(dmu2[:n], want_dmu2, rtol=1e-3, atol=1e-4)
+    assert bool((dmu2[n:] == 0).all())
+    for j in range(m):
+        if j * per >= n:  # a shard of padding only
+            assert bool((parts[j][0] == -1e30).all())
+
+
 @pytest.mark.parametrize("mm,tol", [("float32", 1e-5), ("bfloat16", 1e-3)])
 def test_lstm_backward_entries_match_plain(cuda, mm, tol):
     g = torch.Generator().manual_seed(2)

@@ -157,6 +157,15 @@ def test_config_from_args_without_train_flags():
     assert got.to_dict() == want.to_dict()
 
 
+@pytest.mark.parametrize("n,m", [(4620, 8), (4620, 1), (13, 4), (16, 4),
+                                 (281241, 4), (5, 8), (7, 0)])
+def test_padded_num_seqs(n, m):
+    from pytorch_scalablefhvae_tpu.parallel.mesh import padded_num_seqs
+    from pytorch_scalablefhvae_tpu_torch.parallel import mesh as port_mesh
+
+    assert port_mesh.padded_num_seqs(n, m) == padded_num_seqs(n, m)
+
+
 def test_config_dataclasses_have_the_same_fields():
     for name in ("FeatureConfig", "DataConfig", "ModelConfig", "OptimConfig",
                  "TrainConfig", "ExperimentConfig"):

@@ -52,6 +52,9 @@ PORT_MODULES = [
     "pytorch_scalablefhvae_tpu_torch.ops.discriminative",
     "pytorch_scalablefhvae_tpu_torch.ops.window_gather",
     "pytorch_scalablefhvae_tpu_torch.ops.fbank_cuda",
+    "pytorch_scalablefhvae_tpu_torch.parallel.mesh",
+    "pytorch_scalablefhvae_tpu_torch.parallel.sharded_step",
+    "pytorch_scalablefhvae_tpu_torch.parallel.launch",
 ]
 
 
