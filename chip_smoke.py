@@ -30,9 +30,20 @@ prints no result line):
    equal, features within the stated limit;
 2b. the three backward entries against their plain backward at the training
    shapes (B = 1024), in fp32 and bf16 operands, on the same residuals and
-   cotangents, two launches compared bitwise; the discriminative backward
-   at 4,620 and 281,241 table rows with 7 padded rows, which must get
-   exactly zero gradient;
+   cotangents, two launches compared bitwise. The bf16 calls must take the
+   tensor-core form (``launches_tc``), the fp32 calls the FMA form; the
+   tensor-core form's streams are held pass by pass against the plain
+   backward in the same pass structure (gates after pass A, dgates after
+   pass B), its kernels timed per pass (torch.profiler) beside the whole
+   call (CUDA events), the FMA form timed in bf16 mode in turns with it (what
+   every bf16 call took before the tensor-core form), the reverse-time chain
+   timed alone without its global traffic and without its products, and the
+   bf16 forms run once more on a ragged batch of 1000 rows and on a mesh
+   rank's 512 rows, each output held to the tolerance on its own, and both
+   forms on the batch split in two against the whole batch (per-row outputs
+   equal bit for bit, summed outputs up to fp32 sum order); then the
+   discriminative backward at 4,620 and 281,241 table rows with 7 padded
+   rows, which must get exactly zero gradient;
 2c. ``windowed_chunk_gather`` against its plain version at the dev MAP
    pass's shape (128 chunks of 16 windows, seg_len 20, stride 8, D 80) on a
    100,000-row store and on a store of TIMIT-train size, whose last chunks
@@ -62,8 +73,10 @@ prints no result line):
    1024, bf16 LSTM operands, ``--data-placement auto``, which stages the
    store and the dev split on the card) for 2 epochs and resume it for a
    third, checking that the data was device-resident, that the loss is
-   finite and falls, that the resumed run continues the step count, and
-   that all seven kernel entries were launched; last, one epoch with
+   finite and falls, that the resumed run continues the step count,
+   that all seven kernel entries were launched and that every LSTM backward
+   launch took the tensor-core form (in the mesh's ranks too); last, one
+   epoch with
    ``--data-placement host``, whose train loss must equal the device run's
    epoch 0 and whose dev bound must agree with it;
 5. the mesh path, ``train --mesh d,m``, at the same width and on the same
@@ -78,7 +91,10 @@ prints no result line):
    epoch through the CLI, whose train loss and dev bound must agree with the
    single-device epoch 0 and whose replicated parameters the loop itself
    holds equal bit for bit across the ranks; #7's forward and backward must
-   have been launched once per step and rank, #6 and #8 never. The epoch's
+   have been launched once per step and rank, #6 and #8 never. The epoch is
+   run once more on the mesh and on one device with every LSTM backward
+   through the FMA form, and the four epochs' differences are printed by
+   batch split and by backward form. The tensor-core epoch's
    checkpoint is then resumed for one epoch by ``train --mesh 1,2`` (the CLI
    starts the two ranks itself) and on one device. Last, one epoch of
    ``--mesh 1,1 --distributed --dist-backend nccl`` in one rank, so that
@@ -106,7 +122,11 @@ take for the same inputs (their bytes once over 3.35 TB/s, or the products'
 operations over 989 TFLOP/s for bf16 operands and 67 TFLOP/s for fp32,
 whichever is larger; ``bound_by`` says which); ``library_ms`` times the one
 PyTorch call that computes the same function where there is one (a row
-gather for ``windowed_chunk_gather``), else null. The line before it is
+gather for ``windowed_chunk_gather``), else null. The two LSTM backward
+entries also carry ``fma_form_ms`` (the FMA form in bf16 mode, timed in turns
+with the tensor-core form), ``passes_ms`` (device time per kernel of a call)
+and ``chain_floor_ms`` (the reverse-time chain without its global traffic).
+The line before it is
 nvidia-smi's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -117,6 +137,7 @@ import copy
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -432,21 +453,22 @@ def phase_kernels() -> dict:
                                                    num_real))
         plain_ms = time_ms(lambda: discriminative_log_qy_reference(
             z2, mu2, seq, pz2_logvar, num_real), iters=5)
+        # B x N squared distances over Z (a subtract and a multiply-add
+        # each, counted as 2 * B * N * Z), fp32 outside the tensor cores
+        bnd = bound(tensor_bytes(z2, mu2, seq, k_out), 2 * B * n * Z,
+                    "float32")
         log(f"discriminative_log_qy [N={n}, 7 padded rows, 1 index outside]: "
             f"max_abs_err {err:.3e} (tol {TOL_LOG_QY:g}), kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms")
+            f"plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms by "
+            f"{bnd['bound_by']}")
         if not (torch.isfinite(k_out).all() and err <= TOL_LOG_QY):
             raise AssertionError(
                 f"discriminative_log_qy at N={n} disagrees with its plain "
                 f"version: {err} > {TOL_LOG_QY}")
         if n == N_TABLE:  # the table size the served experiment uses
-            # B x N squared distances over Z (a subtract and a multiply-add
-            # each, counted as 2 * B * N * Z), fp32 outside the tensor cores
             results["discriminative_log_qy"] = {
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "form": f"N={n}",
-                **bound(tensor_bytes(z2, mu2, seq, k_out), 2 * B * n * Z,
-                        "float32")}
+                "form": f"N={n}", **bnd}
         else:
             results["discriminative_log_qy"]["max_abs_err"] = max(
                 results["discriminative_log_qy"]["max_abs_err"], err)
@@ -464,6 +486,73 @@ def rel_norm(got, want) -> float:
 
 def abs_err(got, want) -> float:
     return max(max_err(a, b) for a, b in zip(got, want) if b is not None)
+
+
+def rel_norms(got, want) -> list[float]:
+    """Relative Frobenius-norm difference of each paired output."""
+    return [rel_norm([a], [b]) for a, b in zip(got, want) if b is not None]
+
+
+@contextmanager
+def backward_form_forced(form: str):
+    """Send every LSTM backward call through one form (``"fma"``: what a
+    bf16 call took before the tensor-core form existed), for timing."""
+    from pytorch_scalablefhvae_tpu_torch.ops import lstm_cuda
+
+    saved = lstm_cuda.backward_form
+    lstm_cuda.backward_form = lambda mm_dtype, H_, D_: form
+    try:
+        yield
+    finally:
+        lstm_cuda.backward_form = saved
+
+
+def kernel_times_ms(fn, iters: int = 10) -> dict:
+    """Device time per call of each kernel ``fn`` launches (torch.profiler),
+    by kernel name, largest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows: dict = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and e.device_time_total > 0:
+            found = re.search(r"\w+_kernel", e.key)
+            name = found.group(0) if found else e.key[:40]
+            ms, n = rows.get(name, (0.0, 0.0))
+            rows[name] = (ms + e.device_time_total / 1e3 / iters,
+                          n + e.count / iters)
+    return dict(sorted(rows.items(), key=lambda kv: -kv[1][0]))
+
+
+def check_passes(lstm_cuda, name, form, run, passes_args, tol) -> None:
+    """The tensor-core backward pass by pass against the plain backward in
+    the same pass structure: the gates after pass A (fp32; only the sum order
+    differs), the bf16 dgates streams after pass B against the plain dgates
+    rounded to bf16."""
+    streams: dict = {}
+    run(lstm_cuda.__dict__[name], "bfloat16", streams=streams)
+    _, want = lstm_cuda.lstm2_bwd_passes_reference(*passes_args, "bfloat16")
+    torch.cuda.synchronize()
+    errs = {}
+    for key, limit in (("gates1", TOL_BWD_FP32), ("gates2", TOL_BWD_FP32),
+                       ("dgates1", tol), ("dgates2", tol)):
+        w = want[key]
+        if key.startswith("d"):
+            w = w.to(torch.bfloat16).float()
+        errs[key] = rel_norm([streams[key]], [w])
+        if not errs[key] <= limit:
+            raise AssertionError(f"{name} [{form}]: stream {key} disagrees "
+                                 f"with the plain pass: {errs[key]} > {limit}")
+    log(f"{name} [{form}, bfloat16] pass by pass, rel-norm err: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (gates tol {TOL_BWD_FP32:g}, dgates tol {tol:g})")
 
 
 def phase_backward() -> dict:
@@ -494,29 +583,43 @@ def phase_backward() -> dict:
         (w1, b1), (w2, b2) = cells
         return w1, b1, w1[-H:], w2[:H], w2[H:], b2
 
-    def proj_case(cells, xgc_):
+    def proj_case(cells, xgc_, rows=B_TRAIN, lo=0):
         w1, b1, w1h, w2x, w2h, b2 = split(cells)
-        xgc_ = b1.reshape(1, -1) if xgc_ is None else xgc_
-        fwd_in = (x, xgc_, w1[:D], w1h, w2x, w2h, b2)
+        sl = slice(lo, lo + rows)
+        xgc_ = b1.reshape(1, -1) if xgc_ is None else xgc_[sl]
+        x_, gt, gh = x[:, sl].contiguous(), \
+            g_tops[:, sl].contiguous(), g_h2[sl]
+        fwd_in = (x_, xgc_, w1[:D], w1h, w2x, w2h, b2)
 
-        def run(fn, mm, resid):
+        def run(fn, mm, resid, **kw):
             tops, res = resid
-            return fn(x, xgc_, res, tops, *fwd_in[2:], g_tops, g_h2, mm)
+            return fn(x_, xgc_, res, tops, *fwd_in[2:], gt, gh, mm, **kw)
+
+        def passes_args(resid):
+            tops, res = resid
+            return (x_, xgc_, T, res, tops, *fwd_in[2:], gt, gh)
         # multiply-adds per step, row and gate column: the gates recomputed
         # (D + 3H deep), the adjoints through W2x, W2h, W1h (3H), the four
         # weight gradients (D + 3H) and dx (D)
-        return fwd_in, lstm_cuda._proj_forward_plain, run, 3 * D + 9 * H
+        return (fwd_in, lstm_cuda._proj_forward_plain, run, 3 * D + 9 * H,
+                passes_args)
 
-    def dec_case(cells):
+    def dec_case(cells, rows=B_TRAIN, lo=0):
         w1, b1, w1h, w2x, w2h, b2 = split(cells)
-        fwd_in = (xg_c, T, w1h, w2x, w2h, b2)
+        sl = slice(lo, lo + rows)
+        xg_, gt, gh = xg_c[sl], g_tops[:, sl].contiguous(), g_h2[sl]
+        fwd_in = (xg_, T, w1h, w2x, w2h, b2)
 
-        def run(fn, mm, resid):
+        def run(fn, mm, resid, **kw):
             tops, res = resid
-            return fn(xg_c, T, res, tops, w1h, w2x, w2h, b2, g_tops, g_h2, mm)
+            return fn(xg_, T, res, tops, w1h, w2x, w2h, b2, gt, gh, mm, **kw)
+
+        def passes_args(resid):
+            tops, res = resid
+            return (None, xg_, T, res, tops, None, w1h, w2x, w2h, b2, gt, gh)
         # as above without an input product: 3H recomputed, 3H adjoints, 3H
         # of weight gradients
-        return fwd_in, lstm_cuda._tm_forward_plain, run, 9 * H
+        return fwd_in, lstm_cuda._tm_forward_plain, run, 9 * H, passes_args
 
     cases = {
         "lstm2_tm_proj_bwd": {"z2 encoder": proj_case(z2_stack, None),
@@ -528,20 +631,31 @@ def phase_backward() -> dict:
     for name, forms in cases.items():
         kernel = getattr(lstm_cuda, name)
         plain = getattr(lstm_cuda, name + "_reference")
-        for form, (fwd_in, fwd_plain, run, depth) in forms.items():
+        for form, (fwd_in, fwd_plain, run, depth, passes_args) in \
+                forms.items():
+            ms_by_mode = {}
             for mm, tol in (("float32", TOL_BWD_FP32),
                             ("bfloat16", TOL_BWD_BF16)):
                 tops, _, res = fwd_plain(*fwd_in, mm, with_resid=True)
                 resid = (tops, res)
                 want = run(plain, mm, resid)
+                before = kernel.launches, kernel.launches_tc
                 got = run(kernel, mm, resid)
                 again = run(kernel, mm, resid)
                 torch.cuda.synchronize()
+                took_tc = kernel.launches_tc - before[1]
+                if kernel.launches - before[0] != 2 or took_tc != (
+                        2 if mm == "bfloat16" else 0):
+                    raise AssertionError(
+                        f"{name} [{form}, {mm}]: {took_tc} of 2 launches took "
+                        f"the tensor-core form; bf16 operands at H {H} must, "
+                        f"fp32 operands must not")
                 if not all(torch.equal(a, b) for a, b in zip(got, again)
                            if a is not None):
                     raise AssertionError(f"{name} [{form}, {mm}]: two "
                                          f"launches differ")
                 err, aerr = rel_norm(got, want), abs_err(got, want)
+                each = ", ".join(f"{e:.2e}" for e in rel_norms(got, want))
                 gap = ""
                 if mm == "bfloat16":
                     gap32 = rel_norm(run(plain, "float32", resid), want)
@@ -551,29 +665,151 @@ def phase_backward() -> dict:
                             f"{name} [{form}]: the bf16 tolerance {tol} "
                             f"would pass a kernel that rounded elsewhere "
                             f"(gap {gap32})")
-                ms = time_ms(lambda: run(kernel, mm, resid))
+                ms = ms_by_mode[mm] = time_ms(lambda: run(kernel, mm, resid))
                 plain_ms = time_ms(lambda: run(plain, mm, resid), iters=3,
                                    warmup=1)
                 log(f"{name} [{form}, {mm}]: rel-norm err {err:.3e} (tol "
-                    f"{tol:g}), max_abs_err {aerr:.3e}{gap}; bitwise repeat "
-                    f"ok; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-                if not err <= tol:
+                    f"{tol:g}; per output {each}), max_abs_err {aerr:.3e}"
+                    f"{gap}; bitwise repeat ok; kernel {ms:.3f} ms, plain "
+                    f"{plain_ms:.3f} ms")
+                if not max(err, *rel_norms(got, want)) <= tol:
                     raise AssertionError(
                         f"{name} [{form}, {mm}] disagrees with its plain "
-                        f"backward: {err} > {tol}")
-                if mm == "bfloat16":  # the training mode: keep the heaviest
-                    prev = results.get(name)
-                    if prev is None or ms > prev["ms"]:
-                        results[name] = {"max_abs_err": max(
-                            aerr, prev["max_abs_err"] if prev else 0.0),
-                            "ms": ms, "plain_ms": plain_ms, "form": form,
-                            **bound(tensor_bytes(fwd_in, resid, g_tops, g_h2,
-                                                 got),
-                                    2 * T * B_TRAIN * 4 * H * depth,
-                                    "bfloat16")}
-                    else:
-                        prev["max_abs_err"] = max(prev["max_abs_err"], aerr)
+                        f"backward in an output: {each} > {tol}")
+                if mm != "bfloat16":
+                    continue
+                # the training mode
+                check_passes(lstm_cuda, name, form,
+                             lambda fn, mm_, **kw: run(fn, mm_, resid, **kw),
+                             passes_args(resid), tol)
+                # the FMA form in bf16 mode (what this call took before the
+                # tensor-core form) and the tensor-core form, in turns
+                turns = []
+                for which in ("fma", "tc", "tc", "fma"):
+                    with backward_form_forced(which):
+                        turns.append(time_ms(lambda: run(kernel, mm, resid)))
+                fma_ms = (turns[0] + turns[3]) / 2
+                tc_ms = (turns[1] + turns[2]) / 2
+                log(f"{name} [{form}, bfloat16] in turns: FMA form "
+                    f"{turns[0]:.3f} / {turns[3]:.3f} ms, tensor-core form "
+                    f"{turns[1]:.3f} / {turns[2]:.3f} ms: "
+                    f"{fma_ms / tc_ms:.1f}x; fp32 operands (FMA form) "
+                    f"{ms_by_mode['float32']:.3f} ms")
+                if not (tc_ms < fma_ms and ms <= ms_by_mode["float32"]):
+                    raise AssertionError(
+                        f"{name} [{form}]: the tensor-core form is no faster "
+                        f"than the FMA form in bf16 or than fp32 operands")
+                per_pass = kernel_times_ms(lambda: run(kernel, mm, resid))
+                log(f"{name} [{form}, bfloat16] device time per call by "
+                    f"kernel (torch.profiler; ms, launches): "
+                    + "; ".join(f"{k} {v[0]:.4f} x{v[1]:g}"
+                                for k, v in per_pass.items())
+                    + f"; sum {sum(v[0] for v in per_pass.values()):.4f} ms "
+                    f"against {ms:.3f} ms by CUDA events")
+                prev = results.get(name)
+                if prev is None or ms > prev["ms"]:  # keep the heaviest form
+                    results[name] = {"max_abs_err": max(
+                        aerr, prev["max_abs_err"] if prev else 0.0),
+                        "ms": ms, "plain_ms": plain_ms, "form": form,
+                        "fma_form_ms": fma_ms,
+                        "passes_ms": {k: v[0] for k, v in per_pass.items()},
+                        **bound(tensor_bytes(fwd_in, resid, g_tops, g_h2,
+                                             got),
+                                2 * T * B_TRAIN * 4 * H * depth,
+                                "bfloat16")}
+                else:
+                    prev["max_abs_err"] = max(prev["max_abs_err"], aerr)
             torch.cuda.empty_cache()
+
+    # other batches, each output held to the tolerance on its own: a ragged
+    # one (1000 rows, the last cluster of the chain half empty), and a mesh
+    # rank's (512 rows: a 1024-row chunk of the weight gradients spans two
+    # steps, and the gates kernel has fewer row tiles than blocks it could
+    # fill)
+    for rows in (1000, B_TRAIN // MESH[0]):
+        others = {"lstm2_tm_proj_bwd": {
+                      "z2 encoder": proj_case(z2_stack, None, rows=rows),
+                      "z1 encoder, xgc tile": proj_case(z1_stack, xgc,
+                                                        rows=rows)},
+                  "lstm2_tm_bwd": {
+                      "decoder, const": dec_case(dec_stack, rows=rows)}}
+        for name, forms in others.items():
+            kernel = getattr(lstm_cuda, name)
+            for form, (fwd_in, fwd_plain, run, _, _) in forms.items():
+                tops, _, res = fwd_plain(*fwd_in, "bfloat16", with_resid=True)
+                want = run(getattr(lstm_cuda, name + "_reference"),
+                           "bfloat16", (tops, res))
+                before = kernel.launches_tc
+                got = run(kernel, "bfloat16", (tops, res))
+                torch.cuda.synchronize()
+                each = rel_norms(got, want)
+                log(f"{name} [{form}, bfloat16, B={rows}]: rel-norm err per "
+                    f"output " + ", ".join(f"{e:.2e}" for e in each)
+                    + f" (tol {TOL_BWD_BF16:g} each)")
+                if not (max(each) <= TOL_BWD_BF16
+                        and kernel.launches_tc == before + 1):
+                    raise AssertionError(
+                        f"{name} [{form}] at B={rows} disagrees with its "
+                        f"plain backward in an output or left the "
+                        f"tensor-core form: {each}")
+
+    # a batch split over two data-parallel ranks: on the same residuals, the
+    # outputs that hold a row per batch row must not depend on the split bit
+    # for bit, and the outputs summed over rows only by fp32 sum order
+    half = B_TRAIN // MESH[0]
+    makers = {
+        "lstm2_tm_proj_bwd [z2 encoder]":
+            lambda **kw: proj_case(z2_stack, None, **kw),
+        "lstm2_tm_proj_bwd [z1 encoder, xgc tile]":
+            lambda **kw: proj_case(z1_stack, xgc, **kw),
+        "lstm2_tm_bwd [decoder, const]":
+            lambda **kw: dec_case(dec_stack, **kw)}
+    for label, make in makers.items():
+        kernel = getattr(lstm_cuda, label.split()[0])
+        fwd_in, fwd_plain, run, _, _ = make()
+        tops, _, res = fwd_plain(*fwd_in, "bfloat16", with_resid=True)
+        for which in ("tc", "fma"):
+            with backward_form_forced(which):
+                full = run(kernel, "bfloat16", (tops, res))
+                parts = [make(rows=half, lo=lo)[2](
+                    kernel, "bfloat16", (tops[:, lo:lo + half].contiguous(),
+                                         res[:, lo:lo + half].contiguous()))
+                    for lo in range(0, B_TRAIN, half)]
+            torch.cuda.synchronize()
+            rows_equal, sums = True, []
+            for f, *ps in zip(full, *parts):
+                if f is None:
+                    continue
+                if ps[0].shape == f.shape:
+                    sums.append(rel_norm([sum(ps)], [f]))
+                else:
+                    dim = [a != b for a, b in zip(ps[0].shape,
+                                                  f.shape)].index(True)
+                    rows_equal &= torch.equal(torch.cat(ps, dim), f)
+            log(f"{label}, bfloat16, {which} form, B {B_TRAIN} against "
+                f"{MESH[0]} x {half} rows: per-row outputs equal bit for "
+                f"bit: {rows_equal}; summed outputs, rel-norm difference "
+                + ", ".join(f"{e:.2e}" for e in sums)
+                + f" (tol {TOL_BWD_FP32:g})")
+            if not (rows_equal and max(sums) <= TOL_BWD_FP32):
+                raise AssertionError(f"{label} [{which}]: the backward "
+                                     f"depends on the batch split")
+
+    # the reverse-time chain alone (pass B at B 1024): whole, without its
+    # global traffic (the floor of the dependent steps: cell adjoints,
+    # exchange, barriers, products), without the products too
+    chain = {}
+    for what, probe in (("whole", 0), ("no global traffic", 1),
+                        ("cell adjoints, exchange and barriers alone", 3)):
+        for steps in (T, 1):
+            chain[f"{what}, T {steps}"] = device_ms(
+                lstm_cuda.chain_probe(steps, B_TRAIN, probe), iters=20)
+    log(f"lstm2_bwd chain (pass B) alone at B {B_TRAIN}, random gates "
+        f"(device time by torch.profiler, ms): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in chain.items()))
+    chain["no global traffic"] = chain[f"no global traffic, T {T}"]
+    for name in ("lstm2_tm_proj_bwd", "lstm2_tm_bwd"):
+        results[name]["chain_floor_ms"] = chain["no global traffic"]
 
     pz2_logvar = float(np.log(0.5 ** 2))
     for n in (N_TABLE, N_LARGE):
@@ -601,23 +837,23 @@ def phase_backward() -> dict:
         ms = time_ms(lambda: discriminative_log_qy_bwd(*args))
         plain_ms = time_ms(lambda: discriminative_log_qy_bwd_reference(*args),
                            iters=3, warmup=1)
+        # the logits recomputed, then dz2 and dmu2: three B x N x Z passes
+        # of multiply-adds, fp32
+        bnd = bound(tensor_bytes(args, got), 6 * B_TRAIN * n * Z, "float32")
         log(f"discriminative_log_qy_bwd [N={n}, 7 padded rows, 1 index "
             f"outside]: max err / max |ref| {err:.3e} (tol "
             f"{TOL_LOG_QY_BWD:g}), max_abs_err {aerr:.3e}, padded rows "
             f"exactly 0: {padded_zero}; bitwise repeat ok; kernel {ms:.3f} "
-            f"ms, plain {plain_ms:.3f} ms")
+            f"ms, plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms by "
+            f"{bnd['bound_by']}")
         if not (err <= TOL_LOG_QY_BWD and padded_zero):
             raise AssertionError(
                 f"discriminative_log_qy_bwd at N={n} disagrees with its plain "
                 f"backward: {err} > {TOL_LOG_QY_BWD} or padded rows nonzero")
         if n == N_TABLE:
-            # the logits recomputed, then dz2 and dmu2: three B x N x Z
-            # passes of multiply-adds, fp32
             results["discriminative_log_qy_bwd"] = {
                 "max_abs_err": aerr, "ms": ms, "plain_ms": plain_ms,
-                "form": f"N={n}",
-                **bound(tensor_bytes(args, got), 6 * B_TRAIN * n * Z,
-                        "float32")}
+                "form": f"N={n}", **bnd}
         else:
             r = results["discriminative_log_qy_bwd"]
             r["max_abs_err"] = max(r["max_abs_err"], aerr)
@@ -1387,6 +1623,28 @@ def train_entries():
             window_gather.windowed_chunk_gather)
 
 
+def reset_counts(entries) -> None:
+    for e in entries:
+        e.launches = 0
+        if hasattr(e, "launches_tc"):
+            e.launches_tc = 0
+
+
+def tensor_core_counts(entries) -> dict:
+    return {e.__name__: e.launches_tc for e in entries
+            if hasattr(e, "launches_tc")}
+
+
+def check_tensor_core(launches: dict, tc: dict, where: str) -> None:
+    """Every LSTM backward launch of a path at the CLI defaults (bf16
+    operands, H 128) must have taken the tensor-core form."""
+    for name, n in tc.items():
+        if n != launches[name] or n <= 0:
+            raise AssertionError(
+                f"{name}: {n} of {launches[name]} launches during {where} "
+                f"took the tensor-core form")
+
+
 def seeded_model(cfg):
     """The model the CLI starts from (seed 0), on the card."""
     from pytorch_scalablefhvae_tpu_torch.models.base import build_model
@@ -1429,10 +1687,10 @@ def staged_epoch0(cfg, root: Path):
     return loader, source, plan, arrays
 
 
-def step_breakdown(cfg, root: Path) -> None:
+def step_breakdown(cfg, root: Path, what: str) -> None:
     """Device time of 10 warm train steps, split into forward (to the loss),
     backward and optimizer by CUDA events, and the kernels' share by
-    torch.profiler."""
+    torch.profiler. ``what`` names the LSTM backward form the steps take."""
     from torch.profiler import ProfilerActivity, profile
 
     from pytorch_scalablefhvae_tpu_torch.models.base import loss_from_outputs
@@ -1477,7 +1735,8 @@ def step_breakdown(cfg, root: Path) -> None:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / 10
     total = sum(stages.values()) / 10
-    log("step breakdown, 10 warm steps at batch 1024 (CUDA events, ms/step): "
+    log(f"step breakdown [{what}], 10 warm steps at batch 1024 (CUDA events, "
+        "ms/step): "
         + ", ".join(f"{k} {v / 10:.3f}" for k, v in stages.items())
         + f"; events total {total:.3f}, host wall {wall:.3f}")
     rows = [(e.key, e.device_time_total / 1e3 / 10, e.count // 10)
@@ -1486,9 +1745,9 @@ def step_breakdown(cfg, root: Path) -> None:
             and e.device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    log(f"profiler: device busy {busy:.3f} ms of {wall:.3f} ms per step "
-        f"(idle share {1 - busy / wall:.3f}); by kernel (ms/step, "
-        f"launches/step):")
+    log(f"profiler [{what}]: device busy {busy:.3f} ms of {wall:.3f} ms per "
+        f"step (idle share {1 - busy / wall:.3f}), {sum(r[2] for r in rows)} "
+        f"launches per step; by kernel (ms/step, launches/step):")
     for key, ms, n in rows[:14]:
         log(f"  {ms:8.3f} {n:4d}  {key[:90]}")
 
@@ -1731,7 +1990,13 @@ def phase_train(workdir: Path, cfg) -> tuple[dict, dict]:
     compare_first_steps(cfg, root)
     compare_tiers_first_steps(cfg, root)
     check_dev_pass(cfg, root)
-    step_breakdown(cfg, root)
+    # the step as it was before the tensor-core backward (every backward
+    # call through the FMA form), then as it is, in turns in this one run
+    for form in ("fma", "tc", "tc", "fma"):
+        with backward_form_forced(form):
+            step_breakdown(cfg, root, {
+                "fma": "LSTM backward through the FMA form",
+                "tc": "LSTM backward through the tensor-core form"}[form])
     tier_breakdown(cfg, root)
 
     exp_root = workdir / "experiments"
@@ -1739,8 +2004,7 @@ def phase_train(workdir: Path, cfg) -> tuple[dict, dict]:
             "--data-root", str(root), "--mvn-path", cfg.data.mvn_path,
             "--exp-root", str(exp_root)]
     entries = train_entries()
-    for e in entries:
-        e.launches = 0
+    reset_counts(entries)
     t0 = time.perf_counter()
     out = run_cli(cli, args + ["--epochs", "2"])
     exp = exp_root / "synthetic_np_fbank" / "fhvae_e2_p10_a10.0"
@@ -1750,7 +2014,9 @@ def phase_train(workdir: Path, cfg) -> tuple[dict, dict]:
     seconds = time.perf_counter() - t0
     launches = {e.__name__: e.launches for e in entries}
     log(f"launches during training (2 epochs + 1 resumed, dev passes "
-        f"included): {launches}")
+        f"included): {launches}; of the LSTM backward's, through the "
+        f"tensor-core form: {tensor_core_counts(entries)}")
+    check_tensor_core(launches, tensor_core_counts(entries), "training")
     for line in ("Training data device-resident", "Dev split device-resident"):
         if out.count(line) != 2:
             raise AssertionError(f"the default train runs did not log "
@@ -1971,16 +2237,23 @@ def _mesh_rank(workdir: str) -> int:
     torch.cuda.empty_cache()
 
     # (d) one epoch through the CLI, this process being a launched rank
-    for e in mesh_entries():
-        e.launches = 0
+    reset_counts(mesh_entries())
     args = json.loads((work / "train_args.json").read_text())
     rc = cli(args + ["--exp-root", str(work / "experiments_mesh"), "--mesh",
                      f"{MESH[0]},{MESH[1]}", "--distributed",
                      "--dist-backend", "gloo", "--epochs", "1"])
     (work / f"rank{rank}.json").write_text(json.dumps(
         {"rc": rc, "launches": {e.__name__: e.launches
-                                for e in mesh_entries()}}))
-    return rc
+                                for e in mesh_entries()},
+         "launches_tc": tensor_core_counts(mesh_entries())}))
+    if rc != 0:
+        return rc
+    # the same epoch with every LSTM backward through the FMA form, to hold
+    # the tensor-core form's epoch against (not counted as launches)
+    with backward_form_forced("fma"):
+        return cli(args + ["--exp-root", str(work / "experiments_mesh_fma"),
+                           "--mesh", f"{MESH[0]},{MESH[1]}", "--distributed",
+                           "--dist-backend", "gloo", "--epochs", "1"])
 
 
 def _nccl_rank(workdir: str) -> int:
@@ -2048,6 +2321,10 @@ def phase_mesh(workdir: Path, cfg, single_epoch0: dict | None) -> dict:
         run_cli(cli, args + ["--exp-root", str(workdir / "experiments_one"),
                              "--epochs", "1"])
         single_epoch0 = read_metrics(workdir / "experiments_one", 1)[0]
+    with backward_form_forced("fma"):
+        run_cli(cli, args + ["--exp-root", str(workdir / "experiments_one_fma"),
+                             "--epochs", "1"])
+    single_fma = read_metrics(workdir / "experiments_one_fma", 1)[0]
     single_device_steps(cfg, root, workdir)
     torch.cuda.empty_cache()
 
@@ -2078,10 +2355,37 @@ def phase_mesh(workdir: Path, cfg, single_epoch0: dict | None) -> dict:
     if not all(e <= TOL_MESH_EPOCH for e in errs.values()):
         raise AssertionError(f"the mesh's epoch disagrees with one device's: "
                              f"{errs}")
+    # where the epochs part: the batch split (mesh vs one device, within a
+    # backward form) or the backward form (within a batch split)
+    rec_fma = read_metrics(workdir / "experiments_mesh_fma", 1)[0]
+    epochs = {"one device, tensor-core": single_epoch0,
+              "one device, FMA": single_fma,
+              "mesh, tensor-core": rec, "mesh, FMA": rec_fma}
+    keys = ("train_loss", "val_lower_bound", "val_log_qy")
+    log("epoch 0 by batch split and LSTM backward form: " + "; ".join(
+        f"{name}: " + ", ".join(f"{k} {r[k]!r}" for k in keys)
+        for name, r in epochs.items()))
+    pairs = (("mesh, tensor-core", "one device, tensor-core"),
+             ("mesh, FMA", "one device, FMA"),
+             ("one device, tensor-core", "one device, FMA"),
+             ("mesh, tensor-core", "mesh, FMA"))
+    gaps = {f"{a} vs {b}": {k: abs(epochs[a][k] - epochs[b][k])
+                            / abs(epochs[b][k]) for k in keys}
+            for a, b in pairs}
+    log("relative differences: " + "; ".join(
+        f"{pair}: " + ", ".join(f"{k} {v:.3e}" for k, v in g.items())
+        for pair, g in gaps.items()) + f" (tol {TOL_MESH_EPOCH:g} on the "
+        f"two mesh-vs-one-device pairs)")
+    if not all(e <= TOL_MESH_EPOCH
+               for e in gaps["mesh, FMA vs one device, FMA"].values()):
+        raise AssertionError("the mesh's epoch through the FMA backward "
+                             "disagrees with one device's")
     for r, info in enumerate(ranks):
         c = info["launches"]
         log(f"rank {r} launches during the mesh epoch (dev pass included): "
-            f"{c}")
+            f"{c}; LSTM backward through the tensor-core form: "
+            f"{info['launches_tc']}")
+        check_tensor_core(c, info["launches_tc"], f"the mesh epoch, rank {r}")
         if not (c["discriminative_log_qy_sharded"] == steps
                 and c["discriminative_log_qy_sharded_bwd"] == steps
                 and c["discriminative_log_qy_bwd"] == 0
@@ -2211,7 +2515,9 @@ def main(argv=None) -> int:
             "launches_by_path": counts, "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "form": r["form"]})
+            "library_ms": r["library_ms"], "form": r["form"],
+            **{k: r[k] for k in ("fma_form_ms", "passes_ms", "chain_floor_ms")
+               if k in r}})
     if only is None:
         for k in kernels:
             if k["launches"] <= 0:

@@ -1,6 +1,7 @@
 // Pieces shared by the two-layer LSTM forward (lstm2_fwd.cu) and backward
-// (lstm2_bwd.cu) kernels: the block layout, operand rounding, the gate
-// nonlinearity and the per-thread product with a weight block.
+// (lstm2_bwd.cu, lstm2_bwd_fma.cu) kernels: the FMA kernels' block layout,
+// operand rounding and per-thread product with a weight block, and the cell
+// and its adjoint.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -69,6 +70,24 @@ __device__ __forceinline__ float cell(float gi, float gf, float gg, float go,
   const float c_new = sigmoidf_(gf) * (*c) + sigmoidf_(gi) * tanhf(gg);
   *c = c_new;
   return sigmoidf_(go) * tanhf(c_new);
+}
+
+// Adjoint of the cell (_cell_bwd). Writes d{i,f,g,o} and updates dc in place
+// from the carried dc to dc_prev.
+__device__ __forceinline__ void cell_bwd(float gi, float gf, float gg,
+                                         float go, float c_prev, float c_new,
+                                         float dh, float* dc, float (&d)[4]) {
+  const float i = sigmoidf_(gi);
+  const float f = sigmoidf_(gf);
+  const float g = tanhf(gg);
+  const float o = sigmoidf_(go);
+  const float tc = tanhf(c_new);
+  d[3] = dh * tc * o * (1.0f - o);
+  const float dc_tot = *dc + dh * o * (1.0f - tc * tc);
+  d[0] = dc_tot * g * i * (1.0f - i);
+  d[1] = dc_tot * c_prev * f * (1.0f - f);
+  d[2] = dc_tot * i * (1.0f - g * g);
+  *dc = dc_tot * f;
 }
 
 // Dynamic shared memory above the default 48 KiB needs an opt-in per kernel.

@@ -40,8 +40,12 @@ _SIGNATURES = {
     "sfhvae_lstm2_fwd": (_I, [_P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P,
                               _P, _I, _I, _I, _I, _I, _P]),
     "sfhvae_lstm2_bwd_chunk_rows": (_I, []),
-    "sfhvae_lstm2_bwd": (_I, [_P, _P, _L, _L] + [_P] * 17 + [_I]
-                         + [_P] * 7 + [_I] * 5 + [_P]),
+    "sfhvae_lstm2_bwd_takes": (_I, [_I, _I]),
+    "sfhvae_lstm2_bwd": (_I, [_P, _P, _L, _L] + [_P] * 15 + [_I]
+                         + [_P] * 8 + [_I] * 6 + [_P]),
+    "sfhvae_lstm2_bwd_fma_chunk_rows": (_I, []),
+    "sfhvae_lstm2_bwd_fma": (_I, [_P, _P, _L, _L] + [_P] * 17 + [_I]
+                             + [_P] * 7 + [_I] * 5 + [_P]),
     "sfhvae_disc_rows_per_block": (_I, []),
     "sfhvae_disc_max_dim": (_I, []),
     "sfhvae_disc_fwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -5,8 +5,13 @@ entries, each with its plain PyTorch version (``<entry>_reference``):
 
 - :func:`lstm2_tm_proj`, :func:`lstm2_tm`: the forward entries
   (``csrc/lstm2_fwd.cu``), differentiable;
-- :func:`lstm2_tm_proj_bwd`, :func:`lstm2_tm_bwd`: their backward
-  (``csrc/lstm2_bwd.cu``), which the forward entries' autograd Functions call.
+- :func:`lstm2_tm_proj_bwd`, :func:`lstm2_tm_bwd`: their backward, which the
+  forward entries' autograd Functions call. It has two forms, picked by
+  :func:`backward_form` from the operand type and the widths alone: the
+  tensor-core form (``csrc/lstm2_bwd.cu``: bf16 operands at H = 128, three
+  passes: the gates of all steps, the reverse-time chain, the weight
+  gradients) and the FMA form (``csrc/lstm2_bwd_fma.cu``: fp32 operands and
+  every other width).
 
 Each entry runs its kernel for CUDA tensors and its plain version for CPU
 tensors; nothing falls back from one to the other. The plain version of a
@@ -29,7 +34,9 @@ different function, so the plain backward is an explicit reverse-time loop.
 Under autograd a forward entry saves its residuals (``resid [T, B, 3H]`` =
 h1 | c1 | c2 per step, and tops); without it the serving call writes none.
 
-Each entry counts its kernel launches in ``<entry>.launches``.
+Each entry counts its kernel launches in ``<entry>.launches``; a backward
+entry also counts those that took the tensor-core form in
+``<entry>.launches_tc``.
 """
 
 from __future__ import annotations
@@ -178,6 +185,73 @@ def lstm2_tm_bwd_reference(xg1, T, resid, tops, w1h, w2x, w2h, b2, g_tops,
     return (dg1.sum(0) if const else dg1), dw1h, dw2x, dw2h, db2
 
 
+def lstm2_bwd_passes_reference(x, xadd, T, resid, tops, w1x, w1h, w2x, w2h,
+                               b2, g_tops, g_h2, mm_dtype="float32",
+                               need_dx=True):
+    """The backward of both entries in the tensor-core kernels' pass
+    structure, for tests: the gates of every step first (pass A), then the
+    reverse-time loop without any recompute (pass B), then the reductions
+    over the saved streams (pass C).
+
+    ``x [T, B, D]`` or ``None`` (``xadd`` then carries the whole layer-1 input
+    gates); ``xadd`` is ``[T, B, 4H]`` per-step gates, one ``[B, 4H]`` block
+    for every step, or the ``[1, 4H]`` bias row. Returns ``(grads, streams)``:
+    ``grads = (dx | None, dxadd, dw1x | None, dw1h, dw2x, dw2h, db2)`` with
+    ``dxadd`` in the shape of ``xadd``, and ``streams`` the intermediates
+    ``gates1``, ``gates2``, ``dgates1``, ``dgates2`` (``[T, B, 4H]`` fp32,
+    the dgates unrounded).
+    """
+    r = _round(mm_dtype)
+    B, H = resid.shape[1], w1h.shape[0]
+    h1, c1, c2 = resid.split(H, dim=-1)
+
+    def prev(a):  # the t-1 view, zero at t = 0
+        return torch.cat([torch.zeros_like(a[:1]), a[:-1]])
+
+    # pass A
+    gates2 = r(h1) @ r(w2x) + r(prev(tops)) @ r(w2h) + b2
+    gates1 = r(prev(h1)) @ r(w1h) + xadd
+    if x is not None:
+        gates1 = gates1 + r(x) @ r(w1x)
+    # pass B
+    c1_p, c2_p = prev(c1), prev(c2)
+    w1h_r, w2x_r, w2h_r = r(w1h), r(w2x), r(w2h)
+    zero = resid.new_zeros(B, H)
+    dh1 = dc1 = dc2 = zero
+    dh2 = zero if g_h2 is None else g_h2
+    dg1, dg2 = [None] * T, [None] * T
+    for t in range(T - 1, -1, -1):
+        dh2_tot = dh2 if g_tops is None else dh2 + g_tops[t]
+        dg2[t], dc2 = _cell_bwd(gates2[t], c2_p[t], c2[t], dh2_tot, dc2)
+        d2 = r(dg2[t])
+        dh2 = d2 @ w2h_r.T
+        dg1[t], dc1 = _cell_bwd(gates1[t], c1_p[t], c1[t],
+                                dh1 + d2 @ w2x_r.T, dc1)
+        dh1 = r(dg1[t]) @ w1h_r.T
+    dg1, dg2 = torch.stack(dg1), torch.stack(dg2)
+    # pass C
+
+    def tn(a, g):  # sum over the (t, b) rows of a^T g
+        return r(a).reshape(-1, a.shape[-1]).T @ r(g).reshape(-1, g.shape[-1])
+
+    dw1h, dw2x = tn(h1[:-1], dg1[1:]), tn(h1, dg2)
+    dw2h = tn(tops[:-1], dg2[1:])
+    dx = dw1x = None
+    if x is not None:
+        dw1x = tn(x, dg1)
+        if need_dx:
+            dx = r(dg1) @ r(w1x).T
+    if xadd.dim() == 3:
+        dxadd = dg1
+    elif xadd.shape[0] == 1 and x is not None:
+        dxadd = dg1.sum((0, 1)).reshape(1, -1)
+    else:
+        dxadd = dg1.sum(0)
+    streams = {"gates1": gates1, "gates2": gates2, "dgates1": dg1,
+               "dgates2": dg2}
+    return (dx, dxadd, dw1x, dw1h, dw2x, dw2h, dg2.sum((0, 1))), streams
+
+
 # -------------------------------------------------------------- kernels
 
 
@@ -247,12 +321,32 @@ def _forward_kernel(entry, x, xadd, T, w1x, w1h, w2x, w2h, b2, mm_dtype,
     return tops, h2, resid
 
 
+TC_H = 128       # the hidden width of the tensor-core backward
+TC_MAX_D = 128   # its widest fused input
+
+
+def backward_form(mm_dtype: str, H: int, D: int) -> str:
+    """Which form a backward call on CUDA tensors takes, from the operand
+    type and the widths alone (``D`` = 0 without an input projection):
+    ``"tc"``, the three-pass tensor-core form, for bf16 operands at H = 128
+    with D a multiple of 16 up to 128 (the fhvae stacks: D = 80 for the
+    encoders, 0 for the decoder); ``"fma"`` for fp32 operands, which must stay
+    true fp32, and for every other width."""
+    if mm_dtype not in MM_DTYPES:
+        raise ValueError(f"mm_dtype must be one of {MM_DTYPES}")
+    if (mm_dtype == "bfloat16" and H == TC_H and D % 16 == 0
+            and 0 <= D <= TC_MAX_D):
+        return "tc"
+    return "fma"
+
+
 def _backward_kernel(entry, x, xadd, T, resid, tops, w1x, w1h, w2x, w2h, b2,
-                     g_tops, g_h2, mm_dtype, need_dx):
-    """Run ``csrc/lstm2_bwd.cu``. Returns ``(dx | None, dxadd, dw1x | None,
-    dw1h, dw2x, dw2h, db2)``; dxadd has the shape of ``xadd``."""
+                     g_tops, g_h2, mm_dtype, need_dx, streams=None):
+    """Run the backward in the form :func:`backward_form` names. Returns
+    ``(dx | None, dxadd, dw1x | None, dw1h, dw2x, dw2h, db2)``; dxadd has the
+    shape of ``xadd``. ``streams``: a dict that receives the tensor-core
+    form's intermediate streams (tests only; it splits the call in two)."""
     H = w1h.shape[0]
-    H4 = 4 * H
     B = resid.shape[1]
     D = 0 if x is None else x.shape[2]
     g_tops = None if g_tops is None else g_tops.contiguous()
@@ -260,6 +354,126 @@ def _backward_kernel(entry, x, xadd, T, resid, tops, w1x, w1h, w2x, w2h, b2,
     _check_cuda(*(t for t in (resid, tops, x, xadd, w1x, w1h, w2x, w2h, b2,
                               g_tops, g_h2) if t is not None))
     lib = _library(H, mm_dtype)
+    form = backward_form(mm_dtype, H, D)
+    if streams is not None and form != "tc":
+        raise ValueError("only the tensor-core form has intermediate streams")
+    run = _backward_tc if form == "tc" else _backward_fma
+    out = run(lib, entry.__name__, x, xadd, T, B, D, H, resid, tops, w1x,
+              w1h, w2x, w2h, b2, g_tops, g_h2, mm_dtype,
+              x is not None and need_dx, streams)
+    if B > 0 and T > 0:
+        entry.launches += 1
+        entry.launches_tc += form == "tc"
+    return out
+
+
+def _outputs(xadd, x, T, B, D, H4, need_dx, dg1):
+    """The backward's output tensors: ``(mode, dxadd, dx, dw1x, dw1h, dw2x,
+    dw2h, db2)``; mode says how dxadd comes from dgates1."""
+    def empty(*shape):
+        return torch.empty(shape, device=xadd.device, dtype=torch.float32)
+
+    t_stride, row_stride = _xadd_strides(xadd, T, x is not None)
+    if t_stride:          # per-step gates: their gradient is dgates1
+        mode, dxadd = 0, dg1
+    elif row_stride:      # one [B, 4H] block for every step: sum over t
+        mode, dxadd = 1, empty(B, H4)
+    else:                 # the bias row: sum over t and rows
+        mode, dxadd = 2, empty(1, H4)
+    H = H4 // 4
+    return (mode, dxadd, empty(T, B, D) if need_dx else None,
+            empty(D, H4) if x is not None else None, empty(H, H4),
+            empty(H, H4), empty(H, H4), empty(H4))
+
+
+def _backward_tc(lib, what, x, xadd, T, B, D, H, resid, tops, w1x, w1h, w2x,
+                 w2h, b2, g_tops, g_h2, mm_dtype, need_dx, streams):
+    """``csrc/lstm2_bwd.cu``: pass A writes the gates of all steps into two
+    ``[T, B, 4H]`` fp32 buffers, pass B walks time backwards and writes the
+    dgates as bf16 streams (and, for per-step gates, fp32 dgates1 over the
+    layer-1 gates), pass C reduces the streams. The kernels read the fp32
+    weights as they lie and round them on the way: no cast, no transposed
+    copy."""
+    H4 = 4 * H
+    dev = resid.device
+    if not lib.sfhvae_lstm2_bwd_takes(H, D):
+        raise ValueError(f"the tensor-core backward does not take H={H}, "
+                         f"D={D}")
+    for t in (x, xadd, resid, tops, w1x, w1h, w2x, w2h, b2, g_tops, g_h2):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError("the tensor-core backward reads 16-byte vectors: "
+                             "every tensor must start on a 16-byte boundary")
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, device=dev, dtype=dtype)
+
+    g1, g2 = empty(T, B, H4), empty(T, B, H4)
+    dg1b = empty(T, B, H4, dtype=torch.bfloat16)
+    dg2b = empty(T, B, H4, dtype=torch.bfloat16)
+    mode, dxadd, dx, dw1x, dw1h, dw2x, dw2h, db2 = _outputs(
+        xadd, x, T, B, D, H4, need_dx, g1)
+    rows = lib.sfhvae_lstm2_bwd_chunk_rows()
+    part = empty(4 * -(-(T * B) // rows) * H * H4)
+    rowsum1 = empty(B, H4) if mode == 2 else None
+    rowsum2 = empty(B, H4)
+    t_stride, row_stride = _xadd_strides(xadd, T, x is not None)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run(passes):
+        _build.check(lib.sfhvae_lstm2_bwd(
+            _ptr(x), xadd.data_ptr(), t_stride, row_stride, resid.data_ptr(),
+            tops.data_ptr(), _ptr(g_tops), _ptr(g_h2), _ptr(w1x),
+            w1h.data_ptr(), w2x.data_ptr(), w2h.data_ptr(), b2.data_ptr(),
+            g1.data_ptr(), g2.data_ptr(), dg1b.data_ptr(), dg2b.data_ptr(),
+            _ptr(dx), dxadd.data_ptr(), mode, _ptr(dw1x), dw1h.data_ptr(),
+            dw2x.data_ptr(), dw2h.data_ptr(), db2.data_ptr(),
+            part.data_ptr(), _ptr(rowsum1), rowsum2.data_ptr(), T, B, D, H,
+            passes, 0, stream), what)
+
+    if B > 0 and T > 0:
+        if streams is None:
+            run(7)
+        else:
+            run(1)
+            streams.update(gates1=g1.clone(), gates2=g2.clone())
+            run(6)
+            streams.update(dgates1=dg1b, dgates2=dg2b)
+    return dx, dxadd, dw1x, dw1h, dw2x, dw2h, db2
+
+
+def chain_probe(T: int, B: int, probe: int, device="cuda"):
+    """A callable that launches pass B of the tensor-core backward alone on
+    random gates and zero weights, for timing the reverse-time chain
+    (``chip_smoke.py``): ``probe`` 0 the whole pass, 1 without the loop's
+    global loads and stores (cell adjoints, exchange, barriers and products:
+    the chain's floor), 3 without the products as well (cell adjoints,
+    exchange and barriers alone)."""
+    lib = _library(TC_H, "bfloat16")
+    H, H4 = TC_H, 4 * TC_H
+    z = 0.5 * torch.randn((T, B, H4), device=device)
+    resid, gt = z[..., :3 * H].contiguous(), z[..., :H].contiguous()
+    w = torch.zeros((H, H4), device=device)
+    dgb = torch.empty((2, T, B, H4), device=device, dtype=torch.bfloat16)
+    rowsum = torch.empty((2, B, H4), device=device)
+    stream = torch.cuda.current_stream(z.device).cuda_stream
+
+    def launch():
+        _build.check(lib.sfhvae_lstm2_bwd(
+            None, z.data_ptr(), 0, 0, resid.data_ptr(), gt.data_ptr(),
+            gt.data_ptr(), None, None, w.data_ptr(), w.data_ptr(),
+            w.data_ptr(), w.data_ptr(), z.data_ptr(), z.data_ptr(),
+            dgb[0].data_ptr(), dgb[1].data_ptr(), None, rowsum[0].data_ptr(),
+            1, None, None, None, None, None, None, None,
+            rowsum[1].data_ptr(), T, B, 0, H, 2, probe, stream),
+            "lstm2_bwd chain probe")
+    return launch
+
+
+def _backward_fma(lib, what, x, xadd, T, B, D, H, resid, tops, w1x, w1h, w2x,
+                  w2h, b2, g_tops, g_h2, mm_dtype, need_dx, streams):
+    """``csrc/lstm2_bwd_fma.cu``: one recurrent kernel that recomputes the
+    gates per step, then the reductions, all in fp32 multiply-adds."""
+    H4 = 4 * H
     wdt = torch.bfloat16 if mm_dtype == "bfloat16" else torch.float32
     w1x_k, w1h_k, w2x_k, w2h_k = (None if w is None else w.to(wdt).contiguous()
                                   for w in (w1x, w1h, w2x, w2h))
@@ -271,20 +485,13 @@ def _backward_kernel(entry, x, xadd, T, resid, tops, w1x, w1h, w2x, w2h, b2,
 
     t_stride, row_stride = _xadd_strides(xadd, T, x is not None)
     dg1, dg2 = empty(T, B, H4), empty(T, B, H4)
-    if t_stride:          # per-step gates: their gradient is dgates1
-        mode, dxadd = 0, dg1
-    elif row_stride:      # one [B, 4H] block for every step: sum over t
-        mode, dxadd = 1, empty(B, H4)
-    else:                 # the bias row: sum over t and rows
-        mode, dxadd = 2, empty(1, H4)
-    dx = empty(*x.shape) if x is not None and need_dx else None
-    dw1x = empty(D, H4) if x is not None else None
-    dw1h, dw2x, dw2h, db2 = empty(H, H4), empty(H, H4), empty(H, H4), empty(H4)
-    rows = lib.sfhvae_lstm2_bwd_chunk_rows()
+    mode, dxadd, dx, dw1x, dw1h, dw2x, dw2h, db2 = _outputs(
+        xadd, x, T, B, D, H4, need_dx, dg1)
+    rows = lib.sfhvae_lstm2_bwd_fma_chunk_rows()
     part = empty(-(-(T * B) // rows) * max(D, H) * H4)
     rowsum = empty(B, H4)
     if B > 0 and T > 0:
-        code = lib.sfhvae_lstm2_bwd(
+        code = lib.sfhvae_lstm2_bwd_fma(
             _ptr(x), xadd.data_ptr(), t_stride, row_stride, resid.data_ptr(),
             tops.data_ptr(), _ptr(g_tops), _ptr(g_h2), _ptr(w1x_k),
             w1h_k.data_ptr(), w2x_k.data_ptr(), w2h_k.data_ptr(),
@@ -295,13 +502,12 @@ def _backward_kernel(entry, x, xadd, T, resid, tops, w1x, w1h, w2x, w2h, b2,
             db2.data_ptr(), part.data_ptr(), rowsum.data_ptr(), T, B, D, H,
             int(mm_dtype == "bfloat16"),
             torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(code, entry.__name__)
-        entry.launches += 1
+        _build.check(code, what)
     return dx, dxadd, dw1x, dw1h, dw2x, dw2h, db2
 
 
 def lstm2_tm_proj_bwd(x, xgc, resid, tops, w1x, w1h, w2x, w2h, b2, g_tops,
-                      g_h2, mm_dtype="float32", need_dx=True):
+                      g_h2, mm_dtype="float32", need_dx=True, streams=None):
     """Backward of :func:`lstm2_tm_proj` (the VJP ``_bwd_call_p``).
 
     Takes the forward's inputs (``x [T, B, D]``, ``xgc [B or 1, 4H]``, the
@@ -309,6 +515,7 @@ def lstm2_tm_proj_bwd(x, xgc, resid, tops, w1x, w1h, w2x, w2h, b2, g_tops,
     ``b2 [4H]``), its residuals (``resid [T, B, 3H]``, ``tops [T, B, H]``)
     and the cotangents of ``tops`` and ``h2`` (``None`` means zero).
     Returns ``(dx | None, dxgc, dw1x, dw1h, dw2x, dw2h, db2)``.
+    ``streams``: see :func:`_backward_kernel` (CUDA tensors only).
     """
     if x.device.type == "cpu":
         return lstm2_tm_proj_bwd_reference(x, xgc, resid, tops, w1x, w1h, w2x,
@@ -316,20 +523,21 @@ def lstm2_tm_proj_bwd(x, xgc, resid, tops, w1x, w1h, w2x, w2h, b2, g_tops,
                                            need_dx)
     return _backward_kernel(lstm2_tm_proj_bwd, x, xgc, x.shape[0], resid,
                             tops, w1x, w1h, w2x, w2h, b2, g_tops, g_h2,
-                            mm_dtype, need_dx)
+                            mm_dtype, need_dx, streams)
 
 
 def lstm2_tm_bwd(xg1, T, resid, tops, w1h, w2x, w2h, b2, g_tops, g_h2,
-                 mm_dtype="float32"):
+                 mm_dtype="float32", streams=None):
     """Backward of :func:`lstm2_tm` (the VJP ``_bwd_call``). Returns
     ``(dxg1, dw1h, dw2x, dw2h, db2)``; in const mode (``xg1 [B, 4H]``)
-    ``dxg1`` is summed over the T steps."""
+    ``dxg1`` is summed over the T steps. ``streams``: see
+    :func:`_backward_kernel` (CUDA tensors only)."""
     if xg1.device.type == "cpu":
         return lstm2_tm_bwd_reference(xg1, T, resid, tops, w1h, w2x, w2h, b2,
                                       g_tops, g_h2, mm_dtype)
     _, dxg1, _, dw1h, dw2x, dw2h, db2 = _backward_kernel(
         lstm2_tm_bwd, None, xg1, T, resid, tops, None, w1h, w2x, w2h, b2,
-        g_tops, g_h2, mm_dtype, False)
+        g_tops, g_h2, mm_dtype, False, streams)
     return dxg1, dw1h, dw2x, dw2h, db2
 
 
@@ -488,3 +696,5 @@ lstm2_tm_proj.launches = 0
 lstm2_tm.launches = 0
 lstm2_tm_proj_bwd.launches = 0
 lstm2_tm_bwd.launches = 0
+lstm2_tm_proj_bwd.launches_tc = 0
+lstm2_tm_bwd.launches_tc = 0

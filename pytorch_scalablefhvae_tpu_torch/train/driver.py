@@ -58,6 +58,7 @@ def check_ported(config: ExperimentConfig) -> None:
         "--profile-dir": t.profile_dir is not None,
         "--tensorboard": t.tensorboard,
         "--visdom": t.plot_curves,
+        "--log-params": t.log_params,
         "--data-placement stream": d.data_placement == "stream",
         "--epoch-plan device": d.epoch_plan == "device",
         f"--transfer-dtype {d.transfer_dtype}": d.transfer_dtype != "float32",

@@ -166,17 +166,103 @@ def test_lstm_backward_entries_match_plain(cuda, mm, tol):
                           xg1, T, res, tops, *w[1:], g_tops, None, m)))
     for name, call in cases:
         before = getattr(lstm_cuda, name).launches
+        before_tc = getattr(lstm_cuda, name).launches_tc
         got = call(getattr(lstm_cuda, name), mm)
         again = call(getattr(lstm_cuda, name), mm)
         want = call(getattr(lstm_cuda, name + "_reference"), mm)
         torch.cuda.synchronize()
         assert getattr(lstm_cuda, name).launches == before + 2
+        # H 64: the FMA form in both operand modes
+        assert getattr(lstm_cuda, name).launches_tc == before_tc
         assert all(torch.equal(a, b) for a, b in zip(got, again)
                    if a is not None), name  # no atomics: the same bits
         assert rel_norm(got, want) <= tol, name
         if mm == "bfloat16":
             f32 = call(getattr(lstm_cuda, name + "_reference"), "float32")
             assert rel_norm(f32, want) > tol, name
+
+
+def model_width_cases(dev, rows, mm, t=7, d=80, h=128):
+    """The four backward forms at the fhvae stacks' widths (H 128, D 80) on
+    ``rows`` batch rows: ``(entry name, call(fn, mm, **kw), passes args)``."""
+    g = torch.Generator().manual_seed(11)
+    cells = []
+    for d_in in (d, h):
+        wgt = (torch.rand((d_in + h, 4 * h), generator=g) * 2 - 1) * 0.15
+        cells.append((wgt.to(dev), (torch.randn(4 * h, generator=g) * 0.1)
+                      .to(dev)))
+    (w1, b1), (w2, b2) = cells
+    w = (w1[:d], w1[-h:], w2[:h], w2[h:], b2)
+    x = torch.randn((t, rows, d), generator=g).to(dev)
+    xgc = torch.randn((rows, 4 * h), generator=g).to(dev)
+    xg3 = torch.randn((t, rows, 4 * h), generator=g).to(dev)
+    g_tops = torch.randn((t, rows, h), generator=g).to(dev)
+    g_h2 = torch.randn((rows, h), generator=g).to(dev)
+    cases = []
+    # the encoders get only the cotangent of h2, the decoder only that of tops
+    for xg, gt, gh in ((b1.reshape(1, -1), None, g_h2), (xgc, g_tops, g_h2)):
+        tops, _, res = lstm_cuda._proj_forward_plain(x, xg, *w, mm,
+                                                       with_resid=True)
+        cases.append((
+            "lstm2_tm_proj_bwd",
+            lambda fn, m, xg=xg, tops=tops, res=res, gt=gt, gh=gh, **kw: fn(
+                x, xg, res, tops, *w, gt, gh, m, **kw),
+            (x, xg, t, res, tops, *w, gt, gh)))
+    for xg1, gt, gh in ((xgc, g_tops, None), (xg3, g_tops, g_h2)):
+        tops, _, res = lstm_cuda._tm_forward_plain(xg1, t, *w[1:], mm,
+                                                   with_resid=True)
+        cases.append((
+            "lstm2_tm_bwd",
+            lambda fn, m, xg1=xg1, tops=tops, res=res, gt=gt, gh=gh, **kw: fn(
+                xg1, t, res, tops, *w[1:], gt, gh, m, **kw),
+            (None, xg1, t, res, tops, None, *w[1:], gt, gh)))
+    return cases
+
+
+@pytest.mark.parametrize("rows", [1000, 64])
+@pytest.mark.parametrize("mm,tol", [("float32", 1e-5), ("bfloat16", 1e-3)])
+def test_lstm_backward_at_the_model_width(cuda, mm, tol, rows):
+    """H 128, D 80: bf16 operands take the tensor-core form (``launches_tc``
+    rises), fp32 operands the FMA form (it does not); both against the plain
+    backward, on a batch that fills its last 16-row cluster (64) and one that
+    does not (1000), two launches the same bits."""
+    for name, call, _ in model_width_cases(cuda, rows, mm):
+        entry = getattr(lstm_cuda, name)
+        before = entry.launches, entry.launches_tc
+        got, again = call(entry, mm), call(entry, mm)
+        want = call(getattr(lstm_cuda, name + "_reference"), mm)
+        torch.cuda.synchronize()
+        assert entry.launches == before[0] + 2
+        assert entry.launches_tc == before[1] + (2 if mm == "bfloat16" else 0)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)
+                   if a is not None), name
+        assert [a is None for a in got] == [b is None for b in want]
+        assert rel_norm(got, want) <= tol, name
+        if mm == "bfloat16":
+            f32 = call(getattr(lstm_cuda, name + "_reference"), "float32")
+            assert rel_norm(f32, want) > tol, name
+
+
+def test_tensor_core_backward_pass_by_pass(cuda):
+    """The tensor-core form's streams against the plain backward in the same
+    pass structure: the gates after pass A (fp32 sum order only), the bf16
+    dgates after pass B against the plain dgates rounded to bf16."""
+    for name, call, passes_args in model_width_cases(cuda, 1000, "bfloat16"):
+        streams = {}
+        call(getattr(lstm_cuda, name), "bfloat16", streams=streams)
+        _, want = lstm_cuda.lstm2_bwd_passes_reference(*passes_args,
+                                                       "bfloat16")
+        torch.cuda.synchronize()
+        for key in ("gates1", "gates2"):
+            assert rel_norm([streams[key]], [want[key]]) <= 1e-5, (name, key)
+        for key in ("dgates1", "dgates2"):
+            assert streams[key].dtype == torch.bfloat16
+            assert rel_norm([streams[key].float()],
+                            [want[key].to(torch.bfloat16).float()]) <= 1e-3, \
+                (name, key)
+    with pytest.raises(ValueError, match="tensor-core"):
+        name, call, _ = model_width_cases(cuda, 64, "float32")[0]
+        call(getattr(lstm_cuda, name), "float32", streams={})
 
 
 def test_discriminative_backward_matches_plain(cuda):

@@ -22,6 +22,14 @@ results of the backward products instead of their operands, and keeps the
 gate adjoints fp32) misses the Pallas bf16 backward by 2.9e-3 to 4.2e-3:
 the tests assert both above twice the limit, so a backward that rounded in
 the wrong place fails it.
+
+``lstm2_bwd_passes_reference`` is the plain backward in the tensor-core
+kernels' pass structure (all gates first, the reverse loop without recompute,
+then the reductions). It is held against the plain backward per gradient (fp32
+at 1e-6: the same products, batched over T instead of per step; bf16 at the
+limit above), its intermediate streams against what the forward formed and the
+plain backward's dgates, and, put in the Functions' place, against the Pallas
+VJP like the plain backward itself.
 """
 
 import jax
@@ -213,3 +221,93 @@ def test_backward_entries_on_cpu_run_the_plain_backward():
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert lstm_cuda.lstm2_tm_proj_bwd.launches == 0
     assert lstm_cuda.lstm2_tm_bwd.launches == 0
+
+
+# ------------------------------------------- the pass-structured backward
+
+TOL_PASSES = 1e-6  # fp32: the same products, batched over T
+
+
+def rel(a, b) -> float:
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def passes_case(form, mm):
+    """Torch inputs of one form with the plain forward's residuals:
+    ``(x | None, xadd, resid, tops, weights, g_tops, g_h2)``."""
+    cells, inputs, g_tops, g_h2 = make_case(form, seed=4)
+    (w1, b1), (w2, b2) = [(torch.tensor(w), torch.tensor(b)) for w, b in cells]
+    weights = (w1[:D] if "x" in inputs else None, w1[-H:], w2[:H], w2[H:], b2)
+    if "x" in inputs:
+        x = torch.tensor(inputs["x"])
+        xadd = (torch.tensor(inputs["xgc"]) if "xgc" in inputs
+                else b1.reshape(1, -1))
+        tops, _, resid = lstm_cuda._proj_forward_plain(x, xadd, *weights, mm,
+                                                       with_resid=True)
+    else:
+        x, xadd = None, torch.tensor(inputs["xg1"])
+        tops, _, resid = lstm_cuda._tm_forward_plain(xadd, T, *weights[1:],
+                                                     mm, with_resid=True)
+    return x, xadd, resid, tops, weights, torch.tensor(g_tops), \
+        torch.tensor(g_h2)
+
+
+@pytest.mark.parametrize("mm,tol", [("float32", TOL_PASSES),
+                                    ("bfloat16", TOL_BF16)])
+@pytest.mark.parametrize("form", FORMS)
+def test_pass_structured_backward_matches_plain_backward(form, mm, tol):
+    x, xadd, resid, tops, weights, g_tops, g_h2 = passes_case(form, mm)
+    got, streams = lstm_cuda.lstm2_bwd_passes_reference(
+        x, xadd, T, resid, tops, *weights, g_tops, g_h2, mm)
+    if x is not None:
+        want = lstm_cuda.lstm2_tm_proj_bwd_reference(
+            x, xadd, resid, tops, *weights, g_tops, g_h2, mm)
+    else:
+        dxg1, *rest = lstm_cuda.lstm2_tm_bwd_reference(
+            xadd, T, resid, tops, *weights[1:], g_tops, g_h2, mm)
+        want = (None, dxg1, None, *rest)
+    assert [g is None for g in got] == [w is None for w in want]
+    for a, b in zip(got, want):
+        if b is not None:
+            assert a.shape == b.shape and rel(a, b) <= tol
+    # pass A: the gates are the ones the forward formed, so the cell applied
+    # to them and the state before gives the saved state back
+    h1, c1, c2 = resid.split(H, dim=-1)
+    zero = torch.zeros(1, B, H)
+    h2_re, c2_re = lstm_cuda._cell(streams["gates2"], torch.cat([zero, c2[:-1]]))
+    h1_re, c1_re = lstm_cuda._cell(streams["gates1"], torch.cat([zero, c1[:-1]]))
+    for a, b in ((h2_re, tops), (c2_re, c2), (h1_re, h1), (c1_re, c1)):
+        assert rel(a, b) <= TOL_PASSES
+    # pass B: dgates1 is the plain backward's
+    g1_at = ((lambda t: lstm_cuda._mm(x[t], weights[0], mm) + xadd)
+             if x is not None else
+             (lambda t: xadd[t]) if xadd.dim() == 3 else (lambda t: xadd))
+    dg1, _, _, _, db2 = lstm_cuda._bwd_plain(
+        g1_at, T, B, resid, tops, *weights[1:], g_tops, g_h2, mm)
+    assert rel(streams["dgates1"], dg1) <= tol
+    assert rel(streams["dgates2"].sum((0, 1)), db2) <= tol
+
+
+@pytest.mark.parametrize("mm", [None, jnp.bfloat16])
+@pytest.mark.parametrize("form", FORMS)
+def test_pass_structured_backward_matches_pallas_vjp(form, mm, monkeypatch):
+    """The Functions' backward replaced by the pass-structured one."""
+    passes = lstm_cuda.lstm2_bwd_passes_reference
+
+    def proj(x, xgc, resid, tops, w1x, w1h, w2x, w2h, b2, g_tops, g_h2,
+             mm_dtype="float32", need_dx=True):
+        return passes(x, xgc, x.shape[0], resid, tops, w1x, w1h, w2x, w2h, b2,
+                      g_tops, g_h2, mm_dtype, need_dx)[0]
+
+    def tm(xg1, T_, resid, tops, w1h, w2x, w2h, b2, g_tops, g_h2,
+           mm_dtype="float32"):
+        g = passes(None, xg1, T_, resid, tops, None, w1h, w2x, w2h, b2,
+                   g_tops, g_h2, mm_dtype)[0]
+        return (g[1], *g[3:])
+
+    monkeypatch.setattr(lstm_cuda, "lstm2_tm_proj_bwd_reference", proj)
+    monkeypatch.setattr(lstm_cuda, "lstm2_tm_bwd_reference", tm)
+    case = make_case(form)
+    want = jax_grads(form, *case, mm)
+    got = port_grads(form, *case, "float32" if mm is None else "bfloat16")
+    assert rel_err(got, want) <= (TOL if mm is None else TOL_BF16)

@@ -202,7 +202,7 @@ def test_divergence_exits_2(corpus, tmp_path, capsys):
     ["--ckpt-backend", "orbax"],
     ["--legacy"], ["--steps-per-dispatch", "4"], ["--ckpt-every-steps", "5"],
     ["--max-steps", "3"], ["--profile-dir", "prof"], ["--tensorboard"],
-    ["--visdom"], ["--model-type", "simple_fhvae"],
+    ["--visdom"], ["--log-params"], ["--model-type", "simple_fhvae"],
     ["--epoch-plan", "device"], ["--data-placement", "stream"],
     ["--transfer-dtype", "bfloat16"], ["--lstm-pallas", "never"],
 ], ids=lambda f: " ".join(f))
@@ -212,6 +212,31 @@ def test_unported_flag_raises(corpus, tmp_path, flags):
     and K-step dispatch.)"""
     with pytest.raises(NotImplementedError):
         main(train_args(corpus, tmp_path, *flags))
+
+
+def test_log_params_raises_naming_the_roadmap(corpus, tmp_path):
+    with pytest.raises(NotImplementedError, match=r"--log-params.*ROADMAP\.md"):
+        main(train_args(corpus, tmp_path, "--log-params"))
+
+
+@pytest.mark.parametrize("mm,h,d,form", [
+    ("bfloat16", 128, 80, "tc"),    # the z2 and z1 encoders
+    ("bfloat16", 128, 0, "tc"),     # the decoder: no input projection
+    ("bfloat16", 64, 24, "fma"),    # another hidden width
+    ("bfloat16", 128, 40, "fma"),   # an input width off the mma depth of 16
+    ("bfloat16", 128, 144, "fma"),  # an input wider than the staged tile
+    ("float32", 128, 80, "fma"),    # fp32 operands stay true fp32
+    ("float32", 128, 0, "fma"),
+    ("float32", 64, 24, "fma"),
+])
+def test_backward_form_follows_operand_type_and_widths(mm, h, d, form):
+    """Which CUDA backward a call takes is a pure function of the operand
+    type and the widths (``lstm_cuda.backward_form``)."""
+    from pytorch_scalablefhvae_tpu_torch.ops import lstm_cuda
+
+    assert lstm_cuda.backward_form(mm, h, d) == form
+    with pytest.raises(ValueError):
+        lstm_cuda.backward_form("float16", h, d)
 
 
 def load_split(root, split):
