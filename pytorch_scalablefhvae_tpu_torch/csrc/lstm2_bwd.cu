@@ -67,64 +67,18 @@
 #include <cstdint>
 
 #include "lstm2_common.cuh"
+#include "lstm2_mma.cuh"
 
 namespace {
 
 using namespace lstm2;
 
-constexpr int kH = 128;        // the hidden width this form takes
+constexpr int kH = kTcH;       // the hidden width this form takes
 constexpr int kH4 = 4 * kH;
-constexpr int kMaxD = 128;     // widest input of the fused projection
+constexpr int kMaxD = kTcMaxD; // widest input of the fused projection
 constexpr int kThreads = 256;  // every kernel below: 8 warps
 constexpr int kBatch = 8;      // global loads a thread keeps in flight when it
                                // stages a tile: one L2 round trip per batch
-
-// ------------------------------------------------------ tensor-core pieces
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Four 8x8 bf16 matrices from shared memory; lane l gives the address of row
-// l % 8 of matrix l / 8 and receives elements (l / 4, 2 (l % 4) + {0, 1}) of
-// each matrix.
-__device__ __forceinline__ void ldsm(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// The same with each matrix transposed on the way.
-__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// c[16, 8] += a[16, 16] b[16, 8], bf16 operands, fp32 accumulate. Lane l
-// holds c at rows l / 4 and l / 4 + 8, columns 2 (l % 4) + {0, 1}.
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats rounded to bf16, the first in the low half (the lower address).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint2 pack_bf16(float4 v) {
-  return make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
-}
 
 // --------------------------------------------------------- pass A: gates
 
@@ -312,41 +266,6 @@ static_assert(kCUnits * (kH4 / 4) % (kThreads * kBatch) == 0,
 // fall into eight different bank groups.
 __device__ __forceinline__ uint32_t swz(int row, int chunk) {
   return (uint32_t)(row * (kH4 * 2) + ((chunk ^ (row & 7)) << 4));
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// The address of this block's shared-memory location in block `rank` of the
-// cluster.
-__device__ __forceinline__ uint32_t map_to_rank(uint32_t addr, uint32_t rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(r)
-               : "r"(addr), "r"(rank));
-  return r;
-}
-
-__device__ __forceinline__ void st_cluster(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(addr), "r"(v)
-               : "memory");
-}
-
-__device__ __forceinline__ void st_local_smem(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
-}
-
-// The two halves of the cluster barrier: what a thread wrote before arrive
-// (its own and its partner's shared memory) is visible after wait.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 struct ChainArgs {
@@ -958,11 +877,6 @@ extern "C" {
 // buffer as 4 * ceil(T * B / rows) * H * 4H floats.
 int sfhvae_lstm2_bwd_chunk_rows() { return kWChunk; }
 
-// Whether this form takes hidden width H and input width D (0: no input).
-int sfhvae_lstm2_bwd_takes(int H, int D) {
-  return H == kH && D >= 0 && D <= kMaxD && D % 16 == 0;
-}
-
 // The backward of both LSTM entries in bf16 operand mode, all on `stream`.
 // `passes` is a set of bits: 1 pass A (gates into g1, g2), 2 pass B (the
 // chain: dg1b, dg2b, the row sums, and in mode 0 the fp32 dgates1 over g1),
@@ -985,7 +899,7 @@ int sfhvae_lstm2_bwd(const void* x, const void* xadd, long long xadd_t_stride,
                      void* dw2h, void* db2, void* part, void* rowsum1,
                      void* rowsum2, int T, int B, int D, int H, int passes,
                      int probe, void* stream) {
-  if (!sfhvae_lstm2_bwd_takes(H, x == nullptr ? 0 : D)) {
+  if (!tc_takes(H, x == nullptr ? 0 : D)) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

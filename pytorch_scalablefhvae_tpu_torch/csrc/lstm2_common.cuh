@@ -1,7 +1,7 @@
-// Pieces shared by the two-layer LSTM forward (lstm2_fwd.cu) and backward
-// (lstm2_bwd.cu, lstm2_bwd_fma.cu) kernels: the FMA kernels' block layout,
-// operand rounding and per-thread product with a weight block, and the cell
-// and its adjoint.
+// Pieces shared by the two-layer LSTM forward (lstm2_fwd.cu, lstm2_fwd_fma.cu)
+// and backward (lstm2_bwd.cu, lstm2_bwd_fma.cu) kernels: the FMA kernels'
+// block layout, operand rounding and per-thread product with a weight block,
+// and the cell and its adjoint.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -37,10 +37,13 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
     "sfhvae_lstm2_threads": (_I, [_I]),
-    "sfhvae_lstm2_fwd": (_I, [_P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P,
-                              _P, _I, _I, _I, _I, _I, _P]),
+    "sfhvae_lstm2_fwd_fma": (_I, [_P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P,
+                                  _P, _I, _I, _I, _I, _I, _P]),
+    "sfhvae_lstm2_tc_takes": (_I, [_I, _I]),
+    "sfhvae_lstm2_fwd_cluster_rows": (_I, [_I]),
+    "sfhvae_lstm2_fwd": (_I, [_P, _P, _L, _L] + [_P] * 9 + [_I] * 4 + [_P]),
+    "sfhvae_lstm2_fwd_chain_probe": (_I, [_P] * 8 + [_I] * 3 + [_P]),
     "sfhvae_lstm2_bwd_chunk_rows": (_I, []),
-    "sfhvae_lstm2_bwd_takes": (_I, [_I, _I]),
     "sfhvae_lstm2_bwd": (_I, [_P, _P, _L, _L] + [_P] * 15 + [_I]
                          + [_P] * 8 + [_I] * 6 + [_P]),
     "sfhvae_lstm2_bwd_fma_chunk_rows": (_I, []),

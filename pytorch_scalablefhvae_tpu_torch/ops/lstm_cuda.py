@@ -3,15 +3,19 @@
 Counterpart of ``pytorch_scalablefhvae_tpu/ops/lstm_pallas.py``. Four
 entries, each with its plain PyTorch version (``<entry>_reference``):
 
-- :func:`lstm2_tm_proj`, :func:`lstm2_tm`: the forward entries
-  (``csrc/lstm2_fwd.cu``), differentiable;
+- :func:`lstm2_tm_proj`, :func:`lstm2_tm`: the forward entries,
+  differentiable. They have two forms, picked by :func:`forward_form` from
+  the operand type and the widths alone: the tensor-core form
+  (``csrc/lstm2_fwd.cu``: bf16 operands at H = 128; the input projection of
+  all steps at once, then the recurrence in two-block clusters that keep the
+  recurrent weights in shared memory) and the FMA form
+  (``csrc/lstm2_fwd_fma.cu``: fp32 operands and every other width);
 - :func:`lstm2_tm_proj_bwd`, :func:`lstm2_tm_bwd`: their backward, which the
   forward entries' autograd Functions call. It has two forms, picked by
-  :func:`backward_form` from the operand type and the widths alone: the
-  tensor-core form (``csrc/lstm2_bwd.cu``: bf16 operands at H = 128, three
-  passes: the gates of all steps, the reverse-time chain, the weight
-  gradients) and the FMA form (``csrc/lstm2_bwd_fma.cu``: fp32 operands and
-  every other width).
+  :func:`backward_form` by the same rule: the tensor-core form
+  (``csrc/lstm2_bwd.cu``: three passes: the gates of all steps, the
+  reverse-time chain, the weight gradients) and the FMA form
+  (``csrc/lstm2_bwd_fma.cu``).
 
 Each entry runs its kernel for CUDA tensors and its plain version for CPU
 tensors; nothing falls back from one to the other. The plain version of a
@@ -34,9 +38,8 @@ different function, so the plain backward is an explicit reverse-time loop.
 Under autograd a forward entry saves its residuals (``resid [T, B, 3H]`` =
 h1 | c1 | c2 per step, and tops); without it the serving call writes none.
 
-Each entry counts its kernel launches in ``<entry>.launches``; a backward
-entry also counts those that took the tensor-core form in
-``<entry>.launches_tc``.
+Each entry counts its kernel launches in ``<entry>.launches``, and those
+that took the tensor-core form in ``<entry>.launches_tc``.
 """
 
 from __future__ import annotations
@@ -252,6 +255,51 @@ def lstm2_bwd_passes_reference(x, xadd, T, resid, tops, w1x, w1h, w2x, w2h,
     return (dx, dxadd, dw1x, dw1h, dw2x, dw2h, dg2.sum((0, 1))), streams
 
 
+def lstm2_fwd_passes_reference(x, xadd, T, w1x, w1h, w2x, w2h, b2,
+                               mm_dtype="float32"):
+    """The forward of both entries in the tensor-core kernels' structure,
+    for tests: the input products of all rows first (pass A), then T + 1
+    phases with the two layers one step apart, each one stacked product
+    ``[h1 | h2] [[W1h, W2x], [0, W2h]]`` (phase p holds layer 1 at step p and
+    layer 2 at step p - 1, which both read h1[p-1] and h2[p-2]).
+
+    ``x [T, B, D]`` or ``None`` (``xadd`` then carries the whole layer-1
+    input gates); ``xadd`` is ``[T, B, 4H]`` per-step gates, one ``[B, 4H]``
+    block for every step, or the ``[1, 4H]`` bias row. Returns ``((tops, h2,
+    resid), streams)`` with ``streams["xp"]`` the ``[T, B, 4H]`` layer-1 gates
+    without their recurrent part, as pass A leaves them (``None`` without
+    ``x``).
+    """
+    r = _round(mm_dtype)
+    H = w1h.shape[0]
+    xp = None
+    if x is not None:
+        xp = r(x) @ r(w1x) + xadd
+        g1_at = lambda t: xp[t]  # noqa: E731
+        B = x.shape[1]
+    else:
+        g1_at = (lambda t: xadd) if xadd.dim() == 2 else (lambda t: xadd[t])
+        B = xadd.shape[-2]
+    stacked = torch.cat([torch.cat([w1h, w2x], dim=1),
+                         torch.cat([torch.zeros_like(w2h), w2h], dim=1)])
+    stacked = r(stacked)
+    h1 = c1 = h2 = c2 = w1h.new_zeros(B, H)
+    tops, h1s, c1s, c2s = [], [], [], []
+    for p in range(T + 1):
+        g = r(torch.cat([h1, h2], dim=1)) @ stacked
+        if p >= 1:
+            h2, c2 = _cell(g[:, 4 * H:] + b2, c2)
+            tops.append(h2)
+            c2s.append(c2)
+        if p < T:
+            h1, c1 = _cell(g1_at(p) + g[:, :4 * H], c1)
+            h1s.append(h1)
+            c1s.append(c1)
+    resid = torch.cat([torch.stack(h1s), torch.stack(c1s), torch.stack(c2s)],
+                      dim=-1)
+    return (torch.stack(tops), h2, resid), {"xp": xp}
+
+
 # -------------------------------------------------------------- kernels
 
 
@@ -290,54 +338,145 @@ def _xadd_strides(xadd: torch.Tensor, T: int, proj: bool) -> tuple[int, int]:
     return 0, (0 if proj and xadd.shape[0] == 1 else H4)
 
 
-def _forward_kernel(entry, x, xadd, T, w1x, w1h, w2x, w2h, b2, mm_dtype,
-                    with_tops, with_resid):
-    """Run ``csrc/lstm2_fwd.cu``; returns (tops | None, h2, resid | None)."""
-    H = w1h.shape[0]
-    B = xadd.shape[-2] if xadd.dim() == 3 or x is None else x.shape[1]
-    D = 0 if x is None else x.shape[2]
-    _check_cuda(*(t for t in (x, xadd, w1x, w1h, w2x, w2h, b2)
-                  if t is not None))
-    lib = _library(H, mm_dtype)
-    wdt = torch.bfloat16 if mm_dtype == "bfloat16" else torch.float32
-    w1x, w1h, w2x, w2h = (None if w is None else w.to(wdt).contiguous()
-                          for w in (w1x, w1h, w2x, w2h))
-    dev = xadd.device
-    tops = (torch.empty((T, B, H), device=dev, dtype=torch.float32)
-            if with_tops or with_resid else None)
-    h2 = torch.empty((B, H), device=dev, dtype=torch.float32)
-    resid = (torch.empty((T, B, 3 * H), device=dev, dtype=torch.float32)
-             if with_resid else None)
-    t_stride, row_stride = _xadd_strides(xadd, T, x is not None)
-    if B > 0 and T > 0:
-        code = lib.sfhvae_lstm2_fwd(
-            _ptr(x), xadd.data_ptr(), t_stride, row_stride, _ptr(w1x),
-            w1h.data_ptr(), w2x.data_ptr(), w2h.data_ptr(), b2.data_ptr(),
-            _ptr(tops), h2.data_ptr(), _ptr(resid), T, B, D, H,
-            int(mm_dtype == "bfloat16"),
-            torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(code, entry.__name__)
-        entry.launches += 1
-    return tops, h2, resid
+TC_H = 128       # the hidden width of the tensor-core forms
+TC_MAX_D = 128   # their widest fused input
 
 
-TC_H = 128       # the hidden width of the tensor-core backward
-TC_MAX_D = 128   # its widest fused input
-
-
-def backward_form(mm_dtype: str, H: int, D: int) -> str:
-    """Which form a backward call on CUDA tensors takes, from the operand
+def forward_form(mm_dtype: str, H: int, D: int) -> str:
+    """Which form a forward call on CUDA tensors takes, from the operand
     type and the widths alone (``D`` = 0 without an input projection):
-    ``"tc"``, the three-pass tensor-core form, for bf16 operands at H = 128
-    with D a multiple of 16 up to 128 (the fhvae stacks: D = 80 for the
-    encoders, 0 for the decoder); ``"fma"`` for fp32 operands, which must stay
-    true fp32, and for every other width."""
+    ``"tc"``, the tensor-core form, for bf16 operands at H = 128 with D a
+    multiple of 16 up to 128 (the fhvae stacks: D = 80 for the encoders, 0
+    for the decoder); ``"fma"`` for fp32 operands, which must stay true fp32,
+    and for every other width."""
     if mm_dtype not in MM_DTYPES:
         raise ValueError(f"mm_dtype must be one of {MM_DTYPES}")
     if (mm_dtype == "bfloat16" and H == TC_H and D % 16 == 0
             and 0 <= D <= TC_MAX_D):
         return "tc"
     return "fma"
+
+
+def _forward_shapes(x, xadd, w1h):
+    """(B, D, H) of a forward call."""
+    B = xadd.shape[-2] if xadd.dim() == 3 or x is None else x.shape[1]
+    return B, (0 if x is None else x.shape[2]), w1h.shape[0]
+
+
+def _forward_kernel(entry, x, xadd, T, w1x, w1h, w2x, w2h, b2, mm_dtype,
+                    with_tops, with_resid, streams=None):
+    """Run the forward in the form :func:`forward_form` names; returns
+    (tops | None, h2, resid | None). ``streams``: a dict that receives the
+    tensor-core form's intermediate stream ``xp`` (tests only)."""
+    B, D, H = _forward_shapes(x, xadd, w1h)
+    form = forward_form(mm_dtype, H, D)
+    if streams is not None and form != "tc":
+        raise ValueError("only the tensor-core form has intermediate streams")
+    args = (entry, x, xadd, T, w1x, w1h, w2x, w2h, b2, mm_dtype, with_tops,
+            with_resid)
+    return _forward_tc(*args, streams) if form == "tc" else _forward_fma(*args)
+
+
+def _forward_outputs(xadd, T, B, H, with_tops, with_resid):
+    dev = xadd.device
+    tops = (torch.empty((T, B, H), device=dev, dtype=torch.float32)
+            if with_tops or with_resid else None)
+    h2 = torch.empty((B, H), device=dev, dtype=torch.float32)
+    resid = (torch.empty((T, B, 3 * H), device=dev, dtype=torch.float32)
+             if with_resid else None)
+    return tops, h2, resid
+
+
+def _check_aligned(what: str, *tensors) -> None:
+    for t in tensors:
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"the tensor-core {what} reads 16-byte vectors: "
+                             "every tensor must start on a 16-byte boundary")
+
+
+def _forward_tc(entry, x, xadd, T, w1x, w1h, w2x, w2h, b2, mm_dtype,
+                with_tops, with_resid, streams=None):
+    """``csrc/lstm2_fwd.cu``, counted on ``entry``: pass A writes ``xp = x
+    w1x + xadd`` for all steps into a ``[T, B, 4H]`` fp32 scratch (proj entry
+    only), then the chain walks the T + 1 phases. The kernels read the fp32 weights as they
+    lie and round them on the way: no cast, no copy."""
+    B, D, H = _forward_shapes(x, xadd, w1h)
+    _check_cuda(*(t for t in (x, xadd, w1x, w1h, w2x, w2h, b2)
+                  if t is not None))
+    lib = _library(H, mm_dtype)
+    if mm_dtype != "bfloat16" or not lib.sfhvae_lstm2_tc_takes(H, D):
+        raise ValueError(f"the tensor-core forward does not take {mm_dtype} "
+                         f"operands at H={H}, D={D}")
+    _check_aligned("forward", x, xadd, w1x, w1h, w2x, w2h, b2)
+    tops, h2, resid = _forward_outputs(xadd, T, B, H, with_tops, with_resid)
+    xp = (torch.empty((T, B, 4 * H), device=xadd.device, dtype=torch.float32)
+          if x is not None else None)
+    t_stride, row_stride = _xadd_strides(xadd, T, x is not None)
+    if B > 0 and T > 0:
+        _build.check(lib.sfhvae_lstm2_fwd(
+            _ptr(x), xadd.data_ptr(), t_stride, row_stride, _ptr(w1x),
+            w1h.data_ptr(), w2x.data_ptr(), w2h.data_ptr(), b2.data_ptr(),
+            _ptr(xp), _ptr(tops), h2.data_ptr(), _ptr(resid), T, B, D, H,
+            torch.cuda.current_stream(xadd.device).cuda_stream),
+            entry.__name__)
+        entry.launches += 1
+        entry.launches_tc += 1
+    if streams is not None:
+        streams["xp"] = xp
+    return tops, h2, resid
+
+
+def fwd_chain_probe(T: int, B: int, probe: int, device="cuda"):
+    """A callable that launches the chain of the tensor-core forward alone
+    (the decoder entry's call, with residuals) on random per-step gates and
+    zero weights, for timing (``chip_smoke.py``): ``probe`` 0 the whole chain,
+    1 without the loop's global loads and stores (cells, exchange, barrier
+    and products: the chain's floor), 3 without the products as well."""
+    lib = _library(TC_H, "bfloat16")
+    H = TC_H
+    xg = 0.5 * torch.randn((T, B, 4 * H), device=device)
+    w = torch.zeros((H, 4 * H), device=device)
+    tops, h2, resid = _forward_outputs(xg, T, B, H, True, True)
+    stream = torch.cuda.current_stream(xg.device).cuda_stream
+
+    def launch():
+        _build.check(lib.sfhvae_lstm2_fwd_chain_probe(
+            xg.data_ptr(), w.data_ptr(), w.data_ptr(), w.data_ptr(),
+            w.data_ptr(), tops.data_ptr(), h2.data_ptr(), resid.data_ptr(),
+            T, B, probe, stream), "lstm2_fwd chain probe")
+    return launch
+
+
+def _forward_fma(entry, x, xadd, T, w1x, w1h, w2x, w2h, b2, mm_dtype,
+                 with_tops, with_resid):
+    """``csrc/lstm2_fwd_fma.cu``, counted on ``entry``: one recurrent kernel,
+    fp32 multiply-adds; in bf16 mode it takes bf16 copies of the weights."""
+    B, D, H = _forward_shapes(x, xadd, w1h)
+    _check_cuda(*(t for t in (x, xadd, w1x, w1h, w2x, w2h, b2)
+                  if t is not None))
+    lib = _library(H, mm_dtype)
+    wdt = torch.bfloat16 if mm_dtype == "bfloat16" else torch.float32
+    w1x, w1h, w2x, w2h = (None if w is None else w.to(wdt).contiguous()
+                          for w in (w1x, w1h, w2x, w2h))
+    tops, h2, resid = _forward_outputs(xadd, T, B, H, with_tops, with_resid)
+    t_stride, row_stride = _xadd_strides(xadd, T, x is not None)
+    if B > 0 and T > 0:
+        code = lib.sfhvae_lstm2_fwd_fma(
+            _ptr(x), xadd.data_ptr(), t_stride, row_stride, _ptr(w1x),
+            w1h.data_ptr(), w2x.data_ptr(), w2h.data_ptr(), b2.data_ptr(),
+            _ptr(tops), h2.data_ptr(), _ptr(resid), T, B, D, H,
+            int(mm_dtype == "bfloat16"),
+            torch.cuda.current_stream(xadd.device).cuda_stream)
+        _build.check(code, entry.__name__)
+        entry.launches += 1
+    return tops, h2, resid
+
+
+def backward_form(mm_dtype: str, H: int, D: int) -> str:
+    """Which form a backward call on CUDA tensors takes: the rule of
+    :func:`forward_form` (``"tc"``, the three-pass tensor-core form, for bf16
+    operands at H = 128 with D a multiple of 16 up to 128; else ``"fma"``)."""
+    return forward_form(mm_dtype, H, D)
 
 
 def _backward_kernel(entry, x, xadd, T, resid, tops, w1x, w1h, w2x, w2h, b2,
@@ -358,13 +497,9 @@ def _backward_kernel(entry, x, xadd, T, resid, tops, w1x, w1h, w2x, w2h, b2,
     if streams is not None and form != "tc":
         raise ValueError("only the tensor-core form has intermediate streams")
     run = _backward_tc if form == "tc" else _backward_fma
-    out = run(lib, entry.__name__, x, xadd, T, B, D, H, resid, tops, w1x,
-              w1h, w2x, w2h, b2, g_tops, g_h2, mm_dtype,
-              x is not None and need_dx, streams)
-    if B > 0 and T > 0:
-        entry.launches += 1
-        entry.launches_tc += form == "tc"
-    return out
+    return run(lib, entry, x, xadd, T, B, D, H, resid, tops, w1x, w1h, w2x,
+               w2h, b2, g_tops, g_h2, mm_dtype, x is not None and need_dx,
+               streams)
 
 
 def _outputs(xadd, x, T, B, D, H4, need_dx, dg1):
@@ -386,9 +521,10 @@ def _outputs(xadd, x, T, B, D, H4, need_dx, dg1):
             empty(H, H4), empty(H, H4), empty(H4))
 
 
-def _backward_tc(lib, what, x, xadd, T, B, D, H, resid, tops, w1x, w1h, w2x,
+def _backward_tc(lib, entry, x, xadd, T, B, D, H, resid, tops, w1x, w1h, w2x,
                  w2h, b2, g_tops, g_h2, mm_dtype, need_dx, streams):
-    """``csrc/lstm2_bwd.cu``: pass A writes the gates of all steps into two
+    """``csrc/lstm2_bwd.cu``, counted on ``entry`` (one launch a call, also
+    when ``streams`` splits it): pass A writes the gates of all steps into two
     ``[T, B, 4H]`` fp32 buffers, pass B walks time backwards and writes the
     dgates as bf16 streams (and, for per-step gates, fp32 dgates1 over the
     layer-1 gates), pass C reduces the streams. The kernels read the fp32
@@ -396,13 +532,11 @@ def _backward_tc(lib, what, x, xadd, T, B, D, H, resid, tops, w1x, w1h, w2x,
     copy."""
     H4 = 4 * H
     dev = resid.device
-    if not lib.sfhvae_lstm2_bwd_takes(H, D):
+    if not lib.sfhvae_lstm2_tc_takes(H, D):
         raise ValueError(f"the tensor-core backward does not take H={H}, "
                          f"D={D}")
-    for t in (x, xadd, resid, tops, w1x, w1h, w2x, w2h, b2, g_tops, g_h2):
-        if t is not None and t.data_ptr() % 16:
-            raise ValueError("the tensor-core backward reads 16-byte vectors: "
-                             "every tensor must start on a 16-byte boundary")
+    _check_aligned("backward", x, xadd, resid, tops, w1x, w1h, w2x, w2h, b2,
+                   g_tops, g_h2)
 
     def empty(*shape, dtype=torch.float32):
         return torch.empty(shape, device=dev, dtype=dtype)
@@ -428,7 +562,7 @@ def _backward_tc(lib, what, x, xadd, T, B, D, H, resid, tops, w1x, w1h, w2x,
             _ptr(dx), dxadd.data_ptr(), mode, _ptr(dw1x), dw1h.data_ptr(),
             dw2x.data_ptr(), dw2h.data_ptr(), db2.data_ptr(),
             part.data_ptr(), _ptr(rowsum1), rowsum2.data_ptr(), T, B, D, H,
-            passes, 0, stream), what)
+            passes, 0, stream), entry.__name__)
 
     if B > 0 and T > 0:
         if streams is None:
@@ -438,6 +572,8 @@ def _backward_tc(lib, what, x, xadd, T, B, D, H, resid, tops, w1x, w1h, w2x,
             streams.update(gates1=g1.clone(), gates2=g2.clone())
             run(6)
             streams.update(dgates1=dg1b, dgates2=dg2b)
+        entry.launches += 1
+        entry.launches_tc += 1
     return dx, dxadd, dw1x, dw1h, dw2x, dw2h, db2
 
 
@@ -469,10 +605,11 @@ def chain_probe(T: int, B: int, probe: int, device="cuda"):
     return launch
 
 
-def _backward_fma(lib, what, x, xadd, T, B, D, H, resid, tops, w1x, w1h, w2x,
+def _backward_fma(lib, entry, x, xadd, T, B, D, H, resid, tops, w1x, w1h, w2x,
                   w2h, b2, g_tops, g_h2, mm_dtype, need_dx, streams):
-    """``csrc/lstm2_bwd_fma.cu``: one recurrent kernel that recomputes the
-    gates per step, then the reductions, all in fp32 multiply-adds."""
+    """``csrc/lstm2_bwd_fma.cu``, counted on ``entry``: one recurrent kernel
+    that recomputes the gates per step, then the reductions, all in fp32
+    multiply-adds."""
     H4 = 4 * H
     wdt = torch.bfloat16 if mm_dtype == "bfloat16" else torch.float32
     w1x_k, w1h_k, w2x_k, w2h_k = (None if w is None else w.to(wdt).contiguous()
@@ -502,7 +639,8 @@ def _backward_fma(lib, what, x, xadd, T, B, D, H, resid, tops, w1x, w1h, w2x,
             db2.data_ptr(), part.data_ptr(), rowsum.data_ptr(), T, B, D, H,
             int(mm_dtype == "bfloat16"),
             torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(code, what)
+        _build.check(code, entry.__name__)
+        entry.launches += 1
     return dx, dxadd, dw1x, dw1h, dw2x, dw2h, db2
 
 
@@ -696,5 +834,7 @@ lstm2_tm_proj.launches = 0
 lstm2_tm.launches = 0
 lstm2_tm_proj_bwd.launches = 0
 lstm2_tm_bwd.launches = 0
+lstm2_tm_proj.launches_tc = 0
+lstm2_tm.launches_tc = 0
 lstm2_tm_proj_bwd.launches_tc = 0
 lstm2_tm_bwd.launches_tc = 0

@@ -46,7 +46,7 @@ def stack(g, d_in, dev):
 # bf16: the kernel sits within 3.2e-5 of the plain bf16 version, and the
 # plain fp32 version misses it by 5.2e-4 or more at these shapes (NVIDIA H100
 # 80GB HBM3, 700 W); the test checks that gap, so the limit fails a kernel
-# that skipped the rounding
+# that skipped the rounding. H 64: the FMA form in both operand modes
 @pytest.mark.parametrize("mm,tol", [("float32", 1e-5), ("bfloat16", 2e-4)])
 def test_lstm_entries_match_plain(cuda, mm, tol):
     g = torch.Generator().manual_seed(0)
@@ -62,10 +62,12 @@ def test_lstm_entries_match_plain(cuda, mm, tol):
     ]
     for name, args in calls:
         before = getattr(lstm_cuda, name).launches
+        before_tc = getattr(lstm_cuda, name).launches_tc
         got = getattr(lstm_cuda, name)(*args)
         want = getattr(lstm_cuda, name + "_reference")(*args)
         torch.cuda.synchronize()
         assert getattr(lstm_cuda, name).launches == before + 1
+        assert getattr(lstm_cuda, name).launches_tc == before_tc
         for a, b in zip(got, want):
             assert float((a - b).abs().max()) <= tol, name
         if mm == "bfloat16":
@@ -180,6 +182,157 @@ def test_lstm_backward_entries_match_plain(cuda, mm, tol):
         if mm == "bfloat16":
             f32 = call(getattr(lstm_cuda, name + "_reference"), "float32")
             assert rel_norm(f32, want) > tol, name
+
+
+def forward_width_cases(dev, rows, t=20, d=80, h=128, wscale=1.0):
+    """The four forward forms at the fhvae stacks' widths (H 128, D 80) on
+    ``rows`` batch rows: ``(entry name, kernel args (x, xadd, T, w1x, w1h,
+    w2x, w2h, b2), plain(mm) -> (tops, h2, resid))``. Weights at ``wscale``
+    times the model's init scale; given gates of standard deviation 0.5 (at
+    1.0 the cells reach |c1| ~ 11 and every kernel, the FMA form too, errs by
+    7.8e-4 there: the absolute limit below is one for these inputs)."""
+    g = torch.Generator().manual_seed(12)
+    cells = []
+    for d_in in (d, h):
+        limit = wscale * (6.0 / (d_in + h + 4 * h)) ** 0.5
+        wgt = (torch.rand((d_in + h, 4 * h), generator=g) * 2 - 1) * limit
+        cells.append((wgt.to(dev), (torch.randn(4 * h, generator=g) * 0.1)
+                      .to(dev)))
+    (w1, b1), (w2, b2) = cells
+    w = (w1[:d], w1[-h:], w2[:h], w2[h:], b2)
+    x = torch.randn((t, rows, d), generator=g).to(dev)
+    xgc = (0.5 * torch.randn((rows, 4 * h), generator=g)).to(dev)
+    xg3 = (0.5 * torch.randn((t, rows, 4 * h), generator=g)).to(dev)
+    cases = []
+    for xg in (b1.reshape(1, -1), xgc):
+        cases.append(("lstm2_tm_proj", (x, xg, t, *w),
+                      lambda mm, xg=xg: lstm_cuda._proj_forward_plain(
+                          x, xg, *w, mm, with_resid=True)))
+    for xg1 in (xgc, xg3):
+        cases.append(("lstm2_tm", (None, xg1, t, None, *w[1:]),
+                      lambda mm, xg1=xg1: lstm_cuda._tm_forward_plain(
+                          xg1, t, *w[1:], mm, with_resid=True)))
+    return cases
+
+
+def max_abs(got, want) -> float:
+    return max(float((a - b).abs().max()) for a, b in zip(got, want))
+
+
+# H 128, T 20, as chip_smoke.py holds the entries: fp32 operands differ from
+# the plain version by fp32 sum order; in bf16 that order can flip one bf16
+# rounding of h (2^-9 relative), and the plain fp32-vs-bf16 gap must exceed
+# the limit (checked here)
+@pytest.mark.parametrize("rows", [1000, 64, 2048])
+@pytest.mark.parametrize("mm,tol", [("float32", 1e-4), ("bfloat16", 6e-4)])
+def test_lstm_forward_at_the_model_width(cuda, mm, tol, rows):
+    """bf16 operands take the tensor-core form (``launches_tc`` rises), fp32
+    operands the FMA form (it does not); with and without residuals and
+    tops, on batches that fill their clusters (64: 16-row clusters, 2048:
+    32-row clusters) and one that does not (1000); two launches the same
+    bits."""
+    for name, args, plain in forward_width_cases(cuda, rows):
+        entry = getattr(lstm_cuda, name)
+        want = plain(mm)
+        before = entry.launches, entry.launches_tc
+        full = lstm_cuda._forward_kernel(entry, *args, mm, True, True)
+        again = lstm_cuda._forward_kernel(entry, *args, mm, True, True)
+        tops_only = lstm_cuda._forward_kernel(entry, *args, mm, True, False)
+        h2_only = lstm_cuda._forward_kernel(entry, *args, mm, False, False)
+        torch.cuda.synchronize()
+        assert entry.launches == before[0] + 4
+        assert entry.launches_tc == before[1] + (4 if mm == "bfloat16" else 0)
+        assert all(torch.equal(a, b) for a, b in zip(full, again)), name
+        assert max_abs(full, want) <= tol, name
+        assert tops_only[2] is None and h2_only[0] is None \
+            and h2_only[2] is None
+        assert torch.equal(tops_only[0], full[0])
+        assert torch.equal(tops_only[1], full[1])
+        assert torch.equal(h2_only[1], full[1])
+        if mm == "bfloat16":
+            assert max_abs(plain("float32"), want) > tol, name
+
+
+def forward_parts(out, h=128):
+    tops, h2, resid = out
+    h1, c1, c2 = resid.split(h, dim=-1)
+    return {"tops": tops, "h2": h2, "h1": h1, "c1": c1, "c2": c2}
+
+
+# The absolute error of a bf16-operand forward grows with the weights and the
+# cells (a bf16 flip of h moves a gate by ulp(h) |w|, and c carries it on):
+# 1.5e-4 to 3.9e-4 at the model's init scale, up to 2.4e-3 at twice and
+# 5.2e-3 at three times it, in both forms alike. Its share of what the bf16
+# rounding itself does to the same output (plain fp32 against plain bf16
+# operands) does not: 0.03 to 0.40 (tensor-core form) and 0.03 to 0.44 (FMA
+# form) over all three scales (NVIDIA H100 80GB HBM3, 700 W). A kernel that
+# skipped a rounding would read about 1.
+@pytest.mark.parametrize("form", ["tc", "fma"])
+@pytest.mark.parametrize("wscale", [1.0, 2.0, 3.0])
+def test_lstm_forward_error_is_a_share_of_the_rounding_gap(cuda, wscale,
+                                                           form):
+    """Each of tops, h2, h1, c1, c2 on its own, both forms through their
+    launchers, at three weight scales: a limit that does not depend on the
+    scale of the inputs."""
+    run = lstm_cuda._forward_tc if form == "tc" else lstm_cuda._forward_fma
+    for name, args, plain in forward_width_cases(cuda, 1000, wscale=wscale):
+        entry = getattr(lstm_cuda, name)
+        before = entry.launches, entry.launches_tc
+        got = forward_parts(run(entry, *args, "bfloat16", True, True))
+        torch.cuda.synchronize()
+        assert entry.launches == before[0] + 1
+        assert entry.launches_tc == before[1] + (form == "tc")
+        want = forward_parts(plain("bfloat16"))
+        want32 = forward_parts(plain("float32"))
+        for key in want:
+            err = float((got[key] - want[key]).abs().max())
+            gap = float((want32[key] - want[key]).abs().max())
+            assert err <= 0.6 * gap, (name, key, err, gap)
+
+
+def test_tensor_core_forward_pass_by_pass(cuda):
+    """The tensor-core form against the plain forward in the same pass
+    structure: the layer-1 gates after pass A (fp32 sum order only), tops, h2
+    and the residuals after the chain."""
+    for name, args, _ in forward_width_cases(cuda, 1000):
+        streams = {}
+        got = lstm_cuda._forward_kernel(getattr(lstm_cuda, name), *args,
+                                        "bfloat16", True, True, streams)
+        want, want_streams = lstm_cuda.lstm2_fwd_passes_reference(
+            *args, "bfloat16")
+        torch.cuda.synchronize()
+        if args[0] is None:
+            assert streams["xp"] is None
+        else:
+            assert rel_norm([streams["xp"]], [want_streams["xp"]]) <= 1e-5
+        assert max_abs(got, want) <= 6e-4, name
+    with pytest.raises(ValueError, match="tensor-core"):
+        name, args, _ = forward_width_cases(cuda, 64)[0]
+        lstm_cuda._forward_kernel(getattr(lstm_cuda, name), *args, "float32",
+                                  True, True, {})
+
+
+def test_tensor_core_forward_rows_do_not_depend_on_the_batch(cuda):
+    """2048 rows (32-row clusters) against 2 x 1024 (16-row clusters), and
+    1024 against 2 x 512: every row the same bits."""
+    for rows in (2048, 1024):
+        half = rows // 2
+        for name, args, _ in forward_width_cases(cuda, rows):
+            entry = getattr(lstm_cuda, name)
+
+            def cut(a, lo):
+                if a is None or a.shape[-2] != rows:
+                    return a
+                return a[..., lo:lo + half, :].contiguous()
+
+            whole = lstm_cuda._forward_kernel(entry, *args, "bfloat16", True,
+                                              True)
+            parts = [lstm_cuda._forward_kernel(
+                entry, cut(args[0], lo), cut(args[1], lo), *args[2:],
+                "bfloat16", True, True) for lo in (0, half)]
+            torch.cuda.synchronize()
+            for w_, a, b in zip(whole, *parts):
+                assert torch.equal(w_, torch.cat([a, b], dim=-2)), name
 
 
 def model_width_cases(dev, rows, mm, t=7, d=80, h=128):

@@ -6,6 +6,11 @@ tests/test_lstm_pallas.py pins to the Pallas kernels. The bf16 operand mode
 (the serving default) is held against the Pallas kernels themselves, run in
 interpret mode with ``mm_dtype=bfloat16`` as tests/test_lstm_pallas.py runs
 them. Inputs and weights come from a numpy seed.
+
+``lstm2_fwd_passes_reference`` (the forward in the structure of the
+tensor-core kernels: the input products of all rows first, then T + 1 phases
+with the two layers one step apart, each one stacked product) is held against
+the plain entries, the residuals included, and against the Pallas kernels.
 """
 
 import jax.numpy as jnp
@@ -180,3 +185,117 @@ def test_without_tops_and_shape_errors():
     # the CPU runs the plain versions: no kernel launch is counted
     assert lstm_cuda.lstm2_tm_proj.launches == 0
 
+
+
+# ------------------------------------------- the kernels' pass structure
+
+PB, PD, PH = 37, 24, 32     # a ragged batch; D and H off this file's defaults
+# fp32 operands: the stacked product sums a row's terms in another order
+PASSES_FP32 = dict(atol=1e-6, rtol=1e-6)
+# bf16 operands: that order can flip one bf16 rounding of h (2^-9 relative)
+PASSES_BF16 = dict(atol=2e-4, rtol=2e-4)
+
+
+def passes_case(form, b=PB, seed=5):
+    """``(plain call(mm) -> (tops, h2, resid), passes args)`` for one form of
+    the two entries at T 5, B ``b``, D 24, H 32."""
+    rng = np.random.default_rng(seed)
+
+    def arr(*shape, scale=1.0):
+        return torch.from_numpy(
+            (scale * rng.standard_normal(shape)).astype(np.float32))
+
+    lim = np.sqrt(6.0 / (PD + 5 * PH))
+    w1x, w1h, w2x, w2h = (
+        torch.from_numpy(rng.uniform(-lim, lim, (k, 4 * PH))
+                         .astype(np.float32)) for k in (PD, PH, PH, PH))
+    b1, b2 = arr(4 * PH, scale=0.1), arr(4 * PH, scale=0.1)
+    if form in ("proj_bias", "proj_xgc"):
+        x = arr(T, b, PD)
+        xgc = b1.reshape(1, -1) if form == "proj_bias" else arr(b, 4 * PH)
+
+        def plain(mm):
+            return lstm_cuda._proj_forward_plain(x, xgc, w1x, w1h, w2x, w2h,
+                                                 b2, mm, with_resid=True)
+
+        return plain, (x, xgc, T, w1x, w1h, w2x, w2h, b2)
+    xg1 = arr(b, 4 * PH) if form == "tm_const" else arr(T, b, 4 * PH)
+
+    def plain(mm):
+        return lstm_cuda._tm_forward_plain(xg1, T, w1h, w2x, w2h, b2, mm,
+                                           with_resid=True)
+
+    return plain, (None, xg1, T, None, w1h, w2x, w2h, b2)
+
+
+@pytest.mark.parametrize("mm,tol", [("float32", PASSES_FP32),
+                                    ("bfloat16", PASSES_BF16)])
+@pytest.mark.parametrize("form", ["proj_bias", "proj_xgc", "tm_const",
+                                  "tm_3d"])
+def test_forward_passes_match_plain(form, mm, tol):
+    plain, args = passes_case(form)
+    want = plain(mm)
+    got, streams = lstm_cuda.lstm2_fwd_passes_reference(*args, mm)
+    assert got[2].shape == (T, PB, 3 * PH)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **tol)
+    if form.startswith("proj"):
+        # pass A alone: the layer-1 gates without their recurrent part
+        x, xgc, _, w1x = args[:4]
+        xp = lstm_cuda._mm(x.reshape(-1, PD), w1x, mm).reshape(T, PB, -1) + xgc
+        torch.testing.assert_close(streams["xp"], xp, atol=0, rtol=0)
+    else:
+        assert streams["xp"] is None
+    if mm == "bfloat16":  # the rounding is applied: fp32 misses the limit
+        f32 = plain("float32")
+        assert not torch.allclose(f32[0], want[0], **tol)
+
+
+@pytest.mark.parametrize("form", ["proj_bias", "tm_3d"])
+def test_forward_passes_rows_do_not_depend_on_the_batch(form):
+    """B 32 against 2 x 16 rows: every row the same bits."""
+    plain, args = passes_case(form, b=32)
+    whole, _ = lstm_cuda.lstm2_fwd_passes_reference(*args, "bfloat16")
+
+    def rows(a, lo):  # x and the gate block carry batch rows
+        if a is None or a.shape[-2] != 32:
+            return a
+        return a[..., lo:lo + 16, :].contiguous()
+
+    halves = [lstm_cuda.lstm2_fwd_passes_reference(
+        rows(args[0], lo), rows(args[1], lo), *args[2:], "bfloat16")[0]
+        for lo in (0, 16)]
+    for w, a, b in zip(whole, *halves):
+        assert torch.equal(w, torch.cat([a, b], dim=-2))
+
+
+@pytest.mark.parametrize("form", ["proj", "proj_xgc", "const"])
+def test_forward_passes_match_jax_pallas_bf16(form):
+    """The pass structure against the Pallas kernels in interpret mode, bf16
+    operands, on the inputs of ``test_bf16_matches_jax_pallas_bf16`` and at
+    its tolerance."""
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((T, B, D)).astype(np.float32)
+    if form == "const":
+        cells = stack(rng, 2 * Z)
+        xg = rng.standard_normal((B, 4 * H)).astype(np.float32)
+        want = lstm2_pallas_tm(jax_params(cells), jnp.asarray(xg), T=T,
+                               interpret=True, mm_dtype=jnp.bfloat16)
+        (w1, _), (w2, b2) = torch_cells(cells)
+        args = (None, torch.from_numpy(xg), T, None, w1[-H:], w2[:H], w2[H:],
+                b2)
+    else:
+        cells = stack(rng, D + Z if form == "proj_xgc" else D)
+        xgc = cells[0][1][None]
+        if form == "proj_xgc":
+            z = rng.standard_normal((B, Z)).astype(np.float32)
+            xgc = z @ cells[0][0][D:D + Z] + cells[0][1]
+        want = lstm2_pallas_tm_proj(
+            jax_params(cells), jnp.asarray(x),
+            jnp.asarray(xgc) if form == "proj_xgc" else None, T=T,
+            interpret=True, mm_dtype=jnp.bfloat16)
+        (w1, _), (w2, b2) = torch_cells(cells)
+        args = (torch.from_numpy(x), torch.from_numpy(xgc), T, w1[:D],
+                w1[-H:], w2[:H], w2[H:], b2)
+    (tops, h2, _), _ = lstm_cuda.lstm2_fwd_passes_reference(*args, "bfloat16")
+    check((tops, h2), [np.asarray(a) for a in want], BF16_VS_PALLAS)

@@ -239,6 +239,26 @@ def test_backward_form_follows_operand_type_and_widths(mm, h, d, form):
         lstm_cuda.backward_form("float16", h, d)
 
 
+@pytest.mark.parametrize("mm,h,d,form", [
+    ("bfloat16", 128, 80, "tc"),    # the z2 and z1 encoders
+    ("bfloat16", 128, 0, "tc"),     # the decoder: no input projection
+    ("bfloat16", 128, 96, "tc"),    # any multiple of 16 up to 128
+    ("float32", 128, 80, "fma"),    # fp32 operands stay true fp32
+    ("bfloat16", 64, 80, "fma"),    # another hidden width
+    ("bfloat16", 128, 24, "fma"),   # an input width off the mma depth of 16
+])
+def test_forward_form_follows_operand_type_and_widths(mm, h, d, form):
+    """Which CUDA forward a call takes is a pure function of the operand
+    type and the widths (``lstm_cuda.forward_form``), by the backward's
+    rule."""
+    from pytorch_scalablefhvae_tpu_torch.ops import lstm_cuda
+
+    assert lstm_cuda.forward_form(mm, h, d) == form
+    assert lstm_cuda.backward_form(mm, h, d) == form
+    with pytest.raises(ValueError):
+        lstm_cuda.forward_form("float16", h, d)
+
+
 def load_split(root, split):
     """``{utt: features}`` and the two manifests' texts for one split."""
     d = root / RUN / split
