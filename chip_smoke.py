@@ -135,8 +135,9 @@ take for the same inputs (their bytes once over 3.35 TB/s, or the products'
 operations over 989 TFLOP/s for bf16 operands and 67 TFLOP/s for fp32,
 whichever is larger; ``bound_by`` says which); ``library_ms`` times the one
 PyTorch call that computes the same function where there is one (a row
-gather for ``windowed_chunk_gather``), else null. The four LSTM entries also
-carry ``passes_ms`` (device time per kernel of a call) and ``chain_floor_ms``
+gather for ``windowed_chunk_gather``), else null. The four LSTM entries and
+the two discriminative backward entries also carry ``passes_ms`` (device
+time per kernel of a call); the LSTM entries ``chain_floor_ms``
 (the chain of dependent steps without its global traffic), the two forward
 entries ``fma_form_ms`` (the FMA form in bf16 mode, timed in turns with the
 tensor-core form).
@@ -1091,30 +1092,46 @@ def phase_backward() -> dict:
         aerr = abs_err(got, want)
         padded_zero = bool((got[1][num_real:] == 0).all()
                            and (want[1][num_real:] == 0).all())
+        # dz2 rows do not depend on the batch split (the table's chunks
+        # follow N alone): 1024 rows against 2 x 512, bit for bit
+        half = B_TRAIN // MESH[0]
+        parts = [[t[lo:lo + half].contiguous() for t in (z2, seq, lse, gq)]
+                 for lo in range(0, B_TRAIN, half)]
+        split = torch.cat([discriminative_log_qy_bwd(
+            z, mu2, s, ls, gg, pz2_logvar, num_real)[0]
+            for z, s, ls, gg in parts])
+        split_equal = torch.equal(split, got[0])
         ms = time_ms(lambda: discriminative_log_qy_bwd(*args))
         plain_ms = time_ms(lambda: discriminative_log_qy_bwd_reference(*args),
                            iters=3, warmup=1)
+        passes = kernel_times_ms(lambda: discriminative_log_qy_bwd(*args))
         # the logits recomputed, then dz2 and dmu2: three B x N x Z passes
         # of multiply-adds, fp32
         bnd = bound(tensor_bytes(args, got), 6 * B_TRAIN * n * Z, "float32")
         log(f"discriminative_log_qy_bwd [N={n}, 7 padded rows, 1 index "
             f"outside]: max err / max |ref| {err:.3e} (tol "
             f"{TOL_LOG_QY_BWD:g}), max_abs_err {aerr:.3e}, padded rows "
-            f"exactly 0: {padded_zero}; bitwise repeat ok; kernel {ms:.3f} "
-            f"ms, plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms by "
-            f"{bnd['bound_by']}")
-        if not (err <= TOL_LOG_QY_BWD and padded_zero):
+            f"exactly 0: {padded_zero}; bitwise repeat ok; dz2 of B "
+            f"{B_TRAIN} against {MESH[0]} x {half} rows equal bit for bit: "
+            f"{split_equal}; kernel {ms:.4f} ms (CUDA events), plain "
+            f"{plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms by "
+            f"{bnd['bound_by']}; device time per call by kernel "
+            f"(torch.profiler; ms, launches): "
+            + "; ".join(f"{k} {v[0]:.4f} x{v[1]:g}" for k, v in passes.items()))
+        if not (err <= TOL_LOG_QY_BWD and padded_zero and split_equal):
             raise AssertionError(
                 f"discriminative_log_qy_bwd at N={n} disagrees with its plain "
-                f"backward: {err} > {TOL_LOG_QY_BWD} or padded rows nonzero")
+                f"backward: {err} > {TOL_LOG_QY_BWD}, padded rows nonzero or "
+                f"dz2 rows depend on the batch split")
         if n == N_TABLE:
             results["discriminative_log_qy_bwd"] = {
                 "max_abs_err": aerr, "ms": ms, "plain_ms": plain_ms,
-                "form": f"N={n}", **bnd}
+                "form": f"N={n}",
+                "passes_ms": {k: v[0] for k, v in passes.items()}, **bnd}
         else:
             r = results["discriminative_log_qy_bwd"]
             r["max_abs_err"] = max(r["max_abs_err"], aerr)
-        del mu2, want, got, again
+        del mu2, want, got, again, parts, split
         torch.cuda.empty_cache()
     return results
 
@@ -1391,6 +1408,7 @@ def phase_sharded() -> dict:
         # the host's launch time when calls follow back to back
         on_card = [device_ms(f, iters=20) for f in
                    (fwd_kernel, fwd_plain, bwd_kernel, bwd_plain)]
+        bwd_passes = kernel_times_ms(bwd_kernel)
         fb = bound(tensor_bytes(z2, shards[0], seq, parts[0]),
                    2 * b * per * Z, "float32")
         bb = bound(tensor_bytes(z2, shards[0], seq, lse, gq, dz2, dmu2[:per]),
@@ -1408,7 +1426,10 @@ def phase_sharded() -> dict:
             f"{bb['bound_ms']:.5f} ms by {bb['bound_by']} (CUDA events, "
             f"calls back to back); device time per call by the profiler: "
             f"forward kernel {on_card[0]:.4f} ms, plain {on_card[1]:.4f} ms, "
-            f"backward kernel {on_card[2]:.4f} ms, plain {on_card[3]:.4f} ms")
+            f"backward kernel {on_card[2]:.4f} ms, plain {on_card[3]:.4f} ms; "
+            f"backward by kernel (ms, launches): "
+            + "; ".join(f"{k} {v[0]:.4f} x{v[1]:g}"
+                        for k, v in bwd_passes.items()))
         if not (torch.isfinite(got).all() and err <= TOL_SHARDED
                 and lse_err <= TOL_SHARDED * max(1.0, float(want_lse.abs().max()))
                 and bwd_err <= TOL_SHARDED and padded_zero):
@@ -1428,6 +1449,8 @@ def phase_sharded() -> dict:
             # the last case, the mesh path's shape, is the one reported
             results[name] = {"max_abs_err": max(prev["max_abs_err"], e),
                              "ms": t, "plain_ms": pt, "form": form, **bd}
+        results["discriminative_log_qy_sharded_bwd"]["passes_ms"] = {
+            k: v[0] for k, v in bwd_passes.items()}
         del mu2, padded, shards, parts, dmu2, want_bwd
         torch.cuda.empty_cache()
     return results

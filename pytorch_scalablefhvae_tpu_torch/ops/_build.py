@@ -54,7 +54,7 @@ _SIGNATURES = {
     "sfhvae_disc_fwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, ctypes.c_float, _P]),
     "sfhvae_disc_partials": (_I, [_P] * 9 + [_I] * 7 + [ctypes.c_float, _P]),
-    "sfhvae_disc_bwd": (_I, [_P] * 7 + [_I] * 5 + [ctypes.c_float, _P]),
+    "sfhvae_disc_bwd": (_I, [_P] * 9 + [_I] * 9 + [ctypes.c_float, _P]),
     "sfhvae_window_gather_max_smem": (_I, []),
     "sfhvae_window_gather": (_I, [_P, _P, _P, _L] + [_I] * 6 + [_P]),
     "sfhvae_fbank_logmel_smem": (_L, [_I, _I]),

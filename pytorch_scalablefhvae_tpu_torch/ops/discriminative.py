@@ -50,6 +50,8 @@ from pytorch_scalablefhvae_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 _TILE = 256
+# the backward kernel's tiles (csrc/discriminative_bwd.cu)
+_BWD_BATCH_TILE, _BWD_TABLE_TILE, _BWD_MAX_CHUNK_TILES = 64, 128, 8
 
 
 @functools.lru_cache(maxsize=None)
@@ -149,6 +151,23 @@ def _library(z2_mu, mu2_table, seq_idx, *more):
     return lib
 
 
+def bwd_geometry(B: int, N: int,
+                 target_blocks: int) -> tuple[int, int, int, int]:
+    """How the backward kernel cuts ``B`` batch rows and ``N`` table rows:
+    ``(chunk_tiles, n_chunks, group_tiles, n_groups)``. A chunk holds
+    ``chunk_tiles`` 128-row table tiles (at most 8) and depends on ``N``
+    alone, so a ``dz2`` row does not depend on the batch split; about
+    ``target_blocks`` chunks fill the card. The groups of 64-row batch tiles
+    then bring chunks x groups up to about ``target_blocks``. No chunk and no
+    group is empty."""
+    n_tiles = -(-N // _BWD_TABLE_TILE)
+    chunk_tiles = min(_BWD_MAX_CHUNK_TILES, -(-n_tiles // target_blocks))
+    n_chunks = -(-n_tiles // chunk_tiles)
+    b_tiles = max(1, -(-B // _BWD_BATCH_TILE))
+    group_tiles = -(-b_tiles // max(1, target_blocks // n_chunks))
+    return chunk_tiles, n_chunks, group_tiles, -(-b_tiles // group_tiles)
+
+
 def _chunks(lib, B: int, N: int, dev) -> tuple[int, int]:
     """``(chunk, n_chunks)``: how the forward kernel cuts ``N`` table rows."""
     row_tiles = -(-B // lib.sfhvae_disc_rows_per_block())
@@ -196,14 +215,25 @@ def _backward(entry, z2_mu, mu2_table, seq_idx, lse, g, pz2_logvar, num_real,
     lib = _library(z2_mu, mu2_table, seq_idx, lse, g)
     B, D = z2_mu.shape
     N = mu2_table.shape[0]
+    dev = z2_mu.device
     dz2 = torch.empty_like(z2_mu)
+    if B == 0:
+        return dz2, torch.zeros_like(mu2_table)
+    chunk_tiles, n_chunks, group_tiles, n_groups = bwd_geometry(
+        B, N, _target_blocks(dev.index))
     dmu2 = torch.empty_like(mu2_table)
+    # the fused pass's partials, added in a fixed order by the second kernel
+    part_z = torch.empty((n_chunks, B, D), device=dev, dtype=torch.float32)
+    part_mu = (torch.empty((n_groups, N, D + 1), device=dev,
+                           dtype=torch.float32) if n_groups > 1 else None)
     seq32 = seq_idx.to(torch.int32).contiguous()
     code = lib.sfhvae_disc_bwd(
         z2_mu.data_ptr(), mu2_table.data_ptr(), seq32.data_ptr(),
-        lse.data_ptr(), g.data_ptr(), dz2.data_ptr(), dmu2.data_ptr(), B, N,
-        D, int(num_real), int(row_offset), 0.5 / math.exp(pz2_logvar),
-        torch.cuda.current_stream(z2_mu.device).cuda_stream)
+        lse.data_ptr(), g.data_ptr(), dz2.data_ptr(), dmu2.data_ptr(),
+        part_z.data_ptr(), None if part_mu is None else part_mu.data_ptr(),
+        B, N, D, int(num_real), int(row_offset), chunk_tiles, n_chunks,
+        group_tiles, n_groups, 0.5 / math.exp(pz2_logvar),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, entry.__name__)
     entry.launches += 1
     return dz2, dmu2

@@ -6,7 +6,9 @@ the function the CUDA backward kernel is held against on the card. Here it
 is held against ``jax.vjp`` of ``discriminative_log_qy_pallas(...,
 interpret=True)`` (the TPU kernel's ``_bwd_call``) with padded table rows,
 on the same numpy inputs and cotangent. The limit is fp32 sum-order noise
-relative to the largest gradient; padded rows must get exactly zero.
+relative to the largest gradient; padded rows must get exactly zero. The
+kernel's geometry (how it cuts the batch and the table) is pure Python and
+is checked here too.
 """
 
 import jax
@@ -19,6 +21,7 @@ from pytorch_scalablefhvae_tpu.ops.discriminative import (
     discriminative_log_qy_pallas,
 )
 from pytorch_scalablefhvae_tpu_torch.ops.discriminative import (
+    bwd_geometry,
     discriminative_log_qy,
     discriminative_log_qy_bwd,
     discriminative_log_qy_bwd_reference,
@@ -81,3 +84,25 @@ def test_bwd_entry_on_cpu_is_the_plain_backward():
     p = np.exp(logits[4] - lse[4].item())
     np.testing.assert_allclose(
         got[0][4].numpy(), 4.0 * (-g[4] * p) @ mu2, rtol=1e-4, atol=1e-5)
+
+
+# (batch rows, table rows): the train step, a mesh rank, a LibriSpeech-960
+# table, its shard on 4 ranks, and small or ragged edges
+@pytest.mark.parametrize("b,n", [(1024, 4620), (512, 2310), (1024, 281241),
+                                 (1024, 70311), (1024, 1), (1, 129),
+                                 (63, 3001)])
+def test_bwd_geometry(b, n):
+    target = 4 * 132  # four blocks per SM of an H100
+    chunk_tiles, n_chunks, group_tiles, n_groups = bwd_geometry(b, n, target)
+    assert 1 <= chunk_tiles <= 8
+    # the chunks of 128-row tiles cover the table, and none is empty
+    rows = chunk_tiles * 128
+    assert (n_chunks - 1) * rows < n <= n_chunks * rows
+    # the groups of 64-row tiles cover the batch, and none is empty
+    assert (n_groups - 1) * group_tiles * 64 < b <= n_groups * group_tiles * 64
+    # the chunking follows N alone
+    for other in (1, 63, 512, 1024, 4096):
+        assert bwd_geometry(other, n, target)[:2] == (chunk_tiles, n_chunks)
+    assert n_chunks * n_groups <= target
+    if n >= 4620:  # enough table tiles to fill the card without groups
+        assert n_chunks * n_groups >= target // 2

@@ -418,27 +418,91 @@ def test_tensor_core_backward_pass_by_pass(cuda):
         call(getattr(lstm_cuda, name), "float32", streams={})
 
 
-def test_discriminative_backward_matches_plain(cuda):
-    g = torch.Generator().manual_seed(3)
-    n, num_real = 3001, 2990
-    mu2 = torch.randn((n, 16), generator=g)
-    seq = torch.randint(0, num_real, (B,), generator=g)
-    z2 = mu2[seq] + 0.5 * torch.randn((B, 16), generator=g)
-    seq[3] = n + 5
-    gq = torch.randn((B,), generator=g)
+def backward_case(cuda, b, n, d, num_real, seed=3):
+    """Inputs of the discriminative backward: ``z2`` near its rows of the
+    table, one index outside the table (batch row 3, or 0 when b <= 3), the
+    log-sum-exp of the plain forward. The table is drawn at a quarter of unit
+    scale (less by sqrt(16 / d) above d 16), so the softmax spreads over
+    several rows: where it saturates, as with one row or a few far-apart
+    rows, a picked row's gradient g (1 - p) is only the rounding of its logit
+    against lse, which no sum order can be held to (the plain fp32 backward
+    itself then misses a float64 one by 1e-4 to 2e-4 of the largest
+    gradient). chip_smoke.py holds the kernel at the main path's magnitudes."""
+    g = torch.Generator().manual_seed(seed)
+    mu2 = torch.randn((n, d), generator=g) * 0.25 * (16 / max(d, 16)) ** 0.5
+    seq = torch.randint(0, num_real, (b,), generator=g)
+    z2 = mu2[seq] + 0.5 * torch.randn((b, d), generator=g)
+    seq[min(3, b - 1)] = n + 5
+    gq = torch.randn((b,), generator=g)
     z2, mu2, seq, gq = (t.to(cuda) for t in (z2, mu2, seq, gq))
     logvar = float(np.log(0.25))
     _, lse = discriminative._forward_plain(z2, mu2, seq, logvar, num_real)
-    args = (z2, mu2, seq, lse, gq, logvar, num_real)
-    before = discriminative.discriminative_log_qy_bwd.launches
-    got = discriminative.discriminative_log_qy_bwd(*args)
-    again = discriminative.discriminative_log_qy_bwd(*args)
+    return z2, mu2, seq, lse, gq, logvar, num_real
+
+
+# fp32 sum order only: the kernel sums over N and B in another order than
+# the plain products; the limit is relative to the largest gradient
+@pytest.mark.parametrize("d", [1, 16, 32])
+@pytest.mark.parametrize("n", [1, 129, 3001])
+@pytest.mark.parametrize("b", [1, 63, 1024])
+def test_discriminative_backward_matches_plain(cuda, b, n, d):
+    num_real = n - n // 300        # padded rows from n 300 on
+    args = backward_case(cuda, b, n, d, num_real)
+    entry = discriminative.discriminative_log_qy_bwd
+    before = entry.launches
+    got = entry(*args)
+    again = entry(*args)
     want = discriminative.discriminative_log_qy_bwd_reference(*args)
-    assert discriminative.discriminative_log_qy_bwd.launches == before + 2
-    for a, b, c in zip(got, again, want):
-        assert torch.equal(a, b)
+    torch.cuda.synchronize()
+    assert entry.launches == before + 2
+    for a, b_, c in zip(got, again, want):
+        assert torch.equal(a, b_)
         assert float((a - c).abs().max()) <= 1e-4 * float(c.abs().max())
     assert (got[1][num_real:] == 0).all()
+
+
+def test_discriminative_backward_rows_do_not_depend_on_the_split(cuda):
+    """dz2 of 1024 batch rows equals, bit for bit, the same rows computed
+    as 2 x 512: the table's chunks follow N alone."""
+    z2, mu2, seq, lse, gq, logvar, num_real = backward_case(cuda, 1024, 3001,
+                                                            16, 2990)
+    whole = discriminative.discriminative_log_qy_bwd(
+        z2, mu2, seq, lse, gq, logvar, num_real)[0]
+    halves = [discriminative.discriminative_log_qy_bwd(
+        z2[lo:lo + 512].contiguous(), mu2, seq[lo:lo + 512],
+        lse[lo:lo + 512].contiguous(), gq[lo:lo + 512].contiguous(), logvar,
+        num_real)[0] for lo in (0, 512)]
+    assert torch.equal(torch.cat(halves), whole)
+
+
+# (table rows, shards): the second's shards 5, 6, 7 hold only padding
+@pytest.mark.parametrize("n,m", [(3001, 4), (5, 8)])
+def test_discriminative_sharded_backward_matches_plain(cuda, n, m):
+    from pytorch_scalablefhvae_tpu_torch.parallel.mesh import padded_num_seqs
+
+    z2, mu2, seq, lse, gq, logvar, _ = backward_case(cuda, 63, n, 16, n)
+    per = padded_num_seqs(n, m) // m
+    padded = torch.zeros((per * m, 16), device=cuda)
+    padded[:n] = mu2
+    entry = discriminative.discriminative_log_qy_sharded_bwd
+    dz2 = torch.zeros_like(z2)
+    for j in range(m):
+        shard = padded[j * per:(j + 1) * per].contiguous()
+        args = (z2, shard, seq, lse, gq, logvar, n, j * per)
+        got, again = entry(*args), entry(*args)
+        want = discriminative.discriminative_log_qy_bwd_reference(*args)
+        torch.cuda.synchronize()
+        for a, b_, c in zip(got, again, want):
+            assert torch.equal(a, b_)
+            assert float((a - c).abs().max()) <= 1e-4 * float(c.abs().max())
+        assert (got[1][max(0, n - j * per):] == 0).all()
+        if j * per >= n:  # all padding: nothing to push anywhere
+            assert not got[0].any() and not got[1].any()
+        dz2 += got[0]
+    want = discriminative.discriminative_log_qy_bwd_reference(
+        z2, mu2, seq, lse, gq, logvar, n)[0]
+    assert float(torch.linalg.norm(dz2 - want)) <= \
+        1e-4 * float(torch.linalg.norm(want))
 
 
 def test_model_gradients_through_kernels_match_plain(cuda):
