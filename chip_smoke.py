@@ -9,10 +9,10 @@ prints no result line):
 
 1. environment: the card's name and power limit, the CUDA and Triton
    versions, nvcc's version; build the kernels from ``csrc/``;
-2. every kernel against its plain PyTorch version on the card, at the
-   serving shapes of the ``fhvae`` CLI defaults (T = 20, B = 2048, D = 80,
-   H = 128; z2 width 16 against tables of 4,620 and 281,241 rows), with max
-   abs error, tolerance and the time of each (CUDA events, after warm-up).
+2. every forward kernel against its plain PyTorch version on the card, at
+   the serving shapes of the ``fhvae`` CLI defaults (T = 20, B = 2048, D =
+   80, H = 128), with max abs error, tolerance and the time of each (CUDA
+   events, after warm-up).
    The bf16 calls of the two LSTM forward entries must take the tensor-core
    form (``launches_tc``), the fp32 calls the FMA form; the tensor-core form
    is held pass by pass against the plain forward in the same pass structure
@@ -28,6 +28,13 @@ prints no result line):
    the plain fp32-vs-bf16 gap of that output at one, two and three times the
    model's weight scale; the chain timed alone without its global traffic and without its
    products;
+2f. (part of 2) the discriminative forward (z2 width 16) against its plain
+   version at the serving batch (2048 rows) and the training batch (1024)
+   on tables of 4,620 and 281,241 rows with 7 padded rows and an index
+   outside the table: ``log_qy`` and ``lse`` within the limit, two launches
+   and the batch split in two (2048 against 2 x 1024, 1024 against 2 x 512)
+   equal bit for bit, one launch counted per call; device time per kernel
+   (torch.profiler) beside the calls back to back (CUDA events);
 3. the slice: synthesize audio, write an fhvae experiment (config, MVN
    stats, a seeded port checkpoint with 4,620 table rows), start the port's
    ``serve`` on piped streams, send a ping, three encode requests, one
@@ -76,7 +83,9 @@ prints no result line):
    plain versions of the single-table forward and backward on the whole
    unpadded table; padded rows must get exactly zero gradient, shards made
    only of padding (5 rows over 8 shards) must leave the result unchanged
-   bit for bit, and the plain partials fed offset 0 must miss the limit;
+   bit for bit, two launches of the partials must give the same bits, and
+   the plain partials fed offset 0 must miss the limit; the forward's
+   device time per kernel beside its calls back to back;
 4. training: write a preprocessed feature corpus of 4,620 training and 400
    dev sequences; hold the first three train steps through the kernels
    against the same steps through the plain versions on the card, and the
@@ -114,7 +123,8 @@ prints no result line):
    NCCL's MAX and SUM all-reduces run on the card.
 
 ``python3 chip_smoke.py --only 2e,5`` runs the environment phase and the
-phases named (while working on one); with no arguments all run.
+phases named (while working on one; ``2`` includes ``2f``); with no
+arguments all run.
 
 The bf16 tolerances sit between the kernels' error and the gap between the
 plain versions in fp32 and in bf16 operand mode, which each run measures: a
@@ -129,15 +139,17 @@ kernel entry. ``launches`` sums ``launches_by_path``: the counts of the
 (``train``) and the mesh run's rank 0 (``mesh``: the ``2,2`` epoch), each set
 to 0 just before its path and read just after. ``ms``
 and ``plain_ms`` are the bf16-operand times of an LSTM entry's heaviest form,
-and for ``windowed_chunk_gather`` and ``fused_logmel_frames`` the device time
-per call by torch.profiler; ``bound_ms`` is the least time the card could
+and for ``windowed_chunk_gather``, ``fused_logmel_frames`` and the two
+discriminative forward entries the device time per call by torch.profiler
+(those two also carry ``events_ms``, the calls back to back by CUDA events,
+and ``by_shape``, every shape they were timed at); ``bound_ms`` is the least time the card could
 take for the same inputs (their bytes once over 3.35 TB/s, or the products'
 operations over 989 TFLOP/s for bf16 operands and 67 TFLOP/s for fp32,
 whichever is larger; ``bound_by`` says which); ``library_ms`` times the one
 PyTorch call that computes the same function where there is one (a row
 gather for ``windowed_chunk_gather``), else null. The four LSTM entries and
-the two discriminative backward entries also carry ``passes_ms`` (device
-time per kernel of a call); the LSTM entries ``chain_floor_ms``
+the four discriminative entries also carry ``passes_ms`` (device time per
+kernel of a call); the LSTM entries ``chain_floor_ms``
 (the chain of dependent steps without its global traffic), the two forward
 entries ``fma_form_ms`` (the FMA form in bf16 mode, timed in turns with the
 tensor-core form).
@@ -398,10 +410,6 @@ def _stack(g, d_in):
 
 def phase_kernels() -> dict:
     from pytorch_scalablefhvae_tpu_torch.ops import lstm_cuda
-    from pytorch_scalablefhvae_tpu_torch.ops.discriminative import (
-        discriminative_log_qy,
-        discriminative_log_qy_reference,
-    )
 
     log("== phase 2: kernels against their plain versions "
         f"(T={T} B={B} D={D} H={H})")
@@ -645,8 +653,31 @@ def phase_kernels() -> dict:
             for name in cases:
                 results[name]["chain_floor_ms"] = \
                     chain[f"no global traffic, T {T}"]
+    return results
 
+
+def phase_disc_forward() -> dict:
+    """The discriminative forward (kernel #5) against its plain version at
+    the serving batch (2048 rows) and the training batch (1024) on the served
+    table (4,620 rows) and a LibriSpeech-scale one, with 7 padded rows and an
+    index outside the table: error of ``log_qy`` and ``lse``, two launches
+    and the batch split in two (equal bit for bit per row), one launch
+    counted per call; device time per kernel (torch.profiler), the calls back
+    to back (CUDA events), the plain version and the bound. Every shape is
+    measured and logged before the checks raise."""
+    from pytorch_scalablefhvae_tpu_torch.ops.discriminative import (
+        _forward_kernel,
+        _forward_plain,
+        discriminative_log_qy,
+        fwd_probe,
+    )
+
+    log("== phase 2f: the discriminative forward (kernel #5)")
+    g = torch.Generator().manual_seed(5)
     pz2_logvar = float(np.log(0.5 ** 2))
+    results: dict = {}
+    by_shape: dict = {}
+    failed = []
     for n in (N_TABLE, N_LARGE):
         num_real = n - 7                     # 7 padded rows
         mu2 = torch.randn((n, Z), generator=g)
@@ -655,36 +686,83 @@ def phase_kernels() -> dict:
         z2 = (mu2[seq] + 0.5 * torch.randn((B, Z), generator=g)).cuda()
         seq[5] = n + 3                       # an index outside the table
         mu2, seq = mu2.cuda(), seq.cuda()
-        k_out = discriminative_log_qy(z2, mu2, seq, pz2_logvar, num_real)
-        p_out = discriminative_log_qy_reference(z2, mu2, seq, pz2_logvar,
-                                                num_real)
-        torch.cuda.synchronize()
-        err = max_err(k_out, p_out)
-        ms = time_ms(lambda: discriminative_log_qy(z2, mu2, seq, pz2_logvar,
-                                                   num_real))
-        plain_ms = time_ms(lambda: discriminative_log_qy_reference(
-            z2, mu2, seq, pz2_logvar, num_real), iters=5)
-        # B x N squared distances over Z (a subtract and a multiply-add
-        # each, counted as 2 * B * N * Z), fp32 outside the tensor cores
-        bnd = bound(tensor_bytes(z2, mu2, seq, k_out), 2 * B * n * Z,
-                    "float32")
-        log(f"discriminative_log_qy [N={n}, 7 padded rows, 1 index outside]: "
-            f"max_abs_err {err:.3e} (tol {TOL_LOG_QY:g}), kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms by "
-            f"{bnd['bound_by']}")
-        if not (torch.isfinite(k_out).all() and err <= TOL_LOG_QY):
-            raise AssertionError(
-                f"discriminative_log_qy at N={n} disagrees with its plain "
-                f"version: {err} > {TOL_LOG_QY}")
-        if n == N_TABLE:  # the table size the served experiment uses
-            results["discriminative_log_qy"] = {
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "form": f"N={n}", **bnd}
-        else:
-            results["discriminative_log_qy"]["max_abs_err"] = max(
-                results["discriminative_log_qy"]["max_abs_err"], err)
-        del mu2, k_out, p_out
+        for rows in (B, B_TRAIN):
+            z, s = z2[:rows].contiguous(), seq[:rows].contiguous()
+
+            def kernel(z=z, s=s):
+                return _forward_kernel(z, mu2, s, pz2_logvar, num_real, True)
+
+            before = discriminative_log_qy.launches
+            got = kernel()
+            counted = discriminative_log_qy.launches - before
+            again = kernel()
+            want = _forward_plain(z, mu2, s, pz2_logvar, num_real)
+            half = rows // 2
+            split = [_forward_kernel(z[lo:lo + half].contiguous(), mu2,
+                                     s[lo:lo + half].contiguous(), pz2_logvar,
+                                     num_real, True) for lo in (0, half)]
+            torch.cuda.synchronize()
+            err, lse_err = (max_err(a, b) for a, b in zip(got, want))
+            repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+            split_equal = all(torch.equal(torch.cat([p[i] for p in split]),
+                                          got[i]) for i in (0, 1))
+            passes = kernel_times_ms(kernel, iters=20)
+            ms = sum(v[0] for v in passes.values())
+            events_ms = time_ms(kernel)
+            plain_ms = time_ms(lambda z=z, s=s: _forward_plain(
+                z, mu2, s, pz2_logvar, num_real), iters=5)
+            # B x N squared distances over Z (a subtract and a multiply-add
+            # each, counted as 2 * B * N * Z), fp32 outside the tensor cores
+            bnd = bound(tensor_bytes(z, mu2, s, got), 2 * rows * n * Z,
+                        "float32")
+            log(f"discriminative_log_qy [N={n}, B={rows}, 7 padded rows, 1 "
+                f"index outside]: max_abs_err log_qy {err:.3e}, lse "
+                f"{lse_err:.3e} (tol {TOL_LOG_QY:g}); bitwise repeat: "
+                f"{repeat}; B {rows} against 2 x {half} rows, log_qy and lse "
+                f"equal bit for bit: {split_equal}; launches counted per "
+                f"call: {counted}; device time {ms:.4f} ms (torch.profiler; "
+                f"by kernel: " + "; ".join(f"{k} {v[0]:.4f} x{v[1]:g}"
+                                          for k, v in passes.items())
+                + f"), back to back {events_ms:.4f} ms (CUDA events), plain "
+                f"{plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms by "
+                f"{bnd['bound_by']}")
+            if not (torch.isfinite(got[0]).all() and err <= TOL_LOG_QY
+                    and lse_err <= TOL_LOG_QY and repeat and split_equal
+                    and counted == 1):
+                failed.append(f"N={n}, B={rows}")
+            by_shape[f"N={n}, B={rows}"] = {
+                "ms": ms, "events_ms": events_ms, "plain_ms": plain_ms,
+                "bound_ms": bnd["bound_ms"],
+                "passes_ms": {k: v[0] for k, v in passes.items()}}
+            if n == N_LARGE and rows == B:
+                # what bounds the partials pass: the same launch with its
+                # exps or its cross terms left out
+                probes = {what: device_ms(fwd_probe(
+                    z, mu2, s, pz2_logvar, num_real, probe), iters=10)
+                    for what, probe in (("whole", 0), ("without the exps", 1),
+                                        ("without the cross terms", 2))}
+                log(f"discriminative_log_qy [N={n}, B={rows}] partials pass "
+                    f"alone (device time by torch.profiler, ms): "
+                    + ", ".join(f"{k} {v:.4f}" for k, v in probes.items()))
+                by_shape[f"N={n}, B={rows}"]["partials_probe_ms"] = probes
+            prev = results.get("discriminative_log_qy")
+            if prev is None:  # the served experiment's table and batch
+                results["discriminative_log_qy"] = {
+                    "max_abs_err": err, "ms": ms, "events_ms": events_ms,
+                    "plain_ms": plain_ms, "form": f"N={n}, B={rows}",
+                    "passes_ms": by_shape[f"N={n}, B={rows}"]["passes_ms"],
+                    **bnd}
+            else:
+                prev["max_abs_err"] = max(prev["max_abs_err"], err)
+            del got, again, want, split
+        del mu2, z2
         torch.cuda.empty_cache()
+    results["discriminative_log_qy"]["by_shape"] = by_shape
+    if failed:
+        raise AssertionError(
+            f"discriminative_log_qy disagrees with its plain version, differs "
+            f"between two launches or on a batch split, or was not counted "
+            f"once per call at {failed}")
     return results
 
 
@@ -1323,6 +1401,7 @@ def phase_sharded() -> dict:
     g = torch.Generator().manual_seed(4)
     pz2_logvar = float(np.log(0.5 ** 2))
     results: dict = {}
+    by_shape: dict = {}   # the forward's times per case
     # (table rows, shards, batch rows); the last is the mesh path's shape:
     # a rank of the (2, 2) mesh scores 512 rows against 2,310 table rows
     for n, m, b in ((N_TABLE, 2, B_TRAIN), (N_TABLE, 4, B_TRAIN),
@@ -1401,6 +1480,9 @@ def phase_sharded() -> dict:
             return discriminative_log_qy_bwd_reference(
                 z2, shards[0], seq, lse, gq, pz2_logvar, n, 0)
 
+        first, second = fwd_kernel(), fwd_kernel()
+        torch.cuda.synchronize()
+        repeat = all(torch.equal(a, b_) for a, b_ in zip(first, second))
         ms, plain_ms = time_ms(fwd_kernel), time_ms(fwd_plain, iters=5)
         bms, bplain_ms = time_ms(bwd_kernel), time_ms(bwd_plain, iters=3,
                                                       warmup=1)
@@ -1408,6 +1490,7 @@ def phase_sharded() -> dict:
         # the host's launch time when calls follow back to back
         on_card = [device_ms(f, iters=20) for f in
                    (fwd_kernel, fwd_plain, bwd_kernel, bwd_plain)]
+        fwd_passes = kernel_times_ms(fwd_kernel, iters=20)
         bwd_passes = kernel_times_ms(bwd_kernel)
         fb = bound(tensor_bytes(z2, shards[0], seq, parts[0]),
                    2 * b * per * Z, "float32")
@@ -1427,15 +1510,19 @@ def phase_sharded() -> dict:
             f"calls back to back); device time per call by the profiler: "
             f"forward kernel {on_card[0]:.4f} ms, plain {on_card[1]:.4f} ms, "
             f"backward kernel {on_card[2]:.4f} ms, plain {on_card[3]:.4f} ms; "
-            f"backward by kernel (ms, launches): "
+            f"forward by kernel (ms, launches): "
             + "; ".join(f"{k} {v[0]:.4f} x{v[1]:g}"
-                        for k, v in bwd_passes.items()))
+                        for k, v in fwd_passes.items())
+            + "; backward by kernel: "
+            + "; ".join(f"{k} {v[0]:.4f} x{v[1]:g}"
+                        for k, v in bwd_passes.items())
+            + f"; forward partials bitwise repeat: {repeat}")
         if not (torch.isfinite(got).all() and err <= TOL_SHARDED
                 and lse_err <= TOL_SHARDED * max(1.0, float(want_lse.abs().max()))
-                and bwd_err <= TOL_SHARDED and padded_zero):
+                and bwd_err <= TOL_SHARDED and padded_zero and repeat):
             raise AssertionError(
                 f"the sharded entry at N={n}, m={m} disagrees with the plain "
-                f"single table")
+                f"single table, or two launches of its partials differ")
         if m > 1 and n > m and not miss > TOL_SHARDED:
             raise AssertionError(
                 f"N={n}, m={m}: the limit {TOL_SHARDED} would pass partials "
@@ -1449,6 +1536,14 @@ def phase_sharded() -> dict:
             # the last case, the mesh path's shape, is the one reported
             results[name] = {"max_abs_err": max(prev["max_abs_err"], e),
                              "ms": t, "plain_ms": pt, "form": form, **bd}
+        results["discriminative_log_qy_sharded"].update(
+            ms=on_card[0], events_ms=ms, plain_ms=on_card[1],
+            passes_ms={k: v[0] for k, v in fwd_passes.items()})
+        by_shape[form] = {"ms": on_card[0], "events_ms": ms,
+                          "plain_ms": on_card[1], "bound_ms": fb["bound_ms"],
+                          "passes_ms": {k: v[0] for k, v in
+                                        fwd_passes.items()}}
+        results["discriminative_log_qy_sharded"]["by_shape"] = by_shape
         results["discriminative_log_qy_sharded_bwd"]["passes_ms"] = {
             k: v[0] for k, v in bwd_passes.items()}
         del mu2, padded, shards, parts, dmu2, want_bwd
@@ -2703,9 +2798,12 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", default=None,
                         help="comma-separated phases to run after phase 1 "
-                             "(2, 2b, 2c, 2d, 2e, 3, 3b, 4, 5); default all")
+                             "(2, 2f, 2b, 2c, 2d, 2e, 3, 3b, 4, 5; 2 "
+                             "includes 2f); default all")
     only = parser.parse_args(argv).only
     only = None if only is None else set(only.split(","))
+    if only is not None and "2" in only:
+        only.add("2f")
 
     def on(phase: str) -> bool:
         return only is None or phase in only
@@ -2716,7 +2814,8 @@ def main(argv=None) -> int:
         return 1
     phase_environment()
     results: dict = {}
-    for phase, fn in (("2", phase_kernels), ("2b", phase_backward),
+    for phase, fn in (("2", phase_kernels), ("2f", phase_disc_forward),
+                      ("2b", phase_backward),
                       ("2c", phase_gather), ("2d", phase_logmel),
                       ("2e", phase_sharded)):
         if on(phase):
@@ -2756,8 +2855,8 @@ def main(argv=None) -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "form": r["form"],
-            **{k: r[k] for k in ("fma_form_ms", "passes_ms", "chain_floor_ms")
-               if k in r}})
+            **{k: r[k] for k in ("fma_form_ms", "passes_ms", "chain_floor_ms",
+                                 "events_ms", "by_shape") if k in r}})
     if only is None:
         for k in kernels:
             if k["launches"] <= 0:

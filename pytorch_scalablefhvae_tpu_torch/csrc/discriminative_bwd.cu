@@ -8,8 +8,8 @@
 //   dlogits[b, n] = g[b] * (onehot(seq_idx[b])[n] - p[b, n])
 //   dz2[b]        = 2c * sum_n dlogits[b, n] mu2[n]
 //   dmu2[n]       = 2c * (sum_b dlogits[b, n] z2[b] - mu2[n] sum_b dlogits[b, n])
-// with c = 1 / (2 sigma^2) and logits[b, n] = c (2 z2[b].mu2[n] - |mu2[n]|^2)
-// (cross term and squared norm each summed in k order, precise expf). Padded
+// with c = 1 / (2 sigma^2) and logits[b, n] = 2c z2[b].mu2[n] - c |mu2[n]|^2
+// (discriminative_common.cuh: the forward's code and bits; precise expf). Padded
 // rows (n >= num_real) carry the -1e30 bias, so their p underflows to exactly
 // 0 and their dmu2 is exactly 0; an index outside the table matches no row,
 // as in the forward.
@@ -18,7 +18,7 @@
 // discriminative_log_qy_pallas_sharded, discriminative.py:343): mu2 is then
 // one rank's row shard whose first row is global row row_offset, lse is the
 // log-sum-exp over the whole table, padding is judged by the global row and
-// the pick by seq_idx == row_offset + n. dz2 is this shard's part (the ranks
+// the pick by seq_idx - row_offset == n. dz2 is this shard's part (the ranks
 // of the model group add theirs); dmu2 is the shard's own. The single table
 // passes row_offset 0.
 //
@@ -33,8 +33,8 @@
 // once. Block (chunk, group) owns a chunk of 128-row table tiles (its size a
 // function of N alone) and a group of 64-row batch tiles, chosen by the
 // wrapper so that chunks x groups fill the card. For every pair of tiles the
-// block stages both in shared memory (the table tile with its squared norms
-// and logit biases; a chunk of one tile is staged once), computes the
+// block stages both in shared memory (the table tile with its logit shifts,
+// squared norm and bias; a chunk of one tile is staged once), computes the
 // 64 x 128 logits as 4 x 8 register micro-tiles, and writes dlogits into a
 // 64 x 128 tile in shared memory. From that tile both products run as 4 x 4
 // register micro-tiles: dz2 += dl . mu2 in registers, held across the chunk's
@@ -51,29 +51,29 @@
 
 #include <cuda_runtime.h>
 
+#include "discriminative_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBT = 64;               // batch rows of a tile
-constexpr int kNT = 128;              // table rows of a tile
+using namespace disc;
+
 constexpr int kMaxChunkTiles = 8;     // table tiles a chunk may hold
                                       // (ops/discriminative.py: bwd_geometry)
 constexpr int kDlStride = kNT + 4;    // 16-byte rows, 8 rows on distinct banks
-constexpr float kNegInf = -1e30f;
 
 // Shared memory of the fused pass, offsets in floats, for a z2 width padded
 // to DP (8, 16 or 32; the padding holds zeros).
 template <int DP>
 struct Smem {
-  static constexpr int kRowStride = DP + 4;   // zR, muR: 16-byte rows
+  static constexpr int kRowStride = DP + 4;   // zR, muR: 16-byte rows (as
+                                              // stage_table_row writes muR)
   static constexpr int kAccStride = DP + 1;   // dmu2 columns, then colsum
   static constexpr int zT = 0;                          // [DP][kBT]
   static constexpr int zR = zT + DP * kBT;              // [kBT][kRowStride]
   static constexpr int muT = zR + kBT * kRowStride;     // [DP][kNT]
   static constexpr int muR = muT + DP * kNT;            // [kNT][kRowStride]
-  static constexpr int sq = muR + kNT * kRowStride;     // [kNT]
-  static constexpr int bias = sq + kNT;                 // [kNT]
-  static constexpr int lse = bias + kNT;                // [kBT]
+  static constexpr int shift = muR + kNT * kRowStride;  // [kNT]
+  static constexpr int lse = shift + kNT;               // [kBT]
   static constexpr int g = lse + kBT;                   // [kBT]
   static constexpr int seq = g + kBT;                   // [kBT], int
   static constexpr int dl = seq + kBT;                  // [kBT][kDlStride]
@@ -84,27 +84,12 @@ struct Smem {
   }
 };
 
-__device__ __forceinline__ void lds4(const float* p, float (&v)[4]) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-}
-
-// Adds a value over the kSplit neighbouring lanes (kSplit a power of two)
-// in a fixed tree; every lane of the group gets the same bits.
-template <int kSplit>
-__device__ __forceinline__ float lane_sum(float v) {
-#pragma unroll
-  for (int off = 1; off < kSplit; off <<= 1) {
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  }
-  return v;
-}
-
 template <int DP>
 __global__ void __launch_bounds__(kThreads, 2) disc_bwd_fused_kernel(
     const float* __restrict__ z2,       // [B, D]
     const float* __restrict__ mu2,      // [N, D]
-    const int* __restrict__ seq_idx,    // [B]
+    const void* __restrict__ seq_idx,   // [B], int64 (seq64) or int32
+    int seq64,
     const float* __restrict__ lse,      // [B]
     const float* __restrict__ g,        // [B]
     float* __restrict__ dmu2,           // [N, D], when n_groups == 1
@@ -156,27 +141,15 @@ __global__ void __launch_bounds__(kThreads, 2) disc_bwd_fused_kernel(
       const int ncnt = min(kNT, n_stop - n0);
       __syncthreads();  // the previous pair's products are done
       if (tid < kNT) {
-        // table row tid of the tile (zeros past the table), its squared
-        // norm and logit bias: -1e30 on padding and past the table, where p
+        // table row tid of the tile (zeros past the table) and its logit
+        // shift, with the bias -1e30 on padding and past the table, where p
         // is then exactly 0. A chunk of one tile is staged once
         if (tiles > 1 || b0 == b_first) {
-          float v[DP];
-          float s = 0.0f;
-#pragma unroll
-          for (int k = 0; k < DP; ++k) {
-            v[k] = (tid < ncnt && k < D) ? mu2[(long long)(n0 + tid) * D + k]
-                                         : 0.0f;
-            s = fmaf(v[k], v[k], s);
-            sm[L::muT + k * kNT + tid] = v[k];
-          }
-#pragma unroll
-          for (int k = 0; k < DP; k += 4) {
-            *reinterpret_cast<float4*>(sm + L::muR + tid * L::kRowStride + k) =
-                make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]);
-          }
-          sm[L::sq + tid] = s;
-          sm[L::bias + tid] =
-              tid < ncnt && row_offset + n0 + tid < num_real ? 0.0f : kNegInf;
+          const bool in_tile = tid < ncnt;
+          stage_table_row<DP>(mu2 + (long long)(n0 + tid) * D, in_tile,
+                              in_tile && row_offset + n0 + tid < num_real, D,
+                              tid, inv_two_var, sm + L::muT, sm + L::muR,
+                              sm + L::shift);
         }
       } else if (t == 0 && tid < kNT + kBT) {
         // batch row r of the tile, once per batch tile; past B, g = 0 and
@@ -197,42 +170,22 @@ __global__ void __launch_bounds__(kThreads, 2) disc_bwd_fused_kernel(
         }
         sm[L::lse + r] = ok ? lse[b] : -kNegInf;
         sm[L::g + r] = ok ? g[b] : 0.0f;
-        seq_s[r] = ok ? seq_idx[b] : -1;
+        seq_s[r] = ok ? local_row(seq_idx, seq64, b, row_offset, N) : -1;
       }
       __syncthreads();
 
       // the 64 x 128 cross terms, k in order
       float cr[4][8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) cr[i][j] = 0.0f;
-      }
-#pragma unroll 4
-      for (int k = 0; k < DP; ++k) {
-        float zv[4], m0[4], m1[4];
-        lds4(sm + L::zT + k * kBT + ty * 4, zv);
-        lds4(sm + L::muT + k * kNT + tx * 4, m0);
-        lds4(sm + L::muT + k * kNT + 64 + tx * 4, m1);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            cr[i][j] = fmaf(zv[i], m0[j], cr[i][j]);
-            cr[i][j + 4] = fmaf(zv[i], m1[j], cr[i][j + 4]);
-          }
-        }
-      }
+      cross_tile<DP>(sm + L::zT, sm + L::muT, tx, ty, cr);
 
       // dlogits into shared memory
-      float sqv[8], bias[8];
-      int gn[8];
+      float shift[8];
+      int gn[8];  // the shard's row of each column
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const int n = (j < 4 ? 0 : 64 - 4) + tx * 4 + j;
-        sqv[j] = sm[L::sq + n];
-        bias[j] = sm[L::bias + n];
-        gn[j] = row_offset + n0 + n;
+        const int n = tile_col(tx, j);
+        shift[j] = sm[L::shift + n];
+        gn[j] = n0 + n;
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -242,8 +195,7 @@ __global__ void __launch_bounds__(kThreads, 2) disc_bwd_fused_kernel(
         float d[8];
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-          const float logit =
-              inv_two_var * (2.0f * cr[i][j] - sqv[j]) + bias[j];
+          const float logit = tile_logit(inv_two_var, cr[i][j], shift[j]);
           const float p = expf(logit - lse_r);
           d[j] = g_r * ((gn[j] == y ? 1.0f : 0.0f) - p);
         }
@@ -390,7 +342,7 @@ __global__ void disc_bwd_combine_kernel(const float* __restrict__ part_z,
 
 template <int DP>
 cudaError_t launch_fused(dim3 grid, cudaStream_t st, const float* z2,
-                         const float* mu2, const int* seq_idx,
+                         const float* mu2, const void* seq_idx, int seq64,
                          const float* lse, const float* g, float* dmu2,
                          float* part_z, float* part_mu, int B, int N, int D,
                          int num_real, int row_offset, int chunk_tiles,
@@ -403,7 +355,8 @@ cudaError_t launch_fused(dim3 grid, cudaStream_t st, const float* z2,
     if (e != cudaSuccess) return e;
   }
   disc_bwd_fused_kernel<DP><<<grid, kThreads, smem, st>>>(
-      z2, mu2, seq_idx, lse, g, dmu2, part_z, part_mu, B, N, D, num_real,
+      z2, mu2, seq_idx, seq64, lse, g, dmu2, part_z, part_mu, B, N, D,
+      num_real,
       row_offset, chunk_tiles, group_tiles, n_groups, inv_two_var);
   return cudaGetLastError();
 }
@@ -412,7 +365,8 @@ cudaError_t launch_fused(dim3 grid, cudaStream_t st, const float* z2,
 
 extern "C" {
 
-// z2: [B, D] fp32; mu2: [N, D] fp32; seq_idx: [B] int32; lse, g: [B] fp32;
+// z2: [B, D] fp32; mu2: [N, D] fp32; seq_idx: [B] int64 (seq64 = 1) or
+// int32 (seq64 = 0); lse, g: [B] fp32;
 // dz2: [B, D] fp32; dmu2: [N, D] fp32. D <= sfhvae_disc_max_dim(); B, N >= 1.
 // mu2's first row is row row_offset of the whole table (0 for a single
 // table); num_real and seq_idx count in the whole table. The geometry
@@ -422,12 +376,12 @@ extern "C" {
 // Scratch: part_z [n_chunks, B, D] fp32; part_mu [n_groups, N, D + 1] fp32,
 // or null when n_groups == 1. Returns the cudaError_t of the launches.
 int sfhvae_disc_bwd(const void* z2, const void* mu2, const void* seq_idx,
-                    const void* lse, const void* g, void* dz2, void* dmu2,
+                    int seq64, const void* lse, const void* g, void* dz2, void* dmu2,
                     void* part_z, void* part_mu, int B, int N, int D,
                     int num_real, int row_offset, int chunk_tiles,
                     int n_chunks, int group_tiles, int n_groups,
                     float inv_two_var, void* stream) {
-  if (chunk_tiles < 1 || chunk_tiles > kMaxChunkTiles || D < 1 || D > 32 ||
+  if (chunk_tiles < 1 || chunk_tiles > kMaxChunkTiles || D < 1 || D > kMaxD ||
       (n_groups > 1 && part_mu == nullptr)) {
     return cudaErrorInvalidValue;
   }
@@ -436,7 +390,7 @@ int sfhvae_disc_bwd(const void* z2, const void* mu2, const void* seq_idx,
   const auto run = [&](auto fused) {
     return fused(grid, st, static_cast<const float*>(z2),
                  static_cast<const float*>(mu2),
-                 static_cast<const int*>(seq_idx),
+                 seq_idx, seq64,
                  static_cast<const float*>(lse), static_cast<const float*>(g),
                  static_cast<float*>(dmu2), static_cast<float*>(part_z),
                  static_cast<float*>(part_mu), B, N, D, num_real, row_offset,

@@ -49,12 +49,15 @@ _SIGNATURES = {
     "sfhvae_lstm2_bwd_fma_chunk_rows": (_I, []),
     "sfhvae_lstm2_bwd_fma": (_I, [_P, _P, _L, _L] + [_P] * 17 + [_I]
                              + [_P] * 7 + [_I] * 5 + [_P]),
-    "sfhvae_disc_rows_per_block": (_I, []),
     "sfhvae_disc_max_dim": (_I, []),
-    "sfhvae_disc_fwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _I, _I, ctypes.c_float, _P]),
-    "sfhvae_disc_partials": (_I, [_P] * 9 + [_I] * 7 + [ctypes.c_float, _P]),
-    "sfhvae_disc_bwd": (_I, [_P] * 9 + [_I] * 9 + [ctypes.c_float, _P]),
+    "sfhvae_disc_fwd": (_I, [_P] * 3 + [_I] + [_P] * 3 + [_I] * 8
+                        + [ctypes.c_float, _P]),
+    "sfhvae_disc_partials": (_I, [_P] * 3 + [_I] + [_P] * 4 + [_I] * 9
+                             + [ctypes.c_float, _P]),
+    "sfhvae_disc_fwd_probe": (_I, [_P] * 3 + [_I, _P] + [_I] * 8
+                              + [ctypes.c_float, _I, _P]),
+    "sfhvae_disc_bwd": (_I, [_P] * 3 + [_I] + [_P] * 6 + [_I] * 9
+                        + [ctypes.c_float, _P]),
     "sfhvae_window_gather_max_smem": (_I, []),
     "sfhvae_window_gather": (_I, [_P, _P, _P, _L] + [_I] * 6 + [_P]),
     "sfhvae_fbank_logmel_smem": (_L, [_I, _I]),

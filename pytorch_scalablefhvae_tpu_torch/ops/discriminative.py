@@ -25,7 +25,7 @@ PyTorch version (``<entry>_reference``):
 
 Each runs its kernel for CUDA tensors and its plain version for CPU tensors.
 The plain forwards are differentiable too, and their backward is the plain
-backward.
+backward. The kernels take ``seq_idx`` as int32 or int64, as it comes.
 
 Semantics shared by all versions, as in the Pallas kernels:
 - rows ``n >= num_real`` (mesh padding) get a -1e30 logit bias, so they
@@ -49,15 +49,20 @@ import torch
 from pytorch_scalablefhvae_tpu_torch.ops import _build
 
 NEG_INF = -1e30
-_TILE = 256
-# the backward kernel's tiles (csrc/discriminative_bwd.cu)
-_BWD_BATCH_TILE, _BWD_TABLE_TILE, _BWD_MAX_CHUNK_TILES = 64, 128, 8
+# the kernels' tiles (csrc/discriminative_common.cuh) and the most table
+# tiles a chunk of the backward may hold (csrc/discriminative_bwd.cu)
+_BATCH_TILE, _TABLE_TILE, _BWD_MAX_CHUNK_TILES = 64, 128, 8
+# the forward cuts the table into about target_blocks / 32 chunks: few
+# partials for its combine to read, and chunks x groups still fill the card
+_FWD_BLOCKS_PER_CHUNK = 32
+# the kernels read seq_idx as it comes: int64 (1) or int32 (0)
+_SEQ64 = {torch.int64: 1, torch.int32: 0}
 
 
 @functools.lru_cache(maxsize=None)
 def _target_blocks(device_index: int) -> int:
-    """Chunks of the table are spread so that the row tiles and chunks give
-    about four blocks per SM of the device."""
+    """The kernels cut the table and the batch into about four blocks per
+    SM of the device."""
     props = torch.cuda.get_device_properties(device_index)
     return 4 * props.multi_processor_count
 
@@ -139,8 +144,9 @@ def _library(z2_mu, mu2_table, seq_idx, *more):
             raise ValueError(
                 f"the discriminative kernels take contiguous float32 tensors "
                 f"on {dev}; got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if seq_idx.device != dev:
-        raise ValueError(f"seq_idx is on {seq_idx.device}, not {dev}")
+    if seq_idx.device != dev or seq_idx.dtype not in _SEQ64:
+        raise ValueError(f"seq_idx must be an int32 or int64 tensor on {dev}; "
+                         f"got {seq_idx.dtype} on {seq_idx.device}")
     lib = _build.library()
     D = z2_mu.shape[1]
     if D > lib.sfhvae_disc_max_dim():
@@ -149,6 +155,30 @@ def _library(z2_mu, mu2_table, seq_idx, *more):
     if mu2_table.shape[0] == 0:
         raise ValueError("the mu2 table is empty")
     return lib
+
+
+def _groups(B: int, n_chunks: int, target_blocks: int) -> tuple[int, int]:
+    """``(group_tiles, n_groups)``: groups of 64-row batch tiles that bring
+    ``n_chunks`` x groups up to about ``target_blocks``; none is empty."""
+    b_tiles = max(1, -(-B // _BATCH_TILE))
+    group_tiles = -(-b_tiles // max(1, target_blocks // n_chunks))
+    return group_tiles, -(-b_tiles // group_tiles)
+
+
+def fwd_geometry(B: int, N: int,
+                 target_blocks: int) -> tuple[int, int, int, int]:
+    """How the forward kernel cuts ``B`` batch rows and ``N`` table rows:
+    ``(chunk_tiles, n_chunks, group_tiles, n_groups)``. A chunk holds
+    ``chunk_tiles`` 128-row table tiles and depends on ``N`` alone, so a
+    row's ``log_qy`` and ``lse`` do not depend on the batch split. The
+    forward carries three numbers a row across a chunk, so its chunks may be
+    long: at most ``target_blocks / 32`` of them, for a combine that reads few
+    partials. The groups of 64-row batch tiles then bring chunks x groups up
+    to about ``target_blocks``. No chunk and no group is empty."""
+    n_tiles = -(-N // _TABLE_TILE)
+    chunk_tiles = -(-n_tiles // max(1, target_blocks // _FWD_BLOCKS_PER_CHUNK))
+    n_chunks = -(-n_tiles // chunk_tiles)
+    return (chunk_tiles, n_chunks, *_groups(B, n_chunks, target_blocks))
 
 
 def bwd_geometry(B: int, N: int,
@@ -160,46 +190,75 @@ def bwd_geometry(B: int, N: int,
     ``target_blocks`` chunks fill the card. The groups of 64-row batch tiles
     then bring chunks x groups up to about ``target_blocks``. No chunk and no
     group is empty."""
-    n_tiles = -(-N // _BWD_TABLE_TILE)
+    n_tiles = -(-N // _TABLE_TILE)
     chunk_tiles = min(_BWD_MAX_CHUNK_TILES, -(-n_tiles // target_blocks))
     n_chunks = -(-n_tiles // chunk_tiles)
-    b_tiles = max(1, -(-B // _BWD_BATCH_TILE))
-    group_tiles = -(-b_tiles // max(1, target_blocks // n_chunks))
-    return chunk_tiles, n_chunks, group_tiles, -(-b_tiles // group_tiles)
+    return (chunk_tiles, n_chunks, *_groups(B, n_chunks, target_blocks))
 
 
-def _chunks(lib, B: int, N: int, dev) -> tuple[int, int]:
-    """``(chunk, n_chunks)``: how the forward kernel cuts ``N`` table rows."""
-    row_tiles = -(-B // lib.sfhvae_disc_rows_per_block())
-    n_chunks = max(1, min(-(-N // _TILE),
-                          -(-_target_blocks(dev.index) // max(row_tiles, 1))))
-    chunk = -(-N // n_chunks)
-    return chunk, -(-N // chunk)  # no empty chunk
+def _forward_partials(entry, z2_mu, mu2_table, seq_idx, pz2_logvar, num_real,
+                      row_offset, n_out):
+    """Run ``csrc/discriminative_fwd.cu`` (counted on ``entry``): the
+    single table's ``(log_qy, lse)`` when ``row_offset`` is None, else the
+    shard's ``(m, s, picked)``. One allocation holds the chunks' partials
+    and the ``n_out`` outputs, each ``[B]``."""
+    lib = _library(z2_mu, mu2_table, seq_idx)
+    B, D = z2_mu.shape
+    N = mu2_table.shape[0]
+    dev = z2_mu.device
+    if B == 0:
+        return torch.empty((n_out, 0), device=dev).unbind()
+    geometry = fwd_geometry(B, N, _target_blocks(dev.index))
+    n_chunks = geometry[1]
+    buf = torch.empty(((3 * n_chunks + n_out) * B,), device=dev,
+                      dtype=torch.float32)
+    ptr = buf.data_ptr()
+    outs = [ptr + 4 * (3 * n_chunks + i) * B for i in range(n_out)]
+    seq_idx = seq_idx.contiguous()
+    common = (z2_mu.data_ptr(), mu2_table.data_ptr(), seq_idx.data_ptr(),
+              _SEQ64[seq_idx.dtype], ptr)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    inv_two_var = 0.5 / math.exp(pz2_logvar)
+    if row_offset is None:
+        code = lib.sfhvae_disc_fwd(*common, *outs, B, N, D, num_real,
+                                   *geometry, inv_two_var, stream)
+    else:
+        code = lib.sfhvae_disc_partials(*common, *outs, B, N, D, num_real,
+                                        row_offset, *geometry, inv_two_var,
+                                        stream)
+    _build.check(code, entry.__name__)
+    entry.launches += 1
+    return buf[3 * n_chunks * B:].view(n_out, B).unbind()
+
+
+def fwd_probe(z2_mu, mu2_table, seq_idx, pz2_logvar, num_real, probe: int):
+    """A callable that launches the forward's partials pass alone on these
+    inputs, for timing (``chip_smoke.py``): ``probe`` 0 as the entry runs
+    it, 1 without the exps, 2 without the cross terms."""
+    lib = _library(z2_mu, mu2_table, seq_idx)
+    B, D = z2_mu.shape
+    N = mu2_table.shape[0]
+    dev = z2_mu.device
+    geometry = fwd_geometry(B, N, _target_blocks(dev.index))
+    part = torch.empty((3 * geometry[1] * B,), device=dev)
+    seq_idx = seq_idx.contiguous()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch():
+        _build.check(lib.sfhvae_disc_fwd_probe(
+            z2_mu.data_ptr(), mu2_table.data_ptr(), seq_idx.data_ptr(),
+            _SEQ64[seq_idx.dtype], part.data_ptr(), B, N, D, num_real,
+            *geometry, 0.5 / math.exp(pz2_logvar), probe, stream),
+            "discriminative forward probe")
+    return launch
 
 
 def _forward_kernel(z2_mu, mu2_table, seq_idx, pz2_logvar, num_real,
                     with_lse):
     """Run ``csrc/discriminative_fwd.cu``: ``(log_qy, lse | None)``."""
-    lib = _library(z2_mu, mu2_table, seq_idx)
-    B, D = z2_mu.shape
-    N = mu2_table.shape[0]
-    dev = z2_mu.device
-    chunk, n_chunks = _chunks(lib, B, N, dev)
-    seq32 = seq_idx.to(torch.int32).contiguous()
-    part = torch.empty((3, n_chunks, B), device=dev, dtype=torch.float32)
-    out = torch.empty((B,), device=dev, dtype=torch.float32)
-    lse = torch.empty((B,), device=dev, dtype=torch.float32) if with_lse else None
-    if B == 0:
-        return out, lse
-    code = lib.sfhvae_disc_fwd(
-        z2_mu.data_ptr(), mu2_table.data_ptr(), seq32.data_ptr(),
-        part[0].data_ptr(), part[1].data_ptr(), part[2].data_ptr(),
-        out.data_ptr(), None if lse is None else lse.data_ptr(), B, N, D,
-        num_real, chunk, n_chunks, 0.5 / math.exp(pz2_logvar),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(code, "discriminative_log_qy")
-    discriminative_log_qy.launches += 1
-    return out, lse
+    out, lse = _forward_partials(discriminative_log_qy, z2_mu, mu2_table,
+                                 seq_idx, pz2_logvar, num_real, None, 2)
+    return out, (lse if with_lse else None)
 
 
 def _backward(entry, z2_mu, mu2_table, seq_idx, lse, g, pz2_logvar, num_real,
@@ -226,10 +285,11 @@ def _backward(entry, z2_mu, mu2_table, seq_idx, lse, g, pz2_logvar, num_real,
     part_z = torch.empty((n_chunks, B, D), device=dev, dtype=torch.float32)
     part_mu = (torch.empty((n_groups, N, D + 1), device=dev,
                            dtype=torch.float32) if n_groups > 1 else None)
-    seq32 = seq_idx.to(torch.int32).contiguous()
+    seq_idx = seq_idx.contiguous()
     code = lib.sfhvae_disc_bwd(
-        z2_mu.data_ptr(), mu2_table.data_ptr(), seq32.data_ptr(),
-        lse.data_ptr(), g.data_ptr(), dz2.data_ptr(), dmu2.data_ptr(),
+        z2_mu.data_ptr(), mu2_table.data_ptr(), seq_idx.data_ptr(),
+        _SEQ64[seq_idx.dtype], lse.data_ptr(), g.data_ptr(), dz2.data_ptr(),
+        dmu2.data_ptr(),
         part_z.data_ptr(), None if part_mu is None else part_mu.data_ptr(),
         B, N, D, int(num_real), int(row_offset), chunk_tiles, n_chunks,
         group_tiles, n_groups, 0.5 / math.exp(pz2_logvar),
@@ -316,25 +376,9 @@ def shard_partials(z2_mu, mu2_local, seq_idx, pz2_logvar, num_real,
     if z2_mu.device.type == "cpu":
         return shard_partials_reference(z2_mu, mu2_local, seq_idx, pz2_logvar,
                                         num_real, row_offset)
-    lib = _library(z2_mu, mu2_local, seq_idx)
-    B, D = z2_mu.shape
-    N = mu2_local.shape[0]
-    dev = z2_mu.device
-    chunk, n_chunks = _chunks(lib, B, N, dev)
-    seq32 = seq_idx.to(torch.int32).contiguous()
-    part = torch.empty((3, n_chunks, B), device=dev, dtype=torch.float32)
-    out = torch.empty((3, B), device=dev, dtype=torch.float32)
-    if B == 0:
-        return out[0], out[1], out[2]
-    code = lib.sfhvae_disc_partials(
-        z2_mu.data_ptr(), mu2_local.data_ptr(), seq32.data_ptr(),
-        part[0].data_ptr(), part[1].data_ptr(), part[2].data_ptr(),
-        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), B, N, D,
-        int(num_real), int(row_offset), chunk, n_chunks,
-        0.5 / math.exp(pz2_logvar), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(code, "discriminative_log_qy_sharded")
-    discriminative_log_qy_sharded.launches += 1
-    return out[0], out[1], out[2]
+    return _forward_partials(discriminative_log_qy_sharded, z2_mu, mu2_local,
+                             seq_idx, pz2_logvar, int(num_real),
+                             int(row_offset), 3)
 
 
 def _rescaled(m, s, picked, m_glob):

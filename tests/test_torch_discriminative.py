@@ -2,7 +2,9 @@
 
 On the CPU the port runs its plain version; the JAX side runs
 ``discriminative_log_qy(use_pallas="never")``, which tests/test_ops.py pins
-to the Pallas kernel. Inputs come from a numpy seed.
+to the Pallas kernel. Inputs come from a numpy seed. The forward kernel's
+geometry (how it cuts the batch and the table) is pure Python and is checked
+here too.
 """
 
 import jax.numpy as jnp
@@ -15,6 +17,7 @@ from pytorch_scalablefhvae_tpu.models.base import (
 )
 from pytorch_scalablefhvae_tpu_torch.ops.discriminative import (
     discriminative_log_qy,
+    fwd_geometry,
 )
 
 B, N, D = 12, 40, 16
@@ -61,3 +64,25 @@ def test_index_outside_table_picks_nothing():
     lse = np.log(np.exp(logits - logits.max(1, keepdims=True)).sum(1)) \
         + logits.max(1)
     np.testing.assert_allclose(got[~inside], -lse[~inside], rtol=1e-5)
+
+
+# (batch rows, table rows): the train step, a mesh rank, a LibriSpeech-960
+# table, its shard on 4 ranks, and small or ragged edges (test_bwd_geometry's)
+@pytest.mark.parametrize("b,n", [(1024, 4620), (512, 2310), (1024, 281241),
+                                 (1024, 70311), (1024, 1), (1, 129),
+                                 (63, 3001)])
+def test_fwd_geometry(b, n):
+    target = 4 * 132  # four blocks per SM of an H100
+    chunk_tiles, n_chunks, group_tiles, n_groups = fwd_geometry(b, n, target)
+    # the chunks of 128-row tiles cover the table, and none is empty
+    rows = chunk_tiles * 128
+    assert chunk_tiles >= 1
+    assert (n_chunks - 1) * rows < n <= n_chunks * rows
+    # the groups of 64-row tiles cover the batch, and none is empty
+    assert (n_groups - 1) * group_tiles * 64 < b <= n_groups * group_tiles * 64
+    # the chunking follows N alone
+    for other in (1, 63, 512, 1024, 4096):
+        assert fwd_geometry(other, n, target)[:2] == (chunk_tiles, n_chunks)
+    # few partials for the combine, and no more blocks than the target
+    assert n_chunks <= target // 32
+    assert n_chunks * n_groups <= target

@@ -91,6 +91,77 @@ def test_discriminative_matches_plain(cuda):
     assert float((got - want).abs().max()) <= 1e-4
 
 
+def forward_case(cuda, b, n, d, num_real, seed=11):
+    """Inputs of the discriminative forward: ``z2`` near its rows of a unit
+    scale table (logits of magnitude ~1e2 at d 32), one index outside the
+    table (batch row 3, or 0 when b <= 3)."""
+    g = torch.Generator().manual_seed(seed)
+    mu2 = torch.randn((n, d), generator=g)
+    seq = torch.randint(0, num_real, (b,), generator=g)
+    z2 = mu2[seq] + 0.5 * torch.randn((b, d), generator=g)
+    seq[min(3, b - 1)] = n + 5
+    return z2.to(cuda), mu2.to(cuda), seq.to(cuda), float(np.log(0.25))
+
+
+# log_qy and lse against the plain log-softmax: fp32 sum order over N rows
+# at |logits| ~ 1e2
+@pytest.mark.parametrize("d", [8, 16, 32])
+@pytest.mark.parametrize("n", [1, 129, 3001, 4620])
+@pytest.mark.parametrize("b", [1, 63, 1000])
+def test_discriminative_forward_matches_plain(cuda, b, n, d):
+    num_real = n - n // 300        # padded rows from n 300 on
+    z2, mu2, seq, logvar = forward_case(cuda, b, n, d, num_real)
+    entry = discriminative.discriminative_log_qy
+    before = entry.launches
+    got = discriminative._forward_kernel(z2, mu2, seq, logvar, num_real, True)
+    assert entry.launches == before + 1
+    again = discriminative._forward_kernel(z2, mu2, seq, logvar, num_real,
+                                           True)
+    assert entry.launches == before + 2
+    # the index read as int32 gives the same bits as int64
+    narrow = discriminative._forward_kernel(z2, mu2, seq.int(), logvar,
+                                            num_real, True)
+    want = discriminative._forward_plain(z2, mu2, seq, logvar, num_real)
+    torch.cuda.synchronize()
+    for a, a2, a3, w in zip(got, again, narrow, want):
+        assert torch.equal(a, a2) and torch.equal(a, a3)
+        assert float((a - w).abs().max()) <= 1e-4
+    assert torch.isfinite(got[0]).all()
+
+
+# 4,620 rows: chunks of one table tile; 70,311 (a LibriSpeech-960 table over
+# 4 shards): chunks of 9 tiles
+@pytest.mark.parametrize("n", [4620, 70311])
+@pytest.mark.parametrize("rows", [2048, 1024])
+def test_discriminative_forward_rows_do_not_depend_on_the_split(cuda, rows,
+                                                                n):
+    """log_qy and lse of ``rows`` batch rows equal, bit for bit, the same
+    rows computed as two halves: the table's chunks follow N alone."""
+    z2, mu2, seq, logvar = forward_case(cuda, rows, n, 16, n - 7)
+    whole = discriminative._forward_kernel(z2, mu2, seq, logvar, n - 7, True)
+    half = rows // 2
+    parts = [discriminative._forward_kernel(
+        z2[lo:lo + half].contiguous(), mu2, seq[lo:lo + half], logvar, n - 7,
+        True) for lo in (0, half)]
+    for i in (0, 1):
+        assert torch.equal(torch.cat([p[i] for p in parts]), whole[i])
+
+
+def test_discriminative_shard_of_padding_reports_the_floor(cuda):
+    """A shard made only of padding (rows 300-599 of a table with 300 real
+    rows, the last of its tiles partial) reports m = -1e30 exactly, so that
+    the merge without it gives the same bits."""
+    z2, mu2, seq, logvar = forward_case(cuda, 63, 600, 16, 300)
+    parts = [discriminative.shard_partials(z2, mu2[lo:lo + 300], seq, logvar,
+                                           300, lo) for lo in (0, 300)]
+    assert bool((parts[1][0] == -1e30).all())
+    assert not parts[1][2].any()
+    merged = discriminative.combine_shard_partials(parts)
+    alone = discriminative.combine_shard_partials(parts[:1])
+    for a, b in zip(merged, alone):
+        assert torch.equal(a, b)
+
+
 def rel_norm(got, want) -> float:
     return max(float((a - b).norm() / b.norm().clamp_min(1e-30))
                for a, b in zip(got, want) if b is not None)
