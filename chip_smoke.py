@@ -74,7 +74,13 @@ prints no result line):
 2d. ``fused_logmel_frames`` against its plain version at the serving batch's
    shape (32 utterances of 205 frames), a ragged N, one frame, silent frames
    (at the default floor and at one below them) and a 40-band bank; a
-   rectangular window in place of the Hamming one must miss the limit;
+   rectangular window in place of the Hamming one must miss the limit; the
+   three served batch sizes (1,640, 6,560 and 13,120 frames) timed against
+   the plain version, which the kernel must beat at the first two, each tile
+   height and the kernel's timing variants beside them (bits equal); voiced
+   frames over noise at several levels, within the limit at
+   ``DR_NOISE_DB``, where the plain chain with TF32 products must miss it;
+   rows equal bit for bit whatever batch they came in;
 2e. kernel #7, the sharded discriminative entry, in one process: the
    per-shard partials kernel launched once per shard with its row offset, the
    shards merged with the torch ops the entry itself uses, and the per-shard
@@ -271,6 +277,14 @@ N_SERVE_FRAMES = 32 * 205     # one serving batch: 32 utterances in the
 TOL_LOGMEL = 2e-4       # log-mel, kernel vs plain version, absolute: the limit
                         # the JAX package holds its TPU kernel to against its
                         # jnp mirror (the order of a 400-term fp32 sum)
+LOGMEL_SHAPES = (8 * 205, N_SERVE_FRAMES, 32 * 410)  # frames of a request's
+                        # last batch (8 utterances), a serving batch, and a
+                        # batch of the 65,536-sample bucket
+LOGMEL_PROBES = {"no DFT FMAs": 1, "one load a slice": 4, "no mel": 16}
+                        # csrc/fbank_logmel.cu's timing variants of the
+                        # entry's own form (its PROBE template parameter)
+DR_NOISE_DB = 40.0      # voiced frames: noise this far below the tone
+DR_SWEEP_DB = (-10.0, -5.0, 0.0, 5.0, 10.0, 20.0, 30.0, 40.0)
 TOL_FEATS = 2e-3        # log-mel features, device chain (fp32 DFT by products)
                         # vs host extractor (float64 FFT), absolute and
                         # relative: the JAX package's own limit between its
@@ -285,7 +299,7 @@ TOL_SERVED_JAX = 2e-3   # served latents, extractor "jax" vs "numpy", absolute:
 # of a kernel is the larger of its bytes over the memory rate and its
 # operations over the rate for their operand type
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tfloat32": 495e12}
 
 
 def log(*parts) -> None:
@@ -314,22 +328,51 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 50) -> float:
-    """Device time per call: the card's kernel time over ``iters`` calls,
-    summed by torch.profiler, so the host's issue time between launches is
-    left out (it bounds a call that takes microseconds on the card)."""
+def device_events(fn, iters: int, tries: int = 10) -> list:
+    """Device time per call of each kind of device event (kernel, copy,
+    set) that ``fn`` launches, from torch.profiler over ``iters`` calls:
+    ``(name, ms per call, launches per call)``. Each call launches the
+    same work, so every kind must have been recorded a whole number of
+    times a call. The profiler loses events: most often the first launch
+    of a session (19 of 20, in ten sessions in a row, with a warm-up step
+    before the recorded one or without), so each session opens with two
+    spin kernels that are not counted; at times most or all of a
+    session's. A session that misses any of the calls' events is logged
+    and taken again half a second later, up to ``tries`` sessions; then
+    this raises. No other clock stands in."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) \
-        / 1e3 / iters
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda._sleep(1000)
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "spin_kernel" not in e.key]
+        bad = [f"{e.key[:60]} x{e.count}" for e in events if e.count % iters]
+        if events and not bad:
+            return [(e.key, e.device_time_total / 1e3 / iters,
+                     e.count // iters) for e in events]
+        log(f"  torch.profiler recorded {len(events)} kinds of device event "
+            f"over {iters} calls, these not a whole number a call: {bad}; "
+            f"profiling again")
+        time.sleep(0.5)
+    raise RuntimeError(f"torch.profiler lost device events in {tries} "
+                       f"sessions")
+
+
+def device_ms(fn, iters: int = 50) -> float:
+    """Device time per call: the card's kernel time over ``iters`` calls,
+    summed by torch.profiler (``device_events``), so the host's issue time
+    between launches is left out (it bounds a call that takes microseconds
+    on the card)."""
+    return sum(ms for _, ms, _ in device_events(fn, iters))
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -783,26 +826,15 @@ def rel_norms(got, want) -> list[float]:
 
 
 def kernel_times_ms(fn, iters: int = 10) -> dict:
-    """Device time per call of each kernel ``fn`` launches (torch.profiler),
-    by kernel name, largest first."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
+    """Device time per call of each kernel ``fn`` launches (torch.profiler,
+    ``device_events``), by kernel name, largest first."""
     rows: dict = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA \
-                and e.device_time_total > 0:
-            found = re.search(r"\w+_kernel", e.key)
-            name = found.group(0) if found else e.key[:40]
-            ms, n = rows.get(name, (0.0, 0.0))
-            rows[name] = (ms + e.device_time_total / 1e3 / iters,
-                          n + e.count / iters)
+    for key, ms_call, per_call in device_events(fn, iters):
+        if ms_call > 0:
+            found = re.search(r"\w+_kernel", key)
+            name = found.group(0) if found else key[:40]
+            ms, n = rows.get(name, (0.0, 0))
+            rows[name] = (ms + ms_call, n + per_call)
     return dict(sorted(rows.items(), key=lambda kv: -kv[1][0]))
 
 
@@ -1291,14 +1323,98 @@ def phase_gather() -> dict:
     return results
 
 
+def voiced_frames(n: int, noise_db: float, seed: int = 4) -> torch.Tensor:
+    """``n`` frames of a voiced sound as the served utterances hold it: a
+    harmonic source (15 harmonics of an f0 of 85-255 Hz under a spectral
+    tilt of 0.5-0.85, random phases; a new speaker each frame, as in
+    ``write_corpus``) at a peak of 0.3, white noise ``noise_db`` below the
+    tone's RMS, pre-emphasized by 0.97 as the extractor does. Made with
+    numpy from ``seed``."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(N_FFT + 1)[None, :] / 16000.0
+    f0 = rng.uniform(85.0, 255.0, (n, 1))
+    tilt = rng.uniform(0.5, 0.85, (n, 1))
+    y = np.zeros((n, N_FFT + 1))
+    for h in range(1, 16):
+        y += tilt ** h * np.sin(2 * np.pi * f0 * h * t
+                                + rng.uniform(0, 2 * np.pi, (n, 1)))
+    y *= 0.3 / np.abs(y).max(axis=1, keepdims=True)
+    rms = np.sqrt((y * y).mean(axis=1, keepdims=True))
+    y += rms * 10.0 ** (-noise_db / 20.0) * rng.standard_normal(y.shape)
+    frames = y[:, 1:] - 0.97 * y[:, :-1]
+    return torch.from_numpy(frames.astype(np.float32)).cuda()
+
+
+def logmel_bounds(n: int, fb_t: torch.Tensor, nbytes: int) -> dict:
+    """The chain's bounds: in fp32 outside the tensor cores, and as 3xTF32
+    (three TF32 products per fp32 product over the TF32 rate), both dense;
+    ``bound_ms`` is the lower of the two. Beside them the bound of the form
+    the kernel takes (``bound_form_ms``): the DFT in fp32, the mel product
+    as 3xTF32 on the bank's nonzero weights only (the kernel skips the
+    rest)."""
+    dft = 2 * n * N_FFT * N_BINS * 2
+    mel_dense = 2 * n * N_BINS * fb_t.shape[1]
+    mel = 2 * n * int((fb_t != 0).sum())
+    fp32 = bound(nbytes, dft + mel_dense, "float32")
+    tf32x3 = bound(nbytes, 3 * (dft + mel_dense), "tfloat32")
+    form_ops = (dft / PEAK_FLOPS["float32"]
+                + 3 * mel / PEAK_FLOPS["tfloat32"]) * 1e3
+    return {**min(fp32, tf32x3, key=lambda b: b["bound_ms"]),
+            "bound_fp32_ms": fp32["bound_ms"],
+            "bound_3xtf32_ms": tf32x3["bound_ms"],
+            "bound_form_ms": max(form_ops, nbytes / HBM_BYTES_PER_S * 1e3),
+            "flops": dft + mel_dense}
+
+
+def tf32x3_logmel(frames, w, C, S, fb_t) -> torch.Tensor:
+    """The chain with its DFT in the 3xTF32 form (the form not taken),
+    emulated: each operand split as hi = tf32(x), lo = tf32(x - hi)
+    (round to nearest, ties away, as ``cvt.rna``), lo.lo dropped; per
+    8-sample step, as ``mma.sync.m16n8k8`` takes them, three products
+    (lo.hi, hi.lo, hi.hi in that order) each summed over the step in
+    float64, rounded to fp32 and added to an fp32 accumulator. The tensor
+    core's own rounding inside a step is not modelled. The magnitude, mel
+    product and log as plain."""
+
+    def split(x):
+        bits = x.contiguous().view(torch.int32)
+        hi = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+        rest = (x - hi).contiguous().view(torch.int32)
+        return hi, ((rest + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    fh, fl = split(frames * w)
+    out = []
+    for basis in (C, S):
+        bh, bl = split(basis)
+        acc = torch.zeros((frames.shape[0], basis.shape[1]),
+                          dtype=torch.float32, device=frames.device)
+        for k in range(0, basis.shape[0], 8):
+            a = (fh[:, k:k + 8].double(), fl[:, k:k + 8].double())
+            b = (bh[k:k + 8].double(), bl[k:k + 8].double())
+            for x, y in ((1, 0), (0, 1), (0, 0)):
+                acc = acc + (a[x] @ b[y]).float()
+        out.append(acc)
+    mag = torch.sqrt(out[0] * out[0] + out[1] * out[1] + 1e-30)
+    return torch.log((mag @ fb_t).clamp(min=1e-38)).clamp(min=-20.0)
+
+
 def phase_logmel() -> dict:
     """``fused_logmel_frames`` against ``logmel_frames_reference`` on the
     card: the serving batch's shape, a ragged N, one frame, silent frames
     that reach the log floor (and a floor below them), and a 40-band bank.
-    A rectangular window in place of the Hamming one must miss the limit."""
+    A rectangular window in place of the Hamming one must miss the limit.
+    Then the three served shapes (N 1,640, 6,560, 13,120) timed against the
+    plain version (the kernel must be faster at the first two), with every
+    tile height and the timing variants (``LOGMEL_PROBES``) beside them,
+    voiced frames over noise at several levels (the kernel within the limit
+    at ``DR_NOISE_DB``, where the plain chain with TF32 products must miss
+    it; a float64 chain and the emulated 3xTF32 DFT logged beside), and
+    rows equal bit for bit whatever the batch they came in. Everything is
+    measured and logged before the checks raise."""
     from pytorch_scalablefhvae_tpu_torch.features.dsp_torch import (
         _spectral_consts,
     )
+    from pytorch_scalablefhvae_tpu_torch.ops import _build, fbank_cuda
     from pytorch_scalablefhvae_tpu_torch.ops.fbank_cuda import (
         fused_logmel_frames,
         logmel_frames_reference,
@@ -1309,6 +1425,7 @@ def phase_logmel() -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device="cuda").manual_seed(3)
     results: dict = {}
+    failed = []
     for form, n, n_mels, silent, floor in (
             ("serving batch", N_SERVE_FRAMES, D, 0, -20.0),
             ("ragged N", 1641, D, 0, -20.0),
@@ -1338,47 +1455,157 @@ def phase_logmel() -> dict:
             f"rectangular window misses by {miss:.3e}")
         if not (got.shape == (n, n_mels) and torch.isfinite(got).all()
                 and torch.equal(got, again) and err <= TOL_LOGMEL):
-            raise AssertionError(
-                f"fused_logmel_frames [{form}] disagrees with its plain "
-                f"version or between launches: {err} > {TOL_LOGMEL}")
+            failed.append(f"{form}: disagrees with its plain version or "
+                          f"between launches ({err} > {TOL_LOGMEL})")
         if silent and floor == -20.0 and not bool((got[:silent] == floor).all()):
-            raise AssertionError("silent frames did not reach the log floor")
+            failed.append("silent frames did not reach the log floor")
         if silent and floor == -50.0 and floored:
             # a silent band sums to about 1e-17: above this floor
-            raise AssertionError("silent frames fell to a floor below them")
+            failed.append("silent frames fell to a floor below them")
         if not miss > TOL_LOGMEL:
-            raise AssertionError(
-                f"fused_logmel_frames [{form}]: the limit {TOL_LOGMEL} would "
-                f"pass a kernel with the wrong window (it misses by {miss})")
-        if not results:  # the serving shape the report line keeps
-            def kernel():
-                return fused_logmel_frames(*args)
+            failed.append(f"{form}: the limit {TOL_LOGMEL} would pass a "
+                          f"kernel with the wrong window (it misses by {miss})")
+        r = results.setdefault("fused_logmel_frames", {
+            "max_abs_err": err, "form": f"N={n}, n_fft {N_FFT}, {n_mels} mels"})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
 
-            def plain():
-                return logmel_frames_reference(*args)
+    # the served shapes, timed; voiced frames over noise, which the
+    # rectangular-window check above cannot stand in for: there the
+    # quiet bins sit far below the loud ones in the same frame
+    w, C, S, _, fb_t = _spectral_consts(16000, N_FFT, N_FFT, "hamming", D,
+                                        "slaney", True, dev)
+    by_shape: dict = {}
+    for n in LOGMEL_SHAPES:
+        frames = voiced_frames(n, DR_NOISE_DB)
+        args = (frames, w, C, S, fb_t)
 
-            ms, plain_ms = device_ms(kernel, iters=20), device_ms(plain, iters=20)
-            call_ms = time_ms(kernel)
-            plain_call_ms = time_ms(plain)
-            # the three products (cos, sin, mel) as multiply-adds, fp32
-            # outside the tensor cores; frames read and log-mel written once,
-            # the bases and the bank read once
-            flops = 2 * n * N_FFT * N_BINS * 2 + 2 * n * N_BINS * n_mels
-            b = bound(tensor_bytes(args, got), flops, "float32")
-            log(f"fused_logmel_frames [{form}]: device time per call "
-                f"(profiler) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; per "
-                f"call back to back (CUDA events) kernel {call_ms:.4f} ms, "
-                f"plain {plain_call_ms:.4f} ms; bound {b['bound_ms']:.4f} ms "
-                f"by {b['bound_by']} ({flops / 1e9:.2f} GFLOP fp32, "
-                f"{tensor_bytes(args, got) / 1e6:.1f} MB): "
-                f"{flops / ms / 1e9:.1f} TFLOP/s, "
-                f"{b['bound_ms'] / ms:.3f} of the bound")
-            results["fused_logmel_frames"] = {
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "form": f"N={n}, n_fft {N_FFT}, {n_mels} mels", **b}
-        else:
-            r = results["fused_logmel_frames"]
-            r["max_abs_err"] = max(r["max_abs_err"], err)
+        def kernel():
+            return fused_logmel_frames(*args)
+
+        def plain():
+            return logmel_frames_reference(*args)
+
+        ms, plain_ms = device_ms(kernel, iters=20), device_ms(plain, iters=20)
+        call_ms, plain_call_ms = time_ms(kernel), time_ms(plain)
+        got = kernel()
+        b = logmel_bounds(n, fb_t, tensor_bytes(args, got))
+        by_shape[f"N={n}"] = {
+            "ms": ms, "plain_ms": plain_ms, "events_ms": call_ms,
+            "plain_events_ms": plain_call_ms,
+            **{k: b[k] for k in ("bound_ms", "bound_by", "bound_fp32_ms",
+                                 "bound_3xtf32_ms", "bound_form_ms")}}
+        # the same call at every tile height (bits equal: the sums do not
+        # depend on it), for the choice logmel_geometry makes
+        rows = fbank_cuda.logmel_rows(n, frames.device)
+        by_rows = {}
+        for r in (16, 32, 64):
+            by_rows[r] = device_ms(
+                lambda r=r: fbank_cuda._launch(*args, -20.0, r), iters=20)
+            if not torch.equal(fbank_cuda._launch(*args, -20.0, r), got):
+                failed.append(f"N={n}: tile height {r} gives other bits")
+        by_shape[f"N={n}"]["tile_rows"] = rows
+        by_shape[f"N={n}"]["by_tile_rows_ms"] = by_rows
+        note = (f"; geometry takes {rows} rows a tile; by tile height "
+                + ", ".join(f"{k}: {v:.4f}" for k, v in by_rows.items()))
+        if n != max(LOGMEL_SHAPES):
+            # what bounds the kernel: the entry's form at this tile height
+            # without the DFT's FMAs, with one load a slice, without the
+            # mel (timing variants, never launched by the entry)
+            lib = _build.library()
+            probe_out = torch.empty_like(got)
+
+            def probe(bits):
+                code = lib.sfhvae_fbank_logmel_probe(
+                    *(t.data_ptr() for t in (*args, probe_out)), n, N_FFT,
+                    N_BINS, D, -20.0, rows, bits,
+                    torch.cuda.current_stream().cuda_stream)
+                _build.check(code, "fbank_logmel probe")
+
+            probes = {name: device_ms(lambda p=bits: probe(p), iters=20)
+                      for name, bits in LOGMEL_PROBES.items()}
+            by_shape[f"N={n}"]["probe_ms"] = probes
+            note += "; " + ", ".join(f"{k} {v:.4f}" for k, v in probes.items())
+        log(f"fused_logmel_frames [N={n}, voiced frames]: device time per "
+            f"call (profiler) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+            f"back to back (CUDA events) kernel {call_ms:.4f} ms, plain "
+            f"{plain_call_ms:.4f} ms; bound {b['bound_ms']:.4f} ms (the "
+            f"lower of the chain in fp32, {b['bound_fp32_ms']:.4f} ms, and "
+            f"as 3xTF32, {b['bound_3xtf32_ms']:.4f} ms; the form taken, fp32 "
+            f"DFT and 3xTF32 mel on the bank's nonzeros, "
+            f"{b['bound_form_ms']:.4f} ms; {b['flops'] / 1e9:.2f} GFLOP): "
+            f"{b['flops'] / ms / 1e9:.1f} TFLOP/s" + note)
+        if n != max(LOGMEL_SHAPES) and not ms < plain_ms:
+            failed.append(f"N={n}: kernel {ms:.4f} ms, not below plain "
+                          f"{plain_ms:.4f} ms")
+        if n == N_SERVE_FRAMES:
+            results["fused_logmel_frames"].update(
+                ms=ms, plain_ms=plain_ms, events_ms=call_ms,
+                form=f"N={n}, n_fft {N_FFT}, {D} mels, voiced frames",
+                **{k: b[k] for k in ("bound_ms", "bound_by", "library_ms",
+                                     "bound_fp32_ms", "bound_3xtf32_ms",
+                                     "bound_form_ms")})
+        if n == max(LOGMEL_SHAPES):
+            # rows equal bit for bit whatever the batch: the largest batch
+            # against its first half, the serving batch against 4 x 1,640
+            half = kernel()[:N_SERVE_FRAMES]
+            served = fused_logmel_frames(frames[:N_SERVE_FRAMES].contiguous(),
+                                         w, C, S, fb_t)
+            quarter = N_SERVE_FRAMES // 4
+            parts = torch.cat([fused_logmel_frames(
+                frames[i:i + quarter].contiguous(), w, C, S, fb_t)
+                for i in range(0, N_SERVE_FRAMES, quarter)])
+            split_equal = torch.equal(half, served) and torch.equal(parts,
+                                                                   served)
+            log(f"fused_logmel_frames: rows of N={n} against N="
+                f"{N_SERVE_FRAMES}, and N={N_SERVE_FRAMES} against 4 x "
+                f"{quarter}, equal bit for bit: {split_equal}")
+            if not split_equal:
+                failed.append("rows differ with the batch they came in")
+        del frames, args, got
+    results["fused_logmel_frames"]["by_shape"] = by_shape
+
+    # voiced frames at several noise levels: the kernel's error, the
+    # parent's fp32 one at DR_NOISE_DB (PERF.md), and the plain chain with
+    # TF32 products, which the limit must catch there; a float64 chain and
+    # the emulated 3xTF32 DFT beside them
+    for db in DR_SWEEP_DB:
+        frames = voiced_frames(N_SERVE_FRAMES, db)
+        args = (frames, w, C, S, fb_t)
+        got = fused_logmel_frames(*args)
+        want = logmel_frames_reference(*args)
+        saved = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = logmel_frames_reference(*args)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = saved
+        # the plain chain's own error: against the same chain in float64
+        f = frames.double() * w.double()
+        re, im = f @ C.double(), f @ S.double()
+        exact = torch.log((torch.sqrt(re * re + im * im + 1e-30)
+                           @ fb_t.double()).clamp(min=1e-38)).clamp(min=-20.0)
+        x3 = tf32x3_logmel(*args)
+        torch.cuda.synchronize()
+        err, tf32_err = max_err(got, want), max_err(tf32, want)
+        log(f"fused_logmel_frames [voiced frames, noise {db:g} dB below the "
+            f"tone, N={N_SERVE_FRAMES}]: max_abs_err {err:.3e}; the plain "
+            f"chain with TF32 products {tf32_err:.3e} (tol {TOL_LOGMEL:g}); "
+            f"float64 chain against plain {max_err(exact, want):.3e}, "
+            f"against the kernel {max_err(exact, got):.3e}; the emulated "
+            f"3xTF32 DFT against plain {max_err(x3, want):.3e}, against "
+            f"float64 {max_err(x3, exact):.3e}")
+        if db == DR_NOISE_DB:
+            results["fused_logmel_frames"]["max_abs_err"] = max(
+                results["fused_logmel_frames"]["max_abs_err"], err)
+            results["fused_logmel_frames"]["dynamic_range_err"] = err
+            if not err <= TOL_LOGMEL:
+                failed.append(f"voiced frames at {db} dB: {err} > "
+                              f"{TOL_LOGMEL}")
+            if not tf32_err > TOL_LOGMEL:
+                failed.append(f"voiced frames at {db} dB: the limit would "
+                              f"pass TF32 products ({tf32_err})")
+    if failed:
+        raise AssertionError("fused_logmel_frames: " + "; ".join(failed))
     return results
 
 
@@ -2856,7 +3083,10 @@ def main(argv=None) -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "form": r["form"],
             **{k: r[k] for k in ("fma_form_ms", "passes_ms", "chain_floor_ms",
-                                 "events_ms", "by_shape") if k in r}})
+                                 "events_ms", "by_shape", "bound_fp32_ms",
+                                 "bound_3xtf32_ms", "bound_form_ms",
+                                 "dynamic_range_err")
+               if k in r}})
     if only is None:
         for k in kernels:
             if k["launches"] <= 0:

@@ -60,10 +60,14 @@ _SIGNATURES = {
                         + [ctypes.c_float, _P]),
     "sfhvae_window_gather_max_smem": (_I, []),
     "sfhvae_window_gather": (_I, [_P, _P, _P, _L] + [_I] * 6 + [_P]),
-    "sfhvae_fbank_logmel_smem": (_L, [_I, _I]),
+    "sfhvae_fbank_logmel_smem": (_L, [_I] * 4),
     "sfhvae_fbank_logmel_max_smem": (_I, []),
+    "sfhvae_fbank_logmel_threads": (_I, [_I, _I]),
+    "sfhvae_fbank_logmel_probe": (_I, [_P] * 6 + [_L, _I, _I, _I,
+                                                  ctypes.c_float, _I, _I,
+                                                  _P]),
     "sfhvae_fbank_logmel": (_I, [_P] * 6 + [_L, _I, _I, _I, ctypes.c_float,
-                                            _P]),
+                                            _I, _P]),
     "sfhvae_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -286,3 +286,31 @@ def test_cuda_tensor_never_falls_back_to_the_plain_version(monkeypatch):
     monkeypatch.setattr(fbank_cuda, "logmel_frames_reference", no_plain)
     with pytest.raises(ValueError, match="CUDA tensors"):
         fbank_cuda.fused_logmel_frames(frames, *cs)
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 63, 64, 65, 1640, 1641, 6560,
+                               8448, 8449, 13120, 100_000])
+@pytest.mark.parametrize("max_rows", [64, 32, 16])
+def test_logmel_geometry(n, max_rows):
+    """The kernel's tiles: every frame covered, no tile empty, heights in
+    steps of 8 up to the tallest block that fits, the fewest waves of 132
+    blocks, and the choice a function of N, the SM count and that cap
+    alone. No other height in the same waves leaves the busiest SM fewer
+    frames."""
+    rows, blocks = fbank_cuda.logmel_geometry(n, 132, max_rows)
+    assert rows % fbank_cuda.ROW_STEP == 0 and 0 < rows <= max_rows
+    assert rows * blocks >= n and rows * (blocks - 1) < n
+    assert fbank_cuda.logmel_geometry(n, 132, max_rows) == (rows, blocks)
+    waves = -(-n // (max_rows * 132))
+    assert -(-blocks // 132) == waves
+    for shorter in range(fbank_cuda.ROW_STEP, rows, fbank_cuda.ROW_STEP):
+        assert -(-(-(-n // shorter)) // 132) > waves
+
+
+def test_logmel_geometry_at_the_served_shapes():
+    """A request's last batch (8 utterances) and the serving batch each
+    fill one wave of tiles (16 and 56 frames: the busiest SM gets 16 and 56
+    frames, means 12.4 and 49.7); the 65,536-sample bucket two."""
+    assert fbank_cuda.logmel_geometry(1640, 132) == (16, 103)
+    assert fbank_cuda.logmel_geometry(6560, 132) == (56, 118)
+    assert fbank_cuda.logmel_geometry(13120, 132) == (56, 235)

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from pytorch_scalablefhvae_tpu_torch.ops import (
+    _build,
     discriminative,
     fbank_cuda,
     lstm_cuda,
@@ -23,6 +24,8 @@ from pytorch_scalablefhvae_tpu_torch.ops import (
 pytestmark = pytest.mark.gpu
 
 T, B, D, H = 7, 37, 24, 64  # B not a multiple of the kernel's row tile
+DR_NOISE_DB = 40.0  # chip_smoke.py's: the parent's fp32 kernel read within
+                    # half the limit there (PERF.md, row 9)
 
 
 @pytest.fixture
@@ -686,11 +689,23 @@ def logmel_inputs(dev, n, n_fft=400, n_mels=80, seed=9):
 
 # 2e-4 on the log-mel: the limit the JAX package holds its TPU kernel to
 # against its jnp mirror; the order of a 400-term float32 sum differs
+# N at the edges of the kernel's 16-, 32- and 64-frame tiles and at the
+# served batches (1,640, 6,560 and 13,120 frames)
+EDGES = [1, 15, 16, 17, 63, 64, 65, 1640, 6560, 13120]
+
+
 @pytest.mark.parametrize("n,n_fft,n_mels", [
     (6560, 400, 80), (1641, 400, 80), (1, 400, 80), (300, 400, 40),
-    (77, 512, 80), (50, 101, 16)],
+    (77, 512, 80), (50, 101, 16)]
+    + [(n, 400, 80) for n in EDGES if n not in (1, 6560)]
+    + [(n, 512, 40) for n in (17, 1640)] + [(n, 101, 16) for n in (65, 6560)]
+    + [(100, 512, 128), (50, 101, 64)]
+    + [(100, 1024, 80), (33, 1075, 80), (17, 1088, 40)],
     ids=["serving", "ragged", "one frame", "40 mels", "n_fft 512",
-         "odd n_fft"])
+         "odd n_fft"] + [f"N {n}" for n in EDGES if n not in (1, 6560)]
+    + ["n_fft 512 N 17", "n_fft 512 N 1640", "odd n_fft N 65",
+       "odd n_fft N 6560", "bank through the ring", "mel in two passes",
+       "n_fft 1024", "n_fft 1075", "n_fft 1088"])
 def test_fused_logmel_matches_plain(cuda, n, n_fft, n_mels):
     args = logmel_inputs(cuda, n, n_fft, n_mels)
     fn = fbank_cuda.fused_logmel_frames
@@ -722,6 +737,79 @@ def test_fused_logmel_silent_frames(cuda, log_floor):
     assert float((got - want).abs().max()) <= 2e-4
 
 
+def voiced_frames(n, noise_db, n_fft=400, seed=4):
+    """Frames of a harmonic tone (15 harmonics of 85-255 Hz, tilt
+    0.5-0.85, peak 0.3) over white noise ``noise_db`` below its RMS,
+    pre-emphasized by 0.97, as chip_smoke.py's dynamic-range case."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n_fft + 1)[None, :] / 16000.0
+    f0 = rng.uniform(85.0, 255.0, (n, 1))
+    tilt = rng.uniform(0.5, 0.85, (n, 1))
+    y = np.zeros((n, n_fft + 1))
+    for h in range(1, 16):
+        y += tilt ** h * np.sin(2 * np.pi * f0 * h * t
+                                + rng.uniform(0, 2 * np.pi, (n, 1)))
+    y *= 0.3 / np.abs(y).max(axis=1, keepdims=True)
+    rms = np.sqrt((y * y).mean(axis=1, keepdims=True))
+    y += rms * 10.0 ** (-noise_db / 20.0) * rng.standard_normal(y.shape)
+    return torch.from_numpy((y[:, 1:] - 0.97 * y[:, :-1]).astype(np.float32))
+
+
+def test_fused_logmel_dynamic_range(cuda):
+    """Voiced frames: the quiet bins of a frame lie far below its loud
+    ones. The kernel stays within 2e-4 of plain, and the plain chain with
+    TF32 products misses that limit (so it catches a single TF32 product)."""
+    _, w, C, S, fb_t = logmel_inputs(cuda, 1)
+    frames = voiced_frames(6560, DR_NOISE_DB).to(cuda)
+    got = fbank_cuda.fused_logmel_frames(frames, w, C, S, fb_t)
+    want = fbank_cuda.logmel_frames_reference(frames, w, C, S, fb_t)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = fbank_cuda.logmel_frames_reference(frames, w, C, S, fb_t)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    assert float((got - want).abs().max()) <= 2e-4
+    assert float((tf32 - want).abs().max()) > 2e-4
+
+
+def test_fused_logmel_rows_do_not_depend_on_the_batch(cuda):
+    """A frame gives the same bits in any batch, whatever tile height the
+    batch's size picks: 13,120 frames against their first 6,560, those
+    against 4 x 1,640, and 65 against 17 + 48."""
+    args = logmel_inputs(cuda, 13120)
+    frames, rest = args[0], args[1:]
+    fn = fbank_cuda.fused_logmel_frames
+    whole = fn(frames, *rest)
+    served = fn(frames[:6560].contiguous(), *rest)
+    assert torch.equal(whole[:6560], served)
+    parts = [fn(frames[i:i + 1640].contiguous(), *rest)
+             for i in range(0, 6560, 1640)]
+    assert torch.equal(torch.cat(parts), served)
+    small = fn(frames[:65].contiguous(), *rest)
+    pieces = [fn(frames[:17].contiguous(), *rest),
+              fn(frames[17:65].contiguous(), *rest)]
+    assert torch.equal(torch.cat(pieces), small)
+    assert torch.equal(small, whole[:65])
+
+
+def test_fused_logmel_takes_views_off_16_byte_boundaries(cuda):
+    """The kernel takes its inputs in by 16-byte bulk copies; views that
+    start 4 bytes past a boundary give the same bits."""
+    args = logmel_inputs(cuda, 100)
+
+    def off(t):
+        buf = torch.empty(t.numel() + 1, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    moved = [off(t) for t in args]
+    assert all(t.data_ptr() % 16 for t in moved)
+    fn = fbank_cuda.fused_logmel_frames
+    assert torch.equal(fn(*moved), fn(*args))
+
+
 def test_fused_logmel_refusals_and_empty(cuda):
     frames, w, C, S, fb_t = logmel_inputs(cuda, 8)
     fn = fbank_cuda.fused_logmel_frames
@@ -739,6 +827,18 @@ def test_fused_logmel_refusals_and_empty(cuda):
     big = logmel_inputs(cuda, 4, n_fft=2048)
     with pytest.raises(ValueError, match="shared memory"):
         fn(*big)
+
+
+def test_fused_logmel_takes_n_fft_up_to_its_shared_memory(cuda):
+    """Past 512 bins a 16-frame block holds 8 frames a DFT thread, so the
+    threads never refuse a shape: n_fft 1,088 (545 bins) runs, as checked
+    against plain above, and 1,089 is refused by shared memory alone."""
+    lib = _build.library()
+    assert lib.sfhvae_fbank_logmel_threads(545, 16) > 0
+    assert lib.sfhvae_fbank_logmel_smem(1088, 545, 80, 16) \
+        <= lib.sfhvae_fbank_logmel_max_smem()
+    with pytest.raises(ValueError, match="shared memory"):
+        fbank_cuda.fused_logmel_frames(*logmel_inputs(cuda, 4, n_fft=1089))
 
 
 def test_batched_features_on_the_card_match_the_cpu(cuda):
