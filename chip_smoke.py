@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, extraction and training paths on
-one GPU.
+"""Drive the PyTorch/CUDA port's serving, extraction, training and
+evaluation paths on one GPU.
 
     python3 chip_smoke.py        # from the root of a checkout; needs 1 GPU
 
@@ -27,7 +27,11 @@ prints no result line):
    row); both forms' error in each of tops, h2, h1, c1, c2 held to a share of
    the plain fp32-vs-bf16 gap of that output at one, two and three times the
    model's weight scale; the chain timed alone without its global traffic and without its
-   products;
+   products; ``torch.nn.LSTM`` (cuDNN) on the same function (the stack's
+   weights mapped onto its gate layout, ``bias_hh`` zero, the input and the
+   time-constant part joined at every step), held within the fp32 limit in
+   fp32 with TF32 off, then timed in fp32 and in bf16 (fp16 where cuDNN
+   does not run bf16), its kernels read to say that cuDNN ran;
 2f. (part of 2) the discriminative forward (z2 width 16) against its plain
    version at the serving batch (2048 rows) and the training batch (1024)
    on tables of 4,620 and 281,241 rows with 7 padded rows and an index
@@ -65,7 +69,10 @@ prints no result line):
    the batch split in two against the whole batch (per-row outputs equal bit
    for bit, summed outputs up to fp32 sum order); then the discriminative
    backward at 4,620 and 281,241 table rows with 7 padded
-   rows, which must get exactly zero gradient;
+   rows, which must get exactly zero gradient; the LSTM backward of
+   ``torch.nn.LSTM`` (autograd through a kept graph, to the input and every
+   weight) as in phase 2, its weight gradients held to the plain fp32
+   backward's;
 2c. ``windowed_chunk_gather`` against its plain version at the dev MAP
    pass's shape (128 chunks of 16 windows, seg_len 20, stride 8, D 80) on a
    100,000-row store and on a store of TIMIT-train size, whose last chunks
@@ -110,6 +117,23 @@ prints no result line):
    epoch with
    ``--data-placement host``, whose train loss must equal the device run's
    epoch 0 and whose dev bound must agree with it;
+4b. ``eval`` and ``probe`` of phase 4's experiment through the port's CLI
+   (dev split, 400 sequences, batch 2048): the three forward kernel entries
+   launched, every LSTM launch through the tensor-core form; the eval's dev
+   bound equal to the best epoch's within ``TOL_DEV_LB``; each latent of
+   ``latents.npz`` within ``TOL_BF16_OF_GAP`` of its own plain
+   fp32-vs-bf16 gap from the same eval through the plain versions (the
+   error against ``TOL_SERVED`` logged), and the same eval in fp32 operands
+   through the kernels within ``TOL_FP32`` of the plain fp32 eval; the
+   probe's JSON equal to the eval's; wall time and stages logged;
+4q. the quality twin of ``misc/repro_quality.sh``: ``preprocess`` of 64
+   synthetic speakers x 5 utterances, ``train`` (fhvae, 30 epochs, batch
+   64, dev batch 256, seed 0), ``eval`` and ``probe`` through the port's
+   CLI, each epoch's dev bound and ``val_log_qy`` logged beside the JAX
+   package's committed run (one v5e chip) and held to limits taken from it:
+   the dev bound rises by at least half the reference's rise, ends within
+   10% of its epoch-29 value, ``val_log_qy`` ends in (-0.5, 0), and the z2
+   speaker probe reaches 0.6 and z1's plus 0.1;
 5. the mesh path, ``train --mesh d,m``, at the same width and on the same
    corpus. The machine has one card, so the four ranks of a ``2,2`` mesh
    share it (``--dist-backend gloo``); this script is their launcher
@@ -129,8 +153,8 @@ prints no result line):
    NCCL's MAX and SUM all-reduces run on the card.
 
 ``python3 chip_smoke.py --only 2e,5`` runs the environment phase and the
-phases named (while working on one; ``2`` includes ``2f``); with no
-arguments all run.
+phases named (while working on one; ``2`` includes ``2f``, ``4b`` includes
+``4``); with no arguments all run.
 
 The bf16 tolerances sit between the kernels' error and the gap between the
 plain versions in fp32 and in bf16 operand mode, which each run measures: a
@@ -142,8 +166,9 @@ The second-to-last line of stdout is a JSON object with one entry per
 kernel entry. ``launches`` sums ``launches_by_path``: the counts of the
 ``extractor: "jax"`` serve run (``serve``), the numpy-extractor serve run
 (``serve_numpy``), the CLI extraction (``preprocess``), the train runs
-(``train``) and the mesh run's rank 0 (``mesh``: the ``2,2`` epoch), each set
-to 0 just before its path and read just after. ``ms``
+(``train``), the eval of phase 4b (``eval``) and the mesh run's rank 0
+(``mesh``: the ``2,2`` epoch), each set to 0 just before its path and read
+just after. ``ms``
 and ``plain_ms`` are the bf16-operand times of an LSTM entry's heaviest form,
 and for ``windowed_chunk_gather``, ``fused_logmel_frames`` and the two
 discriminative forward entries the device time per call by torch.profiler
@@ -153,8 +178,10 @@ take for the same inputs (their bytes once over 3.35 TB/s, or the products'
 operations over 989 TFLOP/s for bf16 operands and 67 TFLOP/s for fp32,
 whichever is larger; ``bound_by`` says which); ``library_ms`` times the one
 PyTorch call that computes the same function where there is one (a row
-gather for ``windowed_chunk_gather``), else null. The four LSTM entries and
-the four discriminative entries also carry ``passes_ms`` (device time per
+gather for ``windowed_chunk_gather``; ``torch.nn.LSTM`` for the four LSTM
+entries, in ``library_dtype`` on ``library_route``, with
+``library_fp32_ms`` and every form's in ``library_by_form``), else null.
+The four LSTM entries and the four discriminative entries also carry ``passes_ms`` (device time per
 kernel of a call); the LSTM entries ``chain_floor_ms``
 (the chain of dependent steps without its global traffic), the two forward
 entries ``fma_form_ms`` (the FMA form in bf16 mode, timed in turns with the
@@ -451,6 +478,109 @@ def _stack(g, d_in):
     return cells
 
 
+def cudnn_lstm(cells, d_in: int, dtype) -> torch.nn.LSTM:
+    """``torch.nn.LSTM`` (cuDNN) holding a two-layer stack of the JAX
+    layout: the gate order i, f, g, o is PyTorch's too; a cell's ``w [d +
+    H, 4H]`` splits into ``weight_ih = w[:d].T`` and ``weight_hh =
+    w[d:].T``, its ``b`` is ``bias_ih`` and ``bias_hh`` is zero."""
+    lstm = torch.nn.LSTM(d_in, H, num_layers=2).cuda()
+    with torch.no_grad():
+        for layer, (w, b) in enumerate(cells):
+            d = d_in if layer == 0 else H
+            getattr(lstm, f"weight_ih_l{layer}").copy_(w[:d].T)
+            getattr(lstm, f"weight_hh_l{layer}").copy_(w[d:].T)
+            getattr(lstm, f"bias_ih_l{layer}").copy_(b)
+            getattr(lstm, f"bias_hh_l{layer}").zero_()
+    lstm = lstm.to(dtype)
+    lstm.flatten_parameters()
+    return lstm
+
+
+def library_route(fn) -> tuple[str, list[str]]:
+    """Which implementation a ``torch.nn.LSTM`` call ran, from the kernels
+    it launched (torch.profiler): PyTorch's own cell loop launches
+    ``lstm_cell_forward`` / ``lstm_cell_backward`` kernels, cuDNN does not.
+    Returns the route and the call's three longest kernels' names."""
+    events = sorted(device_events(fn, 2), key=lambda e: -e[1])
+    names = [k for k, _, _ in events]
+    route = "aten" if any("lstm_cell_" in k for k in names) else "cudnn"
+    return route, [k[:70] for k in names[:3]]
+
+
+def library_lstm(cells, inp: torch.Tensor, want32, g_out=None) -> dict:
+    """One ``torch.nn.LSTM`` call computing an LSTM entry's function on
+    ``inp [T, B, d_in]`` (its input and time-constant part joined), checked
+    first in fp32 (TF32 off) against the plain fp32 outputs ``want32``,
+    then timed (CUDA events) in fp32, bf16 and fp16; ``library_ms`` is the
+    fastest half-precision call that ran on cuDNN (fp32's where none did).
+    Without ``g_out`` the forward under ``no_grad`` (``want32``: tops, h2;
+    max abs error); with ``g_out = (g_tops, g_h2)`` the backward alone,
+    ``torch.autograd.grad`` through a kept graph, to the input and every
+    weight (``want32``: the plain backward's dw1h, dw2x, dw2h, db2, relative
+    Frobenius norm)."""
+    def run(lstm, x):
+        if g_out is None:
+            def forward():
+                with torch.no_grad():
+                    return lstm(x)
+            return forward
+        x = x.detach().requires_grad_(True)
+        out, (h, _) = lstm(x)
+        outs = (out, h[1])
+        params = [x, *lstm.parameters()]
+        grads = tuple(g.to(x.dtype) for g in g_out)
+        return lambda: torch.autograd.grad(outs, params, grads,
+                                           retain_graph=True)
+
+    # fp32 products stay fp32 (cuDNN would take TF32 by default)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lstm32 = cudnn_lstm(cells, inp.shape[2], torch.float32)
+    call32 = run(lstm32, inp)
+    got = call32()
+    if g_out is None:
+        err = max(max_err(got[0], want32[0]), max_err(got[1][0][1],
+                                                       want32[1]))
+        tol = TOL_FP32
+    else:
+        weights = dict(zip(("x", *(n for n, _ in lstm32.named_parameters())),
+                           got))
+        err = rel_norm([weights["weight_hh_l0"].T, weights["weight_ih_l1"].T,
+                        weights["weight_hh_l1"].T, weights["bias_ih_l1"]],
+                       want32)
+        tol = TOL_BWD_FP32
+    if not err <= tol:
+        raise AssertionError(f"torch.nn.LSTM in fp32 computes another "
+                             f"function: {err} > {tol}")
+    ms32 = time_ms(call32)
+    route32, kernels32 = library_route(call32)
+    res = {"library_ms": ms32, "library_dtype": "float32",
+           "library_route": route32, "library_fp32_ms": ms32,
+           "library_fp32_err": err,
+           "library_by_dtype": {"float32": {"ms": ms32, "route": route32,
+                                            "kernels": kernels32}}}
+    for dtype in (torch.bfloat16, torch.float16):
+        name = str(dtype).split(".")[1]
+        try:
+            call = run(cudnn_lstm(cells, inp.shape[2], dtype), inp.to(dtype))
+            call()
+        except RuntimeError as e:
+            log(f"  torch.nn.LSTM in {name}: refused ({str(e)[:120]})")
+            continue
+        ms = time_ms(call)
+        route, kernels = library_route(call)
+        res["library_by_dtype"][name] = {"ms": ms, "route": route,
+                                         "kernels": kernels}
+        if route == "cudnn" and (res["library_dtype"] == "float32"
+                                 or ms < res["library_ms"]):
+            res.update(library_ms=ms, library_dtype=name, library_route=route)
+    for name, r in res["library_by_dtype"].items():
+        log(f"  torch.nn.LSTM {'backward' if g_out else 'forward'} in "
+            f"{name}: {r['ms']:.3f} ms on {r['route']}; longest kernels "
+            f"{r['kernels']}")
+    return res
+
+
 def phase_kernels() -> dict:
     from pytorch_scalablefhvae_tpu_torch.ops import lstm_cuda
 
@@ -462,8 +592,16 @@ def phase_kernels() -> dict:
                                      _stack(g, 2 * Z))
     z = torch.randn((B, Z), generator=g).cuda()
     xgc = z @ z1_stack[0][0][D:D + Z] + z1_stack[0][1]
-    xg_c = torch.randn((B, 2 * Z), generator=g).cuda() @ dec_stack[0][0][:2 * Z] \
-        + dec_stack[0][1]
+    zc = torch.randn((B, 2 * Z), generator=g).cuda()
+    xg_c = zc @ dec_stack[0][0][:2 * Z] + dec_stack[0][1]
+    # torch.nn.LSTM's stack and input for each form: the input and the
+    # time-constant part joined at every step
+    library_cases = {
+        "z2 encoder": (z2_stack, x),
+        "z1 encoder, xgc tile": (z1_stack,
+                                 torch.cat([x, z.expand(T, B, Z)], -1)),
+        "decoder, const": (dec_stack, zc.expand(T, B, 2 * Z).contiguous()),
+    }
 
     def raw(cells, xadd, x_=None):
         """The launchers' arguments: (x, xadd, T, w1x, w1h, w2x, w2h, b2)."""
@@ -581,6 +719,14 @@ def phase_kernels() -> dict:
                         + "; ".join(f"{k} {v[0]:.4f} x{v[1]:g}"
                                     for k, v in rows.items())
                         + f"; sum {sum(v[0] for v in rows.values()):.4f} ms")
+                lib = library_lstm(*library_cases[form], refs["float32"])
+                log(f"{name} [{form}] torch.nn.LSTM: fp32 (TF32 off) "
+                    f"{lib['library_fp32_ms']:.3f} ms, max_abs_err against "
+                    f"plain fp32 {lib['library_fp32_err']:.3e} (tol "
+                    f"{TOL_FP32:g}); "
+                    f"{lib['library_dtype']} {lib['library_ms']:.3f} ms on "
+                    f"{lib['library_route']}; the kernel (bf16 operands) "
+                    f"{ms:.3f} ms")
                 prev = results.get(name)
                 if prev is None or ms > prev["ms"]:  # keep the heaviest form
                     results[name] = {"max_abs_err": max(
@@ -590,9 +736,14 @@ def phase_kernels() -> dict:
                         "passes_ms": {k: v[0] for k, v in
                                       per_pass["serving"].items()},
                         **bound(tensor_bytes(inputs, tops_k, h2_k),
-                                2 * T * B * 4 * H * depth, "bfloat16")}
+                                2 * T * B * 4 * H * depth, "bfloat16"),
+                        **lib,
+                        "library_by_form": {
+                            **(prev or {}).get("library_by_form", {}),
+                            form: lib}}
                 else:
                     prev["max_abs_err"] = max(prev["max_abs_err"], err)
+                    prev["library_by_form"][form] = lib
 
     # other batches through the tensor-core form, with residuals: a ragged
     # one (1000 rows: the last 16-row cluster half empty), the training batch
@@ -924,12 +1075,19 @@ def phase_backward() -> dict:
     x = torch.randn((T, B_TRAIN, D), generator=g).cuda()
     z2_stack, z1_stack, dec_stack = (_stack(g, D), _stack(g, D + Z),
                                      _stack(g, 2 * Z))
-    xgc = torch.randn((B_TRAIN, Z), generator=g).cuda() \
-        @ z1_stack[0][0][D:D + Z] + z1_stack[0][1]
-    xg_c = torch.randn((B_TRAIN, 2 * Z), generator=g).cuda() \
-        @ dec_stack[0][0][:2 * Z] + dec_stack[0][1]
+    z = torch.randn((B_TRAIN, Z), generator=g).cuda()
+    xgc = z @ z1_stack[0][0][D:D + Z] + z1_stack[0][1]
+    zc = torch.randn((B_TRAIN, 2 * Z), generator=g).cuda()
+    xg_c = zc @ dec_stack[0][0][:2 * Z] + dec_stack[0][1]
     g_tops = torch.randn((T, B_TRAIN, H), generator=g).cuda()
     g_h2 = torch.randn((B_TRAIN, H), generator=g).cuda()
+    library_cases = {  # as in phase 2
+        "z2 encoder": (z2_stack, x),
+        "z1 encoder, xgc tile": (
+            z1_stack, torch.cat([x, z.expand(T, B_TRAIN, Z)], -1)),
+        "decoder, const": (dec_stack,
+                           zc.expand(T, B_TRAIN, 2 * Z).contiguous()),
+    }
 
     def split(cells):
         (w1, b1), (w2, b2) = cells
@@ -1007,6 +1165,8 @@ def phase_backward() -> dict:
                 tops, _, res = fwd_plain(*fwd_in, mm, with_resid=True)
                 resid = (tops, res)
                 want = run(plain, mm, resid)
+                if mm == "float32":
+                    want32 = want
                 before = kernel.launches, kernel.launches_tc
                 got = run(kernel, mm, resid)
                 again = run(kernel, mm, resid)
@@ -1075,6 +1235,15 @@ def phase_backward() -> dict:
                                 for k, v in per_pass.items())
                     + f"; sum {sum(v[0] for v in per_pass.values()):.4f} ms "
                     f"against {ms:.3f} ms by CUDA events")
+                lib = library_lstm(*library_cases[form], want32[-4:],
+                                   g_out=(g_tops, g_h2))
+                log(f"{name} [{form}] torch.nn.LSTM backward (autograd, "
+                    f"to the input and every weight): fp32 (TF32 off) "
+                    f"{lib['library_fp32_ms']:.3f} ms, dw1h, dw2x, dw2h, db2 "
+                    f"against plain fp32 {lib['library_fp32_err']:.3e} "
+                    f"(tol {TOL_BWD_FP32:g}); {lib['library_dtype']} "
+                    f"{lib['library_ms']:.3f} ms on {lib['library_route']}; "
+                    f"the kernel (bf16 operands) {ms:.3f} ms")
                 prev = results.get(name)
                 if prev is None or ms > prev["ms"]:  # keep the heaviest form
                     results[name] = {"max_abs_err": max(
@@ -1084,9 +1253,14 @@ def phase_backward() -> dict:
                         **bound(tensor_bytes(fwd_in, resid, g_tops, g_h2,
                                              got),
                                 2 * T * B_TRAIN * 4 * H * depth,
-                                "bfloat16")}
+                                "bfloat16"),
+                        **lib,
+                        "library_by_form": {
+                            **(prev or {}).get("library_by_form", {}),
+                            form: lib}}
                 else:
                     prev["max_abs_err"] = max(prev["max_abs_err"], aerr)
+                    prev["library_by_form"][form] = lib
             torch.cuda.empty_cache()
 
     # other batches, each output held to the tolerance on its own: a ragged
@@ -2670,6 +2844,206 @@ def phase_train(workdir: Path, cfg) -> tuple[dict, dict]:
     return launches, recs[0]
 
 
+# -------------------------------------------------------------- phase 4b
+
+
+def eval_stages(out: str) -> dict:
+    """The stage times ``sfhvae eval`` prints (``Stages (s): k v, ...``)."""
+    line = next(ln for ln in out.splitlines() if ln.startswith("Stages (s): "))
+    return {k: float(v) for k, v in (
+        part.rsplit(" ", 1) for part in line[len("Stages (s): "):]
+        .split(", "))}
+
+
+def phase_eval(workdir: Path) -> dict:
+    """Phase 4b: ``eval`` and ``probe`` of phase 4's experiment (3 epochs,
+    best checkpoint) on its dev split through the port's CLI. Returns the
+    launches of the eval run."""
+    from pytorch_scalablefhvae_tpu_torch.cli.main import main as cli
+    from pytorch_scalablefhvae_tpu_torch.config import ExperimentConfig
+    from pytorch_scalablefhvae_tpu_torch.eval.evaluate import (
+        evaluate_experiment,
+    )
+    from pytorch_scalablefhvae_tpu_torch.train import checkpoint as ckpt
+
+    log(f"== phase 4b: sfhvae eval and probe of phase 4's experiment on the "
+        f"card ({N_DEV} dev sequences, batch {B}, bf16 LSTM operands)")
+    root = workdir / "data"
+    exp = workdir / "experiments" / "synthetic_np_fbank" / "fhvae_e2_p10_a10.0"
+    entries = train_entries()[:3]  # the three forward entries
+    reset_counts(entries)
+    t0 = time.perf_counter()
+    out = run_cli(cli, ["eval", str(exp), "--set-name", "dev", "--data-root",
+                        str(root)])
+    eval_s = time.perf_counter() - t0
+    launches = {e.__name__: e.launches for e in entries}
+    log(f"launches during eval: {launches}; of the LSTM entries', through "
+        f"the tensor-core form: {tensor_core_counts(entries)}")
+    check_tensor_core(launches, tensor_core_counts(entries), "eval")
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"{name} was not launched by eval")
+    t0 = time.perf_counter()
+    probe = json.loads(run_cli(cli, ["probe", str(exp), "--set-name", "dev",
+                                     "--data-root", str(root)]))
+    probe_s = time.perf_counter() - t0
+    stages = eval_stages(out)
+    log(f"eval wall time {eval_s:.3f} s (CLI, model load included); stages "
+        f"(s): " + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
+        + f"; probe CLI {probe_s:.3f} s (reads latents.npz); card "
+        f"{smi_name_power()}")
+
+    # the eval's bound is the best epoch's dev bound: same weights, split
+    # and MAP estimate (the device tier's fp32 table sums against the host
+    # loader's fp64, as phase 4 holds them)
+    out_dir = exp / "eval" / "dev"
+    metrics = json.loads((out_dir / "metrics.json").read_text())
+    best = ckpt.read_checkpoint_meta(ckpt.find_best_checkpoint(exp))
+    rec = next(json.loads(line) for line in
+               (exp / "metrics.jsonl").read_text().splitlines()
+               if json.loads(line)["epoch"] == best["best_epoch"])
+    lb_err = abs(metrics["lower_bound"] - rec["val_lower_bound"]) \
+        / abs(rec["val_lower_bound"])
+    z1p, z2p = probe["z1_speaker_probe"], probe["z2_speaker_probe"]
+    log(f"eval dev LB {metrics['lower_bound']!r}, log_qy "
+        f"{metrics['log_qy']!r}; training's best epoch ({best['best_epoch']}) "
+        f"dev LB {rec['val_lower_bound']!r} (relative difference "
+        f"{lb_err:.3e}, tol {TOL_DEV_LB:g}); probe: {probe['num_speakers']} "
+        f"speakers, z2 test acc {z2p['test_acc']}, z1 {z1p['test_acc']} "
+        f"(chance {z2p['chance']:.4f})")
+    if not lb_err <= TOL_DEV_LB:
+        raise AssertionError("the eval's dev bound disagrees with the best "
+                             "epoch's")
+    if probe != metrics["probes"]:
+        raise AssertionError("probe and eval report other probe results")
+
+    # the same eval through the plain versions on the card, in the run's
+    # bf16 operand mode and in fp32, and through the kernels in fp32. At
+    # trained weights a bf16 rounding flip of h moves the latents by more
+    # than at the random weights of phase 3 (the absolute error follows the
+    # weight scale, phase 2), so each latent is held to a share of its own
+    # plain fp32-vs-bf16 gap, as phase 2 holds the kernels' outputs, and the
+    # fp32 eval, where no rounding can flip, to the fp32 limit
+    exp32 = workdir / "exp_fp32"
+    shutil.copytree(exp, exp32, ignore=shutil.ignore_patterns("eval"))
+    cfg = json.loads((exp / "config.json").read_text())
+    cfg["model"]["lstm_mm_dtype"] = "float32"
+    ExperimentConfig.from_dict(cfg).save(exp32 / "config.json")
+    evaluate_experiment(exp32, "dev", data_root=root,
+                        output_dir=workdir / "eval_fp32", verbose=False)
+    with plain_versions():
+        for src, dst in ((exp, "eval_plain"), (exp32, "eval_plain32")):
+            evaluate_experiment(src, "dev", data_root=root,
+                                output_dir=workdir / dst, verbose=False)
+    got, got32, ref, ref32 = (load_served(d) for d in (
+        out_dir, workdir / "eval_fp32", workdir / "eval_plain",
+        workdir / "eval_plain32"))
+    errs = {k: float(np.abs(got[k] - ref[k]).max()) for k in got}
+    gaps = {k: float(np.abs(ref32[k] - ref[k]).max()) for k in got}
+    errs32 = {k: float(np.abs(got32[k] - ref32[k]).max()) for k in got}
+    over = {k: int((np.abs(got[k] - ref[k]).max(-1) > TOL_SERVED).sum())
+            for k in got}
+    log("eval latents, bf16 operands, kernels vs plain versions on the card "
+        "(max abs error / plain fp32-vs-bf16 gap): "
+        + ", ".join(f"{k} {errs[k]:.3e} / {gaps[k]:.3e} = "
+                    f"{errs[k] / gaps[k]:.3f}" for k in got)
+        + f" (limit {TOL_BF16_OF_GAP:g} each); rows over the serving limit "
+        f"{TOL_SERVED:g}: {over} of {len(got['z1_mu'])} segments and "
+        f"{len(got['mu2_map'])} sequences; fp32 operands, kernels vs plain: "
+        + ", ".join(f"{k} {e:.3e}" for k, e in errs32.items())
+        + f" (tol {TOL_FP32:g})")
+    if not all(errs[k] <= TOL_BF16_OF_GAP * gaps[k] for k in got):
+        raise AssertionError(f"eval latents disagree with the plain "
+                             f"versions: {errs} against gaps {gaps}")
+    if not all(e <= TOL_FP32 for e in errs32.values()):
+        raise AssertionError(f"fp32 eval latents disagree: {errs32}")
+    return launches
+
+
+# -------------------------------------------------------------- phase 4q
+
+
+QUALITY_REF = Path(__file__).resolve().parent / "misc" / \
+    "repro_quality_metrics.jsonl"   # the JAX package's run, one v5e chip
+QUALITY_PROBES_REF = {"z2": 0.806, "z1": 0.629}   # PARITY.md, the same run
+QUALITY_LB_BAND = 0.1   # epoch 29's dev bound within 10% of the reference's
+QUALITY_LOG_QY = (-0.5, 0.0)   # epoch 29's val_log_qy, open interval
+QUALITY_Z2_MIN, QUALITY_Z2_MARGIN = 0.6, 0.1   # z2 probe, and over z1's
+
+
+def phase_quality(workdir: Path) -> None:
+    """Phase 4q: ``misc/repro_quality.sh`` through the port on the card:
+    ``preprocess`` of 64 synthetic speakers x 5 utterances, ``train``
+    (fhvae, 30 epochs, patience 30, seed 0, batch 64, dev batch 256),
+    ``eval`` and ``probe`` on dev, with the same flags. The dev bound's
+    rise, its level at epoch 29, ``val_log_qy`` and the probes are held to
+    limits taken from the JAX package's committed run."""
+    from pytorch_scalablefhvae_tpu_torch.cli.main import main as cli
+
+    log("== phase 4q: the quality twin of misc/repro_quality.sh through the "
+        "port on the card (64 speakers x 5 utterances, 30 epochs, batch 64)")
+    ref = [json.loads(line) for line in QUALITY_REF.read_text().splitlines()]
+    root = workdir / "quality"
+    corpus = ["--synthetic-speakers", "64", "--synthetic-utts", "5"]
+    t0 = time.perf_counter()
+    run_cli(cli, ["preprocess", "--dataset", "synthetic", "--data-root",
+                  str(root), *corpus])
+    t_pre = time.perf_counter()
+    run_cli(cli, ["train", "--dataset", "synthetic", "--preprocessed",
+                  "--data-root", str(root), "--model-type", "fhvae",
+                  "--epochs", "30", "--patience", "30", "--seed", "0",
+                  *corpus, "--training-batch-size", "64",
+                  "--dev-batch-size", "256", "--mvn-path",
+                  str(root / "mvn.json"), "--exp-root",
+                  str(root / "experiments")])
+    t_train = time.perf_counter()
+    exp = root / "experiments" / "synthetic_np_fbank" / "fhvae_e30_p30_a10.0"
+    run_cli(cli, ["eval", str(exp), "--set-name", "dev", "--data-root",
+                  str(root)])
+    probe = json.loads(run_cli(cli, ["probe", str(exp), "--set-name", "dev",
+                                     "--data-root", str(root)]))
+    t_end = time.perf_counter()
+
+    recs = [json.loads(line) for line in
+            (exp / "metrics.jsonl").read_text().splitlines()]
+    log("epoch: dev LB port / JAX v5e, val_log_qy port / JAX v5e")
+    for r, q in zip(recs, ref):
+        log(f"  {r['epoch']:2d}: {r['val_lower_bound']:.4f} / "
+            f"{q['val_lower_bound']:.4f}, {r['val_log_qy']:.4f} / "
+            f"{q['val_log_qy']:.4f}")
+    z1 = probe["z1_speaker_probe"]["test_acc"]
+    z2 = probe["z2_speaker_probe"]["test_acc"]
+    log(f"dev speaker probe ({probe['num_speakers']} speakers, chance "
+        f"{probe['z2_speaker_probe']['chance']:.4f}): z2 {z2!r} / "
+        f"{QUALITY_PROBES_REF['z2']}, z1 {z1!r} / {QUALITY_PROBES_REF['z1']} "
+        f"(port / JAX v5e)")
+    log(f"phase 4q wall time {t_end - t0:.1f} s: preprocess "
+        f"{t_pre - t0:.1f} s, train {t_train - t_pre:.1f} s (30 epochs, "
+        f"{sum(r['train_steps'] for r in recs)} steps), eval and probe "
+        f"{t_end - t_train:.1f} s; card {smi_name_power()}")
+
+    if [r["epoch"] for r in recs] != list(range(30)):
+        raise AssertionError(f"epochs recorded: {[r['epoch'] for r in recs]}")
+    lb0, lb29 = recs[0]["val_lower_bound"], recs[29]["val_lower_bound"]
+    ref0, ref29 = ref[0]["val_lower_bound"], ref[29]["val_lower_bound"]
+    log_qy = recs[29]["val_log_qy"]
+    checks = {
+        f"dev LB rise {lb29 - lb0:.1f} >= half the reference's "
+        f"{(ref29 - ref0) / 2:.1f}": lb29 - lb0 >= (ref29 - ref0) / 2,
+        f"epoch 29 dev LB {lb29:.1f} within {QUALITY_LB_BAND:g} of "
+        f"{ref29:.1f}": abs(lb29 - ref29) <= QUALITY_LB_BAND * abs(ref29),
+        f"epoch 29 val_log_qy {log_qy:.4f} in {QUALITY_LOG_QY}":
+            QUALITY_LOG_QY[0] < log_qy < QUALITY_LOG_QY[1],
+        f"z2 probe {z2:.4f} >= {QUALITY_Z2_MIN} and >= z1 {z1:.4f} + "
+        f"{QUALITY_Z2_MARGIN}": z2 >= QUALITY_Z2_MIN
+            and z2 >= z1 + QUALITY_Z2_MARGIN,
+    }
+    for what, ok in checks.items():
+        log(f"  {'ok' if ok else 'MISSED'}: {what}")
+    if not all(checks.values()):
+        raise AssertionError("the port's quality twin missed a limit")
+
+
 # --------------------------------------------------------------- phase 5
 
 
@@ -3025,12 +3399,14 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", default=None,
                         help="comma-separated phases to run after phase 1 "
-                             "(2, 2f, 2b, 2c, 2d, 2e, 3, 3b, 4, 5; 2 "
-                             "includes 2f); default all")
+                             "(2, 2f, 2b, 2c, 2d, 2e, 3, 3b, 4, 4b, 4q, 5; "
+                             "2 includes 2f, 4b needs 4); default all")
     only = parser.parse_args(argv).only
     only = None if only is None else set(only.split(","))
     if only is not None and "2" in only:
         only.add("2f")
+    if only is not None and "4b" in only:
+        only.add("4")
 
     def on(phase: str) -> bool:
         return only is None or phase in only
@@ -3065,6 +3441,10 @@ def main(argv=None) -> int:
         epoch0 = None
         if on("4"):
             by_path["train"], epoch0 = phase_train(workdir, cfg)
+        if on("4b"):
+            by_path["eval"] = phase_eval(workdir)
+        if on("4q"):
+            phase_quality(workdir)
         if on("5"):
             by_path["mesh"] = phase_mesh(workdir, cfg, epoch0)
     finally:
@@ -3085,7 +3465,9 @@ def main(argv=None) -> int:
             **{k: r[k] for k in ("fma_form_ms", "passes_ms", "chain_floor_ms",
                                  "events_ms", "by_shape", "bound_fp32_ms",
                                  "bound_3xtf32_ms", "bound_form_ms",
-                                 "dynamic_range_err")
+                                 "dynamic_range_err", "library_dtype",
+                                 "library_route", "library_fp32_ms",
+                                 "library_by_form")
                if k in r}})
     if only is None:
         for k in kernels:

@@ -5,6 +5,8 @@
     python -m pytorch_scalablefhvae_tpu_torch.cli.main train --preprocessed ...
     python -m pytorch_scalablefhvae_tpu_torch.cli.main encode EXP_DIR AUDIO...
     python -m pytorch_scalablefhvae_tpu_torch.cli.main serve EXP_DIR
+    python -m pytorch_scalablefhvae_tpu_torch.cli.main eval EXP_DIR ...
+    python -m pytorch_scalablefhvae_tpu_torch.cli.main probe EXP_DIR ...
 
 ``preprocess``, ``extract`` and ``train`` take the JAX CLI's flags (this
 package's copy of ``cli/args.py``); ``--device`` is ``cuda`` (the default)
@@ -12,7 +14,9 @@ or ``cpu`` everywhere, and cuda fails where no GPU is present. Of the feature
 extractors only ``--extractor jax`` (batched on the CUDA device) uses the
 device; the host extractors ignore it. ``train`` raises for the settings
 whose code paths are not yet ported (``train/driver.py`` ``check_ported``).
-``encode`` and ``serve`` take the JAX CLI's flags plus ``--device``.
+``encode``, ``serve``, ``eval`` and ``probe`` take the JAX CLI's flags
+plus ``--device``; ``probe`` runs ``eval`` first when the split has no
+``latents.npz`` yet.
 ``train --mesh d,m`` trains on ``d * m`` ranks, one process each: batch
 rows split over the ``d`` data ranks, the mu2 table row-sharded over the
 ``m`` model ranks (``parallel/``). On one machine the command starts its
@@ -21,9 +25,9 @@ ranks itself; under a launcher that set ``RANK``, ``WORLD_SIZE``,
 command with ``--distributed``. ``--dist-backend nccl`` (the default) gives
 every rank a card of its own; ``gloo`` lets ranks share a card and is what
 ``--device cpu`` needs.
-``prep-timit`` and ``prep-librispeech`` write the corpus manifests. ``eval``,
-``probe`` and ``import-checkpoint`` exist here only to say that they are not
-yet ported. Exit codes as the JAX CLI's: 0, or 2 when training diverged.
+``prep-timit`` and ``prep-librispeech`` write the corpus manifests.
+``import-checkpoint`` exists here only to say that it is not yet ported.
+Exit codes as the JAX CLI's: 0, or 2 when training diverged.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-NOT_YET_PORTED = ("eval", "probe", "import-checkpoint")
+NOT_YET_PORTED = ("import-checkpoint",)
 
 
 def _cmd_preprocess(args) -> int:
@@ -183,6 +187,58 @@ def _cmd_serve(args) -> int:
                  device=args.device)
 
 
+def _cmd_eval(args) -> int:
+    from pytorch_scalablefhvae_tpu_torch.eval.evaluate import (
+        evaluate_experiment,
+    )
+
+    result = evaluate_experiment(
+        exp_dir=args.exp_dir, set_name=args.set_name, seqlist=args.seqlist,
+        step=args.step, data_root=args.data_root, output_dir=args.output_dir,
+        num_reconstructions=args.num_reconstructions, device=args.device)
+    if args.tensorboard:
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+
+            w = SummaryWriter(args.tb_log_dir)
+            for k, v in result["metrics"].items():
+                w.add_scalar(f"eval/{args.set_name}/{k}", float(v), 0)
+            w.close()
+        except Exception as e:
+            print(f"TensorBoard unavailable ({e})")
+    return 0
+
+
+def _cmd_probe(args) -> int:
+    import json
+    from pathlib import Path
+
+    import numpy as np
+
+    from pytorch_scalablefhvae_tpu_torch.eval.probes import (
+        json_safe,
+        speaker_probes,
+    )
+    from pytorch_scalablefhvae_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    lat_dir = Path(args.exp_dir) / "eval" / args.set_name
+    if not (lat_dir / "latents.npz").exists():
+        from pytorch_scalablefhvae_tpu_torch.eval.evaluate import (
+            evaluate_experiment,
+        )
+
+        evaluate_experiment(args.exp_dir, set_name=args.set_name,
+                            data_root=args.data_root, verbose=False,
+                            device=args.device)
+    with np.load(lat_dir / "latents.npz") as z:
+        lat = {k: z[k] for k in ("z1_mu", "z2_mu", "seq_idx")}
+    seq_keys = json.loads((lat_dir / "sequences.json").read_text())
+    res = speaker_probes(lat, seq_keys, seed=args.seed, device=device)
+    print(json.dumps(json_safe(res), indent=2))
+    return 0
+
+
 def _cmd_not_ported(args) -> int:
     print(f"sfhvae {args.command}: not yet ported to PyTorch (ROADMAP.md); "
           f"run it with python -m pytorch_scalablefhvae_tpu.cli.main",
@@ -196,6 +252,10 @@ def _add_run_flags(p: argparse.ArgumentParser) -> None:
                    help="Epoch checkpoint to load; -1 loads the best checkpoint")
     p.add_argument("--batch-size", type=int, default=2048,
                    help="Segment batch size for the encoder passes")
+    _add_device_flag(p)
+
+
+def _add_device_flag(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", type=str, default="cuda",
                    choices=["cuda", "cpu"],
                    help="cuda runs the CUDA kernels; cpu their plain "
@@ -279,6 +339,44 @@ def build_parser() -> argparse.ArgumentParser:
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     _add_run_flags(p)
     p.set_defaults(fn=_cmd_serve)
+
+    p = sub.add_parser("eval", help="Evaluate a trained experiment",
+                       formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    p.add_argument("exp_dir", type=str, help="Experiment directory")
+    p.add_argument("--set-name", type=str, default="dev",
+                   choices=["train", "dev", "test"],
+                   help="Dataset partition to evaluate")
+    p.add_argument("--seqlist", type=str, default=None,
+                   help="File listing a subset of sequences to evaluate")
+    p.add_argument("--step", type=int, default=-1,
+                   help="Epoch checkpoint to load; -1 loads the best checkpoint")
+    p.add_argument("--data-root", type=str, default=".",
+                   help="Root directory holding preprocessed datasets")
+    p.add_argument("--output-dir", type=str, default=None,
+                   help="Where to write latents/reconstructions (default: "
+                        "exp_dir/eval/<set-name>)")
+    p.add_argument("--num-reconstructions", type=int, default=8,
+                   help="Number of example segment reconstructions to dump")
+    p.add_argument("--tensorboard", action="store_true",
+                   help="Also write eval metrics as TensorBoard scalars")
+    p.add_argument("--visdom", action="store_true",
+                   help="Accepted for reference-CLI parity; metrics go to "
+                        "JSON/TensorBoard")
+    p.add_argument("--tb-log-dir", default="./visualize/tensorboard",
+                   help="Location of tensorboard log")
+    _add_device_flag(p)
+    p.set_defaults(fn=_cmd_eval)
+
+    p = sub.add_parser("probe", help="Speaker-probe disentanglement "
+                       "diagnostic over extracted latents",
+                       formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    p.add_argument("exp_dir", type=str, help="Experiment directory")
+    p.add_argument("--set-name", type=str, default="dev",
+                   choices=["train", "dev", "test"])
+    p.add_argument("--data-root", type=str, default=".")
+    p.add_argument("--seed", type=int, default=0)
+    _add_device_flag(p)
+    p.set_defaults(fn=_cmd_probe)
 
     p = sub.add_parser("prep-timit", help="Generate TIMIT wav.scp manifests",
                        formatter_class=argparse.ArgumentDefaultsHelpFormatter)

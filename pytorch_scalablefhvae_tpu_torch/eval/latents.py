@@ -2,7 +2,8 @@
 ``eval/latents.py``.
 
 ``extract_latents`` runs the ``SegmentLoader``'s fixed-shape batches
-through ``FHVAE.apply(sample=False)``; ``estimate_mu2`` and
+through ``FHVAE.apply(sample=False)``, scoring each segment's lower bound
+against a split's MAP table when one is given; ``estimate_mu2`` and
 ``sequence_mean_z1`` are the JAX package's numpy code.
 """
 
@@ -14,12 +15,19 @@ import torch
 from pytorch_scalablefhvae_tpu_torch.data.loader import SegmentLoader
 
 
-def extract_latents(model, loader: SegmentLoader) -> dict[str, np.ndarray]:
+def extract_latents(model, loader: SegmentLoader,
+                    table: torch.Tensor | None = None
+                    ) -> dict[str, np.ndarray]:
     """Posterior means of every segment of a loader, in loader order.
 
     Returns ``z1_mu [N, z1]``, ``z2_mu [N, z2]``, ``seq_idx [N]`` and
     ``lower_bound [N]`` for the N real (non-padded) rows. Each batch comes
     back to the host as ONE packed ``[B, z1 + z2 + 1]`` copy.
+
+    ``table``: the mu2 table the lower bound is scored against, on the
+    model's device. For a held-out split it must be the split's MAP table:
+    the learned table has no rows for its sequences (deviation D6).
+    ``None`` scores against the learned table (``encode``, ``serve``).
     """
     dev = model.mu2_table.device
     z1s, z2s, seqs, lbs = [], [], [], []
@@ -27,7 +35,8 @@ def extract_latents(model, loader: SegmentLoader) -> dict[str, np.ndarray]:
         for b in loader:
             out = model.apply(torch.from_numpy(b.feats).to(dev),
                               torch.from_numpy(b.seq_idx).to(dev),
-                              torch.from_numpy(b.nsegs).to(dev), sample=False)
+                              torch.from_numpy(b.nsegs).to(dev), sample=False,
+                              mu2_table=table)
             packed = torch.cat([out.z1_mu, out.z2_mu,
                                 out.lower_bound[:, None]], dim=1)
             block = packed.cpu().numpy()[: b.num_real]

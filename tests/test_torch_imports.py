@@ -41,6 +41,7 @@ PORT_MODULES = [
     "pytorch_scalablefhvae_tpu_torch.eval.serve",
     "pytorch_scalablefhvae_tpu_torch.eval.encode",
     "pytorch_scalablefhvae_tpu_torch.eval.evaluate",
+    "pytorch_scalablefhvae_tpu_torch.eval.probes",
     "pytorch_scalablefhvae_tpu_torch.models.fhvae",
     "pytorch_scalablefhvae_tpu_torch.train.checkpoint",
     "pytorch_scalablefhvae_tpu_torch.train.step",

@@ -128,7 +128,7 @@ def test_cli_encode_and_not_ported(exp_dir, wav_dir, tmp_path, capsys):
                             device="cpu", verbose=False)
     with np.load(tmp_path / "cli" / "latents.npz") as z:
         np.testing.assert_array_equal(z["mu2_map"], one_shot["mu2_map"])
-    assert main(["eval", str(exp_dir)]) == 2
+    assert main(["import-checkpoint", str(exp_dir)]) == 2
     assert "not yet ported" in capsys.readouterr().err
 
 
