@@ -117,6 +117,20 @@ prints no result line):
    epoch with
    ``--data-placement host``, whose train loss must equal the device run's
    epoch 0 and whose dev bound must agree with it;
+4k. ``train --steps-per-dispatch 8``, each dispatch one CUDA graph replay
+   of 8 whole train steps (``train/graphs.py``): Adam's bias corrections as
+   device fp32 scalars divide as the host floats did, bit for bit; on each
+   tier the eager first dispatch, the capture, and 10 warm replays under
+   torch.profiler, which must see the LSTM kernels inside them (host wall,
+   device busy and kernels per step, idle share); the nodes of one captured
+   step by type and kernel from the graph's DOT dump, beside the kernels
+   the profiler sees a replay; then phase 4's runs through the CLI at K = 8
+   (2 epochs + 1 resumed on the device tier, 1 on the host loader: 133
+   steps an epoch, 16 dispatches and 5 eager steps), whose every epoch's
+   train loss, step count and dev metrics, and the epoch-2 checkpoint,
+   must equal phase 4's bit for bit, whose resumed run continues the step
+   count, whose device runs count the launches of phase 4's, and whose
+   every LSTM launch took the tensor-core form;
 4b. ``eval`` and ``probe`` of phase 4's experiment through the port's CLI
    (dev split, 400 sequences, batch 2048): the three forward kernel entries
    launched, every LSTM launch through the tensor-core form; the eval's dev
@@ -153,8 +167,8 @@ prints no result line):
    NCCL's MAX and SUM all-reduces run on the card.
 
 ``python3 chip_smoke.py --only 2e,5`` runs the environment phase and the
-phases named (while working on one; ``2`` includes ``2f``, ``4b`` includes
-``4``); with no arguments all run.
+phases named (while working on one; ``2`` includes ``2f``, ``4k`` and ``4b``
+include ``4``); with no arguments all run.
 
 The bf16 tolerances sit between the kernels' error and the gap between the
 plain versions in fp32 and in bf16 operand mode, which each run measures: a
@@ -166,7 +180,8 @@ The second-to-last line of stdout is a JSON object with one entry per
 kernel entry. ``launches`` sums ``launches_by_path``: the counts of the
 ``extractor: "jax"`` serve run (``serve``), the numpy-extractor serve run
 (``serve_numpy``), the CLI extraction (``preprocess``), the train runs
-(``train``), the eval of phase 4b (``eval``) and the mesh run's rank 0
+(``train``), phase 4k's train runs at K = 8 (``train_k8``), the eval of
+phase 4b (``eval``) and the mesh run's rank 0
 (``mesh``: the ``2,2`` epoch), each set to 0 just before its path and read
 just after. ``ms``
 and ``plain_ms`` are the bf16-operand times of an LSTM entry's heaviest form,
@@ -2756,7 +2771,8 @@ def run_cli(cli, args) -> str:
 
 
 def phase_train(workdir: Path, cfg) -> tuple[dict, dict]:
-    """Returns the launches of the train runs and epoch 0's metrics."""
+    """Returns the launches of the train runs and their metrics records:
+    ``{"device": [epochs 0, 1, 2], "host": epoch 0}``."""
     from pytorch_scalablefhvae_tpu_torch.cli.main import main as cli
     from pytorch_scalablefhvae_tpu_torch.train import checkpoint as ckpt
 
@@ -2841,7 +2857,334 @@ def phase_train(workdir: Path, cfg) -> tuple[dict, dict]:
     if host["train_loss"] != recs[0]["train_loss"] or not lb_err <= TOL_DEV_LB:
         raise AssertionError("the host loader's epoch 0 disagrees with the "
                              "device tier's")
-    return launches, recs[0]
+    return launches, {"device": recs, "host": host}
+
+
+# -------------------------------------------------------------- phase 4k
+
+K_DISPATCH = 8   # phase 4k's steps per dispatch: 133 steps = 16 x 8 + 5
+
+
+def check_bias_division(model) -> bool:
+    """Whether Adam's bias corrections as device fp32 operands (the form
+    every step takes since the K-step bundle: on CUDA the fp32 rounding of
+    the reciprocal, multiplied) give the bits of ``_foreach_div`` by the
+    host floats, over the model's parameter shapes and counts 1 to 200 and
+    three large ones; true division by the correction on the device is
+    logged beside it."""
+    from pytorch_scalablefhvae_tpu_torch.train.step import (
+        make_optimizer,
+        unbias,
+    )
+
+    opt = make_optimizer(1e-3, 0.95, 0.999)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    xs = [torch.rand(p.shape, generator=g, device="cuda") * 1e-3
+          for p in model.parameters()]
+    counts = [*range(200), 999, 9_999, 123_455]
+    ops = torch.from_numpy(np.concatenate(
+        [opt.bias_corrections(c, device="cuda") for c in counts])).cuda()
+    differ, divided = [], 0
+    for row, c in enumerate(counts):
+        for j, b in enumerate((opt.beta_one, opt.beta_two)):
+            host = float(np.float32(1.0) - np.float32(b) ** np.int32(c + 1))
+            want = torch._foreach_div(xs, host)
+            if not all(torch.equal(a, w) for a, w in
+                       zip(unbias(xs, ops[row, j]), want)):
+                differ.append((c + 1, j))
+            divided += not all(torch.equal(a, w) for a, w in zip(
+                torch._foreach_div(xs, torch.tensor(np.float32(host),
+                                                    device="cuda")), want))
+    log(f"bias corrections as device fp32 operands vs the host floats "
+        f"(_foreach_div over {len(xs)} parameter shapes, {len(counts)} "
+        f"counts x 2): {len(differ)} differ {differ[:6]}; true division by "
+        f"the correction on the device would differ in {divided}")
+    return not differ
+
+
+def bundle_case(cfg, root: Path, tier: str, k: int):
+    """A train state at the seeded model, a K-step bundle over ``tier``'s
+    inputs, and ``dispatch(d)``, which loads dispatch ``d``'s batches of
+    epoch 0 and runs it, returning its losses (cloned)."""
+    from pytorch_scalablefhvae_tpu_torch.train.device_step import PlanInputs
+    from pytorch_scalablefhvae_tpu_torch.train.graphs import (
+        HostInputs,
+        StepBundle,
+    )
+    from pytorch_scalablefhvae_tpu_torch.train.step import (
+        create_train_state,
+        make_optimizer,
+    )
+
+    dev = torch.device("cuda")
+    loader, source, plan, arrays = staged_epoch0(cfg, root)
+    state = create_train_state(seeded_model(cfg))
+    if tier == "host":
+        inputs = HostInputs(k, B_TRAIN, cfg.data.seg_len, D, dev)
+        batches = iter(loader)
+    else:
+        inputs = PlanInputs(source.data, B_TRAIN, cfg.data.seg_len)
+        inputs.load_plan(arrays, plan.n_real)
+    bundle = StepBundle(state, make_optimizer(1e-3, 0.95, 0.999), 10.0, k,
+                        inputs, dev)
+
+    def dispatch(d: int) -> torch.Tensor:
+        if tier == "host":
+            inputs.load([next(batches) for _ in range(k)])
+        else:
+            inputs.set_base(d * k * B_TRAIN)
+        return bundle()["loss"].clone()
+
+    return bundle, dispatch
+
+
+def bundle_breakdown(cfg, root: Path) -> dict:
+    """Each tier's K-step dispatch as the epoch runners drive it (the
+    losses read one dispatch late): the eager first dispatch and the
+    capture timed on the host clock, then 10 warm replays under
+    torch.profiler, which must see the LSTM kernels inside them: host wall,
+    device busy and kernels per step, and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    k, out = K_DISPATCH, {}
+    for tier in ("host", "device"):
+        bundle, dispatch = bundle_case(cfg, root, tier, k)
+        t0 = time.perf_counter()
+        dispatch(0).tolist()
+        eager = (time.perf_counter() - t0) * 1e3 / k
+        t0 = time.perf_counter()
+        dispatch(1).tolist()
+        capture = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            pending = None
+            for d in range(2, 12):
+                loss = dispatch(d)
+                if pending is not None:
+                    pending.tolist()
+                pending = loss
+            pending.tolist()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / (10 * k)
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.device_time_total > 0]
+        kernels = [e for e in events
+                   if not e.key.startswith(("Memcpy", "Memset"))]
+        busy = sum(e.device_time_total for e in events) / 1e3 / (10 * k)
+        copies = sum(e.device_time_total for e in events
+                     if e.key.startswith("Memcpy")) / 1e3 / (10 * k)
+        launches = sum(e.count for e in kernels) / (10 * k)
+        chains = sum(e.count for e in kernels if "lstm2_fwd_chain" in e.key)
+        log(f"{tier} tier, K = {k}: eager first dispatch {eager:.3f} ms/step "
+            f"(host wall), capture and first replay {capture:.3f} s; 10 warm "
+            f"replays ({10 * k} steps at batch {B_TRAIN}): host wall "
+            f"{wall:.3f} ms/step, profiler: device busy {busy:.3f} ms/step "
+            f"(copies {copies:.3f}), idle share {1 - busy / wall:.3f}, "
+            f"{launches:.1f} kernels a step; lstm2_fwd_chain seen {chains} "
+            f"times of {3 * 10 * k}; {B_TRAIN / wall * 1e3:.1f} segments/s; "
+            f"card {smi_name_power()}")
+        if chains == 0:
+            raise AssertionError("torch.profiler saw no LSTM kernel inside "
+                                 "the graph replays")
+        if tier == "host":
+            from pytorch_scalablefhvae_tpu_torch.train.driver import (
+                build_loaders,
+            )
+
+            loader = build_loaders(cfg, root, True)[0]
+            loader.set_epoch(0)
+            idx = list(loader._batches_indices())[:k]
+            t0 = time.perf_counter()
+            group = [loader._assemble(i) for i in idx]
+            assemble = (time.perf_counter() - t0) * 1e3 / k
+            t0 = time.perf_counter()
+            bundle.inputs.load(group)
+            stack = (time.perf_counter() - t0) * 1e3 / k
+            torch.cuda.synchronize()
+            log(f"host tier's host work, host clock: a loader batch "
+                f"assembled in {assemble:.3f} ms (one thread), stacked into "
+                f"the pinned buffers and its copy issued in {stack:.3f} ms "
+                f"a step")
+        out[tier] = {"wall": wall, "busy": busy, "launches": launches}
+        del bundle, dispatch
+        torch.cuda.empty_cache()
+    return out
+
+
+GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
+                    4: "graph", 5: "empty", 6: "wait_event",
+                    7: "event_record", 10: "mem_alloc", 11: "mem_free"}
+
+
+def demangled(names: list) -> list:
+    """C++ names of ``names`` by c++filt where the machine has it."""
+    tool = shutil.which("c++filt") or shutil.which("cu++filt")
+    if tool is None:
+        return names
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True).stdout.splitlines()
+    return out if len(out) == len(names) else names
+
+
+def graph_nodes(cfg, root: Path, workdir: Path) -> None:
+    """The nodes of one captured train step (a K = 1 bundle on the device
+    tier), by type from libcuda (``cuGraphGetNodes``,
+    ``cuGraphNodeGetType`` on ``CUDAGraph.raw_cuda_graph()``) and by kernel
+    from its DOT dump (``cuGraphDebugDotPrint``), beside the kernels
+    torch.profiler sees in 10 replays of it. (``CUDAGraph.debug_dump`` under
+    ``enable_debug_mode()`` writes no file on torch 2.11: the graph is gone
+    after its capture.)"""
+    import ctypes
+
+    from torch.profiler import ProfilerActivity, profile
+
+    bundle, dispatch = bundle_case(cfg, root, "device", 1)
+    dispatch(0).tolist()
+    bundle.inputs.set_base(B_TRAIN)
+    bundle.capture(keep_graph=True)
+    bundle.graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            bundle.graph.replay()
+        torch.cuda.synchronize()
+    seen = sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith(("Memcpy", "Memset"))) / 10
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(code: int, what: str) -> None:
+        if code != 0:
+            raise RuntimeError(f"{what} returned CUresult {code}")
+
+    graph = ctypes.c_void_p(bundle.graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    types: dict = {}
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)),
+              "cuGraphNodeGetType")
+        kind = GRAPH_NODE_TYPES.get(t.value, f"type {t.value}")
+        types[kind] = types.get(kind, 0) + 1
+    path = workdir / "step_graph.dot"
+    check(cu.cuGraphDebugDotPrint(graph, str(path).encode(), ctypes.c_uint(1)),
+          "cuGraphDebugDotPrint")
+    found = re.findall(r"\{KERNEL\s*\|\s*\{ID \|[^|]*\|\s*([^\s\\]+)",
+                       path.read_text())
+    names: dict = {}
+    for name in demangled(found):
+        names[name[:110]] = names.get(name[:110], 0) + 1
+    kernels = types.get("kernel", 0)
+    log(f"one captured train step (K = 1, device tier, batch {B_TRAIN}): "
+        f"{n.value} graph nodes by type {types}; {kernels} kernel nodes "
+        f"({len(found)} named in the DOT dump) against {seen:.1f} kernels a "
+        f"replay by torch.profiler; kernel nodes by name (count, name):")
+    for name, count in sorted(names.items(), key=lambda kv: -kv[1]):
+        log(f"  {count:4d}  {name}")
+    if kernels <= 0 or len(found) != kernels:
+        raise AssertionError(f"the step's graph: {types}, {len(found)} "
+                             f"kernel names in its dump")
+    del bundle, dispatch
+    torch.cuda.empty_cache()
+
+
+def phase_train_k8(workdir: Path, cfg, runs: dict) -> dict:
+    """Phase 4k: ``train --steps-per-dispatch 8`` through the CLI on both
+    tiers, equal bit for bit to phase 4's runs (``runs``); returns the
+    launches of its train runs."""
+    from pytorch_scalablefhvae_tpu_torch.cli.main import main as cli
+    from pytorch_scalablefhvae_tpu_torch.train import checkpoint as ckpt
+
+    log(f"== phase 4k: sfhvae train --steps-per-dispatch {K_DISPATCH} on the "
+        f"card, each dispatch one CUDA graph replay of {K_DISPATCH} steps")
+    root = workdir / "data"
+    division_ok = check_bias_division(seeded_model(cfg))
+    bundle_breakdown(cfg, root)
+    graph_nodes(cfg, root, workdir)
+
+    k8 = ["--steps-per-dispatch", str(K_DISPATCH)]
+    args = ["train", "--dataset", "synthetic", "--preprocessed",
+            "--data-root", str(root), "--mvn-path", cfg.data.mvn_path,
+            "--exp-root"]
+    entries = train_entries()
+    reset_counts(entries)
+    exp_root = workdir / "experiments_k8"
+    out = run_cli(cli, args + [str(exp_root), *k8, "--epochs", "2"])
+    exp = exp_root / "synthetic_np_fbank" / "fhvae_e2_p10_a10.0"
+    out += run_cli(cli, args + [str(exp_root), "--continue-from",
+                                str(exp / "fhvae_synthetic_np_fbank_e1.npz"),
+                                "--resume-override", "epochs=3"])
+    device_launches = {e.__name__: e.launches for e in entries}
+    host_root = workdir / "experiments_k8_host"
+    out_host = run_cli(cli, args + [str(host_root), *k8, "--data-placement",
+                                    "host", "--epochs", "1"])
+    launches = {e.__name__: e.launches for e in entries}
+    log(f"launches during the K = {K_DISPATCH} train runs (2 epochs + 1 "
+        f"resumed on the device tier, then 1 on the host loader; dev passes "
+        f"included): {launches}; of the LSTM entries', through the "
+        f"tensor-core form: {tensor_core_counts(entries)}; device runs alone "
+        f"{device_launches}, phase 4's {runs['launches']}")
+    check_tensor_core(launches, tensor_core_counts(entries),
+                      f"training at K = {K_DISPATCH}")
+    graphed = f"{K_DISPATCH} steps per dispatch, replayed as one CUDA graph"
+    if out.count(graphed) != 2 or out_host.count(graphed) != 1:
+        raise AssertionError(f"the K = {K_DISPATCH} runs did not log "
+                             f"{graphed!r} once each")
+    if out.count("Training data device-resident") != 2 \
+            or "device-resident" in out_host:
+        raise AssertionError("the K-step runs did not take their tiers")
+    if device_launches != runs["launches"]:
+        raise AssertionError(
+            f"the K = {K_DISPATCH} device runs counted other launches than "
+            f"phase 4's K = 1 runs of the same epochs: {device_launches} vs "
+            f"{runs['launches']}")
+
+    recs = [json.loads(line) for line in
+            (exp / "metrics.jsonl").read_text().splitlines()]
+    host = json.loads((host_root / "synthetic_np_fbank" / "fhvae_e1_p10_a10.0"
+                       / "metrics.jsonl").read_text().splitlines()[0])
+    steps = [ckpt.read_checkpoint_meta(
+        exp / f"fhvae_synthetic_np_fbank_e{e}.npz")["step"] for e in range(3)]
+    keys = ("train_loss", "train_steps", "step", "val_loss",
+            "val_lower_bound", "val_log_qy")
+    differ = []
+    for tier, got, want in [*(("device", a, b) for a, b in
+                              zip(recs, runs["device"])),
+                            ("host", host, runs["host"])]:
+        log(f"{tier} tier epoch {got['epoch']}, K = {K_DISPATCH} vs K = 1: "
+            f"train loss {got['train_loss']!r} vs {want['train_loss']!r}; "
+            f"dev LB {got['val_lower_bound']!r} vs "
+            f"{want['val_lower_bound']!r}; "
+            f"{1e3 * got['train_seconds'] / got['train_steps']:.3f} vs "
+            f"{1e3 * want['train_seconds'] / want['train_steps']:.3f} "
+            f"ms/step, {got['train_segments_per_sec']:.1f} vs "
+            f"{want['train_segments_per_sec']:.1f} segments/s")
+        differ += [(tier, got["epoch"], key) for key in keys
+                   if got[key] != want[key]]
+    with np.load(exp / "fhvae_synthetic_np_fbank_e2.npz") as a, np.load(
+            workdir / "experiments" / "synthetic_np_fbank" / "fhvae_e2_p10_a10.0"
+            / "fhvae_synthetic_np_fbank_e2.npz") as b:
+        arrays = [key for key in a.files if key in b.files]
+        unequal = [key for key in arrays if not np.array_equal(a[key], b[key])]
+    log(f"epoch 2 checkpoints, K = {K_DISPATCH} vs K = 1: {len(arrays)} "
+        f"arrays, {len(unequal)} differ {unequal[:5]}; checkpoint steps "
+        f"{steps}; card {smi_name_power()}")
+    if differ or unequal or len(recs) != 3:
+        raise AssertionError(f"the K = {K_DISPATCH} runs differ from K = 1: "
+                             f"{differ} {unequal[:5]}")
+    n = recs[0]["train_steps"]
+    if steps != [n, 2 * n, 3 * n]:
+        raise AssertionError(f"the resumed K = {K_DISPATCH} run did not "
+                             f"continue the step count: {steps}")
+    if not division_ok:
+        raise AssertionError("the bias corrections as device scalars divide "
+                             "to other bits than the host floats")
+    return launches
 
 
 # -------------------------------------------------------------- phase 4b
@@ -3399,13 +3742,14 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", default=None,
                         help="comma-separated phases to run after phase 1 "
-                             "(2, 2f, 2b, 2c, 2d, 2e, 3, 3b, 4, 4b, 4q, 5; "
-                             "2 includes 2f, 4b needs 4); default all")
+                             "(2, 2f, 2b, 2c, 2d, 2e, 3, 3b, 4, 4k, 4b, 4q, "
+                             "5; 2 includes 2f, 4k and 4b need 4); default "
+                             "all")
     only = parser.parse_args(argv).only
     only = None if only is None else set(only.split(","))
     if only is not None and "2" in only:
         only.add("2f")
-    if only is not None and "4b" in only:
+    if only is not None and {"4b", "4k"} & only:
         only.add("4")
 
     def on(phase: str) -> bool:
@@ -3440,7 +3784,11 @@ def main(argv=None) -> int:
             log(f"corpus written in {time.perf_counter() - t0:.1f} s")
         epoch0 = None
         if on("4"):
-            by_path["train"], epoch0 = phase_train(workdir, cfg)
+            by_path["train"], runs = phase_train(workdir, cfg)
+            epoch0 = runs["device"][0]
+        if on("4k"):
+            by_path["train_k8"] = phase_train_k8(
+                workdir, cfg, {**runs, "launches": by_path["train"]})
         if on("4b"):
             by_path["eval"] = phase_eval(workdir)
         if on("4q"):

@@ -8,14 +8,19 @@ index plan on the device, and build each batch there:
   mask from ``n_real``, segment gather, clipped ``nsegs`` lookup);
 - :func:`device_train_step`: one optimizer step (K = 1) through the port's
   ``train_step``;
+- :class:`PlanInputs`: the inputs of the K-step bundle (``train/graphs.py``,
+  ``make_device_train_step(k)``): the epoch's plan in persistent buffers,
+  and step ``i`` of a dispatch reading the plan's rows at ``base + i * B``,
+  with ``base`` and ``n_real`` device scalars (:func:`batch_views_at`);
 - :func:`device_eval_pass`: per-batch weighted metric sums over a split,
   stacked on the device;
 - :func:`device_map_pass` (array plan) and :func:`device_map_pass_chunked`
   (the chunk layout, gathered by the ``windowed_chunk_gather`` kernel): a
   split's MAP mu2 table, accumulated in fp32 on the device.
 
-PyTorch runs eagerly, so where the JAX package jits a scan, these loop over
-batches in Python; nothing leaves the device until the caller fetches it.
+Where the JAX package jits a scan, these loop over batches in Python (the
+K-step bundle replays its loop as a CUDA graph); nothing leaves the device
+until the caller fetches it.
 Padding rows of a plan are (sequence 0, frame 0) with weight 0, so given the
 same permutation the steps train exactly as the host loader does.
 
@@ -52,15 +57,74 @@ def batch_views(store, seq_idx_all, starts_all, nsegs_tab, off: int,
     """``(feats, seq_idx, nsegs, weight)`` of the plan's rows ``[off, off +
     batch_size)``: rows at plan positions ``>= n_real`` get weight 0;
     ``nsegs`` is ``None`` when ``nsegs_tab`` is."""
-    seq_idx = seq_idx_all[off:off + batch_size]
-    starts = starts_all[off:off + batch_size]
-    pos = off + torch.arange(batch_size, device=store.device)
+    return _plan_rows(store, seq_idx_all[off:off + batch_size],
+                      starts_all[off:off + batch_size], nsegs_tab,
+                      off + torch.arange(batch_size, device=store.device),
+                      n_real, seg_len)
+
+
+def _plan_rows(store, seq_idx, starts, nsegs_tab, pos, n_real, seg_len: int):
+    """The batch views of plan rows ``seq_idx``, ``starts`` at plan
+    positions ``pos``."""
     weight = (pos < n_real).to(torch.float32)
     feats = gather_segments(store, starts, seg_len)
     if nsegs_tab is None:
         return feats, seq_idx, None, weight
     nsegs = nsegs_tab[seq_idx.clamp(0, nsegs_tab.shape[0] - 1)]
     return feats, seq_idx, nsegs, weight
+
+
+def batch_views_at(store, seq_idx_all, starts_all, nsegs_tab, off, n_real, *,
+                   rows: torch.Tensor, seg_len: int):
+    """:func:`batch_views` with ``off`` and ``n_real`` as 0-dim device
+    tensors and ``rows = arange(batch_size)`` on the device: the plan's rows
+    are picked by ``index_select`` at ``off + rows``, so a captured graph
+    reads wherever the scalars point at replay time. The same gathers, so
+    the same bits."""
+    pos = off + rows
+    return _plan_rows(store, seq_idx_all.index_select(0, pos),
+                      starts_all.index_select(0, pos), nsegs_tab, pos, n_real,
+                      seg_len)
+
+
+class PlanInputs:
+    """The K-step bundle's inputs on the staged store: the epoch's plan
+    ``(seq_idx_all, starts_all, nsegs_tab)`` copied into persistent buffers
+    (``stage_epoch`` uploads new tensors every epoch; the graph keeps the
+    first addresses), the real-row count and the dispatch's first plan row
+    as device scalars."""
+
+    def __init__(self, store, batch_size: int, seg_len: int):
+        dev = store.device
+        self.store, self.batch_size, self.seg_len = store, batch_size, seg_len
+        self.plan = None
+        self.base = torch.zeros((), dtype=torch.long, device=dev)
+        self.n_real = torch.zeros((), dtype=torch.long, device=dev)
+        self.rows = torch.arange(batch_size, device=dev)
+
+    def load_plan(self, arrays, n_real: int) -> None:
+        """This epoch's plan (``DeviceDataSource.stage_epoch``'s arrays)."""
+        if self.plan is None:
+            self.plan = tuple(a.clone() for a in arrays)
+        elif [a.shape for a in arrays] != [a.shape for a in self.plan]:
+            raise ValueError(
+                f"the epoch plan's shapes changed from "
+                f"{[tuple(a.shape) for a in self.plan]} to "
+                f"{[tuple(a.shape) for a in arrays]}; a captured bundle "
+                f"reads fixed buffers")
+        else:
+            for dst, src in zip(self.plan, arrays):
+                dst.copy_(src)
+        self.n_real.fill_(n_real)
+
+    def set_base(self, off: int) -> None:
+        """The plan row of the next dispatch's first step."""
+        self.base.fill_(off)
+
+    def views(self, i: int):
+        return batch_views_at(self.store, *self.plan,
+                              self.base + i * self.batch_size, self.n_real,
+                              rows=self.rows, seg_len=self.seg_len)
 
 
 def rank_views(mesh, store, seq_idx_all, starts_all, nsegs_tab, off: int,

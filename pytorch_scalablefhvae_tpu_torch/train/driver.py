@@ -52,7 +52,6 @@ def check_ported(config: ExperimentConfig) -> None:
         "--hierarchical": t.sample_hierarchical,
         "--ckpt-backend orbax": t.ckpt_backend == "orbax",
         "--legacy": t.legacy,
-        "--steps-per-dispatch > 1": t.steps_per_dispatch > 1,
         "--ckpt-every-steps": t.ckpt_every_steps > 0,
         "--max-steps": t.max_steps > 0,
         "--profile-dir": t.profile_dir is not None,

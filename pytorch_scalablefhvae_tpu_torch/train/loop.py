@@ -5,7 +5,11 @@ Separate pieces rather than the JAX package's one ``run_training`` body:
 :func:`run_epoch` (the host loader: one pass over the shuffled training
 batches, a pinned host-to-device copy per batch, a loss check on every
 batch), :func:`run_device_epoch` (the device-resident store: the same
-batches gathered on the device, each loss checked one step late),
+batches gathered on the device, each loss checked one step late), both of
+which run ``--steps-per-dispatch K`` > 1 as K-step bundles
+(``train/graphs.py``: one CUDA graph replay of K steps, the epoch's last
+``n % K`` batches as eager steps, each dispatch's losses checked one
+dispatch late, as the JAX loop's ``_record_dispatch`` does),
 :func:`estimate_split_mu2` + :func:`evaluate_split` (the host dev pass
 against a MAP-estimated mu2 table), :func:`stage_split` +
 :func:`device_dev_pass` (the same pass over a staged dev split),
@@ -21,7 +25,7 @@ them whole). All decisions (divergence, best epoch, early stopping) are
 taken from all-reduced values, so the ranks take them together; rank 0 alone
 prints, writes ``metrics.jsonl`` and the checkpoints.
 
-Hierarchical rounds, the streamed tier, K-step dispatch, mid-epoch
+Hierarchical rounds, the streamed tier, K-step dispatch on a mesh, mid-epoch
 checkpoints and profiling are not ported yet (``ROADMAP.md``;
 ``train/driver.py`` refuses them).
 """
@@ -55,11 +59,13 @@ from pytorch_scalablefhvae_tpu_torch.parallel.mesh import (
 )
 from pytorch_scalablefhvae_tpu_torch.train import checkpoint as ckpt
 from pytorch_scalablefhvae_tpu_torch.train.device_step import (
+    PlanInputs,
     device_eval_pass,
     device_map_pass,
     device_map_pass_chunked,
     device_train_step,
 )
+from pytorch_scalablefhvae_tpu_torch.train.graphs import HostInputs, StepBundle
 from pytorch_scalablefhvae_tpu_torch.train.metrics import (
     MetricHistory,
     MetricWriter,
@@ -70,6 +76,7 @@ from pytorch_scalablefhvae_tpu_torch.train.step import (
     create_train_state,
     encode_step,
     eval_step,
+    host_to_device,
     make_optimizer,
     train_step,
 )
@@ -111,6 +118,49 @@ class TrainResult:
     diverged: bool = False
 
 
+class DispatchLosses:
+    """An epoch's step losses, each dispatch's read from the device one
+    dispatch late, so the host never waits on the work it just issued (the
+    JAX loop's ``_record_dispatch``)."""
+
+    def __init__(self):
+        self.values: list[float] = []
+        self.rows: list[int] = []
+        self._pending = None
+
+    def push(self, losses: torch.Tensor, rows) -> bool:
+        """Keep this dispatch's losses (one per step, ``rows`` real rows
+        each) and read the dispatch before's; False once a loss read is not
+        finite."""
+        ok = self.finish()
+        self._pending = (losses, list(rows))
+        return ok
+
+    def finish(self) -> bool:
+        """Read the last dispatch's losses."""
+        if self._pending is None:
+            return True
+        losses, rows = self._pending
+        self._pending = None
+        vals = losses.reshape(-1).tolist()
+        self.values += vals
+        self.rows += rows
+        return all(math.isfinite(v) for v in vals)
+
+    def stats(self, seconds: float) -> EpochStats:
+        """The epoch's count-weighted mean loss over the steps read, up to
+        the first non-finite one (then ``diverged``)."""
+        loss_sum, count = 0.0, 0
+        for loss, rows in zip(self.values, self.rows):
+            if not math.isfinite(loss):
+                return EpochStats(loss, count, len(self.values), seconds,
+                                  diverged=True)
+            loss_sum += loss * rows
+            count += rows
+        return EpochStats(loss_sum / max(count, 1), count, len(self.values),
+                          seconds)
+
+
 def batch_tensors(b, device: torch.device, mesh=None):
     """``(feats, seq_idx, nsegs, weight)`` of a loader batch on ``device``:
     for a GPU, one pinned host copy and an asynchronous transfer each. With
@@ -119,20 +169,22 @@ def batch_tensors(b, device: torch.device, mesh=None):
     if mesh is not None:
         rows = mesh.local_rows(len(b.weight))
         arrays = tuple(a[rows] for a in arrays)
-    if device.type == "cpu":
-        return tuple(torch.from_numpy(a) for a in arrays)
-    return tuple(torch.from_numpy(a).pin_memory().to(device, non_blocking=True)
-                 for a in arrays)
+    return tuple(host_to_device(a, device) for a in arrays)
 
 
 def run_epoch(state: TrainState, optimizer: Optimizer, loader: SegmentLoader,
               alpha: float, device: torch.device, epoch: int,
-              mesh=None) -> EpochStats:
+              mesh=None, bundle: StepBundle | None = None) -> EpochStats:
     """One epoch of train steps over ``loader``'s order for ``epoch``.
 
     Every step's loss comes back to the host (one scalar, the only sync per
-    step); a non-finite loss ends the epoch at once with ``diverged``."""
+    step); a non-finite loss ends the epoch at once with ``diverged``. With
+    a ``bundle`` (its inputs :class:`HostInputs`), see
+    :func:`run_bundled_epoch`."""
     loader.set_epoch(epoch)
+    if bundle is not None:
+        return run_bundled_epoch(state, optimizer, loader, alpha, device,
+                                 bundle)
     loss_sum, count, steps = 0.0, 0, 0
     t0 = time.perf_counter()
     for b in loader:
@@ -152,10 +204,42 @@ def run_epoch(state: TrainState, optimizer: Optimizer, loader: SegmentLoader,
                       time.perf_counter() - t0)
 
 
+def run_bundled_epoch(state: TrainState, optimizer: Optimizer,
+                      loader: SegmentLoader, alpha: float,
+                      device: torch.device, bundle: StepBundle) -> EpochStats:
+    """The host loader's epoch in K-step dispatches: every K batches are
+    stacked into the bundle's static inputs (through pinned buffers, while
+    the device runs the dispatch before) and run as one dispatch; the last
+    ``n % K`` batches run as eager steps. Losses are read one dispatch late
+    (:class:`DispatchLosses`)."""
+    losses = DispatchLosses()
+    t0 = time.perf_counter()
+    group, ok = [], True
+    for b in loader:
+        group.append(b)
+        if len(group) == bundle.k:
+            bundle.inputs.load(group)
+            ok = losses.push(bundle()["loss"].clone(),
+                             [g.num_real for g in group])
+            group = []
+            if not ok:
+                break
+    for b in group if ok else ():
+        metrics = train_step(state, optimizer, *batch_tensors(b, device),
+                             alpha)
+        if not losses.push(metrics["loss"], [b.num_real]):
+            break
+    losses.finish()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return losses.stats(time.perf_counter() - t0)
+
+
 def run_device_epoch(state: TrainState, optimizer: Optimizer,
                      source: DeviceDataSource, loader: SegmentLoader,
                      alpha: float, device: torch.device, epoch: int,
-                     mesh=None) -> EpochStats:
+                     mesh=None, bundle: StepBundle | None = None
+                     ) -> EpochStats:
     """One epoch of train steps gathered from the staged store, over the
     host loader's own permutation for ``epoch``, so both tiers train on the
     same batches.
@@ -163,37 +247,36 @@ def run_device_epoch(state: TrainState, optimizer: Optimizer,
     Each step's loss comes back to the host after the next step has been
     issued (lag one), so the host never waits on the step it just issued;
     the last one is checked at the epoch's end. A non-finite loss ends the
-    epoch with ``diverged``."""
+    epoch with ``diverged``. With a ``bundle`` (its inputs
+    :class:`PlanInputs`) the batches go K to a dispatch, the last ``n % K``
+    as eager steps, and each dispatch's losses are read one dispatch
+    late."""
     loader.set_epoch(epoch)
     ds, B = loader.dataset, loader.batch_size
     plan, arrays = source.stage_epoch(ds, loader._order(), B)
     counts = plan.batch_real_counts()
-    losses: list[float] = []
+    k = 1 if bundle is None else bundle.k
+    bundled = plan.n_batches - plan.n_batches % k if bundle else 0
+    losses = DispatchLosses()
     t0 = time.perf_counter()
-    pending = None  # the step before's loss, still on the device
-    for b in range(plan.n_batches):
-        metrics = device_train_step(
-            state, optimizer, source.data, arrays, b * B, plan.n_real, alpha,
-            batch_size=B, seg_len=ds.seg_len, mesh=mesh)
-        if pending is not None:
-            losses.append(float(pending))
-            if not math.isfinite(losses[-1]):
-                break
-        pending = metrics["loss"]
-    else:
-        if pending is not None:
-            losses.append(float(pending))
+    if bundle is not None:
+        bundle.inputs.load_plan(arrays, plan.n_real)
+    b = 0
+    while b < plan.n_batches:
+        if b < bundled:
+            bundle.inputs.set_base(b * B)
+            loss, n = bundle()["loss"].clone(), k
+        else:
+            loss, n = device_train_step(
+                state, optimizer, source.data, arrays, b * B, plan.n_real,
+                alpha, batch_size=B, seg_len=ds.seg_len, mesh=mesh)["loss"], 1
+        if not losses.push(loss, counts[b:b + n]):
+            break
+        b += n
+    losses.finish()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    seconds = time.perf_counter() - t0
-    loss_sum, count = 0.0, 0
-    for loss, rows in zip(losses, counts):
-        if not math.isfinite(loss):
-            return EpochStats(loss, count, len(losses), seconds,
-                              diverged=True)
-        loss_sum += loss * rows
-        count += rows
-    return EpochStats(loss_sum / max(count, 1), count, len(losses), seconds)
+    return losses.stats(time.perf_counter() - t0)
 
 
 def _map_table(sums: np.ndarray, counts: np.ndarray, pz2_var: float,
@@ -448,6 +531,22 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
             print(f"Resumed from {continue_from} at epoch {start_epoch} "
                   f"(step {state.step})")
 
+    k = config.train.steps_per_dispatch
+    bundle = None
+    if k > 1:
+        if mesh is not None:
+            raise NotImplementedError(
+                "--mesh with --steps-per-dispatch > 1 is not yet ported to "
+                "PyTorch (ROADMAP.md, item 10)")
+        inputs = (PlanInputs(source.data, train_loader.batch_size, seg_len)
+                  if source is not None else
+                  HostInputs(k, train_loader.batch_size, seg_len, dim, dev))
+        bundle = StepBundle(state, optimizer, alpha, k, inputs, dev)
+        if verbose:
+            print(f"{k} steps per dispatch"
+                  + (", replayed as one CUDA graph" if dev.type == "cuda"
+                     else ""))
+
     writer = MetricWriter(exp_dir, config.run_id()) if first else None
     extra = {"num_seqs": num_seqs, "feat_dim": dim, "seg_len": seg_len,
              "corpus_fingerprint": corpus_fp}
@@ -456,10 +555,10 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
     for epoch in range(start_epoch, config.train.epochs):
         if source is not None:
             stats = run_device_epoch(state, optimizer, source, train_loader,
-                                     alpha, dev, epoch, mesh)
+                                     alpha, dev, epoch, mesh, bundle)
         else:
             stats = run_epoch(state, optimizer, train_loader, alpha, dev,
-                              epoch, mesh)
+                              epoch, mesh, bundle)
         if stats.diverged:
             if first:
                 print("Training diverged")

@@ -4,14 +4,21 @@ One train step is forward (``FHVAE.apply`` with ``sample=True``), the loss
 ``-mean(lower_bound + alpha * log_qy)`` over real rows, backward (through
 the kernels' autograd Functions), a global-norm clip and Adam, as the JAX
 package's ``optax.chain(clip_by_global_norm(100), adam(lr, b1, b2))``.
-PyTorch runs eagerly, so there is nothing to compile; the state is updated in
-place.
+A step runs eagerly, or K of them replay as one CUDA graph
+(``train/graphs.py``); the state is updated in place.
 
 Noise: JAX draws each step's noise from ``fold_in(rng, step)``. Here each
-step seeds a fresh generator on the batch's device from ``(seed, step)``, so
+step seeds a generator on the batch's device from ``(seed, step)``, so
 a resumed run draws what an uninterrupted one would, and no generator state
 is saved. The two frameworks' generators give different numbers; the tests
 hand the JAX draws in through ``noise``.
+
+:func:`step_body` is the one definition of a step's device work, shared by
+the eager step (:func:`train_step`) and the K-step bundle that
+``train/graphs.py`` captures as a CUDA graph. It reads Adam's bias
+corrections from a device tensor and touches no host state (``count``,
+``step``): a capture runs the Python once, so a host value read or
+incremented inside it would be frozen at capture time.
 
 On a mesh of ranks (``parallel/mesh.py``) the same functions take this
 rank's batch rows and a ``mesh``: the loss divides by the whole batch's
@@ -85,13 +92,40 @@ class Optimizer:
     grad_clip_norm: float | None = 100.0
     eps: float = 1e-8
 
+    def bias_corrections(self, count: int, n: int = 1,
+                         device="cpu") -> np.ndarray:
+        """``[n, 2]`` fp32: the operands of Adam's bias corrections ``(1 -
+        b1^c, 1 - b2^c)`` for the update counts ``c = count + 1 .. count +
+        n`` on ``device``. Each correction is computed on the host as
+        optax's fp32 arithmetic gives it, and its operand is what
+        ``_foreach_div`` by that host float uses on ``device`` (see
+        :func:`unbias`), so a step gives the same bits with its
+        corrections on the device as with host floats."""
+        one = np.float32(1.0)
+        bc = np.array([[float(one - np.float32(b) ** np.int32(c))
+                        for b in (self.beta_one, self.beta_two)]
+                       for c in range(count + 1, count + n + 1)])
+        if torch.device(device).type == "cuda":
+            bc = 1.0 / bc
+        return bc.astype(np.float32)
+
     @torch.no_grad()
     def update(self, state: TrainState, grads: dict[str, torch.Tensor],
-               mesh=None):
+               mesh=None, bc: torch.Tensor | None = None):
+        """One update of ``state``'s parameters and moments in place.
+        ``bc``: this update's :meth:`bias_corrections`, a ``[2]`` fp32
+        tensor on the parameters' device, with which the update touches no
+        host state (the K-step bundle's form). Without it this is the next
+        update of ``state.count``: the corrections come from the host and
+        the count goes up by one."""
         names = state.names
         params = state.params()
         p = [params[n] for n in names]
         g = [grads[n] for n in names]
+        if bc is None:
+            bc = host_to_device(self.bias_corrections(
+                state.count, device=p[0].device)[0], p[0].device)
+            state.count += 1
         if self.grad_clip_norm is not None:
             squares = [torch.sum(x * x) for x in g]
             if mesh is not None:
@@ -110,14 +144,30 @@ class Optimizer:
         torch._foreach_add_(mu, g, alpha=1.0 - b1)
         torch._foreach_mul_(nu, b2)
         torch._foreach_add_(nu, torch._foreach_mul(g, g), alpha=1.0 - b2)
-        state.count += 1
-        one = np.float32(1.0)
-        bc1 = float(one - np.float32(b1) ** np.int32(state.count))
-        bc2 = float(one - np.float32(b2) ** np.int32(state.count))
-        denom = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
+        denom = torch._foreach_sqrt(unbias(nu, bc[1]))
         torch._foreach_add_(denom, self.eps)
-        torch._foreach_add_(p, torch._foreach_div(
-            torch._foreach_div(mu, bc1), denom), alpha=-self.learning_rate)
+        torch._foreach_add_(p, torch._foreach_div(unbias(mu, bc[0]), denom),
+                            alpha=-self.learning_rate)
+
+
+def unbias(xs: list, operand: torch.Tensor) -> list:
+    """``xs`` divided by a bias correction whose operand
+    (:meth:`Optimizer.bias_corrections`) is on their device, bit for bit as
+    ``torch._foreach_div(xs, correction)`` by the host float: on CUDA that
+    multiplies by the fp32 rounding of the float's reciprocal (taken in
+    double), on the CPU it divides by the float's fp32 rounding."""
+    if operand.is_cuda:
+        return torch._foreach_mul(xs, operand)
+    return torch._foreach_div(xs, operand)
+
+
+def host_to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device`` without waiting for the device: on a GPU
+    a pinned copy and an asynchronous transfer."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if torch.device(device).type == "cpu":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def make_optimizer(learning_rate: float, beta_one: float, beta_two: float,
@@ -132,21 +182,29 @@ def noise_seed(seed: int, step: int) -> int:
     return ((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF)
 
 
+def draw_noise(model, generator: torch.Generator, batch: int,
+               device: torch.device) -> dict[str, torch.Tensor]:
+    """One step's reparameterization noise from ``generator``: z2's draw,
+    then z1's."""
+    return {"z2": torch.randn((batch, model.z2_dim), generator=generator,
+                              device=device),
+            "z1": torch.randn((batch, model.z1_dim), generator=generator,
+                              device=device)}
+
+
 def step_noise(state: TrainState, batch: int, device: torch.device,
                mesh=None) -> dict[str, torch.Tensor]:
     """This step's reparameterization noise: z2's draw, then z1's. With a
     ``mesh``, ``batch`` is this rank's row count: the draw is the whole
     batch's and the rank keeps its rows."""
-    model = state.model
     g = torch.Generator(device=device)
     g.manual_seed(noise_seed(state.seed, state.step))
     rows = slice(None)
     if mesh is not None:
         batch *= mesh.shape[0]
         rows = mesh.local_rows(batch)
-    eps2 = torch.randn((batch, model.z2_dim), generator=g, device=device)
-    eps1 = torch.randn((batch, model.z1_dim), generator=g, device=device)
-    return {"z2": eps2[rows], "z1": eps1[rows]}
+    eps = draw_noise(state.model, g, batch, device)
+    return {k: v[rows] for k, v in eps.items()}
 
 
 def _sum_over_data(mesh, grads: list, metrics: dict):
@@ -162,6 +220,26 @@ def _sum_over_data(mesh, grads: list, metrics: dict):
     return out[:len(grads)], dict(zip(metrics, out[len(grads):]))
 
 
+def step_body(state: TrainState, optimizer: Optimizer, feats, seq_idx, nsegs,
+              weight, alpha: float, noise: dict, mesh=None,
+              bc: torch.Tensor | None = None) -> dict:
+    """A step's device work: forward, loss, backward, clip and Adam in
+    place; returns the step's metrics (0-dim tensors on the batch's device,
+    keys ``METRIC_KEYS``). With ``bc`` (see :meth:`Optimizer.update`) it
+    touches no host state."""
+    out = state.model.apply(feats, seq_idx, nsegs, sample=True, noise=noise)
+    loss, metrics = loss_from_outputs(out, weight, alpha, mesh)
+    params = state.params()
+    grads = torch.autograd.grad(loss, list(params.values()),
+                                allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(params.values(), grads)]
+    if mesh is not None:
+        grads, metrics = _sum_over_data(mesh, grads, metrics)
+    optimizer.update(state, dict(zip(params, grads)), mesh, bc)
+    return {k: v.detach() for k, v in metrics.items()}
+
+
 def train_step(state: TrainState, optimizer: Optimizer, feats, seq_idx, nsegs,
                weight, alpha: float, noise: dict | None = None,
                mesh=None) -> dict:
@@ -172,18 +250,10 @@ def train_step(state: TrainState, optimizer: Optimizer, feats, seq_idx, nsegs,
     whole batch's, the same on every rank."""
     if noise is None:
         noise = step_noise(state, feats.shape[0], feats.device, mesh)
-    out = state.model.apply(feats, seq_idx, nsegs, sample=True, noise=noise)
-    loss, metrics = loss_from_outputs(out, weight, alpha, mesh)
-    params = state.params()
-    grads = torch.autograd.grad(loss, list(params.values()),
-                                allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
-             for p, g in zip(params.values(), grads)]
-    if mesh is not None:
-        grads, metrics = _sum_over_data(mesh, grads, metrics)
-    optimizer.update(state, dict(zip(params, grads)), mesh)
+    metrics = step_body(state, optimizer, feats, seq_idx, nsegs, weight,
+                        alpha, noise, mesh)
     state.step += 1
-    return {k: v.detach() for k, v in metrics.items()}
+    return metrics
 
 
 @torch.inference_mode()

@@ -859,3 +859,215 @@ def test_batched_features_on_the_card_match_the_cpu(cuda):
     with pytest.raises(NotImplementedError, match="never"):
         dsp_torch.batched_features(y, lengths, sr=16000, device=cuda,
                                    fbank_pallas="never")
+
+
+# ------------------------------------------------ the K-step bundle's graph
+
+BUNDLE_K, BUNDLE_B, BUNDLE_T, BUNDLE_D = 3, 64, 20, 80
+
+
+def bundle_case(cuda, tier, seed=7):
+    """Two train states at one seeded model of the CLI's widths (bf16, H
+    128: the tensor-core forms), a host loader of ``BUNDLE_B``-row batches
+    over a seeded store, the store staged on the card with epoch 0's plan,
+    and the K-step bundle's inputs for ``tier``."""
+    from pytorch_scalablefhvae_tpu_torch.data.device_store import (
+        DeviceDataSource,
+    )
+    from pytorch_scalablefhvae_tpu_torch.data.feature_store import (
+        FeatureStore,
+    )
+    from pytorch_scalablefhvae_tpu_torch.data.loader import SegmentLoader
+    from pytorch_scalablefhvae_tpu_torch.data.segments import SegmentDataset
+    from pytorch_scalablefhvae_tpu_torch.models.fhvae import FHVAE
+    from pytorch_scalablefhvae_tpu_torch.train.device_step import PlanInputs
+    from pytorch_scalablefhvae_tpu_torch.train.graphs import HostInputs
+    from pytorch_scalablefhvae_tpu_torch.train.step import create_train_state
+
+    rng = np.random.default_rng(seed)
+    store = FeatureStore.from_arrays({
+        f"s{i}": rng.standard_normal((n, BUNDLE_D)).astype(np.float32)
+        for i, n in enumerate(rng.integers(60, 160, 80))})
+    ds = SegmentDataset(store, seg_len=BUNDLE_T, seg_shift=8)
+    loader = SegmentLoader(ds, BUNDLE_B, shuffle=True, seed=0, prefetch=0)
+    source = DeviceDataSource(store, cuda)
+    plan, arrays = source.stage_epoch(ds, loader._order(), BUNDLE_B)
+    assert plan.n_batches >= 3 * BUNDLE_K
+    model = FHVAE(BUNDLE_T * BUNDLE_D, num_seqs=ds.num_seqs,
+                  feat_dim=BUNDLE_D,
+                  generator=torch.Generator().manual_seed(seed))
+    states = []
+    for _ in range(2):
+        m = FHVAE(BUNDLE_T * BUNDLE_D, num_seqs=ds.num_seqs,
+                  feat_dim=BUNDLE_D)
+        m.load_state_dict(model.state_dict())
+        states.append(create_train_state(m.to(cuda), seed=3))
+    if tier == "host":
+        inputs = HostInputs(BUNDLE_K, BUNDLE_B, BUNDLE_T, BUNDLE_D, cuda)
+    else:
+        inputs = PlanInputs(source.data, BUNDLE_B, BUNDLE_T)
+        inputs.load_plan(arrays, plan.n_real)
+    return states, list(loader), (source, plan, arrays), inputs
+
+
+def load_dispatch(tier, inputs, batches, d):
+    """Dispatch ``d``'s inputs: batches ``d*K .. d*K + K - 1``."""
+    if tier == "host":
+        inputs.load(batches[d * BUNDLE_K:(d + 1) * BUNDLE_K])
+    else:
+        inputs.set_base(d * BUNDLE_K * BUNDLE_B)
+
+
+@pytest.mark.parametrize("tier", ["host", "device"])
+def test_bundle_graph_replay_equals_eager_steps(cuda, tier):
+    """Three dispatches of K = 3 (eager, captured and replayed, replayed)
+    against nine eager steps from the same state: the same losses and the
+    same parameters and moments, bit for bit; every dispatch counts the
+    launches of the eager one, all through the tensor-core forms."""
+    from pytorch_scalablefhvae_tpu_torch.train.device_step import (
+        device_train_step,
+    )
+    from pytorch_scalablefhvae_tpu_torch.train.graphs import (
+        StepBundle,
+        launch_counts,
+    )
+    from pytorch_scalablefhvae_tpu_torch.train.step import (
+        make_optimizer,
+        train_step,
+    )
+
+    states, batches, (source, plan, arrays), inputs = bundle_case(cuda, tier)
+    opt = make_optimizer(1e-3, 0.95, 0.999)
+    eager = []
+    for b in range(3 * BUNDLE_K):
+        if tier == "host":
+            m = train_step(states[0], opt, *(torch.from_numpy(a).to(cuda)
+                                             for a in (batches[b].feats,
+                                                       batches[b].seq_idx,
+                                                       batches[b].nsegs,
+                                                       batches[b].weight)),
+                           10.0)
+        else:
+            m = device_train_step(states[0], opt, source.data, arrays,
+                                  b * BUNDLE_B, plan.n_real, 10.0,
+                                  batch_size=BUNDLE_B, seg_len=BUNDLE_T)
+        eager.append(float(m["loss"]))
+    bundle = StepBundle(states[1], opt, 10.0, BUNDLE_K, inputs, cuda)
+    got, deltas = [], []
+    for d in range(3):
+        before = launch_counts()
+        load_dispatch(tier, inputs, batches, d)
+        got += bundle()["loss"].tolist()
+        after = launch_counts()
+        deltas.append({k: after[k] - n for k, n in before.items()
+                       if after[k] != n})
+    assert bundle.graph is not None
+    assert got == eager
+    assert deltas[0] == deltas[1] == deltas[2]
+    names = {e.__name__: n for (e, c), n in deltas[0].items()
+             if c == "launches"}
+    tc = {e.__name__: n for (e, c), n in deltas[0].items()
+          if c == "launches_tc"}
+    assert names["lstm2_tm_proj"] == tc["lstm2_tm_proj"] == 2 * BUNDLE_K
+    assert names["lstm2_tm"] == tc["lstm2_tm"] == BUNDLE_K
+    assert names["lstm2_tm_proj_bwd"] == tc["lstm2_tm_proj_bwd"] == \
+        2 * BUNDLE_K
+    assert names["lstm2_tm_bwd"] == tc["lstm2_tm_bwd"] == BUNDLE_K
+    assert names["discriminative_log_qy"] == BUNDLE_K
+    assert names["discriminative_log_qy_bwd"] == BUNDLE_K
+    a, b = states
+    assert a.step == b.step == a.count == b.count == 3 * BUNDLE_K
+    for n, p in a.params().items():
+        assert torch.equal(p, b.params()[n]), n
+        assert torch.equal(a.mu[n], b.mu[n]), n
+        assert torch.equal(a.nu[n], b.nu[n]), n
+
+
+def test_capture_leaves_host_state_and_counters(cuda):
+    """A capture runs nothing: the parameters, ``count``, ``step`` and every
+    launch counter stay as they were; the replay then counts K steps and
+    the capture's launches."""
+    from pytorch_scalablefhvae_tpu_torch.train.graphs import (
+        StepBundle,
+        launch_counts,
+    )
+    from pytorch_scalablefhvae_tpu_torch.train.step import make_optimizer
+
+    states, batches, _, inputs = bundle_case(cuda, "host")
+    st = states[0]
+    bundle = StepBundle(st, make_optimizer(1e-3, 0.95, 0.999), 10.0,
+                        BUNDLE_K, inputs, cuda)
+    load_dispatch("host", inputs, batches, 0)
+    bundle()  # the eager warm-up dispatch
+    torch.cuda.synchronize()
+    params = {n: p.detach().clone() for n, p in st.params().items()}
+    counts, host = launch_counts(), (st.count, st.step)
+    load_dispatch("host", inputs, batches, 1)
+    bundle.capture()
+    torch.cuda.synchronize()
+    assert launch_counts() == counts and (st.count, st.step) == host
+    for n, p in st.params().items():
+        assert torch.equal(p, params[n]), n
+    assert bundle.launch_deltas
+    bundle()
+    after = launch_counts()
+    assert (st.count, st.step) == (host[0] + BUNDLE_K, host[1] + BUNDLE_K)
+    assert {k: after[k] - n for k, n in counts.items() if after[k] != n} \
+        == bundle.launch_deltas
+    assert any(not torch.equal(p, params[n]) for n, p in st.params().items())
+
+
+def test_generators_in_a_graph_draw_step_noise(cuda):
+    """K generators registered with a graph and seeded before each replay
+    from (seed, step + i) draw what ``step_noise`` draws for each step."""
+    from pytorch_scalablefhvae_tpu_torch.models.fhvae import FHVAE
+    from pytorch_scalablefhvae_tpu_torch.train.step import (
+        create_train_state,
+        draw_noise,
+        noise_seed,
+        step_noise,
+    )
+
+    st = create_train_state(FHVAE(BUNDLE_T * 8, feat_dim=8).to(cuda), seed=11)
+    gens = [torch.Generator(device=cuda) for _ in range(BUNDLE_K)]
+    for g in gens:
+        g.manual_seed(0)
+        draw_noise(st.model, g, BUNDLE_B, cuda)  # warm-up outside the graph
+    graph = torch.cuda.CUDAGraph()
+    for g in gens:
+        graph.register_generator_state(g)
+    with torch.cuda.graph(graph):
+        drawn = [draw_noise(st.model, g, BUNDLE_B, cuda) for g in gens]
+    for first in (0, 7, 123_456):
+        for i, g in enumerate(gens):
+            g.manual_seed(noise_seed(st.seed, first + i))
+        graph.replay()
+        for i in range(BUNDLE_K):
+            st.step = first + i
+            want = step_noise(st, BUNDLE_B, cuda)
+            for key in ("z2", "z1"):
+                assert torch.equal(drawn[i][key], want[key]), (first, i, key)
+
+
+def test_bias_corrections_on_the_card_divide_as_the_host_floats_did(cuda):
+    """On CUDA ``_foreach_div`` by a host float multiplies by the fp32
+    rounding of its reciprocal, which is the operand the bias corrections
+    take on the card: applying them gives the same bits."""
+    from pytorch_scalablefhvae_tpu_torch.train.step import (
+        make_optimizer,
+        unbias,
+    )
+
+    opt = make_optimizer(1e-3, 0.95, 0.999)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    xs = [torch.rand(n, generator=g, device=cuda) * 1e-3
+          for n in (7, 512, 65536)]
+    counts = [*range(300), 9_999, 123_455]
+    ops = torch.from_numpy(np.concatenate(
+        [opt.bias_corrections(c, device=cuda) for c in counts])).to(cuda)
+    for row, c in enumerate(counts):
+        for j, b in enumerate((0.95, 0.999)):
+            host = float(np.float32(1.0) - np.float32(b) ** np.int32(c + 1))
+            got = unbias(xs, ops[row, j])
+            want = torch._foreach_div(xs, host)
+            assert all(torch.equal(a, w) for a, w in zip(got, want)), (c, j)

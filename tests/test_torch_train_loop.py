@@ -200,7 +200,7 @@ def test_divergence_exits_2(corpus, tmp_path, capsys):
     ["--hierarchical"],
     pytest.param(["--mesh", "2,1", "--shard-device-store"], id="--mesh 2,1"),
     ["--ckpt-backend", "orbax"],
-    ["--legacy"], ["--steps-per-dispatch", "4"], ["--ckpt-every-steps", "5"],
+    ["--legacy"], ["--ckpt-every-steps", "5"],
     ["--max-steps", "3"], ["--profile-dir", "prof"], ["--tensorboard"],
     ["--visdom"], ["--log-params"], ["--model-type", "simple_fhvae"],
     ["--epoch-plan", "device"], ["--data-placement", "stream"],
@@ -209,7 +209,8 @@ def test_divergence_exits_2(corpus, tmp_path, capsys):
 def test_unported_flag_raises(corpus, tmp_path, flags):
     """(``--mesh`` itself runs now: ``tests/test_torch_parallel.py``; what
     still raises on a mesh is a store sharded over it, hierarchical rounds
-    and K-step dispatch.)"""
+    and K-step dispatch. ``--steps-per-dispatch`` on one device runs:
+    ``tests/test_torch_multi_step.py``.)"""
     with pytest.raises(NotImplementedError):
         main(train_args(corpus, tmp_path, *flags))
 
