@@ -131,6 +131,27 @@ prints no result line):
    must equal phase 4's bit for bit, whose resumed run continues the step
    count, whose device runs count the launches of phase 4's, and whose
    every LSTM launch took the tensor-core form;
+4s. the streamed tier and compressed staging (``data/stream_store.py``,
+   ``--transfer-dtype``). 4s-check, on phase 4's corpus with
+   ``--device-store-max-bytes`` 96 MiB, over which ``auto`` streams the
+   370 MB store in ~16 chunks of 24 MiB: one streamed epoch in each of
+   float32, bfloat16 and int8 through the CLI against a host replay of the
+   same schedule (windows cut by the numpy store gather; bfloat16 rounded
+   by torch; int8 dequantized per chunk), bit for bit in train loss, dev
+   bound and every tensor of the checkpoint, the bfloat16 run's dev MAP pass
+   launching #8 on bf16 rows; K = 8 against K = 1 bit for bit and a
+   resumed streamed run continuing the step count; bfloat16 and int8 on the
+   device-resident tier, finite, their gaps from float32 logged. 4s-big,
+   the CLI defaults over the default 4 GiB budget: a synthetic corpus of
+   10,000 training sequences of 1,000-1,900 frames (~4.6 GB in float32)
+   and 400 dev ones; one epoch with no placement flags (``auto`` streams ~5
+   chunks of 1 GiB), one at K = 8, one from the host loader at K = 8 and
+   one at ``--transfer-dtype bfloat16`` and K = 8 (staged whole): ms/step,
+   segments/s and link bytes an epoch of each, the idle share of 10 warm
+   dispatches of each tier (torch.profiler), and the host's and the
+   compute stream's waits at each chunk switch of a K = 8 epoch. Every LSTM
+   launch of the phase's train runs took the tensor-core form, and each of
+   the seven train entries was launched;
 4b. ``eval`` and ``probe`` of phase 4's experiment through the port's CLI
    (dev split, 400 sequences, batch 2048): the three forward kernel entries
    launched, every LSTM launch through the tensor-core form; the eval's dev
@@ -180,15 +201,19 @@ The second-to-last line of stdout is a JSON object with one entry per
 kernel entry. ``launches`` sums ``launches_by_path``: the counts of the
 ``extractor: "jax"`` serve run (``serve``), the numpy-extractor serve run
 (``serve_numpy``), the CLI extraction (``preprocess``), the train runs
-(``train``), phase 4k's train runs at K = 8 (``train_k8``), the eval of
-phase 4b (``eval``) and the mesh run's rank 0
+(``train``), phase 4k's train runs at K = 8 (``train_k8``), phase 4s's
+runs on the streamed tier (``train_stream``: the sum over those seven runs,
+each counted alone; its device-tier, host-loader and whole-bf16 runs are
+not counted), the eval of phase 4b (``eval``) and the mesh run's rank 0
 (``mesh``: the ``2,2`` epoch), each set to 0 just before its path and read
 just after. ``ms``
 and ``plain_ms`` are the bf16-operand times of an LSTM entry's heaviest form,
 and for ``windowed_chunk_gather``, ``fused_logmel_frames`` and the two
 discriminative forward entries the device time per call by torch.profiler
 (those two also carry ``events_ms``, the calls back to back by CUDA events,
-and ``by_shape``, every shape they were timed at); ``bound_ms`` is the least time the card could
+and ``by_shape``, every shape they were timed at;
+``windowed_chunk_gather`` carries ``by_dtype``, its bfloat16-row form's
+numbers); ``bound_ms`` is the least time the card could
 take for the same inputs (their bytes once over 3.35 TB/s, or the products'
 operations over 989 TFLOP/s for bf16 operands and 67 TFLOP/s for fp32,
 whichever is larger; ``bound_by`` says which); ``library_ms`` times the one
@@ -209,6 +234,7 @@ nvidia-smi's name and power limit; the last line is
 from __future__ import annotations
 
 import copy
+import dataclasses
 import io
 import json
 import os
@@ -1507,9 +1533,61 @@ def phase_gather() -> dict:
                 "form": f"C=128, {form}",
                 **bound(moved + starts.numel() * 8, 0, "float32"),
                 "library_ms": library_ms}
+        if form.startswith("100,000"):
+            results["windowed_chunk_gather"]["by_dtype"] = {
+                "bfloat16": gather_bf16(store, starts)}
         del store, got, again, want
         torch.cuda.empty_cache()
     return results
+
+
+def gather_bf16(store32, starts) -> dict:
+    """``windowed_chunk_gather`` on the same store staged in bfloat16 (the
+    dev split at ``--transfer-dtype bfloat16``): equal to its plain version
+    bit for bit and between two launches, one ``launches_bf16`` counted a
+    launch; its time beside plain and ``index_select``, its bound by bytes
+    at 2 bytes an element."""
+    from pytorch_scalablefhvae_tpu_torch.ops.window_gather import (
+        windowed_chunk_gather,
+        windowed_chunk_gather_reference,
+    )
+
+    store = store32.to(torch.bfloat16)
+    region = (SPB - 1) * SHIFT + SEG
+
+    def kernel():
+        return windowed_chunk_gather(store, starts, SPB, SEG, SHIFT)
+
+    def plain():
+        return windowed_chunk_gather_reference(store, starts, SPB, SEG, SHIFT)
+
+    before = windowed_chunk_gather.launches_bf16
+    got, again, want = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    counted = windowed_chunk_gather.launches_bf16 - before
+    bits = got.view(torch.int16), want.view(torch.int16)
+    if not (got.dtype == torch.bfloat16 and torch.equal(*bits)
+            and torch.equal(got, again) and counted == 2):
+        raise AssertionError(
+            f"windowed_chunk_gather on bfloat16 rows differs from its plain "
+            f"version or between launches, or counted {counted} of 2 "
+            f"launches_bf16")
+    err = max_err(got.float(), want.float())
+    ms, plain_ms = device_ms(kernel), device_ms(plain)
+    idx = (starts[:, None, None]
+           + SHIFT * torch.arange(SPB, device="cuda")[None, :, None]
+           + torch.arange(SEG, device="cuda")[None, None, :]).reshape(-1)
+    library_ms = device_ms(lambda: torch.index_select(store, 0, idx))
+    moved = 128 * (region + SPB * SEG) * D * 2
+    log(f"windowed_chunk_gather [bfloat16 rows, 100,000-row store]: equal "
+        f"to the plain version bit for bit and between two launches; device "
+        f"time per call (profiler) kernel {ms:.4f} ms ({moved / ms / 1e6:.1f} "
+        f"GB/s of {moved / 1e6:.1f} MB read + written), plain "
+        f"{plain_ms:.4f} ms, torch.index_select by a ready index "
+        f"{library_ms:.4f} ms; card {smi_name_power()}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **bound(moved + starts.numel() * 8, 0, "bfloat16"),
+            "library_ms": library_ms, "form": "C=128, bf16 rows"}
 
 
 def voiced_frames(n: int, noise_db: float, seed: int = 4) -> torch.Tensor:
@@ -2418,8 +2496,9 @@ def train_entries():
 def reset_counts(entries) -> None:
     for e in entries:
         e.launches = 0
-        if hasattr(e, "launches_tc"):
-            e.launches_tc = 0
+        for counter in ("launches_tc", "launches_bf16"):
+            if hasattr(e, counter):
+                setattr(e, counter, 0)
 
 
 def tensor_core_counts(entries) -> dict:
@@ -2437,11 +2516,11 @@ def check_tensor_core(launches: dict, tc: dict, where: str) -> None:
                 f"took the tensor-core form")
 
 
-def seeded_model(cfg):
+def seeded_model(cfg, num_seqs: int = N_TABLE):
     """The model the CLI starts from (seed 0), on the card."""
     from pytorch_scalablefhvae_tpu_torch.models.base import build_model
 
-    return build_model("fhvae", cfg.data.seg_len * D, cfg.model, N_TABLE,
+    return build_model("fhvae", cfg.data.seg_len * D, cfg.model, num_seqs,
                        feat_dim=D,
                        generator=torch.Generator().manual_seed(0)).cuda()
 
@@ -2938,53 +3017,66 @@ def bundle_case(cfg, root: Path, tier: str, k: int):
     return bundle, dispatch
 
 
-def bundle_breakdown(cfg, root: Path) -> dict:
-    """Each tier's K-step dispatch as the epoch runners drive it (the
-    losses read one dispatch late): the eager first dispatch and the
-    capture timed on the host clock, then 10 warm replays under
-    torch.profiler, which must see the LSTM kernels inside them: host wall,
-    device busy and kernels per step, and the idle share."""
+def profiled_dispatches(dispatch, k: int) -> dict:
+    """``dispatch(d)`` (dispatch ``d`` of ``k`` steps issued, its losses on
+    the card returned) as the epoch runners drive it, the losses read one
+    dispatch late: the first dispatch (eager) and the second (a bundle's
+    capture and first replay) timed on the host clock, then 10 warm
+    dispatches under torch.profiler: host wall, device busy, copies and
+    kernels per step, and the LSTM chains the profiler saw."""
     from torch.profiler import ProfilerActivity, profile
 
+    t0 = time.perf_counter()
+    dispatch(0).tolist()
+    eager = (time.perf_counter() - t0) * 1e3 / k
+    t0 = time.perf_counter()
+    dispatch(1).tolist()
+    capture = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pending = None
+        for d in range(2, 12):
+            loss = dispatch(d)
+            if pending is not None:
+                pending.tolist()
+            pending = loss
+        pending.tolist()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / (10 * k)
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.device_time_total > 0]
+    kernels = [e for e in events
+               if not e.key.startswith(("Memcpy", "Memset"))]
+    busy = sum(e.device_time_total for e in events) / 1e3 / (10 * k)
+    return {"eager": eager, "capture": capture, "wall": wall, "busy": busy,
+            "idle": 1 - busy / wall,
+            "copies": sum(e.device_time_total for e in events
+                          if e.key.startswith("Memcpy")) / 1e3 / (10 * k),
+            "launches": sum(e.count for e in kernels) / (10 * k),
+            "chains": sum(e.count for e in kernels
+                          if "lstm2_fwd_chain" in e.key)}
+
+
+def bundle_breakdown(cfg, root: Path) -> dict:
+    """Each tier's K-step dispatch as the epoch runners drive it
+    (:func:`profiled_dispatches`); the profiler must see the LSTM kernels
+    inside the replays."""
     k, out = K_DISPATCH, {}
     for tier in ("host", "device"):
         bundle, dispatch = bundle_case(cfg, root, tier, k)
-        t0 = time.perf_counter()
-        dispatch(0).tolist()
-        eager = (time.perf_counter() - t0) * 1e3 / k
-        t0 = time.perf_counter()
-        dispatch(1).tolist()
-        capture = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            pending = None
-            for d in range(2, 12):
-                loss = dispatch(d)
-                if pending is not None:
-                    pending.tolist()
-                pending = loss
-            pending.tolist()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / (10 * k)
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and e.device_time_total > 0]
-        kernels = [e for e in events
-                   if not e.key.startswith(("Memcpy", "Memset"))]
-        busy = sum(e.device_time_total for e in events) / 1e3 / (10 * k)
-        copies = sum(e.device_time_total for e in events
-                     if e.key.startswith("Memcpy")) / 1e3 / (10 * k)
-        launches = sum(e.count for e in kernels) / (10 * k)
-        chains = sum(e.count for e in kernels if "lstm2_fwd_chain" in e.key)
-        log(f"{tier} tier, K = {k}: eager first dispatch {eager:.3f} ms/step "
-            f"(host wall), capture and first replay {capture:.3f} s; 10 warm "
-            f"replays ({10 * k} steps at batch {B_TRAIN}): host wall "
-            f"{wall:.3f} ms/step, profiler: device busy {busy:.3f} ms/step "
-            f"(copies {copies:.3f}), idle share {1 - busy / wall:.3f}, "
-            f"{launches:.1f} kernels a step; lstm2_fwd_chain seen {chains} "
-            f"times of {3 * 10 * k}; {B_TRAIN / wall * 1e3:.1f} segments/s; "
-            f"card {smi_name_power()}")
+        p = profiled_dispatches(dispatch, k)
+        wall, busy, chains = p["wall"], p["busy"], p["chains"]
+        launches = p["launches"]
+        log(f"{tier} tier, K = {k}: eager first dispatch {p['eager']:.3f} "
+            f"ms/step (host wall), capture and first replay "
+            f"{p['capture']:.3f} s; 10 warm replays ({10 * k} steps at batch "
+            f"{B_TRAIN}): host wall {wall:.3f} ms/step, profiler: device busy "
+            f"{busy:.3f} ms/step (copies {p['copies']:.3f}), idle share "
+            f"{p['idle']:.3f}, {launches:.1f} kernels a step; lstm2_fwd_chain "
+            f"seen {chains} times of {3 * 10 * k}; "
+            f"{B_TRAIN / wall * 1e3:.1f} segments/s; card {smi_name_power()}")
         if chains == 0:
             raise AssertionError("torch.profiler saw no LSTM kernel inside "
                                  "the graph replays")
@@ -3184,6 +3276,494 @@ def phase_train_k8(workdir: Path, cfg, runs: dict) -> dict:
     if not division_ok:
         raise AssertionError("the bias corrections as device scalars divide "
                              "to other bits than the host floats")
+    return launches
+
+
+# -------------------------------------------------------------- phase 4s
+
+STREAM_BUDGET = 96 << 20   # 4s-check: phase 4's 370 MB store streams in
+                           # chunks of a quarter of it, 24 MiB (~16)
+BIG_SEQS = {"train": 10_000, "dev": 400}   # 4s-big's corpus
+BIG_FRAMES = (1000, 1901)  # frames a sequence: LibriSpeech's 10-19 s
+                           # utterances at 100 frames a second
+
+
+def train_args(cfg, root: Path, exp_root: Path, *extra) -> list:
+    return ["train", "--dataset", "synthetic", "--preprocessed",
+            "--data-root", str(root), "--mvn-path", cfg.data.mvn_path,
+            "--exp-root", str(exp_root), *extra]
+
+
+def run_dir(exp_root: Path, epochs: int) -> Path:
+    return exp_root / "synthetic_np_fbank" / f"fhvae_e{epochs}_p10_a10.0"
+
+
+def metrics_of(exp_root: Path, epochs: int = 1) -> list[dict]:
+    return [json.loads(line) for line in
+            (run_dir(exp_root, epochs) / "metrics.jsonl").read_text()
+            .splitlines()]
+
+
+def streamed_run(counts: dict, name: str, run):
+    """``run()``, one CLI run on the streamed tier, counted alone: the train
+    entries' counts set to 0 just before it (:func:`reset_counts`) and read
+    just after, and added to ``counts`` (``launches``, ``tensor_core``:
+    entry name -> launches; ``bf16``: #8's on bfloat16 rows; ``runs``: the
+    names of the runs counted). Returns what ``run`` returns."""
+    from pytorch_scalablefhvae_tpu_torch.ops import window_gather
+
+    entries = train_entries()
+    reset_counts(entries)
+    out = run()
+    for key, read in (("launches", {e.__name__: e.launches
+                                    for e in entries}),
+                      ("tensor_core", tensor_core_counts(entries))):
+        total = counts.setdefault(key, {})
+        for entry, n in read.items():
+            total[entry] = total.get(entry, 0) + n
+    counts["bf16"] = (counts.get("bf16", 0)
+                      + window_gather.windowed_chunk_gather.launches_bf16)
+    counts.setdefault("runs", []).append(name)
+    return out
+
+
+def stream_config(cfg, dtype: str = "float32", budget: int = STREAM_BUDGET):
+    return cfg.replace(data=dataclasses.replace(
+        cfg.data, transfer_dtype=dtype, device_store_max_bytes=budget))
+
+
+def stream_replay(cfg, root: Path, dtype: str):
+    """Epoch 0 of a streamed run at ``STREAM_BUDGET`` in ``dtype``, replayed
+    from host batches: the run's stream schedule, windows cut by the numpy
+    store gather (bfloat16: rounded by torch; int8: cut from each chunk's
+    dequantized codes, ``quantize.dequantize``), padded as the host loader
+    pads, one eager step a batch from the seeded model; then the dev pass
+    as the run takes it (the split staged in ``dtype`` where it fits what
+    the stream's three chunks leave of the budget). Returns ``(train loss,
+    dev metrics, state, staged dev split or None)``."""
+    from pytorch_scalablefhvae_tpu_torch.data.quantize import (
+        dequantize,
+        quantize_columns,
+    )
+    from pytorch_scalablefhvae_tpu_torch.data.stream_store import (
+        StreamingDeviceSource,
+    )
+    from pytorch_scalablefhvae_tpu_torch.train import loop
+    from pytorch_scalablefhvae_tpu_torch.train.driver import build_loaders
+    from pytorch_scalablefhvae_tpu_torch.train.step import (
+        create_train_state,
+        make_optimizer,
+        train_step,
+    )
+
+    cfg = stream_config(cfg, dtype)
+    dev = torch.device("cuda")
+    loader, dev_loader = build_loaders(cfg, root, True)
+    ds, B = loader.dataset, loader.batch_size
+    # the run's chunks and schedule (host side only: staged on the CPU)
+    src = StreamingDeviceSource(ds, STREAM_BUDGET // 4, B,
+                                torch.device("cpu"), dtype)
+    state = create_train_state(seeded_model(cfg))
+    opt = make_optimizer(cfg.optim.learning_rate, cfg.optim.beta_one,
+                         cfg.optim.beta_two)
+    alpha = cfg.optim.alpha_dis
+    loss_sum, count, steps = 0.0, 0, 0
+    loader.set_epoch(0)
+    for spec, order in src.epoch_schedule(loop.stream_seed(loader, 0)):
+        frames = ds.store.data[spec.frame_base:spec.frame_base
+                               + spec.n_frames]
+        if dtype == "int8":
+            frames = dequantize(*quantize_columns(frames))
+        for b0 in range(0, len(order), B):
+            idx = order[b0:b0 + B]
+            real = len(idx)
+            idx = np.concatenate([idx, np.full(B - real, idx[0], idx.dtype)])
+            seq = ds.seq_idx[idx]
+            rel = ds.store.seq_starts[seq] + ds.starts[idx] - spec.frame_base
+            feats = torch.from_numpy(np.ascontiguousarray(
+                frames[rel[:, None] + np.arange(ds.seg_len)],
+                dtype=np.float32))
+            if dtype == "bfloat16":
+                feats = feats.to(torch.bfloat16)
+            weight = np.zeros(B, np.float32)
+            weight[:real] = 1.0
+            m = train_step(state, opt, feats.to(dev),
+                           torch.from_numpy(seq.astype(np.int32)).to(dev),
+                           torch.from_numpy(ds.nsegs[seq].astype(np.float32))
+                           .to(dev), torch.from_numpy(weight).to(dev), alpha)
+            loss_sum += float(m["loss"]) * real
+            count += real
+            steps += 1
+    split = loop.stage_dev_tier(
+        cfg, dev_loader, dev, 3 * src.chunk_rows * D * src.itemsize, False)
+    val = (loop.device_dev_pass(state.model, split, alpha) if split
+           else loop.dev_pass(state.model, dev_loader, alpha, dev))
+    return loss_sum / max(count, 1), val, state, split, steps
+
+
+def checkpoint_state(cfg, path: Path, num_seqs: int = N_TABLE):
+    """A train state at the seeded model loaded from a checkpoint."""
+    from pytorch_scalablefhvae_tpu_torch.train import checkpoint as ckpt
+    from pytorch_scalablefhvae_tpu_torch.train.step import create_train_state
+
+    state = create_train_state(seeded_model(cfg, num_seqs))
+    ckpt.load_train_state(path, state)
+    return state
+
+
+def states_differ(a, b) -> list:
+    """The names of the tensors (parameters, Adam moments) that differ."""
+    pa, pb = a.params(), b.params()
+    return [f"{kind}.{n}" for n in pa
+            for kind, x, y in (("param", pa[n], pb[n]),
+                               ("adam_mu", a.mu[n], b.mu[n]),
+                               ("adam_nu", a.nu[n], b.nu[n]))
+            if not torch.equal(x, y)]
+
+
+def stream_check(workdir: Path, cfg, counts: dict) -> None:
+    """4s-check on phase 4's corpus at ``STREAM_BUDGET``: the streamed
+    epoch against its host replay (float32, bfloat16, int8), K = 8 against
+    K = 1, a resumed streamed run, and bfloat16 and int8 on the device
+    tier against float32. The streamed runs' launches go into ``counts``
+    (:func:`streamed_run`); the device-tier runs are not counted."""
+    from pytorch_scalablefhvae_tpu_torch.cli.main import main as cli
+    from pytorch_scalablefhvae_tpu_torch.ops import window_gather
+
+    root = workdir / "data"
+    budget = ["--device-store-max-bytes", str(STREAM_BUDGET)]
+    results = {}
+    for dtype in ("float32", "bfloat16", "int8"):
+        exp_root = workdir / f"stream_{dtype}"
+        # at 1 byte an element the store (100.4 MB) fits the budget: int8
+        # streams by the flag
+        forced = ["--data-placement", "stream"] if dtype == "int8" else []
+        out = streamed_run(counts, f"4s-check {dtype}", lambda: run_cli(
+            cli, train_args(cfg, root, exp_root, *budget, *forced,
+                            "--transfer-dtype", dtype, "--epochs", "1")))
+        bf16_launches = window_gather.windowed_chunk_gather.launches_bf16
+        m = re.search(r"streams through the device \((\d+) chunks of "
+                      r"([\d.]+) MB", out)
+        if m is None or not (forced or "streaming it" in out):
+            raise AssertionError(f"the {dtype} store did not stream over a "
+                                 f"{STREAM_BUDGET} byte budget")
+        rec, = metrics_of(exp_root)
+        loss, val, state, split, steps = stream_replay(cfg, root, dtype)
+        ckpt_state = checkpoint_state(
+            cfg, run_dir(exp_root, 1) / "fhvae_synthetic_np_fbank_e0.npz")
+        differ = states_differ(ckpt_state, state)
+        log(f"4s-check {dtype}: {m[1]} chunks of {m[2]} MB; streamed epoch "
+            f"train loss {rec['train_loss']!r} vs host replay {loss!r}, dev "
+            f"LB {rec['val_lower_bound']!r} vs {val['lower_bound']!r} (dev "
+            f"split {'staged' if split else 'on the host'}); {rec['train_steps']}"
+            f" steps vs {steps}; checkpoint tensors differing from the "
+            f"replay's: {len(differ)} {differ[:3]}; #8 on bf16 rows "
+            f"launched {bf16_launches} times; "
+            f"{1e3 * rec['train_seconds'] / rec['train_steps']:.3f} ms/step")
+        if (rec["train_loss"] != loss or rec["val_lower_bound"]
+                != val["lower_bound"] or differ or rec["train_steps"] != steps):
+            raise AssertionError(f"the {dtype} streamed epoch differs from "
+                                 f"its host replay")
+        if (dtype == "bfloat16") != (bf16_launches > 0) or (
+                dtype == "bfloat16" and split is None):
+            raise AssertionError(f"the {dtype} run's dev MAP pass launched "
+                                 f"#8 on bf16 rows {bf16_launches} times")
+        results[dtype] = rec
+        del state, ckpt_state, split
+        torch.cuda.empty_cache()
+
+    # K = 8 equals K = 1, and a resumed streamed run continues the count
+    exp_k8 = workdir / "stream_k8"
+    out = streamed_run(counts, f"4s-check K = {K_DISPATCH}", lambda: run_cli(
+        cli, train_args(cfg, root, exp_k8, *budget, "--steps-per-dispatch",
+                        str(K_DISPATCH), "--epochs", "1")))
+    streamed_run(counts, "4s-check resumed", lambda: run_cli(cli, train_args(
+        cfg, root, exp_k8, *budget, "--continue-from",
+        str(run_dir(exp_k8, 1) / "fhvae_synthetic_np_fbank_e0.npz"),
+        "--resume-override", "epochs=2")))
+    k8 = metrics_of(exp_k8)
+    keys = ("train_loss", "train_steps", "step", "val_loss",
+            "val_lower_bound", "val_log_qy")
+    differ = [k for k in keys if k8[0][k] != results["float32"][k]]
+    with np.load(run_dir(exp_k8, 1) / "fhvae_synthetic_np_fbank_e0.npz") \
+            as a, np.load(run_dir(workdir / "stream_float32", 1)
+                          / "fhvae_synthetic_np_fbank_e0.npz") as b:
+        unequal = [key for key in a.files if key in b.files
+                   and a[key].dtype != object
+                   and not np.array_equal(a[key], b[key])]
+    steps = [r["step"] for r in k8]
+    n = k8[0]["train_steps"]
+    log(f"4s-check K = {K_DISPATCH} vs K = 1: train loss {k8[0]['train_loss']!r}"
+        f" vs {results['float32']['train_loss']!r}, differing keys {differ}, "
+        f"checkpoint arrays differing {unequal[:5]}; "
+        f"{1e3 * k8[0]['train_seconds'] / n:.3f} ms/step; resumed run's "
+        f"steps {steps}")
+    if differ or unequal or "replayed as one CUDA graph" not in out:
+        raise AssertionError(f"the streamed K = {K_DISPATCH} epoch differs "
+                             f"from K = 1")
+    if steps != [n, 2 * n]:
+        raise AssertionError(f"the resumed streamed run did not continue the "
+                             f"step count: {steps}")
+
+    # bfloat16 and int8 on the device-resident tier, against float32
+    device = {}
+    for dtype in ("float32", "bfloat16", "int8"):
+        exp_root = workdir / f"device_{dtype}"
+        out = run_cli(cli, train_args(cfg, root, exp_root,
+                                      "--data-placement", "device",
+                                      "--transfer-dtype", dtype,
+                                      "--epochs", "1"))
+        if "Training data device-resident" not in out:
+            raise AssertionError(f"--data-placement device did not stage the "
+                                 f"{dtype} store")
+        device[dtype], = metrics_of(exp_root)
+    f32 = device["float32"]
+    for dtype in ("bfloat16", "int8"):
+        r = device[dtype]
+        log(f"4s-check device tier {dtype}: train loss {r['train_loss']!r} "
+            f"(float32 {f32['train_loss']!r}, relative gap "
+            f"{abs(r['train_loss'] / f32['train_loss'] - 1):.3e}), dev LB "
+            f"{r['val_lower_bound']!r} (float32 {f32['val_lower_bound']!r}, "
+            f"gap {abs(r['val_lower_bound'] / f32['val_lower_bound'] - 1):.3e}"
+            f"); {1e3 * r['train_seconds'] / r['train_steps']:.3f} ms/step")
+        if not all(np.isfinite([r["train_loss"], r["val_lower_bound"]])):
+            raise AssertionError(f"the {dtype} device-tier epoch is not "
+                                 f"finite")
+
+
+def write_big_corpus(root: Path, seed: int = 1):
+    """4s-big's preprocessed corpus: ``BIG_SEQS`` sequences of
+    ``BIG_FRAMES`` frames of float32 normals (80 mels) around a per-sequence
+    offset, one array per sequence (no per-frame loops). Returns the run's
+    config and the training store's bytes."""
+    from pytorch_scalablefhvae_tpu_torch.config import (
+        DataConfig,
+        ExperimentConfig,
+        ModelConfig,
+    )
+    from pytorch_scalablefhvae_tpu_torch.train.driver import split_manifests
+
+    cfg = ExperimentConfig(
+        data=DataConfig(dataset="synthetic", mvn_path=str(root / "mvn.json"),
+                        training_batch_size=B_TRAIN),
+        model=ModelConfig(model_type="fhvae"))
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    frames = {}
+    for split, n in BIG_SEQS.items():
+        paths = split_manifests(cfg, root)[split]
+        d = paths["feat_pth"].parent
+        d.mkdir(parents=True)
+        lens = rng.integers(*BIG_FRAMES, n)
+        feats, lines = [], []
+        for i, n_frames in enumerate(lens):
+            x = rng.standard_normal((n_frames, D), dtype=np.float32)
+            x += 2.0 * rng.standard_normal((1, D), dtype=np.float32)
+            key = f"{split}_{i:05d}"
+            np.save(d / f"{key}.npy", x)
+            feats.append(f"{key} {d / (key + '.npy')}\n")
+            lines.append(f"{key} {n_frames}\n")
+        paths["feat_pth"].write_text("".join(feats))
+        paths["len_pth"].write_text("".join(lines))
+        frames[split] = int(lens.sum())
+    nbytes = frames["train"] * D * 4
+    log(f"4s-big corpus: {BIG_SEQS['train']} train sequences, "
+        f"{frames['train']} frames ({nbytes / 1e9:.3f} GB in float32), and "
+        f"{BIG_SEQS['dev']} dev sequences ({frames['dev']} frames), written "
+        f"in {time.perf_counter() - t0:.1f} s")
+    return cfg, nbytes
+
+
+def big_tier_profile(cfg, loader, tier: str, k: int) -> dict:
+    """10 warm dispatches of ``tier`` on the big corpus under torch.profiler
+    (:func:`profiled_dispatches`), at the CLI defaults: ``stream`` (chunk 0
+    of epoch 0, at K = 1 and K = 8, then a whole K = 8 epoch for the wait
+    at each chunk switch), ``host`` (the loader's batches), ``bf16`` (the
+    store staged whole in bfloat16); ``loader`` is the big corpus's
+    training loader."""
+    from pytorch_scalablefhvae_tpu_torch.data.device_store import (
+        DeviceDataSource,
+    )
+    from pytorch_scalablefhvae_tpu_torch.data.stream_store import (
+        StreamingDeviceSource,
+    )
+    from pytorch_scalablefhvae_tpu_torch.train import loop
+    from pytorch_scalablefhvae_tpu_torch.train.device_step import (
+        PlanInputs,
+        device_train_step,
+    )
+    from pytorch_scalablefhvae_tpu_torch.train.graphs import (
+        HostInputs,
+        StepBundle,
+    )
+    from pytorch_scalablefhvae_tpu_torch.train.step import (
+        create_train_state,
+        make_optimizer,
+    )
+
+    dev = torch.device("cuda")
+    dtype = "bfloat16" if tier == "bf16" else "float32"
+    ds = loader.dataset
+    state = create_train_state(seeded_model(cfg, ds.num_seqs))
+    opt = make_optimizer(1e-3, 0.95, 0.999)
+    loader.set_epoch(0)
+    chunks, out = None, {}
+    if tier == "host":
+        inputs = HostInputs(k, B_TRAIN, ds.seg_len, D, dev)
+        batches = iter(loader)
+    elif tier == "stream":
+        source = StreamingDeviceSource(ds, (4 << 30) // 4, B_TRAIN, dev)
+        chunks = source.epoch_batches(loop.stream_seed(loader, 0))
+        chunk = next(chunks)
+        store, arrays, n_real = source.data, chunk.arrays, chunk.plan.n_real
+        out["chunks"] = len(source.chunks)
+        out["link_bytes"] = source.host_bytes_per_epoch()
+    else:
+        source = DeviceDataSource(ds.store, dev, dtype)
+        plan, arrays = source.stage_epoch(ds, loader._order(), B_TRAIN)
+        store, n_real = source.data, plan.n_real
+    if tier != "host":
+        inputs = PlanInputs(store, B_TRAIN, ds.seg_len)
+        inputs.load_plan(arrays, n_real)
+    bundle = StepBundle(state, opt, 10.0, k, inputs, dev) if k > 1 else None
+
+    def dispatch(d: int) -> torch.Tensor:
+        if k == 1:
+            return device_train_step(state, opt, store, arrays, d * B_TRAIN,
+                                     n_real, 10.0, batch_size=B_TRAIN,
+                                     seg_len=ds.seg_len)["loss"]
+        if tier == "host":
+            inputs.load([next(batches) for _ in range(k)])
+        else:
+            inputs.set_base(d * k * B_TRAIN)
+        return bundle()["loss"].clone()
+
+    out.update(profiled_dispatches(dispatch, k))
+    if chunks is not None:
+        chunks.close()
+        if k > 1:
+            # a whole epoch through the captured bundle: the waits at each
+            # chunk switch
+            stats = loop.run_stream_epoch(state, opt, source, loader, 10.0,
+                                          dev, 0, bundle)
+            out["epoch_ms"] = 1e3 * stats.seconds / stats.steps
+            out["waits"] = source.switch_waits()
+    return out
+
+
+def stream_big(workdir: Path, counts: dict) -> dict:
+    """4s-big: the CLI defaults over the default budget on a corpus whose
+    fp32 store is over it. One epoch each: no placement flags (``auto``
+    streams ~5 chunks of 1 GiB), the same at K = 8, the host loader at K =
+    8 (what the port did before it could stream), and ``--transfer-dtype
+    bfloat16`` at K = 8 (the store fits at 2 bytes, and is staged whole);
+    ms/step, segments/s and link bytes an epoch of each, and the idle share
+    of 10 warm dispatches (torch.profiler) of each tier. The two streamed
+    runs' launches go into ``counts`` (:func:`streamed_run`); the host
+    loader's and the whole bfloat16 store's are not counted."""
+    from pytorch_scalablefhvae_tpu_torch.cli.main import main as cli
+
+    root = workdir / "big"
+    cfg, nbytes = write_big_corpus(root)
+    if nbytes <= 4 << 30:
+        raise AssertionError(f"the big corpus ({nbytes} bytes) is not over "
+                             f"the default budget")
+    k8 = ["--steps-per-dispatch", str(K_DISPATCH)]
+    runs = {"stream, K = 1": [], "stream, K = 8": k8,
+            "host loader, K = 8": ["--data-placement", "host", *k8],
+            "bfloat16, K = 8": ["--transfer-dtype", "bfloat16", *k8]}
+    want = {"stream, K = 1": "streaming it", "stream, K = 8": "streaming it",
+            "host loader, K = 8": None,
+            "bfloat16, K = 8": "staging it whole"}
+    seg_bytes = 20 * D * 4
+    out = {}
+    for i, (name, flags) in enumerate(runs.items()):
+        exp_root = workdir / f"big_{i}"
+        t0 = time.perf_counter()
+        args = train_args(cfg, root, exp_root, *flags, "--epochs", "1")
+        if want[name] == "streaming it":
+            text = streamed_run(counts, f"4s-big {name}",
+                                lambda: run_cli(cli, args))
+        else:
+            text = run_cli(cli, args)
+        wall = time.perf_counter() - t0
+        if want[name] is not None and want[name] not in text:
+            raise AssertionError(f"4s-big {name}: auto did not log "
+                                 f"{want[name]!r}")
+        m = re.search(r"streams through the device \((\d+) chunks of "
+                      r"([\d.]+) MB in float32, double-buffered; ([\d.]+) MB "
+                      r"over the link", text)
+        rec, = metrics_of(exp_root)
+        ms = 1e3 * rec["train_seconds"] / rec["train_steps"]
+        if m is not None:
+            link = f"{m[3]} MB ({m[1]} chunks of {m[2]} MB)"
+        elif name.startswith("host"):
+            link = (f"{rec['train_steps'] * B_TRAIN * seg_bytes / 1e6:.0f} "
+                    f"MB (every window's frames)")
+        else:
+            link = f"{nbytes / 2e6:.0f} MB once a run (the staged store)"
+        log(f"4s-big {name}: {rec['train_steps']} steps, {ms:.3f} ms/step, "
+            f"{rec['train_segments_per_sec']:.1f} segments/s, link {link}; "
+            f"train loss {rec['train_loss']:.4f}, dev LB "
+            f"{rec['val_lower_bound']:.4f}; {wall:.1f} s with loading; card "
+            f"{smi_name_power()}")
+        if not np.isfinite(rec["train_loss"]):
+            raise AssertionError(f"4s-big {name}: the loss is not finite")
+        out[name] = {"ms_per_step": ms, "steps": rec["train_steps"],
+                     "segments_per_s": rec["train_segments_per_sec"]}
+        if name == "stream, K = 1" and not (m and 4 <= int(m[1]) <= 6):
+            raise AssertionError("4s-big: auto did not stream about 5 chunks")
+    from pytorch_scalablefhvae_tpu_torch.train.driver import build_loaders
+
+    t0 = time.perf_counter()
+    loader, _ = build_loaders(cfg, root, True)
+    log(f"4s-big: the training store loaded in {time.perf_counter() - t0:.1f}"
+        f" s")
+    for tier, k in (("stream", 1), ("stream", K_DISPATCH),
+                    ("host", K_DISPATCH), ("bf16", K_DISPATCH)):
+        p = big_tier_profile(cfg, loader, tier, k)
+        waits = p.get("waits", [])
+        log(f"4s-big {tier} tier, K = {k}, 10 warm dispatches: host wall "
+            f"{p['wall']:.3f} ms/step, device busy {p['busy']:.3f} (copies "
+            f"{p['copies']:.3f}), idle share {p['idle']:.3f}, "
+            f"{p['launches']:.1f} kernels a step"
+            + (f"; a whole epoch through the captured bundle "
+               f"{p['epoch_ms']:.3f} ms/step; at the {len(waits)} chunk "
+               f"switches the host waited for the filler "
+               f"{[round(h * 1e3, 3) for h, _ in waits]} ms and the compute "
+               f"stream for the slot's copy "
+               f"{[round(ms, 3) for _, ms in waits]} ms" if waits else "")
+            + f"; card {smi_name_power()}")
+        if p["chains"] == 0:
+            raise AssertionError(f"torch.profiler saw no LSTM kernel in the "
+                                 f"{tier} tier's dispatches")
+        out[f"{tier} K={k}"] = p
+        torch.cuda.empty_cache()
+    del loader
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def phase_stream(workdir: Path, cfg) -> dict:
+    """Phase 4s: the streamed tier and compressed staging through the CLI;
+    returns the launches of its runs on the streamed tier
+    (``train_stream``), each counted alone (:func:`streamed_run`)."""
+    log("== phase 4s: sfhvae train, the streamed tier (--data-placement "
+        "auto over the budget) and --transfer-dtype bfloat16|int8")
+    counts: dict = {}
+    stream_check(workdir, cfg, counts)
+    stream_big(workdir, counts)
+    launches = counts["launches"]
+    log(f"launches during the phase's {len(counts['runs'])} streamed runs "
+        f"({', '.join(counts['runs'])}), each counted from 0: {launches}; of "
+        f"the LSTM entries', "
+        f"through the tensor-core form: {counts['tensor_core']}; #8 on bf16 "
+        f"rows: {counts['bf16']}")
+    check_tensor_core(launches, counts["tensor_core"], "the streamed runs")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched by phase 4s's "
+                                 f"streamed runs")
     return launches
 
 
@@ -3742,9 +4322,9 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", default=None,
                         help="comma-separated phases to run after phase 1 "
-                             "(2, 2f, 2b, 2c, 2d, 2e, 3, 3b, 4, 4k, 4b, 4q, "
-                             "5; 2 includes 2f, 4k and 4b need 4); default "
-                             "all")
+                             "(2, 2f, 2b, 2c, 2d, 2e, 3, 3b, 4, 4k, 4s, 4b, "
+                             "4q, 5; 2 includes 2f, 4k and 4b need 4); "
+                             "default all")
     only = parser.parse_args(argv).only
     only = None if only is None else set(only.split(","))
     if only is not None and "2" in only:
@@ -3778,7 +4358,7 @@ def main(argv=None) -> int:
             if not on("3"):
                 write_corpus(workdir / "wav")
             by_path["preprocess"] = phase_preprocess(workdir)
-        if on("4") or on("5"):
+        if on("4") or on("4s") or on("5"):
             t0 = time.perf_counter()
             cfg = write_feature_corpus(workdir / "data")
             log(f"corpus written in {time.perf_counter() - t0:.1f} s")
@@ -3789,6 +4369,8 @@ def main(argv=None) -> int:
         if on("4k"):
             by_path["train_k8"] = phase_train_k8(
                 workdir, cfg, {**runs, "launches": by_path["train"]})
+        if on("4s"):
+            by_path["train_stream"] = phase_stream(workdir, cfg)
         if on("4b"):
             by_path["eval"] = phase_eval(workdir)
         if on("4q"):
@@ -3815,7 +4397,7 @@ def main(argv=None) -> int:
                                  "bound_3xtf32_ms", "bound_form_ms",
                                  "dynamic_range_err", "library_dtype",
                                  "library_route", "library_fp32_ms",
-                                 "library_by_form")
+                                 "library_by_form", "by_dtype")
                if k in r}})
     if only is None:
         for k in kernels:

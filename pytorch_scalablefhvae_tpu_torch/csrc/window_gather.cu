@@ -2,27 +2,32 @@
 //
 // Replaces the TPU kernel pytorch_scalablefhvae_tpu/ops/window_gather_pallas.py:
 // windowed_chunk_gather (kernel body _kernel). For C chunk starts into a
-// row-major [N, D] float32 store it writes [C * spb, seg_len, D]:
+// row-major [N, D] store of any element size (float32, or bfloat16 for a
+// store staged at half the bytes) it writes [C * spb, seg_len, D]:
 //   out[c * spb + w, t, :] = store[chunk_starts[c] + w * stride + t, :]
 // and rows outside [0, N) read as zero. The spb windows of a chunk lie in one
 // contiguous region of (spb - 1) * stride + seg_len store rows, which is what
 // the dev MAP pass walks (consecutive windows of one sequence).
 //
 // What bounds it on the H100: bytes. On the dev MAP path (spb 16, seg_len 20,
-// stride 8, D 80) a chunk reads a 140-row region (44,800 B) and writes
-// 16 windows (102,400 B): there is no arithmetic, so the HBM rate on ~147 KB a
-// chunk is the bound; 128 chunks (one dev batch of 2048 windows) move 18.8 MB.
+// stride 8, D 80) a float32 chunk reads a 140-row region (44,800 B) and
+// writes 16 windows (102,400 B): there is no arithmetic, so the HBM rate on
+// ~147 KB a chunk is the bound; 128 chunks (one dev batch of 2048 windows)
+// move 18.8 MB, and half that in bfloat16.
 //
-// What the design does about it: one block per chunk. The block copies its
-// region into dynamic shared memory once with cp.async (16-byte copies when
-// D * 4 is a multiple of 16 and the store is 16-byte aligned, 4-byte copies
-// otherwise), so each store row is read from HBM once however many windows
-// overlap it. After a barrier it writes the windows with the same vector
-// width, consecutive threads on consecutive addresses: each window is
-// contiguous in shared memory and in the output. The TPU kernel's 128-lane
-// padding of the feature dim is not needed here and is not carried over; the
-// TPU kernel's double buffering across its sequential grid is replaced by the
-// many blocks the card keeps in flight.
+// What the design does about it: one block per chunk. The kernel moves rows
+// as bytes, so every element size takes the same path. The block copies its
+// region into dynamic shared memory once with cp.async, so each store row is
+// read from HBM once however many windows overlap it. The copy width is the
+// widest that divides a row and the alignment of the store and the output:
+// 16 bytes (D * 4 a multiple of 16 in float32; D * 2 in bfloat16, as at D 80
+// where a bf16 row is 160 bytes), else 4 bytes (the wrapper refuses a row or
+// an address that 4 does not divide). After a barrier it writes the windows
+// with the same width, consecutive threads on consecutive addresses: each
+// window is contiguous in shared memory and in the output. The TPU kernel's
+// 128-lane padding of the feature dim is not needed here and is not carried
+// over; the TPU kernel's double buffering across its sequential grid is
+// replaced by the many blocks the card keeps in flight.
 
 #include <cuda_runtime.h>
 
@@ -33,10 +38,16 @@ namespace {
 constexpr int kThreads = 256;
 
 template <int VEC>
-__device__ __forceinline__ void copy_async(float* smem, const float* gmem) {
-  const unsigned addr =
-      static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  if constexpr (VEC == 4) {
+struct Word;
+template <>
+struct Word<16> { using T = int4; };
+template <>
+struct Word<4> { using T = int; };
+
+template <int VEC>
+__device__ __forceinline__ void copy_in(char* smem, const char* gmem) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if constexpr (VEC == 16) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr),
                  "l"(gmem));
   } else {
@@ -45,51 +56,49 @@ __device__ __forceinline__ void copy_async(float* smem, const float* gmem) {
   }
 }
 
-// VEC floats per copy: 4 needs D % 4 == 0 and a 16-byte aligned store and
-// output, so that a vector never crosses a row and every address is aligned.
+// VEC bytes per copy: VEC divides the row's bytes, and the store and the
+// output are VEC-byte aligned, so that a copy never crosses a row and every
+// address is aligned.
 template <int VEC>
 __global__ void __launch_bounds__(kThreads) window_gather_kernel(
-    const float* __restrict__ store,        // [n_rows, D]
+    const char* __restrict__ store,         // [n_rows, row_bytes]
     const int* __restrict__ chunk_starts,   // [C]
-    float* __restrict__ out,                // [C * spb, seg_len, D]
-    long long n_rows, int D, int spb, int seg_len, int stride, int reg_rows) {
-  extern __shared__ __align__(16) float region[];  // [reg_rows, D]
+    char* __restrict__ out,                 // [C * spb, seg_len, row_bytes]
+    long long n_rows, int row_bytes, int spb, int seg_len, int stride,
+    int reg_rows) {
+  using W = typename Word<VEC>::T;
+  extern __shared__ __align__(16) char region[];  // [reg_rows, row_bytes]
   const long long start = chunk_starts[blockIdx.x];
-  const int n = reg_rows * D;
+  const int n = reg_rows * row_bytes;
 
   for (int i = threadIdx.x * VEC; i < n; i += kThreads * VEC) {
-    const long long row = start + i / D;
+    const long long row = start + i / row_bytes;
     if (row >= 0 && row < n_rows) {
-      copy_async<VEC>(region + i, store + row * D + (i % D));
+      copy_in<VEC>(region + i, store + row * row_bytes + (i % row_bytes));
     } else {
-#pragma unroll
-      for (int v = 0; v < VEC; ++v) region[i + v] = 0.0f;
+      *reinterpret_cast<W*>(region + i) = W{};
     }
   }
   asm volatile("cp.async.commit_group;\n");
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
 
-  const int win = seg_len * D;         // floats per window
-  const int total = spb * win;         // floats per chunk of output
-  float* dst = out + static_cast<long long>(blockIdx.x) * total;
+  const int win = seg_len * row_bytes;  // bytes per window
+  const int total = spb * win;          // bytes per chunk of output
+  char* dst = out + static_cast<long long>(blockIdx.x) * total;
   for (int i = threadIdx.x * VEC; i < total; i += kThreads * VEC) {
     const int w = i / win;
-    const int src = w * stride * D + (i - w * win);
-    if constexpr (VEC == 4) {
-      *reinterpret_cast<float4*>(dst + i) =
-          *reinterpret_cast<const float4*>(region + src);
-    } else {
-      dst[i] = region[src];
-    }
+    const int src = w * stride * row_bytes + (i - w * win);
+    *reinterpret_cast<W*>(dst + i) = *reinterpret_cast<const W*>(region + src);
   }
 }
 
 template <int VEC>
-int launch(const float* store, const int* starts, float* out, long long n_rows,
-           int D, int C, int spb, int seg_len, int stride, cudaStream_t st) {
+int launch(const char* store, const int* starts, char* out, long long n_rows,
+           int row_bytes, int C, int spb, int seg_len, int stride,
+           cudaStream_t st) {
   const int reg_rows = (spb - 1) * stride + seg_len;
-  const size_t smem = static_cast<size_t>(reg_rows) * D * sizeof(float);
+  const size_t smem = static_cast<size_t>(reg_rows) * row_bytes;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         window_gather_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -97,7 +106,7 @@ int launch(const float* store, const int* starts, float* out, long long n_rows,
     if (e != cudaSuccess) return e;
   }
   window_gather_kernel<VEC><<<C, kThreads, smem, st>>>(
-      store, starts, out, n_rows, D, spb, seg_len, stride, reg_rows);
+      store, starts, out, n_rows, row_bytes, spb, seg_len, stride, reg_rows);
   return cudaGetLastError();
 }
 
@@ -108,20 +117,29 @@ extern "C" {
 // The largest region (bytes of dynamic shared memory) a block may take.
 int sfhvae_window_gather_max_smem() { return 232448; }
 
-// store: [n_rows, D] fp32; chunk_starts: [C] int32; out: [C * spb, seg_len, D]
-// fp32. vec: 4 (16-byte copies; D % 4 == 0, store and out 16-byte aligned)
-// or 1. Returns the cudaError_t of the launch.
+// store: [n_rows, row_bytes / element size] of any element size;
+// chunk_starts: [C] int32; out: [C * spb, seg_len, the same row]. vec: the
+// bytes of one copy, 16 or 4 (row_bytes a multiple of it, store and out
+// aligned to it). Returns the cudaError_t of the launch, or
+// cudaErrorInvalidValue for another vec.
 int sfhvae_window_gather(const void* store, const void* chunk_starts,
-                         void* out, long long n_rows, int D, int C, int spb,
-                         int seg_len, int stride, int vec, void* stream) {
+                         void* out, long long n_rows, int row_bytes, int C,
+                         int spb, int seg_len, int stride, int vec,
+                         void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* s = static_cast<const float*>(store);
+  const char* s = static_cast<const char*>(store);
   const int* cs = static_cast<const int*>(chunk_starts);
-  float* o = static_cast<float*>(out);
-  if (vec == 4) {
-    return launch<4>(s, cs, o, n_rows, D, C, spb, seg_len, stride, st);
+  char* o = static_cast<char*>(out);
+  switch (vec) {
+    case 16:
+      return launch<16>(s, cs, o, n_rows, row_bytes, C, spb, seg_len, stride,
+                        st);
+    case 4:
+      return launch<4>(s, cs, o, n_rows, row_bytes, C, spb, seg_len, stride,
+                       st);
+    default:
+      return cudaErrorInvalidValue;
   }
-  return launch<1>(s, cs, o, n_rows, D, C, spb, seg_len, stride, st);
 }
 
 }  // extern "C"

@@ -1,32 +1,34 @@
 """Device-resident training data: the packed store staged on the device.
 
 Counterpart of ``pytorch_scalablefhvae_tpu/data/device_store.py``. The
-packed ``[frames, D]`` float32 store is copied to the device once per run,
-with ``STORE_TAIL_SLACK`` zero rows after it (the chunked window gather
-reads whole regions that may run past the last sequence); each epoch then
-uploads only its index plan, and every step gathers its segments on the
-device (``train/device_step.py``).
+packed ``[frames, D]`` store is copied to the device once per run in the
+run's transfer dtype (float32; bfloat16; or int8, as per-column affine
+``uint8`` rows with their fp32 ``scale`` and ``offset``, a
+:class:`Quantized`), with ``STORE_TAIL_SLACK`` zero rows after it (the
+chunked window gather reads whole regions that may run past the last
+sequence); each epoch then uploads only its index plan, and every step
+gathers its segments on the device (``train/device_step.py``). A store over
+the budget streams through the device instead (``data/stream_store.py``).
 
 The host-side pieces are this package's own numpy copies of the JAX
 package's: ``EpochPlan``, ``build_epoch_plan``, ``STORE_TAIL_SLACK``,
-``staging_itemsize`` and ``resolve_data_placement`` (its
-``data/device_store.py``) and ``resolve_data_mode`` (its
-``data/stream_store.py``). :func:`resolve_tier` picks the run's tier from
-them. Not ported yet (``ROADMAP.md``): the streamed tier, bfloat16/int8
-staging, the on-device epoch plan (``make_device_epoch_plan``) and a store
-sharded over a mesh (``--shard-device-store``): on a mesh every rank stages
-the whole store, the JAX package's default, and gathers its rows of each
-planned batch from it.
+``staging_itemsize`` and ``resolve_data_placement``. Not ported yet
+(``ROADMAP.md``): the on-device epoch plan (``make_device_epoch_plan``) and
+a store sharded over a mesh (``--shard-device-store``): on a mesh every
+rank stages the whole store, the JAX package's default, and gathers its
+rows of each planned batch from it; a mesh stages float32 only.
 """
 
 from __future__ import annotations
 
 import warnings
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from pytorch_scalablefhvae_tpu_torch.data.quantize import quantize_columns
 from pytorch_scalablefhvae_tpu_torch.data.segments import SegmentDataset
 
 # zero rows appended to the staged pack: the chunked window gather
@@ -167,100 +169,67 @@ def resolve_data_placement(
     raise ValueError(f"Unknown data_placement {placement!r}")
 
 
-def resolve_data_mode(
-    placement: str,
-    store,
-    mesh=None,
-    shard_store: bool = False,
-    max_bytes: int = 4 << 30,
-    legacy: bool = False,
-    store_dtype: str = "float32",
-    hierarchical: bool = False,
-) -> str:
-    """Decide the run's data tier: ``"device"`` (whole store staged),
-    ``"stream"`` (chunked double-buffered staging), or ``"host"``.
-
-    ``auto`` picks device iff the packed bytes fit the budget (scaled by the
-    model-axis size when row-sharded), else stream — unless the run is
-    legacy (per-batch log/break semantics) or hierarchical (round subsets
-    re-sample sequences across the whole pack, so chunk streaming does not
-    compose), which fall back to host.
-    """
-    if placement == "stream":
-        if legacy:
-            raise ValueError("data_placement=stream is incompatible with "
-                             "legacy per-step epochs; use host")
-        if hierarchical:
-            # chunk streaming does not compose with hierarchical sampling
-            # (round subsets re-sample sequences across the whole pack)
-            return "host"
-        return "stream"
-    if placement == "auto" and not legacy and not hierarchical:
-        if resolve_data_placement("auto", store, mesh, shard_store=shard_store,
-                                  max_bytes=max_bytes, legacy=legacy,
-                                  store_dtype=store_dtype):
-            return "device"
-        return "stream"
-    if placement == "device" and hierarchical and not legacy:
-        # an over-budget pack is not a hard config error for hier runs: the
-        # unit that must fit is ONE round's sub-pack
-        if resolve_data_placement("auto", store, mesh, shard_store=shard_store,
-                                  max_bytes=max_bytes, legacy=legacy,
-                                  store_dtype=store_dtype):
-            return "device"
-        return "host"
-    fits = resolve_data_placement(placement, store, mesh,
-                                  shard_store=shard_store,
-                                  max_bytes=max_bytes, legacy=legacy,
-                                  store_dtype=store_dtype)
-    return "device" if fits else "host"
+STAGING_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                  "int8": torch.uint8}
 
 
-def resolve_tier(placement: str, store, max_bytes: int,
-                 verbose: bool = True) -> str:
-    """The run's data tier, ``"device"`` or ``"host"``, as
-    ``resolve_data_mode`` decides it on one device: ``host`` is the loader;
-    ``device`` stages the store or raises its ``ValueError`` when it
-    is over ``max_bytes``; ``auto`` stages it when it fits. Where ``auto``
-    would stream (over budget), the streamed tier is not ported, so the run
-    keeps the host loader and says so (where ``verbose``: one rank of a mesh
-    says it). The store stages as float32 and, on a mesh, whole on every
-    rank."""
-    mode = resolve_data_mode(placement, store, max_bytes=max_bytes)
-    if mode == "stream":
-        if placement != "auto":
-            raise NotImplementedError(
-                f"--data-placement {placement} is not yet ported to PyTorch "
-                f"(ROADMAP.md, item 7)")
-        if verbose:
-            print(f"data placement auto: the packed store "
-                  f"({store.data.nbytes / 1e6:.0f} MB) is over the "
-                  f"device-store budget ({max_bytes / 1e6:.0f} MB) and the "
-                  f"streamed tier is not yet ported (ROADMAP.md, item 7); "
-                  f"training from the host loader")
-        return "host"
-    return mode
+class Quantized(NamedTuple):
+    """A store staged at ``--transfer-dtype int8`` (``data/quantize.py``):
+    a row reads back as ``rows[i].float() * scale + offset`` in fp32, the
+    bits of ``quantize.dequantize`` on the host."""
+
+    rows: torch.Tensor    # [N, D] uint8
+    scale: torch.Tensor   # [D] float32
+    offset: torch.Tensor  # [D] float32
+
+    @property
+    def device(self) -> torch.device:
+        return self.rows.device
+
+
+def host_rows(data: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """``data [rows, D]`` float32 (a memory-mapped store is read-only, and
+    only read here) as a CPU tensor of ``dtype``: bfloat16 rounds to nearest
+    even, the bits of ``ml_dtypes.bfloat16``."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        t = torch.from_numpy(np.asarray(data, dtype=np.float32))
+    return t if dtype == torch.float32 else t.to(dtype)
+
+
+def copy_rows(dst: torch.Tensor, data: np.ndarray,
+              block_rows: int = 1 << 20) -> None:
+    """``dst[:len(data)] = data`` in ``dst``'s dtype, converted on the host
+    ``block_rows`` at a time, so that the host holds one block beside the
+    store, whatever its size."""
+    for lo in range(0, data.shape[0], block_rows):
+        blk = data[lo:lo + block_rows]
+        dst[lo:lo + blk.shape[0]].copy_(host_rows(blk, dst.dtype))
 
 
 class DeviceDataSource:
-    """The packed store on ``device``, plus per-epoch plan uploads."""
+    """The packed store on ``device`` in ``store_dtype`` (``"float32"``,
+    ``"bfloat16"`` or ``"int8"``), plus per-epoch plan uploads. ``data`` is
+    the staged tensor, or a :class:`Quantized` for int8."""
 
     def __init__(self, store, device: torch.device,
                  store_dtype: str = "float32"):
-        if store_dtype != "float32":
-            raise NotImplementedError(
-                f"{store_dtype} staging of the device store is not yet ported "
-                f"to PyTorch (ROADMAP.md, item 7)")
-        data = np.asarray(store.data, dtype=np.float32)
+        data = store.data
         rows, dim = data.shape
-        # one allocation and one copy; the slack rows stay zero
-        self.data = torch.zeros((rows + STORE_TAIL_SLACK, dim),
-                                dtype=torch.float32, device=device)
-        with warnings.catch_warnings():
-            # a memory-mapped store is read-only; it is only read from here
-            warnings.simplefilter("ignore", UserWarning)
-            self.data[:rows].copy_(torch.from_numpy(data))
-        self.device = torch.device(device)
+        device = torch.device(device)
+        # one allocation and one copy; the slack rows stay zero (byte 0 in
+        # int8: never addressed by a real plan row)
+        buf = torch.zeros((rows + STORE_TAIL_SLACK, dim),
+                          dtype=STAGING_DTYPES[store_dtype], device=device)
+        if store_dtype == "int8":
+            q, scale, offset = quantize_columns(data)
+            buf[:rows].copy_(torch.from_numpy(q))
+            self.data = Quantized(buf, torch.from_numpy(scale).to(device),
+                                  torch.from_numpy(offset).to(device))
+        else:
+            copy_rows(buf, data)
+            self.data = buf
+        self.device = device
 
     def upload(self, arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device,

@@ -12,7 +12,9 @@ Replaces the reference's ``torch.utils.data.DataLoader(num_workers=4)``
   batch assembly overlaps device compute.
 
 The port's own copy of the JAX package's ``data/loader.py``, without its
-device-prefetch helpers (``train/loop.py`` moves batches to the device).
+device-prefetch helpers (``train/loop.py`` moves batches to the device), and
+with bfloat16 batches made by ``torch`` (round to nearest even, the bits of
+``ml_dtypes.bfloat16``) instead of ``ml_dtypes``, which is JAX's dependency.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from dataclasses import dataclass
 from typing import Iterator
 
 import numpy as np
+import torch
 
 from pytorch_scalablefhvae_tpu_torch.data.segments import SegmentDataset
 
@@ -32,14 +35,15 @@ class Batch:
     """One fixed-shape training batch.
 
     Attributes:
-        feats:   [B, seg_len, dim] float32
+        feats:   [B, seg_len, dim] float32, or a torch.bfloat16 tensor
+                 where the loader's transfer dtype is bfloat16
         seq_idx: [B] int32 — mu2-table row of each segment's sequence
         nsegs:   [B] float32 — segment count of the owning sequence
                  (weights log p(mu2) in the ELBO; simple_fhvae.py:116)
         weight:  [B] float32 — 1 for real rows, 0 for padding
     """
 
-    feats: np.ndarray
+    feats: "np.ndarray | torch.Tensor"
     seq_idx: np.ndarray
     nsegs: np.ndarray
     weight: np.ndarray
@@ -83,12 +87,7 @@ class SegmentLoader:
         self.drop_last = drop_last
         self.prefetch = prefetch
         self.indices = None if indices is None else np.asarray(indices)
-        if transfer_dtype == "bfloat16":
-            import ml_dtypes
-
-            self.feats_dtype = np.dtype(ml_dtypes.bfloat16)
-        else:
-            self.feats_dtype = np.dtype(np.float32)
+        self.bfloat16 = transfer_dtype == "bfloat16"
         self._epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -124,8 +123,11 @@ class SegmentLoader:
         nsegs = ds.nsegs[seq_idx].astype(np.float32)
         weight = np.zeros(B, dtype=np.float32)
         weight[:real] = 1.0
+        feats = np.ascontiguousarray(feats, dtype=np.float32)
+        if self.bfloat16:
+            feats = torch.from_numpy(feats).to(torch.bfloat16)
         return Batch(
-            feats=np.ascontiguousarray(feats, dtype=self.feats_dtype),
+            feats=feats,
             seq_idx=seq_idx.astype(np.int32),
             nsegs=nsegs,
             weight=weight,

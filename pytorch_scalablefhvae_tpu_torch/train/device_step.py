@@ -18,6 +18,14 @@ index plan on the device, and build each batch there:
   (the chunk layout, gathered by the ``windowed_chunk_gather`` kernel): a
   split's MAP mu2 table, accumulated in fp32 on the device.
 
+The store is a tensor in the staging dtype (float32 or bfloat16: the
+windows keep it, and the model upcasts them on entry) or a ``Quantized``
+int8 store, whose windows are gathered as bytes and dequantized after the
+gather (:func:`gather_segments`, JAX's ``_make_gather``), so the
+full-precision features never exist on the device, only the ``[B,
+seg_len, D]`` batch. The streamed tier's chunks (``data/stream_store.py``)
+are stores of the same kinds.
+
 Where the JAX package jits a scan, these loop over batches in Python (the
 K-step bundle replays its loop as a CUDA graph); nothing leaves the device
 until the caller fetches it.
@@ -34,7 +42,10 @@ from __future__ import annotations
 
 import torch
 
-from pytorch_scalablefhvae_tpu_torch.data.device_store import STORE_TAIL_SLACK
+from pytorch_scalablefhvae_tpu_torch.data.device_store import (
+    STORE_TAIL_SLACK,
+    Quantized,
+)
 from pytorch_scalablefhvae_tpu_torch.ops.window_gather import (
     windowed_chunk_gather,
 )
@@ -47,9 +58,14 @@ from pytorch_scalablefhvae_tpu_torch.train.step import eval_step, train_step
 
 def gather_segments(store, starts, seg_len: int):
     """``[B, seg_len, D]`` windows ``store[starts[b] + t]``: a plain gather,
-    as the JAX package's ``jnp.take`` outside any kernel."""
-    return store[starts[:, None]
-                 + torch.arange(seg_len, device=store.device)[None, :]]
+    as the JAX package's ``jnp.take`` outside any kernel, in the store's
+    dtype; a ``Quantized`` store's windows dequantized after the gather as
+    ``q.float() * scale + offset`` in fp32 (two roundings, the bits of
+    ``quantize.dequantize``)."""
+    idx = starts[:, None] + torch.arange(seg_len, device=store.device)[None, :]
+    if isinstance(store, Quantized):
+        return store.rows[idx].float() * store.scale + store.offset
+    return store[idx]
 
 
 def batch_views(store, seq_idx_all, starts_all, nsegs_tab, off: int,
@@ -88,11 +104,13 @@ def batch_views_at(store, seq_idx_all, starts_all, nsegs_tab, off, n_real, *,
 
 
 class PlanInputs:
-    """The K-step bundle's inputs on the staged store: the epoch's plan
-    ``(seq_idx_all, starts_all, nsegs_tab)`` copied into persistent buffers
-    (``stage_epoch`` uploads new tensors every epoch; the graph keeps the
-    first addresses), the real-row count and the dispatch's first plan row
-    as device scalars."""
+    """The K-step bundle's inputs on a staged store (the device tier's
+    whole store, or the streamed tier's two slots, whose address stays the
+    same whichever slot a chunk lands in): the plan ``(seq_idx_all,
+    starts_all, nsegs_tab)`` of an epoch or of a chunk copied into
+    persistent buffers (each plan is uploaded to new tensors; the graph
+    keeps the first addresses), the real-row count and the dispatch's first
+    plan row as device scalars."""
 
     def __init__(self, store, batch_size: int, seg_len: int):
         dev = store.device
@@ -103,7 +121,8 @@ class PlanInputs:
         self.rows = torch.arange(batch_size, device=dev)
 
     def load_plan(self, arrays, n_real: int) -> None:
-        """This epoch's plan (``DeviceDataSource.stage_epoch``'s arrays)."""
+        """This epoch's plan (``DeviceDataSource.stage_epoch``'s arrays) or
+        this chunk's (``StreamChunk.arrays``)."""
         if self.plan is None:
             self.plan = tuple(a.clone() for a in arrays)
         elif [a.shape for a in arrays] != [a.shape for a in self.plan]:

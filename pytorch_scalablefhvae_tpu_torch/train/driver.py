@@ -13,10 +13,11 @@ package's; ``split_manifests`` says where a preprocessed corpus's
 extracted first, the ``jax`` extractor's on the run's device.
 
 :func:`check_ported` refuses every setting whose code path is not yet
-ported, naming ``ROADMAP.md``. The data tier (the device-resident store or
-the host loader) is resolved by ``train/loop.py``, which also runs the mesh
-branch: on a mesh every rank calls :func:`train_from_config` with its own
-device (``cli/main.py`` starts the ranks).
+ported, naming ``ROADMAP.md``. The data tier (the device-resident store,
+the streamed tier or the host loader) is resolved by ``train/loop.py``,
+which also runs the mesh branch: on a mesh every rank calls
+:func:`train_from_config` with its own device (``cli/main.py`` starts the
+ranks).
 """
 
 from __future__ import annotations
@@ -48,6 +49,10 @@ def check_ported(config: ExperimentConfig) -> None:
         "--mesh with --hierarchical": on_mesh and t.sample_hierarchical,
         "--mesh with --steps-per-dispatch > 1":
             on_mesh and t.steps_per_dispatch > 1,
+        "--mesh with --data-placement stream":
+            on_mesh and d.data_placement == "stream",
+        f"--mesh with --transfer-dtype {d.transfer_dtype}":
+            on_mesh and d.transfer_dtype != "float32",
         "--shard-device-store": d.shard_device_store,
         "--hierarchical": t.sample_hierarchical,
         "--ckpt-backend orbax": t.ckpt_backend == "orbax",
@@ -58,16 +63,16 @@ def check_ported(config: ExperimentConfig) -> None:
         "--tensorboard": t.tensorboard,
         "--visdom": t.plot_curves,
         "--log-params": t.log_params,
-        "--data-placement stream": d.data_placement == "stream",
         "--epoch-plan device": d.epoch_plan == "device",
-        f"--transfer-dtype {d.transfer_dtype}": d.transfer_dtype != "float32",
     }
     for flag, hit in refused.items():
         if hit:
+            where = ("ROADMAP.md, item 10" if flag.startswith("--mesh with")
+                     else "ROADMAP.md")
             raise NotImplementedError(
-                f"{flag} is not yet ported to PyTorch (ROADMAP.md); train "
-                f"with the JAX CLI, python -m pytorch_scalablefhvae_tpu.cli."
-                f"main train")
+                f"{flag} is not yet ported to PyTorch ({where}); train with "
+                f"the JAX CLI, python -m pytorch_scalablefhvae_tpu.cli.main "
+                f"train")
 
 
 def build_loaders(config: ExperimentConfig, data_root: str | Path = ".",
@@ -97,7 +102,8 @@ def build_loaders(config: ExperimentConfig, data_root: str | Path = ".",
                             seg_shift=dcfg.seg_shift, rand_seg=dcfg.rand_seg,
                             seed=config.train.seed)
         return SegmentLoader(ds, batch_size, shuffle=shuffle,
-                             seed=config.train.seed)
+                             seed=config.train.seed,
+                             transfer_dtype=dcfg.transfer_dtype)
 
     return (make_loader("train", dcfg.training_batch_size, True),
             make_loader("dev", dcfg.dev_batch_size, False))

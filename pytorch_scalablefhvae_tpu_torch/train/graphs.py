@@ -41,7 +41,6 @@ draws).
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from pytorch_scalablefhvae_tpu_torch.train.step import (
@@ -66,7 +65,7 @@ def kernel_entries() -> list:
             for f in vars(m).values() if hasattr(f, "launches")]
 
 
-_COUNTERS = ("launches", "launches_tc")
+_COUNTERS = ("launches", "launches_tc", "launches_bf16")
 
 
 def launch_counts() -> dict:
@@ -90,12 +89,12 @@ class Staging:
                         for _ in self._bufs]
         self._turn = 0
 
-    def host(self) -> np.ndarray:
+    def host(self) -> torch.Tensor:
         """The next host buffer, free to fill."""
         i = self._turn % len(self._bufs)
         if self._events[i] is not None:
             self._events[i].synchronize()
-        return self._bufs[i].numpy()
+        return self._bufs[i]
 
     def send(self) -> None:
         """Copy the buffer :meth:`host` gave into ``dst`` on the current
@@ -109,16 +108,18 @@ class Staging:
 
 class HostInputs:
     """The bundle's inputs from the host loader: static ``[K, B, seg_len,
-    dim]`` feats and ``[K, B]`` ``seq_idx`` (int32), ``nsegs`` and
-    ``weight`` on ``device``, each filled by one copy per dispatch (the
-    counterpart of ``stack_prefetch``)."""
+    dim]`` feats (in the loader's transfer dtype, ``feats_dtype``) and ``[K,
+    B]`` ``seq_idx`` (int32), ``nsegs`` and ``weight`` on ``device``, each
+    filled by one copy per dispatch (the counterpart of
+    ``stack_prefetch``)."""
 
     def __init__(self, k: int, batch_size: int, seg_len: int, dim: int,
-                 device: torch.device):
+                 device: torch.device,
+                 feats_dtype: torch.dtype = torch.float32):
         kb = (k, batch_size)
         self.k = k
         self.arrays = (
-            torch.zeros(kb + (seg_len, dim), dtype=torch.float32,
+            torch.zeros(kb + (seg_len, dim), dtype=feats_dtype,
                         device=device),
             torch.zeros(kb, dtype=torch.int32, device=device),
             torch.ones(kb, dtype=torch.float32, device=device),
@@ -131,7 +132,7 @@ class HostInputs:
                                   ("feats", "seq_idx", "nsegs", "weight")):
             buf = staging.host()
             for i, b in enumerate(batches):
-                buf[i] = getattr(b, field)
+                buf[i].copy_(torch.as_tensor(getattr(b, field)))
             staging.send()
 
     def views(self, i: int):
@@ -204,8 +205,8 @@ class StepBundle:
         st = self.state
         for i, g in enumerate(self.generators):
             g.manual_seed(noise_seed(st.seed, st.step + i))
-        self._bc_staging.host()[:] = self.optimizer.bias_corrections(
-            st.count, self.k, self.device)
+        self._bc_staging.host().copy_(torch.from_numpy(
+            self.optimizer.bias_corrections(st.count, self.k, self.device)))
         self._bc_staging.send()
         if self.device.type == "cpu":
             out = self.body(noise)

@@ -5,33 +5,40 @@ Separate pieces rather than the JAX package's one ``run_training`` body:
 :func:`run_epoch` (the host loader: one pass over the shuffled training
 batches, a pinned host-to-device copy per batch, a loss check on every
 batch), :func:`run_device_epoch` (the device-resident store: the same
-batches gathered on the device, each loss checked one step late), both of
-which run ``--steps-per-dispatch K`` > 1 as K-step bundles
-(``train/graphs.py``: one CUDA graph replay of K steps, the epoch's last
-``n % K`` batches as eager steps, each dispatch's losses checked one
-dispatch late, as the JAX loop's ``_record_dispatch`` does),
+batches gathered on the device, each loss checked one step late),
+:func:`run_stream_epoch` (the streamed tier, ``data/stream_store.py``: the
+store's chunks double-buffered through the device, each chunk's shuffled
+segments gathered there, the dispatches of every chunk counted as one
+epoch), all of which run ``--steps-per-dispatch K`` > 1 as K-step bundles
+(``train/graphs.py``: one CUDA graph replay of K steps, the last ``n % K``
+batches of an epoch or of a chunk as eager steps, each dispatch's losses
+checked one dispatch late, as the JAX loop's ``_record_dispatch`` does),
 :func:`estimate_split_mu2` + :func:`evaluate_split` (the host dev pass
 against a MAP-estimated mu2 table), :func:`stage_split` +
 :func:`device_dev_pass` (the same pass over a staged dev split),
 :func:`save_epoch` (the checkpoint policy), :func:`check_best` /
 :func:`check_terminate` (early stopping), and :func:`run_training`, which
-resolves the data tier and strings them together.
+resolves the data tier and strings them together. The device and streamed
+tiers stage in the run's transfer dtype (float32, bfloat16 or int8), and so
+does the dev split where it fits what the training tier leaves of the
+budget.
 
 On a mesh (``parallel/mesh.py``; ``--mesh d,m``, one process per rank) every
 rank runs this same loop in step: it pads and shards the mu2 table, takes its
-rows of every batch on either data tier, and splits both dev passes over the
-data ranks when the dev batch size divides by ``d`` (else every rank runs
-them whole). All decisions (divergence, best epoch, early stopping) are
-taken from all-reduced values, so the ranks take them together; rank 0 alone
-prints, writes ``metrics.jsonl`` and the checkpoints.
+rows of every batch on either the host loader or the device tier, and splits
+both dev passes over the data ranks when the dev batch size divides by ``d``
+(else every rank runs them whole). All decisions (divergence, best epoch,
+early stopping) are taken from all-reduced values, so the ranks take them
+together; rank 0 alone prints, writes ``metrics.jsonl`` and the checkpoints.
 
-Hierarchical rounds, the streamed tier, K-step dispatch on a mesh, mid-epoch
-checkpoints and profiling are not ported yet (``ROADMAP.md``;
-``train/driver.py`` refuses them).
+Hierarchical rounds, the streamed tier and compressed staging on a mesh,
+K-step dispatch on a mesh, mid-epoch checkpoints and profiling are not
+ported yet (``ROADMAP.md``; ``train/driver.py`` refuses them).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 from dataclasses import dataclass
@@ -48,6 +55,10 @@ from pytorch_scalablefhvae_tpu_torch.data.device_store import (
     DeviceDataSource,
     EpochPlan,
     resolve_data_placement,
+    staging_itemsize,
+)
+from pytorch_scalablefhvae_tpu_torch.data.stream_store import (
+    StreamingDeviceSource,
     resolve_tier,
 )
 from pytorch_scalablefhvae_tpu_torch.models.base import build_model
@@ -235,6 +246,33 @@ def run_bundled_epoch(state: TrainState, optimizer: Optimizer,
     return losses.stats(time.perf_counter() - t0)
 
 
+def run_plan(state: TrainState, optimizer: Optimizer, store, arrays,
+             plan: EpochPlan, start_batch: int, alpha: float,
+             losses: DispatchLosses, bundle: StepBundle | None, seg_len: int,
+             mesh=None) -> bool:
+    """The plan's batches from ``start_batch`` on, gathered from ``store``:
+    K to a bundle dispatch while K remain, the rest as eager steps, each
+    dispatch's losses pushed to ``losses``. False once a loss read is not
+    finite."""
+    B = plan.batch_size
+    counts = plan.batch_real_counts()
+    if bundle is not None:
+        bundle.inputs.load_plan(arrays, plan.n_real)
+    b = start_batch
+    while b < plan.n_batches:
+        if bundle is not None and plan.n_batches - b >= bundle.k:
+            bundle.inputs.set_base(b * B)
+            loss, n = bundle()["loss"].clone(), bundle.k
+        else:
+            loss, n = device_train_step(
+                state, optimizer, store, arrays, b * B, plan.n_real, alpha,
+                batch_size=B, seg_len=seg_len, mesh=mesh)["loss"], 1
+        if not losses.push(loss, counts[b:b + n]):
+            return False
+        b += n
+    return True
+
+
 def run_device_epoch(state: TrainState, optimizer: Optimizer,
                      source: DeviceDataSource, loader: SegmentLoader,
                      alpha: float, device: torch.device, epoch: int,
@@ -254,25 +292,45 @@ def run_device_epoch(state: TrainState, optimizer: Optimizer,
     loader.set_epoch(epoch)
     ds, B = loader.dataset, loader.batch_size
     plan, arrays = source.stage_epoch(ds, loader._order(), B)
-    counts = plan.batch_real_counts()
-    k = 1 if bundle is None else bundle.k
-    bundled = plan.n_batches - plan.n_batches % k if bundle else 0
     losses = DispatchLosses()
     t0 = time.perf_counter()
-    if bundle is not None:
-        bundle.inputs.load_plan(arrays, plan.n_real)
-    b = 0
-    while b < plan.n_batches:
-        if b < bundled:
-            bundle.inputs.set_base(b * B)
-            loss, n = bundle()["loss"].clone(), k
-        else:
-            loss, n = device_train_step(
-                state, optimizer, source.data, arrays, b * B, plan.n_real,
-                alpha, batch_size=B, seg_len=ds.seg_len, mesh=mesh)["loss"], 1
-        if not losses.push(loss, counts[b:b + n]):
-            break
-        b += n
+    run_plan(state, optimizer, source.data, arrays, plan, 0, alpha, losses,
+             bundle, ds.seg_len, mesh)
+    losses.finish()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return losses.stats(time.perf_counter() - t0)
+
+
+def stream_seed(loader: SegmentLoader, epoch: int) -> int:
+    """The seed of ``epoch``'s stream schedule: the host loader's shuffle
+    seed, as the JAX loop takes it."""
+    return loader.seed + 1_000_003 * epoch
+
+
+def run_stream_epoch(state: TrainState, optimizer: Optimizer,
+                     source: StreamingDeviceSource, loader: SegmentLoader,
+                     alpha: float, device: torch.device, epoch: int,
+                     bundle: StepBundle | None = None) -> EpochStats:
+    """One epoch of the streamed tier: the chunks in the epoch's shuffled
+    order, each chunk's segments in its own permutation
+    (``source.epoch_schedule``), gathered from the chunk's slot while the
+    next chunk is copied in. Within a chunk the dispatches run as on the
+    device tier (:func:`run_plan`; a chunk's ``n % K`` batches as eager
+    steps), the losses read one dispatch late across chunks; the epoch's
+    statistics count every chunk's steps, as the other tiers count
+    theirs."""
+    loader.set_epoch(epoch)
+    seg_len = loader.dataset.seg_len
+    losses = DispatchLosses()
+    t0 = time.perf_counter()
+    chunks = source.epoch_batches(stream_seed(loader, epoch))
+    with contextlib.closing(chunks):
+        for chunk in chunks:
+            if not run_plan(state, optimizer, source.data, chunk.arrays,
+                            chunk.plan, chunk.start_batch, alpha, losses,
+                            bundle, seg_len):
+                break
     losses.finish()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -376,16 +434,19 @@ class DeviceSplit:
 
 
 def stage_split(loader: SegmentLoader, device: torch.device,
-                mesh_run: bool = False) -> DeviceSplit:
-    """Stage ``loader``'s split (ordered) on ``device``. Its MAP pass is the
-    chunked one when windows are deterministic, the batch is a multiple of
-    ``MAP_SPB``, a chunk's region fits the store's slack and the run is not a
-    mesh run, as the JAX loop decides it."""
+                mesh_run: bool = False,
+                store_dtype: str = "float32") -> DeviceSplit:
+    """Stage ``loader``'s split (ordered) on ``device`` in ``store_dtype``.
+    Its MAP pass is the chunked one (kernel #8, on float32 or bfloat16 rows)
+    when windows are deterministic, the store is not int8, the batch is a
+    multiple of ``MAP_SPB``, a chunk's region fits the store's slack and
+    the run is not a mesh run, as the JAX loop decides it."""
     ds, B = loader.dataset, loader.batch_size
-    source = DeviceDataSource(ds.store, device)
+    source = DeviceDataSource(ds.store, device, store_dtype)
     plan, arrays = source.stage_epoch(ds, np.arange(len(ds)), B)
     chunked = None
-    if (not mesh_run and not ds.rand_seg and B % MAP_SPB == 0
+    if (not mesh_run and not ds.rand_seg and store_dtype != "int8"
+            and B % MAP_SPB == 0
             and (MAP_SPB - 1) * ds.seg_shift + ds.seg_len <= STORE_TAIL_SLACK):
         padded = int((-(-ds.nsegs // MAP_SPB) * MAP_SPB).sum())
         chunked = (source.upload(ds.store.seq_starts, torch.long),
@@ -422,28 +483,63 @@ def device_dev_pass(model, split: DeviceSplit, alpha: float,
     return split_means((keys, row) for row in mat.T.tolist())
 
 
-def stage_device_tier(config: ExperimentConfig, train_loader: SegmentLoader,
-                      dev_loader: SegmentLoader, device: torch.device,
-                      verbose: bool, mesh_run: bool = False):
-    """The staged training store, and the staged dev split where it fits
-    what the budget leaves (``"auto"`` against the rest, so that a train
-    store that barely fits never runs out of memory for the dev split),
-    or ``None``."""
-    store = train_loader.dataset.store
-    source = DeviceDataSource(store, device, config.data.transfer_dtype)
-    staged = store.data.nbytes
+def staged_mb(store, store_dtype: str, rows: int | None = None) -> float:
+    """MB of ``rows`` (all of the store's by default) staged in
+    ``store_dtype``."""
+    rows = store.data.shape[0] if rows is None else rows
+    return rows * store.dim * staging_itemsize(store_dtype) / 1e6
+
+
+def stage_train_tier(config: ExperimentConfig, tier: str,
+                     train_loader: SegmentLoader, device: torch.device,
+                     verbose: bool):
+    """The training tier's source, ``DeviceDataSource`` (``"device"``) or
+    ``StreamingDeviceSource`` (``"stream"``; chunks of
+    ``--stream-chunk-bytes``, by default a quarter of the budget), in the
+    run's transfer dtype, and the bytes it holds on the device as the dev
+    split's budget counts them: the whole store, or three chunks (two
+    slots and what a draining dispatch still reads, as the JAX loop counts
+    them)."""
+    ds, dtype = train_loader.dataset, config.data.transfer_dtype
+    if tier == "device":
+        source = DeviceDataSource(ds.store, device, dtype)
+        if verbose:
+            print(f"Training data device-resident "
+                  f"({staged_mb(ds.store, dtype):.0f} MB staged)")
+        return source, ds.store.data.shape[0] * ds.store.dim \
+            * staging_itemsize(dtype)
+    chunk_bytes = (config.data.stream_chunk_bytes
+                   or max(config.data.device_store_max_bytes // 4, 1))
+    source = StreamingDeviceSource(ds, chunk_bytes, train_loader.batch_size,
+                                   device, dtype)
     if verbose:
-        print(f"Training data device-resident ({staged / 1e6:.0f} MB staged)")
-    dev_store = dev_loader.dataset.store
+        print(f"Training data streams through the device "
+              f"({len(source.chunks)} chunks of "
+              f"{staged_mb(ds.store, dtype, source.chunk_rows):.1f} MB in "
+              f"{dtype}, double-buffered; "
+              f"{source.host_bytes_per_epoch() / 1e6:.1f} MB over the link "
+              f"an epoch)")
+    return source, 3 * source.chunk_rows * ds.store.dim * source.itemsize
+
+
+def stage_dev_tier(config: ExperimentConfig, dev_loader: SegmentLoader,
+                   device: torch.device, train_bytes: int, verbose: bool,
+                   mesh_run: bool = False) -> DeviceSplit | None:
+    """The dev split staged in the run's transfer dtype where it fits what
+    the training tier's ``train_bytes`` leave of the budget (``"auto"``
+    against the rest, so that a train store that barely fits never runs out
+    of memory for the dev split), or ``None``."""
+    dev_store, dtype = dev_loader.dataset.store, config.data.transfer_dtype
     if not resolve_data_placement(
-            "auto", dev_store,
-            max_bytes=max(config.data.device_store_max_bytes - staged, 0)):
-        return source, None
-    split = stage_split(dev_loader, device, mesh_run)
+            "auto", dev_store, store_dtype=dtype,
+            max_bytes=max(config.data.device_store_max_bytes - train_bytes,
+                          0)):
+        return None
+    split = stage_split(dev_loader, device, mesh_run, dtype)
     if verbose:
-        print(f"Dev split device-resident ({dev_store.data.nbytes / 1e6:.0f} "
+        print(f"Dev split device-resident ({staged_mb(dev_store, dtype):.0f} "
               f"MB staged)")
-    return source, split
+    return split
 
 
 def save_epoch(exp_dir: Path, state: TrainState, config: ExperimentConfig,
@@ -470,9 +566,10 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
     checkpoint each, early stopping by patience. A non-finite training loss
     stops the run with ``diverged`` set, before that epoch is saved. The
     data tier is resolved first (:func:`resolve_tier`): the device-resident
-    store, or the host loader. A mesh run (``config.train.mesh_shape`` other
-    than ``(1, 1)``, or an initialised ``torch.distributed``) is one call of
-    this on every rank, each with its own ``device``."""
+    store, the streamed tier, or the host loader. A mesh run
+    (``config.train.mesh_shape`` other than ``(1, 1)``, or an initialised
+    ``torch.distributed``) is one call of this on every rank, each with its
+    own ``device``."""
     exp_dir = Path(exp_dir)
     dev = resolve_device(device)
     mesh = None
@@ -489,13 +586,16 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
         config.save(exp_dir / "config.json")
 
     ds = train_loader.dataset
+    tier = resolve_tier(config.data.data_placement, ds.store,
+                        config.data.device_store_max_bytes,
+                        config.data.transfer_dtype, verbose=first,
+                        mesh_run=mesh is not None)
     source, dev_split = None, None
-    if resolve_tier(config.data.data_placement, ds.store,
-                    config.data.device_store_max_bytes,
-                    verbose=first) == "device":
-        source, dev_split = stage_device_tier(config, train_loader,
-                                              dev_loader, dev, verbose,
-                                              mesh_run=mesh is not None)
+    if tier != "host":
+        source, train_bytes = stage_train_tier(config, tier, train_loader,
+                                               dev, verbose)
+        dev_split = stage_dev_tier(config, dev_loader, dev, train_bytes,
+                                   verbose, mesh_run=mesh is not None)
     seg_len, dim, num_seqs = ds.seg_len, ds.store.dim, ds.num_seqs
     seed = config.train.seed
     model = build_model(config.model.model_type, seg_len * dim, config.model,
@@ -538,9 +638,13 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
             raise NotImplementedError(
                 "--mesh with --steps-per-dispatch > 1 is not yet ported to "
                 "PyTorch (ROADMAP.md, item 10)")
-        inputs = (PlanInputs(source.data, train_loader.batch_size, seg_len)
-                  if source is not None else
-                  HostInputs(k, train_loader.batch_size, seg_len, dim, dev))
+        if tier == "host":
+            inputs = HostInputs(
+                k, train_loader.batch_size, seg_len, dim, dev,
+                torch.bfloat16 if train_loader.bfloat16 else torch.float32)
+        else:
+            inputs = PlanInputs(source.data, train_loader.batch_size,
+                                seg_len)
         bundle = StepBundle(state, optimizer, alpha, k, inputs, dev)
         if verbose:
             print(f"{k} steps per dispatch"
@@ -553,9 +657,12 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
     result = TrainResult(state, best_epoch, best_val_lb, start_epoch - 1,
                          history)
     for epoch in range(start_epoch, config.train.epochs):
-        if source is not None:
+        if tier == "device":
             stats = run_device_epoch(state, optimizer, source, train_loader,
                                      alpha, dev, epoch, mesh, bundle)
+        elif tier == "stream":
+            stats = run_stream_epoch(state, optimizer, source, train_loader,
+                                     alpha, dev, epoch, bundle)
         else:
             stats = run_epoch(state, optimizer, train_loader, alpha, dev,
                               epoch, mesh, bundle)

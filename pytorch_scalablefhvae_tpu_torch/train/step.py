@@ -161,10 +161,12 @@ def unbias(xs: list, operand: torch.Tensor) -> list:
     return torch._foreach_div(xs, operand)
 
 
-def host_to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host array on ``device`` without waiting for the device: on a GPU
-    a pinned copy and an asynchronous transfer."""
-    t = torch.from_numpy(np.ascontiguousarray(arr))
+def host_to_device(arr, device: torch.device) -> torch.Tensor:
+    """A host array (numpy, or a CPU tensor such as a bfloat16 batch) on
+    ``device`` without waiting for the device: on a GPU a pinned copy and
+    an asynchronous transfer."""
+    t = (arr.contiguous() if isinstance(arr, torch.Tensor)
+         else torch.from_numpy(np.ascontiguousarray(arr)))
     if torch.device(device).type == "cpu":
         return t
     return t.pin_memory().to(device, non_blocking=True)

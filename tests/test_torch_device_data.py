@@ -46,8 +46,10 @@ from pytorch_scalablefhvae_tpu_torch.cli.main import main
 from pytorch_scalablefhvae_tpu_torch.data.device_store import (
     STORE_TAIL_SLACK,
     DeviceDataSource,
+    Quantized,
     build_epoch_plan,
 )
+from pytorch_scalablefhvae_tpu_torch.data.quantize import dequantize
 from pytorch_scalablefhvae_tpu_torch.models.fhvae import FHVAE
 from pytorch_scalablefhvae_tpu_torch.train import device_step, loop, step
 from pytorch_scalablefhvae_tpu_torch.train.checkpoint import (
@@ -95,9 +97,30 @@ def test_source_stages_the_store_and_its_slack(data):
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
-def test_compressed_staging_is_refused(data, dtype):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        DeviceDataSource(data[0], CPU, dtype)
+def test_compressed_staging_matches_jax(data, dtype):
+    """``--transfer-dtype`` staging against the JAX package's staged store,
+    slack rows included: bfloat16 rows with the bits of its ``ml_dtypes``
+    cast; int8 as the same uint8 codes with fp32 ``scale`` and ``offset``,
+    whose gather dequantizes to ``quantize.dequantize``'s bits."""
+    store, _ = data
+    src = DeviceDataSource(store, CPU, dtype)
+    want = JaxDeviceDataSource(store, store_dtype=dtype).data
+    rows = store.data.shape[0]
+    if dtype == "bfloat16":
+        assert src.data.dtype == torch.bfloat16
+        assert src.data.shape == (rows + STORE_TAIL_SLACK, F)
+        np.testing.assert_array_equal(src.data.view(torch.int16).numpy(),
+                                      np.asarray(want).view(np.int16))
+        return
+    assert isinstance(src.data, Quantized)
+    assert src.data.rows.dtype == torch.uint8
+    for got, ref in zip(src.data, want):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    starts = torch.tensor([0, 17, rows - T])
+    feats = device_step.gather_segments(src.data, starts, T)
+    deq = dequantize(*(np.asarray(a) for a in want))
+    np.testing.assert_array_equal(
+        feats.numpy(), np.stack([deq[a:a + T] for a in starts.tolist()]))
 
 
 def test_stage_epoch_uploads_the_plan(data):
@@ -358,13 +381,30 @@ def test_dev_split_stays_on_the_host_past_the_budget(corpus, tmp_path,
     assert "Dev split" not in out
 
 
-def test_auto_over_budget_trains_from_the_host_loader(corpus, tmp_path,
-                                                      capsys):
-    assert cli_train(corpus, tmp_path, "--device-store-max-bytes", "1") == 0
+def test_auto_over_budget_streams(corpus, tmp_path, capsys):
+    """A store one byte over the budget streams through the device in
+    chunks of a quarter of it, never from the host loader; what the two
+    slots leave of the budget holds no dev split."""
+    budget = str(train_store_bytes(corpus) - 1)
+    assert cli_train(corpus, tmp_path, "--device-store-max-bytes",
+                     budget) == 0
     out = capsys.readouterr().out
-    assert "streamed tier is not yet ported" in out
-    assert "training from the host loader" in out
-    assert "device-resident" not in out
+    assert "over the device-store budget" in out and "streaming it" in out
+    assert "Training data streams through the device" in out
+    assert "device-resident" not in out and "host loader" not in out
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_auto_stages_a_compressed_store_that_fits(corpus, tmp_path, capsys,
+                                                  dtype):
+    """At 2 (bfloat16) or 1 (int8) byte an element, a store over the
+    budget in float32 fits it, and ``auto`` stages it whole."""
+    budget = str(train_store_bytes(corpus) - 1)
+    assert cli_train(corpus, tmp_path, "--device-store-max-bytes", budget,
+                     "--transfer-dtype", dtype) == 0
+    out = capsys.readouterr().out
+    assert f"in {dtype}, within the device-store budget" in out
+    assert "Training data device-resident" in out
 
 
 def test_host_placement_trains_from_the_host_loader(corpus, tmp_path, capsys):

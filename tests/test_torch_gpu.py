@@ -1071,3 +1071,106 @@ def test_bias_corrections_on_the_card_divide_as_the_host_floats_did(cuda):
             got = unbias(xs, ops[row, j])
             want = torch._foreach_div(xs, host)
             assert all(torch.equal(a, w) for a, w in zip(got, want)), (c, j)
+
+
+# ------------------------------------------ kernel #8 on bf16 rows, streaming
+
+# a copy in bfloat16 too: D 80 (160-byte rows) takes the 16-byte path, D 6
+# (12-byte rows) and a store off a 16-byte boundary the 4-byte one
+@pytest.mark.parametrize("d,offset", [(80, 0), (6, 0), (8, 2)],
+                         ids=["16-byte copies", "4-byte copies", "unaligned"])
+def test_window_gather_bf16_matches_plain(cuda, d, offset):
+    g = torch.Generator().manual_seed(6)
+    n, spb, seg_len, stride = 700, 16, 20, 8
+    flat = torch.randn((n * d + offset,), generator=g).to(cuda,
+                                                           torch.bfloat16)
+    store = flat[offset:].view(n, d)
+    region = (spb - 1) * stride + seg_len
+    starts = torch.tensor([0, 3, 250, n - region, n - region + 7, n - 1],
+                          device=cuda)
+    fn = window_gather.windowed_chunk_gather
+    before = fn.launches
+    got = fn(store, starts, spb, seg_len, stride)
+    want = window_gather.windowed_chunk_gather_reference(store, starts, spb,
+                                                         seg_len, stride)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1 and got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    assert not got[-spb:, 1:].any()
+
+
+@pytest.mark.parametrize("d,offset", [(7, 0), (8, 1)],
+                         ids=["odd D", "off a 4-byte boundary"])
+def test_window_gather_bf16_refuses_what_4_bytes_cannot_copy(cuda, d, offset):
+    """A bfloat16 row or store that no 4-byte copy fits raises, on the card,
+    rather than take another path."""
+    flat = torch.zeros((100 * d + offset,), device=cuda, dtype=torch.bfloat16)
+    fn = window_gather.windowed_chunk_gather
+    before = fn.launches
+    with pytest.raises(ValueError, match="16 or 4 bytes"):
+        fn(flat[offset:].view(100, d), torch.zeros(2, dtype=torch.int32,
+                                                   device=cuda), 2, 4, 2)
+    assert fn.launches == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_streamed_epoch_k8_equals_k1(cuda, dtype):
+    """Two streamed epochs of several chunks on the card, each chunk's
+    batches eight to a CUDA graph replay and its remainder eager, against
+    the same epochs one step at a time: the same losses, parameters and
+    moments, bit for bit; each chunk switch's device wait measured."""
+    from pytorch_scalablefhvae_tpu_torch.data.feature_store import (
+        FeatureStore,
+    )
+    from pytorch_scalablefhvae_tpu_torch.data.loader import SegmentLoader
+    from pytorch_scalablefhvae_tpu_torch.data.segments import SegmentDataset
+    from pytorch_scalablefhvae_tpu_torch.data.stream_store import (
+        StreamingDeviceSource,
+    )
+    from pytorch_scalablefhvae_tpu_torch.models.fhvae import FHVAE
+    from pytorch_scalablefhvae_tpu_torch.train import loop
+    from pytorch_scalablefhvae_tpu_torch.train.device_step import PlanInputs
+    from pytorch_scalablefhvae_tpu_torch.train.graphs import StepBundle
+    from pytorch_scalablefhvae_tpu_torch.train.step import (
+        create_train_state,
+        make_optimizer,
+    )
+
+    rng = np.random.default_rng(3)
+    store = FeatureStore.from_arrays({
+        f"s{i}": rng.standard_normal((n, 8)).astype(np.float32)
+        for i, n in enumerate(rng.integers(60, 160, 120))})
+    ds = SegmentDataset(store, seg_len=20, seg_shift=8)
+    loader = SegmentLoader(ds, 16, shuffle=True, seed=0, prefetch=0)
+    item = {"bfloat16": 2, "int8": 1}.get(dtype, 4)
+    model = FHVAE(160, z1_hus=(H, H), z2_hus=(H, H), x_hus=(H, H), z1_dim=4,
+                  z2_dim=4, num_seqs=ds.num_seqs, feat_dim=8,
+                  generator=torch.Generator().manual_seed(1))
+    opt = make_optimizer(1e-3, 0.95, 0.999)
+    runs = []
+    for k in (1, 8):
+        m = FHVAE(160, z1_hus=(H, H), z2_hus=(H, H), x_hus=(H, H), z1_dim=4,
+                  z2_dim=4, num_seqs=ds.num_seqs, feat_dim=8)
+        m.load_state_dict(model.state_dict())
+        state = create_train_state(m.to(cuda), seed=2)
+        source = StreamingDeviceSource(ds, 2500 * 8 * item, 16, cuda, dtype)
+        assert len(source.chunks) >= 3
+        bundle = (None if k == 1 else StepBundle(
+            state, opt, 10.0, k, PlanInputs(source.data, 16, 20), cuda))
+        losses = []
+        for epoch in range(2):
+            stats = loop.run_stream_epoch(state, opt, source, loader, 10.0,
+                                          cuda, epoch, bundle)
+            losses.append(stats.train_loss)
+            waits = source.switch_waits()
+            assert len(waits) == len(source.chunks)
+            assert all(ms is not None and ms >= 0 for _, ms in waits)
+        if bundle is not None:
+            assert bundle.graph is not None
+        runs.append((state, losses))
+    (a, la), (b, lb) = runs
+    assert la == lb and a.step == b.step > 0
+    for n, p in a.params().items():
+        assert torch.equal(p, b.params()[n]), n
+        assert torch.equal(a.mu[n], b.mu[n]), n
+        assert torch.equal(a.nu[n], b.nu[n]), n

@@ -16,6 +16,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import pytorch_scalablefhvae_tpu.cli.args as jax_args
 import pytorch_scalablefhvae_tpu.config as jax_config
@@ -47,6 +48,7 @@ import pytorch_scalablefhvae_tpu_torch.data.feature_store as port_store
 import pytorch_scalablefhvae_tpu_torch.data.loader as port_loader
 import pytorch_scalablefhvae_tpu_torch.data.quantize as port_quantize
 import pytorch_scalablefhvae_tpu_torch.data.segments as port_segments
+import pytorch_scalablefhvae_tpu_torch.data.stream_store as port_stream_store
 import pytorch_scalablefhvae_tpu_torch.features.dsp_numpy as port_dsp_numpy
 import pytorch_scalablefhvae_tpu_torch.features.extract as port_extract
 import pytorch_scalablefhvae_tpu_torch.features.kaldi_fbank as port_kaldi_fbank
@@ -473,6 +475,101 @@ def test_segment_loader_batches(shuffle, prefetch, rand_seg):
                                   next(iter(ref)).feats)
 
 
+def test_bfloat16_batches_equal_ml_dtypes():
+    """``transfer_dtype="bfloat16"`` batches: the port rounds through torch
+    and ships ``torch.bfloat16`` tensors; their bits are the JAX loader's
+    ``ml_dtypes.bfloat16`` arrays' (round to nearest even), ties and
+    subnormals included."""
+    want_store, got_store = stores()
+    kw = dict(seg_len=20, seg_shift=8, seed=5)
+    want_ds = jax_segments.SegmentDataset(want_store, **kw)
+    got_ds = port_segments.SegmentDataset(got_store, **kw)
+    # exact ties between two bf16 values and subnormals in the store
+    for ds in (want_ds, got_ds):
+        ds.store.data[0, :4] = np.array([1 + 2**-8, 1 + 3 * 2**-8, 2**-130,
+                                         -(1 + 2**-8)], np.float32)
+    lkw = dict(shuffle=False, seed=5, prefetch=0, transfer_dtype="bfloat16")
+    want = list(jax_loader.SegmentLoader(want_ds, 8, **lkw))
+    got = list(port_loader.SegmentLoader(got_ds, 8, **lkw))
+    assert len(got) == len(want) > 1
+    for g, w in zip(got, want):
+        assert g.feats.dtype == torch.bfloat16
+        assert g.feats.shape == w.feats.shape
+        np.testing.assert_array_equal(g.feats.view(torch.int16).numpy(),
+                                      w.feats.view(np.int16))
+        np.testing.assert_array_equal(g.seq_idx, w.seq_idx)
+
+
+def stream_sources(dtype: str, batch: int = 4):
+    """Both packages' streamed sources over the same store, in chunks of
+    up to 60 rows."""
+    chunk_bytes = 60 * 6 * port_device_store.staging_itemsize(dtype)
+    want_store, got_store = stores()
+    kw = dict(seg_len=10, seg_shift=4, seed=5)
+    want_ds = jax_segments.SegmentDataset(want_store, **kw)
+    got_ds = port_segments.SegmentDataset(got_store, **kw)
+    return (jax_stream_store.StreamingDeviceSource(
+                want_ds, chunk_bytes, batch, store_dtype=dtype),
+            port_stream_store.StreamingDeviceSource(
+                got_ds, chunk_bytes, batch, torch.device("cpu"), dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_stream_partition_schedule_and_plans(dtype):
+    """The streamed tier's host half: chunks, the fixed slot and plan
+    lengths, link bytes, and every chunk plan of two epochs' schedules."""
+    want, got = stream_sources(dtype)
+    assert got.chunks == [port_stream_store.ChunkSpec(**vars(c))
+                          for c in want.chunks] and len(got.chunks) > 2
+    assert (got.chunk_rows, got.plan_rows) == (want.chunk_rows,
+                                               want.plan_rows)
+    assert got.host_bytes_per_epoch() == want.host_bytes_per_epoch()
+    lens, nsegs = got.dataset.store.lens, got.dataset.nsegs
+    for item in (1, 2, 4):
+        args = (lens, nsegs, 6, item, 1500)
+        assert port_stream_store.partition_chunks(*args) == [
+            port_stream_store.ChunkSpec(**vars(c))
+            for c in jax_stream_store.partition_chunks(*args)]
+    for seed in (0, 1_000_003):
+        sched_g, sched_w = got.epoch_schedule(seed), want.epoch_schedule(seed)
+        assert len(sched_g) == len(sched_w)
+        for (cg, og), (cw, ow) in zip(sched_g, sched_w):
+            assert vars(cg) == vars(cw)
+            np.testing.assert_array_equal(og, ow)
+            pg, *arrays_g = got._plan_for(cg, og)
+            pw, *arrays_w = want._plan_for(cw, ow)
+            assert (pg.n_real, pg.n_rows, pg.n_batches) == \
+                (pw.n_real, pw.n_rows, pw.n_batches)
+            for a, b in zip(arrays_g, arrays_w):
+                assert a.dtype == b.dtype
+                np.testing.assert_array_equal(a, b)
+
+
+def test_stream_partition_refuses_a_sequence_over_the_chunk():
+    lens, nsegs = np.array([5, 40, 7]), np.array([1, 9, 1])
+    for mod in (port_stream_store, jax_stream_store):
+        with pytest.raises(ValueError, match="--stream-chunk-bytes"):
+            mod.partition_chunks(lens, nsegs, 6, 4, 39 * 24)
+
+
+@pytest.mark.parametrize("cap", [None, 0], ids=["cached", "over the cap"])
+def test_stream_int8_chunks_quantize_as_jax(cap):
+    """The int8 tier's per-chunk quantization, from the cache and past its
+    byte cap (re-quantized per stage), equals the JAX package's staged
+    chunk buffers."""
+    want, got = stream_sources("int8")
+    if cap is not None:
+        got._qcache_left = cap
+    for spec in got.chunks:
+        for _ in range(2):
+            q, scale, offset = got._quantized_chunk(spec)
+            wq, wscale, woffset = want._stage_chunk(spec)
+            np.testing.assert_array_equal(q, np.asarray(wq))
+            np.testing.assert_array_equal(scale, np.asarray(wscale))
+            np.testing.assert_array_equal(offset, np.asarray(woffset))
+    assert bool(got._qcache) == (cap is None)
+
+
 def test_loader_copy_holds_no_device_helpers():
     """The copy drops the functions that import jax."""
     assert not hasattr(port_loader, "device_prefetch")
@@ -523,7 +620,7 @@ def test_resolve_data_mode_and_placement(placement):
                 for dtype in ("float32", "int8"):
                     kw = dict(max_bytes=max_bytes, legacy=legacy,
                               store_dtype=dtype)
-                    assert outcome(port_device_store.resolve_data_mode,
+                    assert outcome(port_stream_store.resolve_data_mode,
                                    placement, store, hierarchical=hierarchical,
                                    **kw) == \
                         outcome(jax_stream_store.resolve_data_mode, placement,

@@ -1,5 +1,6 @@
-"""The port imports no jax and nothing of the JAX package, and reaches the
-CPU only when asked."""
+"""The port imports no jax, nothing of the JAX package and not JAX's
+``ml_dtypes`` (bfloat16 arrays are made by torch), and reaches the CPU only
+when asked."""
 
 import ast
 import os
@@ -13,7 +14,8 @@ import torch
 from pytorch_scalablefhvae_tpu_torch.utils.device import resolve_device
 
 PORT = Path(__file__).resolve().parents[1] / "pytorch_scalablefhvae_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "optax", "orbax", "pytorch_scalablefhvae_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "optax", "orbax", "ml_dtypes",
+             "pytorch_scalablefhvae_tpu"}
 PORT_FILES = sorted(str(p.relative_to(PORT.parent)) for p in PORT.rglob("*.py"))
 
 PORT_MODULES = [
@@ -28,6 +30,7 @@ PORT_MODULES = [
     "pytorch_scalablefhvae_tpu_torch.data.loader",
     "pytorch_scalablefhvae_tpu_torch.data.quantize",
     "pytorch_scalablefhvae_tpu_torch.data.segments",
+    "pytorch_scalablefhvae_tpu_torch.data.stream_store",
     "pytorch_scalablefhvae_tpu_torch.features.dsp_numpy",
     "pytorch_scalablefhvae_tpu_torch.features.dsp_torch",
     "pytorch_scalablefhvae_tpu_torch.features.extract",

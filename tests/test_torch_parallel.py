@@ -491,6 +491,23 @@ def test_what_still_raises_on_a_mesh(corpus, tmp_path, flags):
         main(train_args(corpus, tmp_path, *flags))
 
 
+def test_mesh_over_the_budget_needs_host_placement(corpus, tmp_path, capfd,
+                                                  monkeypatch):
+    """On a mesh, ``auto`` with a store over the budget resolves to the
+    streamed tier, which is not ported there: every rank raises, naming
+    ``--data-placement host``, and that placement trains the same store."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    over = ["--mesh", "2,1", "--device-store-max-bytes", "1", "--epochs", "1"]
+    assert main(train_args(corpus, tmp_path / "auto", *over)) == 1
+    err = capfd.readouterr().err
+    assert err.count("--data-placement host") == 2, err
+    assert "ROADMAP.md, item 10" in err
+    assert main(train_args(corpus, tmp_path / "host", *over,
+                           "--data-placement", "host")) == 0
+    recs = metrics(tmp_path / "host" / f"{RUN}/fhvae_e1_p10_a10.0")
+    assert len(recs) == 1 and np.isfinite(recs[0]["train_loss"])
+
+
 def test_a_rank_that_dies_ends_the_run(tmp_path, monkeypatch):
     """One rank raises while the other waits for it in a collective: the
     launcher comes back with error codes instead of waiting."""

@@ -203,14 +203,18 @@ def test_divergence_exits_2(corpus, tmp_path, capsys):
     ["--legacy"], ["--ckpt-every-steps", "5"],
     ["--max-steps", "3"], ["--profile-dir", "prof"], ["--tensorboard"],
     ["--visdom"], ["--log-params"], ["--model-type", "simple_fhvae"],
-    ["--epoch-plan", "device"], ["--data-placement", "stream"],
-    ["--transfer-dtype", "bfloat16"], ["--lstm-pallas", "never"],
+    ["--epoch-plan", "device"], ["--lstm-pallas", "never"],
+    ["--mesh", "2,1", "--data-placement", "stream"],
+    ["--mesh", "2,1", "--transfer-dtype", "bfloat16"],
+    ["--mesh", "2,1", "--transfer-dtype", "int8"],
 ], ids=lambda f: " ".join(f))
 def test_unported_flag_raises(corpus, tmp_path, flags):
     """(``--mesh`` itself runs now: ``tests/test_torch_parallel.py``; what
-    still raises on a mesh is a store sharded over it, hierarchical rounds
-    and K-step dispatch. ``--steps-per-dispatch`` on one device runs:
-    ``tests/test_torch_multi_step.py``.)"""
+    still raises on a mesh is a store sharded over it, the streamed tier,
+    compressed staging, hierarchical rounds and K-step dispatch.
+    ``--steps-per-dispatch``, ``--data-placement stream`` and
+    ``--transfer-dtype`` on one device run: ``tests/test_torch_multi_step.py``,
+    ``tests/test_torch_stream.py``.)"""
     with pytest.raises(NotImplementedError):
         main(train_args(corpus, tmp_path, *flags))
 

@@ -90,3 +90,23 @@ def test_bad_inputs_raise(store, starts):
     with pytest.raises(ValueError):
         windowed_chunk_gather(store, starts, 2, 3, 1)
 
+
+
+@pytest.mark.parametrize("row_bytes,ptrs,want", [
+    (320, (0, 256), 16),    # float32 at D 80
+    (160, (512, 0), 16),    # bfloat16 at D 80
+    (24, (0, 0), 4),        # float32 at D 6
+    (320, (4, 0), 4),       # a float32 view off a 16-byte boundary
+    (12, (0, 0), 4),        # bfloat16 at D 6
+    (14, (0, 0), None),     # bfloat16 at D 7: no copy width fits
+    (16, (2, 0), None),     # a bfloat16 view off a 4-byte boundary
+], ids=lambda v: str(v))
+def test_copy_width(row_bytes, ptrs, want):
+    """The kernel's copy width, the widest of 16 and 4 bytes that divides a
+    row and every address; where neither does, the wrapper raises instead
+    of launching."""
+    if want is None:
+        with pytest.raises(ValueError, match="16 or 4 bytes"):
+            window_gather.copy_bytes(row_bytes, *ptrs)
+    else:
+        assert window_gather.copy_bytes(row_bytes, *ptrs) == want
