@@ -185,11 +185,31 @@ prints no result line):
    checkpoint is then resumed for one epoch by ``train --mesh 1,2`` (the CLI
    starts the two ranks itself) and on one device. Last, one epoch of
    ``--mesh 1,1 --distributed --dist-backend nccl`` in one rank, so that
-   NCCL's MAX and SUM all-reduces run on the card.
+   NCCL's MAX and SUM all-reduces run on the card;
+4r. step checkpoints and mid-epoch resume at the CLI defaults on phase 4's
+   corpus (runs after phase 5, whose epoch it reuses): runs stopped by
+   ``--max-steps`` inside an epoch with ``--ckpt-every-steps 50`` (the
+   stopped step must be the cap exactly, no checkpoint of that epoch
+   written), resumed from their last step checkpoint with
+   ``max_steps=0``, each held against the run that was never stopped in
+   every checkpoint tensor, the dev metrics (bit for bit) and the train
+   loss (1e-12 relative), no step checkpoint left: (a) the device tier, cap
+   183 (epoch 1, batch 50), against phase 4's run, after a resume at the
+   cap that must train nothing; (b) the same at K = 8 (the cap off a
+   dispatch boundary, so the last dispatches clamp); (c) the host loader
+   at K = 1 and 8, cap 70, against phase 4's host-loader epoch; (d) the
+   streamed tier (fp32, 96 MiB, K = 8) with the cursor inside a chunk,
+   whose resume must stage only the chunks not wholly behind it, against
+   4s-check's K = 8 epoch; the NaN gate (lr 1e18: exit 2, no checkpoint);
+   (e) ``--mesh 2,2 --dist-backend gloo`` against phase 5's epoch (or, if
+   they differ, held within the gap of two uninterrupted mesh epochs).
+   Without phases 4s or 5 it runs their reference epochs itself. Logged:
+   the wall time of each step-checkpoint save beside the card's name and
+   power limit.
 
 ``python3 chip_smoke.py --only 2e,5`` runs the environment phase and the
-phases named (while working on one; ``2`` includes ``2f``, ``4k`` and ``4b``
-include ``4``); with no arguments all run.
+phases named (while working on one; ``2`` includes ``2f``, ``4k``, ``4b``
+and ``4r`` include ``4``); with no arguments all run.
 
 The bf16 tolerances sit between the kernels' error and the gap between the
 plain versions in fp32 and in bf16 operand mode, which each run measures: a
@@ -204,9 +224,11 @@ kernel entry. ``launches`` sums ``launches_by_path``: the counts of the
 (``train``), phase 4k's train runs at K = 8 (``train_k8``), phase 4s's
 runs on the streamed tier (``train_stream``: the sum over those seven runs,
 each counted alone; its device-tier, host-loader and whole-bf16 runs are
-not counted), the eval of phase 4b (``eval``) and the mesh run's rank 0
-(``mesh``: the ``2,2`` epoch), each set to 0 just before its path and read
-just after. ``ms``
+not counted), the eval of phase 4b (``eval``), the mesh run's rank 0
+(``mesh``: the ``2,2`` epoch) and phase 4r's stopped and resumed runs in
+this process (``train_resume``: every run of (a) to (d) and the NaN gate's;
+the mesh's ranks are processes of their own), each set to 0 just before its
+path and read just after. ``ms``
 and ``plain_ms`` are the bf16-operand times of an LSTM entry's heaviest form,
 and for ``windowed_chunk_gather``, ``fused_logmel_frames`` and the two
 discriminative forward entries the device time per call by torch.profiler
@@ -4316,6 +4338,285 @@ def phase_mesh(workdir: Path, cfg, single_epoch0: dict | None) -> dict:
     return ranks[0]["launches"]
 
 
+# -------------------------------------------------------------- phase 4r
+
+RESUME_EVERY = 50    # phase 4r's --ckpt-every-steps
+RESUME_CAP = 183     # (a), (b): 133 + 50, epoch 1 at batch 50; at K = 8 off
+                     # a dispatch boundary, so the last dispatches clamp
+HOST_CAP = 70        # (c): epoch 0 at batch 70
+MESH_CAP = 80        # (e): epoch 0 at batch 80
+
+
+def differing_arrays(a: Path, b: Path) -> list:
+    """The names of the arrays in which two checkpoints differ."""
+    with np.load(a) as x, np.load(b) as y:
+        return [k for k in sorted(set(x.files) | set(y.files))
+                if k not in x.files or k not in y.files
+                or not np.array_equal(x[k], y[k])]
+
+
+def step_checkpoints(exp: Path) -> list[Path]:
+    """The step checkpoints (``..._e<E>s<B>.npz``) in ``exp``, in
+    ``(E, B)`` order."""
+    found = [(tuple(map(int, m.groups())), p) for p in exp.glob("*.npz")
+             if (m := re.search(r"_e(\d+)s(\d+)\.npz$", p.name))]
+    return [p for _, p in sorted(found)]
+
+
+def record_gap(got: dict, want: dict) -> list:
+    """The keys in which a resumed epoch's record differs from the
+    uninterrupted run's: ``train_loss`` beyond 1e-12 relative (the pre-kill
+    partials are added to the rest, another summation order), the rest at
+    all."""
+    gap = [k for k in ("epoch", "train_steps", "step", "val_loss",
+                       "val_lower_bound", "val_log_qy") if got[k] != want[k]]
+    if not (abs(got["train_loss"] - want["train_loss"])
+            <= 1e-12 * abs(want["train_loss"])):
+        gap.append("train_loss")
+    return gap
+
+
+def kill_and_resume(cli, name: str, root: Path, args: list, exp: Path,
+                    cap: int, resume_flags: tuple = (),
+                    at_cap: bool = False) -> tuple[str, dict]:
+    """``args`` with ``--ckpt-every-steps RESUME_EVERY --max-steps cap``,
+    then resumed from its last step checkpoint with ``max_steps=0``. The
+    stopped run must have saved step ``cap`` exactly and no checkpoint of
+    its last epoch; the resumed one must leave no step checkpoint. With
+    ``at_cap``, first a resume with the saved cap, which must train nothing
+    and change no file. Returns the resumed run's output and the step
+    checkpoint's ``mid_epoch``."""
+    from pytorch_scalablefhvae_tpu_torch.train import checkpoint as ckpt
+
+    resume = ["train", "--dataset", "synthetic", "--preprocessed",
+              "--data-root", str(root), *resume_flags, "--continue-from"]
+    run_cli(cli, args + ["--ckpt-every-steps", str(RESUME_EVERY),
+                         "--max-steps", str(cap)])
+    last = step_checkpoints(exp)[-1]
+    meta = ckpt.read_checkpoint_meta(last)
+    mid = meta["mid_epoch"]
+    ended = exp / f"fhvae_synthetic_np_fbank_e{mid['epoch']}.npz"
+    log(f"{name}: stopped at step {meta['step']} (cap {cap}), epoch "
+        f"{mid['epoch']} batch {mid['batches_done']}; step checkpoints "
+        f"{[p.name for p in step_checkpoints(exp)]}")
+    if meta["step"] != cap or ended.exists():
+        raise AssertionError(f"{name}: the stopped run saved step "
+                             f"{meta['step']} or its epoch checkpoint")
+    if at_cap:
+        before = {p.name: p.read_bytes() for p in exp.iterdir()}
+        out = run_cli(cli, resume + [str(last)])
+        after = {p.name: p.read_bytes() for p in exp.iterdir()}
+        changed = [n for n in after if n != "config.json"
+                   and after[n] != before.get(n)]
+        log(f"{name}: resumed at the cap: {'nothing to train' in out}, "
+            f"files changed {changed}")
+        if "nothing to train" not in out or changed:
+            raise AssertionError(f"{name}: a resume at the cap trained")
+    out = run_cli(cli, resume + [str(last), "--resume-override",
+                                 "max_steps=0"])
+    # (a mesh's ranks print from their own processes, past this capture)
+    if "--mesh" not in args and \
+            f"mid-epoch at batch {mid['batches_done']}" not in out:
+        raise AssertionError(f"{name}: the resume did not re-enter epoch "
+                             f"{mid['epoch']} at its cursor")
+    left = [p.name for p in step_checkpoints(exp)]
+    if left or list(exp.glob("*_e*s[0-9]*.json")):
+        raise AssertionError(f"{name}: step checkpoints outlived the epoch "
+                             f"checkpoint: {left}")
+    return out, mid
+
+
+def check_resumed(name: str, exp: Path, ref: Path, epochs: list) -> None:
+    """The resumed run's checkpoint of the last epoch and its records of
+    ``epochs`` against the uninterrupted run's (``ref``): every tensor and
+    the dev metrics bit for bit, ``train_loss`` to 1e-12."""
+    last = max(epochs)
+    ckpt_name = f"fhvae_synthetic_np_fbank_e{last}.npz"
+    differ = differing_arrays(exp / ckpt_name, ref / ckpt_name)
+    got = {r["epoch"]: r for r in metrics_in(exp)}
+    want = {r["epoch"]: r for r in metrics_in(ref)}
+    gaps = {e: record_gap(got[e], want[e]) for e in epochs}
+    log(f"{name}: resumed vs uninterrupted, {ckpt_name}: "
+        f"{len(differ)} arrays differ {differ[:4]}; epoch {last} train loss "
+        f"{got[last]['train_loss']!r} vs {want[last]['train_loss']!r}, dev "
+        f"LB {got[last]['val_lower_bound']!r} vs "
+        f"{want[last]['val_lower_bound']!r}, step {got[last]['step']}; "
+        f"records differing {gaps}")
+    if differ or any(gaps.values()):
+        raise AssertionError(f"{name}: the resumed run differs from the "
+                             f"uninterrupted one")
+
+
+def metrics_in(exp: Path) -> list[dict]:
+    return [json.loads(line) for line in
+            (exp / "metrics.jsonl").read_text().splitlines()]
+
+
+def stream_chunk_batches(cfg, root: Path) -> list[int]:
+    """The batches of each chunk of epoch 0's stream schedule at
+    ``STREAM_BUDGET`` (the schedule alone, on the host)."""
+    from pytorch_scalablefhvae_tpu_torch.data.stream_store import (
+        StreamingDeviceSource,
+    )
+    from pytorch_scalablefhvae_tpu_torch.train import loop
+    from pytorch_scalablefhvae_tpu_torch.train.driver import build_loaders
+
+    loader, _ = build_loaders(stream_config(cfg), root, True)
+    src = StreamingDeviceSource(loader.dataset, STREAM_BUDGET // 4,
+                                loader.batch_size, torch.device("cpu"))
+    loader.set_epoch(0)
+    return [-(-len(order) // loader.batch_size) for _, order in
+            src.epoch_schedule(loop.stream_seed(loader, 0))]
+
+
+def phase_resume(workdir: Path, cfg) -> dict:
+    """Phase 4r: runs killed at ``--max-steps`` in the middle of an epoch
+    and resumed from their step checkpoints, each against the run that was
+    never killed, on every tier, K and a mesh; the NaN gate and a resume
+    at the cap. Returns the launches of the phase's runs in this process
+    (``train_resume``; the mesh's ranks are other processes)."""
+    from pytorch_scalablefhvae_tpu_torch.cli.main import main as cli
+    from pytorch_scalablefhvae_tpu_torch.train import loop
+
+    log(f"== phase 4r: sfhvae train stopped by --max-steps mid-epoch, with "
+        f"--ckpt-every-steps {RESUME_EVERY}, and resumed from its step "
+        f"checkpoint; against the uninterrupted runs")
+    root = workdir / "data"
+    entries = train_entries()
+    saves, real_save = [], loop.save_state
+
+    def timed_save(*args, cursor=None, **kw):
+        t0 = time.perf_counter()
+        path = real_save(*args, cursor=cursor, **kw)
+        if cursor is not None:
+            saves.append((time.perf_counter() - t0, path.stat().st_size))
+        return path
+
+    loop.save_state = timed_save
+    reset_counts(entries)
+    t_phase = time.perf_counter()
+    try:
+        # (a), (b): the device tier at K = 1 and K = 8, against phase 4
+        ref = run_dir(workdir / "experiments", 2)
+        for tag, k in (("(a) device tier, K = 1", 1),
+                       (f"(b) device tier, K = {K_DISPATCH}", K_DISPATCH)):
+            exp_root = workdir / f"resume_device_k{k}"
+            exp = run_dir(exp_root, 2)
+            args = train_args(cfg, root, exp_root, "--epochs", "2",
+                              "--steps-per-dispatch", str(k))
+            kill_and_resume(cli, tag, root, args, exp, RESUME_CAP,
+                            at_cap=k == 1)
+            check_resumed(tag, exp, ref, [0, 1])
+
+        # (c): the host loader at K = 1 and K = 8, against phase 4's epoch
+        ref = workdir / "experiments_host" / "synthetic_np_fbank" \
+            / "fhvae_e1_p10_a10.0"
+        for k in (1, K_DISPATCH):
+            tag = f"(c) host loader, K = {k}"
+            exp_root = workdir / f"resume_host_k{k}"
+            kill_and_resume(cli, tag, root, train_args(
+                cfg, root, exp_root, "--data-placement", "host", "--epochs",
+                "1", "--steps-per-dispatch", str(k)), run_dir(exp_root, 1),
+                HOST_CAP)
+            check_resumed(tag, run_dir(exp_root, 1), ref, [0])
+
+        # (d): the streamed tier (fp32, 96 MiB, K = 8), the cursor inside a
+        # chunk, against 4s-check's K = 8 epoch (run here without 4s)
+        sizes = stream_chunk_batches(cfg, root)
+        half = len(sizes) // 2
+        cap = sum(sizes[:half]) + sizes[half] // 2
+        budget = ["--device-store-max-bytes", str(STREAM_BUDGET),
+                  "--steps-per-dispatch", str(K_DISPATCH), "--epochs", "1"]
+        ref = run_dir(workdir / "stream_k8", 1)
+        if not (ref / "fhvae_synthetic_np_fbank_e0.npz").exists():
+            ref = run_dir(workdir / "resume_stream_ref", 1)
+            run_cli(cli, train_args(cfg, root, workdir / "resume_stream_ref",
+                                    *budget))
+        tag = f"(d) streamed tier, fp32, K = {K_DISPATCH}"
+        exp_root = workdir / "resume_stream"
+        out, mid = kill_and_resume(cli, tag, root, train_args(
+            cfg, root, exp_root, *budget), run_dir(exp_root, 1), cap)
+        staged = f"staged {len(sizes) - half} of {len(sizes)} chunks"
+        log(f"{tag}: chunks of {sizes} batches; the cursor, batch "
+            f"{mid['batches_done']}, inside chunk {half} (batches "
+            f"{sum(sizes[:half])}-{sum(sizes[:half + 1]) - 1}); the resumed "
+            f"run logged {staged!r}: {staged in out}")
+        if staged not in out or sizes[half] < 2:
+            raise AssertionError(f"{tag}: the resumed run did not skip the "
+                                 f"{half} chunks behind its cursor")
+        check_resumed(tag, run_dir(exp_root, 1), ref, [0])
+
+        # the NaN gate: the cap's save reads the bundle's losses first
+        exp_root = workdir / "resume_nan"
+        with redirect_stdout(_Tee(sys.stdout, io.StringIO())):
+            rc = cli(train_args(cfg, root, exp_root, "--epochs", "1",
+                                "--steps-per-dispatch", str(K_DISPATCH),
+                                "--max-steps", str(K_DISPATCH),
+                                "--learning-rate", "1e18"))
+        written = sorted(p.name for p in exp_root.rglob("*_e*.npz"))
+        log(f"the NaN gate, lr 1e18, --max-steps {K_DISPATCH} at K = "
+            f"{K_DISPATCH}: exit {rc}, checkpoints written {written}")
+        if rc != 2 or written:
+            raise AssertionError("a diverged run exited 0 or saved a "
+                                 "checkpoint")
+
+        # (e): --mesh 2,2 on gloo, four ranks on the card, against phase 5's
+        # epoch (run here without 5); if it differs, against the gap between
+        # two uninterrupted runs
+        mesh = ["--mesh", f"{MESH[0]},{MESH[1]}", "--dist-backend", "gloo",
+                "--epochs", "1"]
+        ref = run_dir(workdir / "experiments_mesh", 1)
+        if not (ref / "fhvae_synthetic_np_fbank_e0.npz").exists():
+            ref = run_dir(workdir / "resume_mesh_ref", 1)
+            run_cli(cli, train_args(cfg, root, workdir / "resume_mesh_ref",
+                                    *mesh))
+        tag = f"(e) --mesh {MESH[0]},{MESH[1]} --dist-backend gloo"
+        exp = run_dir(workdir / "resume_mesh", 1)
+        kill_and_resume(cli, tag, root, train_args(
+            cfg, root, workdir / "resume_mesh", *mesh), exp, MESH_CAP,
+            ("--dist-backend", "gloo"))
+        name = "fhvae_synthetic_np_fbank_e0.npz"
+        if differing_arrays(exp / name, ref / name):
+            again = run_dir(workdir / "resume_mesh_again", 1)
+            run_cli(cli, train_args(cfg, root, workdir / "resume_mesh_again",
+                                    *mesh))
+            got, want, twin = (metrics_in(d)[0] for d in (exp, ref, again))
+            log(f"{tag}: the resumed epoch differs from the uninterrupted "
+                f"one in {differing_arrays(exp / name, ref / name)[:4]}; two "
+                f"uninterrupted epochs differ in "
+                f"{differing_arrays(again / name, ref / name)[:4]}; train "
+                f"loss {got['train_loss']!r} / {want['train_loss']!r} / "
+                f"{twin['train_loss']!r}, dev LB {got['val_lower_bound']!r} "
+                f"/ {want['val_lower_bound']!r} / "
+                f"{twin['val_lower_bound']!r}")
+            for key in ("train_loss", "val_lower_bound", "val_log_qy"):
+                if abs(got[key] - want[key]) > abs(twin[key] - want[key]):
+                    raise AssertionError(
+                        f"{tag}: {key} of the resumed epoch is further from "
+                        f"the uninterrupted run than a second uninterrupted "
+                        f"run")
+        else:
+            check_resumed(tag, exp, ref, [0])
+    finally:
+        loop.save_state = real_save
+    launches = {e.__name__: e.launches for e in entries}
+    tc = tensor_core_counts(entries)
+    seconds = [t for t, _ in saves]
+    log(f"launches during phase 4r's runs in this process, counted from 0: "
+        f"{launches}; of the LSTM entries', through the tensor-core form: "
+        f"{tc}; {len(saves)} step-checkpoint saves of "
+        f"{saves[0][1] / 1e6:.2f} MB each (train state and Adam moments): "
+        f"{1e3 * min(seconds):.1f}-{1e3 * max(seconds):.1f} ms, median "
+        f"{1e3 * float(np.median(seconds)):.1f} ms; card {smi_name_power()}")
+    check_tensor_core(launches, tc, "phase 4r")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched by phase 4r")
+
+    log(f"phase 4r took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4323,13 +4624,13 @@ def main(argv=None) -> int:
     parser.add_argument("--only", default=None,
                         help="comma-separated phases to run after phase 1 "
                              "(2, 2f, 2b, 2c, 2d, 2e, 3, 3b, 4, 4k, 4s, 4b, "
-                             "4q, 5; 2 includes 2f, 4k and 4b need 4); "
-                             "default all")
+                             "4q, 5, 4r; 2 includes 2f, 4k, 4b and 4r need "
+                             "4); default all")
     only = parser.parse_args(argv).only
     only = None if only is None else set(only.split(","))
     if only is not None and "2" in only:
         only.add("2f")
-    if only is not None and {"4b", "4k"} & only:
+    if only is not None and {"4b", "4k", "4r"} & only:
         only.add("4")
 
     def on(phase: str) -> bool:
@@ -4377,6 +4678,8 @@ def main(argv=None) -> int:
             phase_quality(workdir)
         if on("5"):
             by_path["mesh"] = phase_mesh(workdir, cfg, epoch0)
+        if on("4r"):
+            by_path["train_resume"] = phase_resume(workdir, cfg)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     if "jax" in sys.modules:

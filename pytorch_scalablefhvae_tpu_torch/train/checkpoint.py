@@ -12,7 +12,11 @@ then ``step`` and the PRNG key — maps onto the port's
 (:func:`train_state_from_jax`): a JAX run resumes in the port.
 
 The port writes the same file names (``<model>_<run>_e<epoch>.npz`` plus
-sidecar, and a ``best_model_`` copy) but with named arrays, one per
+sidecar, and a ``best_model_`` copy; a step checkpoint of
+``--ckpt-every-steps`` / ``--max-steps`` is
+``<model>_<run>_e<epoch>s<batches>`` with the epoch's cursor in its sidecar
+and no ``best_model_`` copy, and :func:`cleanup_mid_epoch` deletes it once
+its epoch's checkpoint is committed) but with named arrays, one per
 ``state_dict`` key, plus ``adam_mu.<name>``, ``adam_nu.<name>``,
 ``adam_count`` and ``step`` when it saves a training state, and
 ``"format": "torch_named"`` in the sidecar. Orbax checkpoint directories are
@@ -274,16 +278,18 @@ def save_checkpoint(checkpoint_dir, model: torch.nn.Module, *, model_type: str,
                     model_params: tuple, run_info: str, epoch: int,
                     best_epoch: int, best_val_lb: float, values: dict,
                     extra_meta: dict | None = None, train_state=None,
-                    summary_vals: dict | None = None) -> Path:
-    """Write ``<model>_<run_info>_e<epoch>.npz`` with one named array per
-    parameter (plus the Adam moments, count and step of ``train_state``
+                    summary_vals: dict | None = None,
+                    suffix: str = "") -> Path:
+    """Write ``<model>_<run_info>_e<epoch><suffix>.npz`` with one named array
+    per parameter (plus the Adam moments, count and step of ``train_state``
     when given), its sidecar, and a ``best_model_`` copy when this epoch is
-    the best. Both files are committed by rename, so a killed save leaves
-    no truncated checkpoint for discovery to find. In a mesh run every rank
-    calls this (the row-sharded leaves are gathered over the model group)
-    and rank 0 alone writes."""
+    the best and ``suffix`` is empty (a step checkpoint, ``s<batches>``,
+    never makes one: the best is an epoch's). Both files are committed by
+    rename, so a killed save leaves no truncated checkpoint for discovery
+    to find. In a mesh run every rank calls this (the row-sharded leaves
+    are gathered over the model group) and rank 0 alone writes."""
     checkpoint_dir = Path(checkpoint_dir)
-    f_str = f"{model_type}_{run_info}_e{epoch}"
+    f_str = f"{model_type}_{run_info}_e{epoch}{suffix}"
     npz_path = checkpoint_dir / f"{f_str}.npz"
     meta_path = checkpoint_dir / f"{f_str}.json"
     tensors = dict(model.state_dict())
@@ -323,10 +329,28 @@ def save_checkpoint(checkpoint_dir, model: torch.nn.Module, *, model_type: str,
     meta_tmp = checkpoint_dir / f".{f_str}.json.{os.getpid()}.tmp"
     meta_tmp.write_text(json.dumps(meta, indent=2))
     os.replace(meta_tmp, meta_path)
-    if best_epoch == epoch:
+    if best_epoch == epoch and not suffix:
         shutil.copyfile(npz_path, checkpoint_dir / f"best_model_{f_str}.npz")
         shutil.copyfile(meta_path, checkpoint_dir / f"best_model_{f_str}.json")
     return npz_path
+
+
+def cleanup_mid_epoch(checkpoint_dir, model_type: str, run_info: str,
+                      upto_epoch: int) -> None:
+    """Delete this run's step-cadence checkpoints (``_e<E>s<B>.npz`` and
+    ``.json``; an ``.orbax`` directory as well) of epochs up to
+    ``upto_epoch``: once that epoch's checkpoint is committed they are
+    redundant. Another run's files in the same directory stay."""
+    checkpoint_dir = Path(checkpoint_dir)
+    pat = re.compile(re.escape(f"{model_type}_{run_info}_e")
+                     + r"(\d+)s\d+\.(npz|json|orbax)$")
+    for p in checkpoint_dir.glob(f"{model_type}_{run_info}_e*s*"):
+        m = pat.match(p.name)
+        if m and int(m.group(1)) <= upto_epoch:
+            if p.is_dir():
+                shutil.rmtree(p, ignore_errors=True)
+            else:
+                p.unlink(missing_ok=True)
 
 
 # ------------------------------------------------------------- discovery

@@ -41,7 +41,12 @@ from pytorch_scalablefhvae_tpu_torch.train.loop import TrainResult, run_training
 def check_ported(config: ExperimentConfig) -> None:
     """Raise ``NotImplementedError`` (naming ROADMAP.md) for a setting the
     port does not run yet. ``--epoch-plan device`` is refused rather than
-    ignored: on the device-resident tier it means an in-graph shuffle."""
+    ignored: on the device-resident tier it means an in-graph shuffle.
+    ``--ckpt-every-steps`` and ``--max-steps`` are not in the table: they
+    run on every tier, at any K and on a mesh (``train/loop.py``
+    :class:`EpochCursor`); the loop refuses them with ``--legacy`` by a
+    ``ValueError``, as the JAX loop does, which this table's ``--legacy``
+    entry reaches first until legacy epochs are ported."""
     t, d = config.train, config.data
     on_mesh = tuple(t.mesh_shape) != (1, 1)
     refused = {
@@ -57,8 +62,6 @@ def check_ported(config: ExperimentConfig) -> None:
         "--hierarchical": t.sample_hierarchical,
         "--ckpt-backend orbax": t.ckpt_backend == "orbax",
         "--legacy": t.legacy,
-        "--ckpt-every-steps": t.ckpt_every_steps > 0,
-        "--max-steps": t.max_steps > 0,
         "--profile-dir": t.profile_dir is not None,
         "--tensorboard": t.tensorboard,
         "--visdom": t.plot_curves,

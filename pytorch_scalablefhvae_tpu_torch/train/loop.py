@@ -16,9 +16,13 @@ checked one dispatch late, as the JAX loop's ``_record_dispatch`` does),
 :func:`estimate_split_mu2` + :func:`evaluate_split` (the host dev pass
 against a MAP-estimated mu2 table), :func:`stage_split` +
 :func:`device_dev_pass` (the same pass over a staged dev split),
-:func:`save_epoch` (the checkpoint policy), :func:`check_best` /
-:func:`check_terminate` (early stopping), and :func:`run_training`, which
-resolves the data tier and strings them together. The device and streamed
+:func:`save_state` (the checkpoint policy of both cadences),
+:class:`EpochCursor` (the step cadence of ``--ckpt-every-steps`` and
+``--max-steps``: an epoch's batch cursor, the save and stop hook each tier
+calls after every dispatch, the partials a step checkpoint carries),
+:func:`check_best` / :func:`check_terminate` (early stopping), and
+:func:`run_training`, which resolves the data tier and strings them
+together. The device and streamed
 tiers stage in the run's transfer dtype (float32, bfloat16 or int8), and so
 does the dev split where it fits what the training tier leaves of the
 budget.
@@ -31,14 +35,22 @@ both dev passes over the data ranks when the dev batch size divides by ``d``
 early stopping) are taken from all-reduced values, so the ranks take them
 together; rank 0 alone prints, writes ``metrics.jsonl`` and the checkpoints.
 
+A step checkpoint (``..._e<epoch>s<batches>``) holds the whole training
+state and the epoch's cursor; ``--continue-from`` on one re-enters that
+epoch at its cursor (every tier's batch order is a function of the seed
+and the epoch, each step's noise of the seed and the step), so a killed
+and resumed run equals an uninterrupted one bit for bit, and the epoch
+checkpoint deletes the step checkpoints it supersedes.
+
 Hierarchical rounds, the streamed tier and compressed staging on a mesh,
-K-step dispatch on a mesh, mid-epoch checkpoints and profiling are not
-ported yet (``ROADMAP.md``; ``train/driver.py`` refuses them).
+K-step dispatch on a mesh and profiling are not ported yet
+(``ROADMAP.md``; ``train/driver.py`` refuses them).
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import math
 import time
 from dataclasses import dataclass
@@ -132,12 +144,22 @@ class TrainResult:
 class DispatchLosses:
     """An epoch's step losses, each dispatch's read from the device one
     dispatch late, so the host never waits on the work it just issued (the
-    JAX loop's ``_record_dispatch``)."""
+    JAX loop's ``_record_dispatch``). ``prior``: a step checkpoint's
+    ``mid_epoch``, whose ``batches_done`` and partials of the steps taken
+    before the kill (``loss_sum``, ``count_sum``, ``elapsed_s``; a JAX
+    cursor may lack them) :meth:`stats` folds in, so that a resumed epoch
+    reports the whole epoch."""
 
-    def __init__(self):
+    def __init__(self, prior: dict | None = None):
         self.values: list[float] = []
         self.rows: list[int] = []
         self._pending = None
+        self.prior = prior or {}
+        self.start_clock()
+
+    def start_clock(self) -> None:
+        """The epoch's steps start now (their wall time counts from here)."""
+        self.t0 = time.perf_counter()
 
     def push(self, losses: torch.Tensor, rows) -> bool:
         """Keep this dispatch's losses (one per step, ``rows`` real rows
@@ -158,18 +180,98 @@ class DispatchLosses:
         self.rows += rows
         return all(math.isfinite(v) for v in vals)
 
-    def stats(self, seconds: float) -> EpochStats:
-        """The epoch's count-weighted mean loss over the steps read, up to
-        the first non-finite one (then ``diverged``)."""
+    def partials(self) -> dict:
+        """The epoch so far, prior included, as a step checkpoint stores it
+        (the JAX loop's cursor partials): the count-weighted loss sum, the
+        real rows and the wall seconds of the steps read."""
         loss_sum, count = 0.0, 0
         for loss, rows in zip(self.values, self.rows):
-            if not math.isfinite(loss):
-                return EpochStats(loss, count, len(self.values), seconds,
-                                  diverged=True)
             loss_sum += loss * rows
             count += rows
-        return EpochStats(loss_sum / max(count, 1), count, len(self.values),
-                          seconds)
+        return {"loss_sum": loss_sum + self.prior.get("loss_sum", 0.0),
+                "count_sum": count + self.prior.get("count_sum", 0),
+                "elapsed_s": time.perf_counter() - self.t0
+                + self.prior.get("elapsed_s", 0.0)}
+
+    def stats(self) -> EpochStats:
+        """The epoch's count-weighted mean loss over the steps read, up to
+        the first non-finite one (then ``diverged``), the prior's steps,
+        rows and seconds included."""
+        for i, loss in enumerate(self.values):
+            if not math.isfinite(loss):
+                return EpochStats(loss, sum(self.rows[:i]), len(self.values),
+                                  time.perf_counter() - self.t0,
+                                  diverged=True)
+        p = self.partials()
+        count = int(p["count_sum"])
+        return EpochStats(p["loss_sum"] / max(count, 1), count,
+                          int(self.prior.get("batches_done", 0))
+                          + len(self.values), p["elapsed_s"])
+
+
+class StopRun(Exception):
+    """Unwinds an epoch from the step cadence: at ``--max-steps``, once the
+    step checkpoint is written, or when the loss read before a save is not
+    finite (``diverged``; nothing is written)."""
+
+    def __init__(self, diverged: bool = False):
+        super().__init__("diverged" if diverged else "--max-steps reached")
+        self.diverged = diverged
+
+
+class EpochCursor:
+    """An epoch's place in its batch order for ``--ckpt-every-steps`` and
+    ``--max-steps`` (the JAX loop's ``make_after_dispatch``): the batch it
+    starts at (``prior``, the ``mid_epoch`` of the step checkpoint resumed
+    from: its ``batches_done`` and partials; else 0), the batches done
+    since, its :class:`DispatchLosses`, and the hook every tier calls after
+    each dispatch (:meth:`push`).
+
+    The step count is ``state.step``, a host int the steps and the bundle
+    advance, so the hook costs no device sync unless it saves. It saves at
+    the first dispatch boundary ``every`` batches or more after the last
+    save, and at ``max_steps``, after which it raises :class:`StopRun`. Before
+    a save it reads the dispatch still pending: a save never writes a state
+    whose last loss is not finite. ``save(batches_done, partials)`` writes
+    the step checkpoint; on a mesh every rank calls it, with the same
+    decisions, since the loss and the step count are the same on every
+    rank. Without ``every`` and ``max_steps`` the hook only counts."""
+
+    def __init__(self, state: TrainState, prior: dict | None = None,
+                 every: int = 0, max_steps: int = 0, save=None):
+        self.state, self.every, self.max_steps, self.save = (
+            state, every, max_steps, save)
+        self.start = self.done = self._saved = int(
+            (prior or {}).get("batches_done", 0))
+        self.losses = DispatchLosses(prior)
+
+    def room(self, n: int) -> int:
+        """``n`` steps, clamped to those left before ``--max-steps``."""
+        if not self.max_steps:
+            return n
+        return max(min(n, self.max_steps - self.state.step), 0)
+
+    def push(self, losses: torch.Tensor, rows) -> bool:
+        """A dispatch's losses (:meth:`DispatchLosses.push`), then the
+        cadence; False once a loss read is not finite."""
+        if not self.losses.push(losses, rows):
+            return False
+        self.after(len(rows))
+        return True
+
+    def after(self, n: int) -> None:
+        """``n`` batches more are done: save and stop as due."""
+        self.done += n
+        due = bool(self.every) and self.done - self._saved >= self.every
+        stop = bool(self.max_steps) and self.state.step >= self.max_steps
+        if not (due or stop):
+            return
+        if not self.losses.finish():
+            raise StopRun(diverged=True)
+        self._saved = self.done
+        self.save(self.done, self.losses.partials())
+        if stop:
+            raise StopRun()
 
 
 def batch_tensors(b, device: torch.device, mesh=None):
@@ -185,89 +287,98 @@ def batch_tensors(b, device: torch.device, mesh=None):
 
 def run_epoch(state: TrainState, optimizer: Optimizer, loader: SegmentLoader,
               alpha: float, device: torch.device, epoch: int,
-              mesh=None, bundle: StepBundle | None = None) -> EpochStats:
-    """One epoch of train steps over ``loader``'s order for ``epoch``.
+              mesh=None, bundle: StepBundle | None = None,
+              cursor: EpochCursor | None = None) -> EpochStats:
+    """One epoch of train steps over ``loader``'s order for ``epoch``, from
+    the ``cursor``'s batch on (a mid-epoch resume; by default the first,
+    with no step cadence).
 
     Every step's loss comes back to the host (one scalar, the only sync per
-    step); a non-finite loss ends the epoch at once with ``diverged``. With
-    a ``bundle`` (its inputs :class:`HostInputs`), see
+    step); a non-finite loss ends the epoch at once with ``diverged``. The
+    cursor stops the epoch after the step that reaches ``--max-steps``.
+    With a ``bundle`` (its inputs :class:`HostInputs`), see
     :func:`run_bundled_epoch`."""
     loader.set_epoch(epoch)
+    cursor = cursor or EpochCursor(state)
     if bundle is not None:
         return run_bundled_epoch(state, optimizer, loader, alpha, device,
-                                 bundle)
-    loss_sum, count, steps = 0.0, 0, 0
-    t0 = time.perf_counter()
-    for b in loader:
-        metrics = train_step(state, optimizer,
-                             *batch_tensors(b, device, mesh), alpha,
-                             mesh=mesh)
-        loss = float(metrics["loss"])
-        steps += 1
-        if not math.isfinite(loss):
-            return EpochStats(loss, count, steps,
-                              time.perf_counter() - t0, diverged=True)
-        loss_sum += loss * b.num_real
-        count += b.num_real
+                                 bundle, cursor)
+    losses = cursor.losses
+    losses.start_clock()
+    with contextlib.closing(loader.batches_from(cursor.start)) as batches:
+        for b in batches:
+            metrics = train_step(state, optimizer,
+                                 *batch_tensors(b, device, mesh), alpha,
+                                 mesh=mesh)
+            losses.push(metrics["loss"], [b.num_real])
+            if not losses.finish():
+                break
+            cursor.after(1)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    return EpochStats(loss_sum / max(count, 1), count, steps,
-                      time.perf_counter() - t0)
+    return losses.stats()
 
 
 def run_bundled_epoch(state: TrainState, optimizer: Optimizer,
                       loader: SegmentLoader, alpha: float,
-                      device: torch.device, bundle: StepBundle) -> EpochStats:
-    """The host loader's epoch in K-step dispatches: every K batches are
-    stacked into the bundle's static inputs (through pinned buffers, while
-    the device runs the dispatch before) and run as one dispatch; the last
-    ``n % K`` batches run as eager steps. Losses are read one dispatch late
-    (:class:`DispatchLosses`)."""
-    losses = DispatchLosses()
-    t0 = time.perf_counter()
+                      device: torch.device, bundle: StepBundle,
+                      cursor: EpochCursor) -> EpochStats:
+    """The host loader's epoch in K-step dispatches from the ``cursor``'s
+    batch on: every K batches are stacked into the bundle's static inputs
+    (through pinned buffers, while the device runs the dispatch before) and
+    run as one dispatch; the last ``n % K`` batches run as eager steps. The
+    feed stops at the batch that reaches ``--max-steps`` (the JAX loop's
+    ``islice``), so no dispatch runs past it. Losses are read one dispatch
+    late (:class:`DispatchLosses`)."""
+    losses = cursor.losses
+    losses.start_clock()
+    feed = loader.batches_from(cursor.start)
     group, ok = [], True
-    for b in loader:
-        group.append(b)
-        if len(group) == bundle.k:
-            bundle.inputs.load(group)
-            ok = losses.push(bundle()["loss"].clone(),
-                             [g.num_real for g in group])
-            group = []
-            if not ok:
-                break
+    with contextlib.closing(feed):
+        for b in itertools.islice(feed, cursor.room(len(loader))):
+            group.append(b)
+            if len(group) == bundle.k:
+                bundle.inputs.load(group)
+                ok = cursor.push(bundle()["loss"].clone(),
+                                 [g.num_real for g in group])
+                group = []
+                if not ok:
+                    break
     for b in group if ok else ():
         metrics = train_step(state, optimizer, *batch_tensors(b, device),
                              alpha)
-        if not losses.push(metrics["loss"], [b.num_real]):
+        if not cursor.push(metrics["loss"], [b.num_real]):
             break
     losses.finish()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    return losses.stats(time.perf_counter() - t0)
+    return losses.stats()
 
 
 def run_plan(state: TrainState, optimizer: Optimizer, store, arrays,
              plan: EpochPlan, start_batch: int, alpha: float,
-             losses: DispatchLosses, bundle: StepBundle | None, seg_len: int,
+             cursor: EpochCursor, bundle: StepBundle | None, seg_len: int,
              mesh=None) -> bool:
     """The plan's batches from ``start_batch`` on, gathered from ``store``:
-    K to a bundle dispatch while K remain, the rest as eager steps, each
-    dispatch's losses pushed to ``losses``. False once a loss read is not
-    finite."""
+    K to a bundle dispatch while K remain before the plan's end and before
+    ``--max-steps``, the rest as eager steps (the bundle's K is fixed, so
+    the JAX loop's clamped dispatch runs here as eager steps, which give
+    the bundle's bits), each dispatch's losses pushed to the ``cursor``.
+    False once a loss read is not finite."""
     B = plan.batch_size
     counts = plan.batch_real_counts()
     if bundle is not None:
         bundle.inputs.load_plan(arrays, plan.n_real)
     b = start_batch
     while b < plan.n_batches:
-        if bundle is not None and plan.n_batches - b >= bundle.k:
+        if bundle is not None and cursor.room(plan.n_batches - b) >= bundle.k:
             bundle.inputs.set_base(b * B)
             loss, n = bundle()["loss"].clone(), bundle.k
         else:
             loss, n = device_train_step(
                 state, optimizer, store, arrays, b * B, plan.n_real, alpha,
                 batch_size=B, seg_len=seg_len, mesh=mesh)["loss"], 1
-        if not losses.push(loss, counts[b:b + n]):
+        if not cursor.push(loss, counts[b:b + n]):
             return False
         b += n
     return True
@@ -276,11 +387,12 @@ def run_plan(state: TrainState, optimizer: Optimizer, store, arrays,
 def run_device_epoch(state: TrainState, optimizer: Optimizer,
                      source: DeviceDataSource, loader: SegmentLoader,
                      alpha: float, device: torch.device, epoch: int,
-                     mesh=None, bundle: StepBundle | None = None
-                     ) -> EpochStats:
+                     mesh=None, bundle: StepBundle | None = None,
+                     cursor: EpochCursor | None = None) -> EpochStats:
     """One epoch of train steps gathered from the staged store, over the
     host loader's own permutation for ``epoch``, so both tiers train on the
-    same batches.
+    same batches, from the ``cursor``'s batch on (:func:`run_plan`, which
+    also clamps the dispatches at ``--max-steps``).
 
     Each step's loss comes back to the host after the next step has been
     issued (lag one), so the host never waits on the step it just issued;
@@ -290,16 +402,16 @@ def run_device_epoch(state: TrainState, optimizer: Optimizer,
     as eager steps, and each dispatch's losses are read one dispatch
     late."""
     loader.set_epoch(epoch)
+    cursor = cursor or EpochCursor(state)
     ds, B = loader.dataset, loader.batch_size
     plan, arrays = source.stage_epoch(ds, loader._order(), B)
-    losses = DispatchLosses()
-    t0 = time.perf_counter()
-    run_plan(state, optimizer, source.data, arrays, plan, 0, alpha, losses,
-             bundle, ds.seg_len, mesh)
-    losses.finish()
+    cursor.losses.start_clock()
+    run_plan(state, optimizer, source.data, arrays, plan, cursor.start, alpha,
+             cursor, bundle, ds.seg_len, mesh)
+    cursor.losses.finish()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    return losses.stats(time.perf_counter() - t0)
+    return cursor.losses.stats()
 
 
 def stream_seed(loader: SegmentLoader, epoch: int) -> int:
@@ -311,7 +423,8 @@ def stream_seed(loader: SegmentLoader, epoch: int) -> int:
 def run_stream_epoch(state: TrainState, optimizer: Optimizer,
                      source: StreamingDeviceSource, loader: SegmentLoader,
                      alpha: float, device: torch.device, epoch: int,
-                     bundle: StepBundle | None = None) -> EpochStats:
+                     bundle: StepBundle | None = None,
+                     cursor: EpochCursor | None = None) -> EpochStats:
     """One epoch of the streamed tier: the chunks in the epoch's shuffled
     order, each chunk's segments in its own permutation
     (``source.epoch_schedule``), gathered from the chunk's slot while the
@@ -319,22 +432,26 @@ def run_stream_epoch(state: TrainState, optimizer: Optimizer,
     device tier (:func:`run_plan`; a chunk's ``n % K`` batches as eager
     steps), the losses read one dispatch late across chunks; the epoch's
     statistics count every chunk's steps, as the other tiers count
-    theirs."""
+    theirs. From a mid-epoch ``cursor`` the chunks wholly behind it are
+    never staged (``epoch_batches(skip_batches=)``); the cursor counts the
+    epoch's batches across chunks, and a stop in the middle of a chunk
+    closes the chunk generator, which releases its filler thread."""
     loader.set_epoch(epoch)
+    cursor = cursor or EpochCursor(state)
     seg_len = loader.dataset.seg_len
-    losses = DispatchLosses()
-    t0 = time.perf_counter()
-    chunks = source.epoch_batches(stream_seed(loader, epoch))
+    cursor.losses.start_clock()
+    chunks = source.epoch_batches(stream_seed(loader, epoch),
+                                  skip_batches=cursor.start)
     with contextlib.closing(chunks):
         for chunk in chunks:
             if not run_plan(state, optimizer, source.data, chunk.arrays,
-                            chunk.plan, chunk.start_batch, alpha, losses,
+                            chunk.plan, chunk.start_batch, alpha, cursor,
                             bundle, seg_len):
                 break
-    losses.finish()
+    cursor.losses.finish()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    return losses.stats(time.perf_counter() - t0)
+    return cursor.losses.stats()
 
 
 def _map_table(sums: np.ndarray, counts: np.ndarray, pz2_var: float,
@@ -542,19 +659,28 @@ def stage_dev_tier(config: ExperimentConfig, dev_loader: SegmentLoader,
     return split
 
 
-def save_epoch(exp_dir: Path, state: TrainState, config: ExperimentConfig,
+def save_state(exp_dir: Path, state: TrainState, config: ExperimentConfig,
                epoch: int, best_epoch: int, best_val_lb: float,
-               history: MetricHistory, summary_vals: dict,
-               extra_meta: dict) -> Path:
-    """The epoch checkpoint (full training state) and, when this epoch is
-    the best, its ``best_model_`` copy."""
+               history: MetricHistory, extra_meta: dict,
+               summary_vals: dict | None = None,
+               cursor: dict | None = None) -> Path:
+    """The one checkpoint writer of both cadences (the JAX loop's
+    ``save_state_checkpoint``), so that a field cannot go missing from
+    one of them: the epoch checkpoint (full training state, its
+    ``summary_vals``, and a ``best_model_`` copy when this epoch is the
+    best), or with a ``cursor`` (``mid_epoch``: the epoch, ``batches_done``
+    and the partials) the step checkpoint ``..._e<epoch>s<batches_done>``."""
     model = state.model
+    extra = dict(extra_meta)
+    if cursor is not None:
+        extra["mid_epoch"] = cursor
     return ckpt.save_checkpoint(
         exp_dir, model, model_type=model.model_type,
         model_params=model.model_params(), run_info=config.base_string(),
         epoch=epoch, best_epoch=best_epoch, best_val_lb=float(best_val_lb),
-        values=history.to_json_dict(), extra_meta=extra_meta,
-        train_state=state, summary_vals=summary_vals)
+        values=history.to_json_dict(), extra_meta=extra,
+        train_state=state, summary_vals=summary_vals,
+        suffix="" if cursor is None else f"s{cursor['batches_done']}")
 
 
 def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
@@ -616,8 +742,18 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
                                config.optim.beta_one, config.optim.beta_two)
     alpha = config.optim.alpha_dis
 
+    # the step cadence: a resume re-enters an epoch's batch order at its
+    # cursor, which holds since that order is a function of (seed, epoch)
+    every = max(config.train.ckpt_every_steps, 0)
+    max_steps = max(config.train.max_steps, 0)
+    if (every or max_steps) and config.train.legacy:
+        raise ValueError(
+            "--ckpt-every-steps/--max-steps are not supported with legacy "
+            "step-epochs (their schedule is not a pure function of "
+            "(seed, epoch))")
     start_epoch, best_epoch, best_val_lb = 0, 0, -np.inf
     history = MetricHistory()
+    mid = None  # the cursor of a mid-epoch checkpoint resumed from
     corpus_fp = ckpt.corpus_fingerprint(ds.store.seq_keys)
     if continue_from is not None:
         meta = ckpt.load_train_state(continue_from, state, finetune=finetune,
@@ -627,9 +763,14 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
         best_epoch = meta.get("best_epoch", 0)
         best_val_lb = meta.get("best_val_lb", -np.inf)
         history = MetricHistory(meta.get("values", {}))
+        mid = None if finetune else meta.get("mid_epoch")
+        if mid is not None:
+            start_epoch = int(mid["epoch"])
         if verbose:
             print(f"Resumed from {continue_from} at epoch {start_epoch} "
-                  f"(step {state.step})")
+                  f"(step {state.step}"
+                  + (f", mid-epoch at batch {int(mid['batches_done'])})"
+                     if mid is not None else ")"))
 
     k = config.train.steps_per_dispatch
     bundle = None
@@ -656,21 +797,56 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
              "corpus_fingerprint": corpus_fp}
     result = TrainResult(state, best_epoch, best_val_lb, start_epoch - 1,
                          history)
+    if max_steps and state.step >= max_steps:
+        # resumed at the cap: train nothing, or every call of the same
+        # resume command would creep on by a dispatch
+        if verbose:
+            print(f"--max-steps {max_steps} already reached at restore "
+                  f"(step {state.step}); nothing to train")
+        return result
     for epoch in range(start_epoch, config.train.epochs):
-        if tier == "device":
-            stats = run_device_epoch(state, optimizer, source, train_loader,
-                                     alpha, dev, epoch, mesh, bundle)
-        elif tier == "stream":
-            stats = run_stream_epoch(state, optimizer, source, train_loader,
-                                     alpha, dev, epoch, bundle)
-        else:
-            stats = run_epoch(state, optimizer, train_loader, alpha, dev,
-                              epoch, mesh, bundle)
+        on_cursor = mid is not None and epoch == int(mid["epoch"])
+
+        def save_mid(batches_done, partials, epoch=epoch):
+            save_state(exp_dir, state, config, epoch, best_epoch,
+                       best_val_lb, history, extra,
+                       cursor={"epoch": epoch, "batches_done": batches_done,
+                               **partials})
+
+        cursor = EpochCursor(state, mid if on_cursor else None, every,
+                             max_steps, save_mid)
+        try:
+            if tier == "device":
+                stats = run_device_epoch(state, optimizer, source,
+                                         train_loader, alpha, dev, epoch,
+                                         mesh, bundle, cursor)
+            elif tier == "stream":
+                stats = run_stream_epoch(state, optimizer, source,
+                                         train_loader, alpha, dev, epoch,
+                                         bundle, cursor)
+            else:
+                stats = run_epoch(state, optimizer, train_loader, alpha, dev,
+                                  epoch, mesh, bundle, cursor)
+        except StopRun as stop:
+            if stop.diverged:  # the save gate read a non-finite loss
+                stats = cursor.losses.stats()
+            else:
+                if verbose:
+                    print(f"Reached --max-steps {max_steps} at epoch {epoch}, "
+                          f"batch {cursor.done} (step {state.step}); "
+                          f"mid-epoch checkpoint saved")
+                result = TrainResult(state, best_epoch, best_val_lb, epoch,
+                                     history)
+                break
         if stats.diverged:
             if first:
                 print("Training diverged")
             result.diverged, result.last_epoch = True, epoch
             return result
+        if verbose and tier == "stream" and cursor.start:
+            print(f"Resumed epoch {epoch} at batch {cursor.start}: staged "
+                  f"{len(source.switch_waits())} of {len(source.chunks)} "
+                  f"chunks")
         if mesh is not None and not replicas_equal(mesh, [
                 p for n, p in state.params().items() if not is_sharded(n, p)]):
             raise RuntimeError(
@@ -706,8 +882,18 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
             writer.write_epoch(epoch, scalars)
         if check_best(val["lower_bound"], best_val_lb):
             best_epoch, best_val_lb = epoch, val["lower_bound"]
-        save_epoch(exp_dir, state, config, epoch, best_epoch, best_val_lb,
-                   history, {k: float(v) for k, v in scalars.items()}, extra)
+        save_state(exp_dir, state, config, epoch, best_epoch, best_val_lb,
+                   history, extra, {k: float(v) for k, v in scalars.items()})
+        if every or max_steps or mid is not None:
+            # the epoch checkpoint supersedes this run's step checkpoints
+            # of this epoch and before, a --max-steps stop's included when
+            # this run has no cadence flag; on a mesh, once every rank is
+            # past its save
+            if mesh is not None:
+                dist.barrier()
+            if first:
+                ckpt.cleanup_mid_epoch(exp_dir, model.model_type,
+                                       config.base_string(), epoch)
         result = TrainResult(state, best_epoch, best_val_lb, epoch, history)
         if check_terminate(epoch, best_epoch, config.train.patience,
                            config.train.epochs):

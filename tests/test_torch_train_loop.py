@@ -200,8 +200,7 @@ def test_divergence_exits_2(corpus, tmp_path, capsys):
     ["--hierarchical"],
     pytest.param(["--mesh", "2,1", "--shard-device-store"], id="--mesh 2,1"),
     ["--ckpt-backend", "orbax"],
-    ["--legacy"], ["--ckpt-every-steps", "5"],
-    ["--max-steps", "3"], ["--profile-dir", "prof"], ["--tensorboard"],
+    ["--legacy"], ["--profile-dir", "prof"], ["--tensorboard"],
     ["--visdom"], ["--log-params"], ["--model-type", "simple_fhvae"],
     ["--epoch-plan", "device"], ["--lstm-pallas", "never"],
     ["--mesh", "2,1", "--data-placement", "stream"],
@@ -214,7 +213,8 @@ def test_unported_flag_raises(corpus, tmp_path, flags):
     compressed staging, hierarchical rounds and K-step dispatch.
     ``--steps-per-dispatch``, ``--data-placement stream`` and
     ``--transfer-dtype`` on one device run: ``tests/test_torch_multi_step.py``,
-    ``tests/test_torch_stream.py``.)"""
+    ``tests/test_torch_stream.py``; ``--ckpt-every-steps`` and
+    ``--max-steps`` everywhere: ``tests/test_torch_ckpt_steps.py``.)"""
     with pytest.raises(NotImplementedError):
         main(train_args(corpus, tmp_path, *flags))
 
