@@ -152,6 +152,26 @@ prints no result line):
    compute stream's waits at each chunk switch of a K = 8 epoch. Every LSTM
    launch of the phase's train runs took the tensor-core form, and each of
    the seven train entries was launched;
+4h. hierarchical rounds, ``train --hierarchical`` (``train/rounds.py``) at
+   the CLI defaults, K = 5,000 sequences a round, on 4s-big's corpus (kept
+   from phase 4s, else written), over the 4 GiB budget, so ``auto`` stages
+   each round's sub-pack into one buffer of the K longest sequences' rows
+   (2.684 GB): (a) K = 8, two rounds, which must say so, each round's table
+   the MAP pass's (kernel #8, chunk skip 8, 79 batches of 2,048) with its
+   Adam moments zeroed; (b) the same at K = 1, bit for bit in every
+   checkpoint tensor and record (a table or store bound anew under the
+   captured graph would show here); (c) the host loader at K = 8, whose
+   first table is within ``TOL_HIER_TABLE`` of (a)'s and each epoch's train
+   loss and dev bound within ``TOL_HIER_EPOCH``; (d) two-epoch rounds
+   stopped by ``--max-steps`` in the round's second epoch and resumed, bit
+   for bit against the run never stopped, with #8 launched as often (no
+   second MAP init); (e) bfloat16 staging, #8 on bf16 rows; (f) phase 4's
+   corpus with 2,000-sequence rounds on the device tier (views of the
+   staged store), K = 8 against K = 1 bit for bit; then 10 warm K = 8
+   dispatches of the round-staged and host tiers after a turnover
+   (torch.profiler: host wall, busy, idle share) and each turnover's
+   stages (draw, sub-pack materialised, staged, MAP init) timed. Every LSTM
+   launch is tensor-core, and the seven train entries are launched;
 4b. ``eval`` and ``probe`` of phase 4's experiment through the port's CLI
    (dev split, 400 sequences, batch 2048): the three forward kernel entries
    launched, every LSTM launch through the tensor-core form; the eval's dev
@@ -224,7 +244,8 @@ kernel entry. ``launches`` sums ``launches_by_path``: the counts of the
 (``train``), phase 4k's train runs at K = 8 (``train_k8``), phase 4s's
 runs on the streamed tier (``train_stream``: the sum over those seven runs,
 each counted alone; its device-tier, host-loader and whole-bf16 runs are
-not counted), the eval of phase 4b (``eval``), the mesh run's rank 0
+not counted), phase 4h's hierarchical runs (``train_hier``: every CLI run
+of the phase, each counted alone), the eval of phase 4b (``eval``), the mesh run's rank 0
 (``mesh``: the ``2,2`` epoch) and phase 4r's stopped and resumed runs in
 this process (``train_resume``: every run of (a) to (d) and the NaN gate's;
 the mesh's ranks are processes of their own), each set to 0 just before its
@@ -3326,12 +3347,13 @@ def metrics_of(exp_root: Path, epochs: int = 1) -> list[dict]:
             .splitlines()]
 
 
-def streamed_run(counts: dict, name: str, run):
-    """``run()``, one CLI run on the streamed tier, counted alone: the train
-    entries' counts set to 0 just before it (:func:`reset_counts`) and read
-    just after, and added to ``counts`` (``launches``, ``tensor_core``:
-    entry name -> launches; ``bf16``: #8's on bfloat16 rows; ``runs``: the
-    names of the runs counted). Returns what ``run`` returns."""
+def counted_run(counts: dict, name: str, run):
+    """``run()``, one CLI run (or a stopped run and its resume), counted
+    alone: the train entries' counts set to 0 just before it
+    (:func:`reset_counts`) and read just after, and added to ``counts``
+    (``launches``, ``tensor_core``: entry name -> launches; ``bf16``: #8's
+    on bfloat16 rows; ``runs``: the names of the runs counted). Returns
+    what ``run`` returns."""
     from pytorch_scalablefhvae_tpu_torch.ops import window_gather
 
     entries = train_entries()
@@ -3448,7 +3470,7 @@ def stream_check(workdir: Path, cfg, counts: dict) -> None:
     epoch against its host replay (float32, bfloat16, int8), K = 8 against
     K = 1, a resumed streamed run, and bfloat16 and int8 on the device
     tier against float32. The streamed runs' launches go into ``counts``
-    (:func:`streamed_run`); the device-tier runs are not counted."""
+    (:func:`counted_run`); the device-tier runs are not counted."""
     from pytorch_scalablefhvae_tpu_torch.cli.main import main as cli
     from pytorch_scalablefhvae_tpu_torch.ops import window_gather
 
@@ -3460,7 +3482,7 @@ def stream_check(workdir: Path, cfg, counts: dict) -> None:
         # at 1 byte an element the store (100.4 MB) fits the budget: int8
         # streams by the flag
         forced = ["--data-placement", "stream"] if dtype == "int8" else []
-        out = streamed_run(counts, f"4s-check {dtype}", lambda: run_cli(
+        out = counted_run(counts, f"4s-check {dtype}", lambda: run_cli(
             cli, train_args(cfg, root, exp_root, *budget, *forced,
                             "--transfer-dtype", dtype, "--epochs", "1")))
         bf16_launches = window_gather.windowed_chunk_gather.launches_bf16
@@ -3496,10 +3518,10 @@ def stream_check(workdir: Path, cfg, counts: dict) -> None:
 
     # K = 8 equals K = 1, and a resumed streamed run continues the count
     exp_k8 = workdir / "stream_k8"
-    out = streamed_run(counts, f"4s-check K = {K_DISPATCH}", lambda: run_cli(
+    out = counted_run(counts, f"4s-check K = {K_DISPATCH}", lambda: run_cli(
         cli, train_args(cfg, root, exp_k8, *budget, "--steps-per-dispatch",
                         str(K_DISPATCH), "--epochs", "1")))
-    streamed_run(counts, "4s-check resumed", lambda: run_cli(cli, train_args(
+    counted_run(counts, "4s-check resumed", lambda: run_cli(cli, train_args(
         cfg, root, exp_k8, *budget, "--continue-from",
         str(run_dir(exp_k8, 1) / "fhvae_synthetic_np_fbank_e0.npz"),
         "--resume-override", "epochs=2")))
@@ -3553,22 +3575,28 @@ def stream_check(workdir: Path, cfg, counts: dict) -> None:
                                  f"finite")
 
 
-def write_big_corpus(root: Path, seed: int = 1):
-    """4s-big's preprocessed corpus: ``BIG_SEQS`` sequences of
-    ``BIG_FRAMES`` frames of float32 normals (80 mels) around a per-sequence
-    offset, one array per sequence (no per-frame loops). Returns the run's
-    config and the training store's bytes."""
+def big_config(root: Path):
+    """The config of a run on 4s-big's corpus at ``root``."""
     from pytorch_scalablefhvae_tpu_torch.config import (
         DataConfig,
         ExperimentConfig,
         ModelConfig,
     )
-    from pytorch_scalablefhvae_tpu_torch.train.driver import split_manifests
 
-    cfg = ExperimentConfig(
+    return ExperimentConfig(
         data=DataConfig(dataset="synthetic", mvn_path=str(root / "mvn.json"),
                         training_batch_size=B_TRAIN),
         model=ModelConfig(model_type="fhvae"))
+
+
+def write_big_corpus(root: Path, seed: int = 1):
+    """4s-big's preprocessed corpus: ``BIG_SEQS`` sequences of
+    ``BIG_FRAMES`` frames of float32 normals (80 mels) around a per-sequence
+    offset, one array per sequence (no per-frame loops). Returns the run's
+    config and the training store's bytes."""
+    from pytorch_scalablefhvae_tpu_torch.train.driver import split_manifests
+
+    cfg = big_config(root)
     rng = np.random.default_rng(seed)
     t0 = time.perf_counter()
     frames = {}
@@ -3673,7 +3701,7 @@ def big_tier_profile(cfg, loader, tier: str, k: int) -> dict:
     return out
 
 
-def stream_big(workdir: Path, counts: dict) -> dict:
+def stream_big(workdir: Path, counts: dict, keep: bool = False) -> dict:
     """4s-big: the CLI defaults over the default budget on a corpus whose
     fp32 store is over it. One epoch each: no placement flags (``auto``
     streams ~5 chunks of 1 GiB), the same at K = 8, the host loader at K =
@@ -3681,8 +3709,9 @@ def stream_big(workdir: Path, counts: dict) -> dict:
     bfloat16`` at K = 8 (the store fits at 2 bytes, and is staged whole);
     ms/step, segments/s and link bytes an epoch of each, and the idle share
     of 10 warm dispatches (torch.profiler) of each tier. The two streamed
-    runs' launches go into ``counts`` (:func:`streamed_run`); the host
-    loader's and the whole bfloat16 store's are not counted."""
+    runs' launches go into ``counts`` (:func:`counted_run`); the host
+    loader's and the whole bfloat16 store's are not counted. ``keep``: leave
+    the corpus for phase 4h."""
     from pytorch_scalablefhvae_tpu_torch.cli.main import main as cli
 
     root = workdir / "big"
@@ -3704,8 +3733,8 @@ def stream_big(workdir: Path, counts: dict) -> dict:
         t0 = time.perf_counter()
         args = train_args(cfg, root, exp_root, *flags, "--epochs", "1")
         if want[name] == "streaming it":
-            text = streamed_run(counts, f"4s-big {name}",
-                                lambda: run_cli(cli, args))
+            text = counted_run(counts, f"4s-big {name}",
+                               lambda: run_cli(cli, args))
         else:
             text = run_cli(cli, args)
         wall = time.perf_counter() - t0
@@ -3762,19 +3791,21 @@ def stream_big(workdir: Path, counts: dict) -> dict:
         out[f"{tier} K={k}"] = p
         torch.cuda.empty_cache()
     del loader
-    shutil.rmtree(root, ignore_errors=True)
+    if not keep:
+        shutil.rmtree(root, ignore_errors=True)
     return out
 
 
-def phase_stream(workdir: Path, cfg) -> dict:
+def phase_stream(workdir: Path, cfg, keep_big: bool = False) -> dict:
     """Phase 4s: the streamed tier and compressed staging through the CLI;
     returns the launches of its runs on the streamed tier
-    (``train_stream``), each counted alone (:func:`streamed_run`)."""
+    (``train_stream``), each counted alone (:func:`counted_run`).
+    ``keep_big``: leave 4s-big's corpus for phase 4h."""
     log("== phase 4s: sfhvae train, the streamed tier (--data-placement "
         "auto over the budget) and --transfer-dtype bfloat16|int8")
     counts: dict = {}
     stream_check(workdir, cfg, counts)
-    stream_big(workdir, counts)
+    stream_big(workdir, counts, keep_big)
     launches = counts["launches"]
     log(f"launches during the phase's {len(counts['runs'])} streamed runs "
         f"({', '.join(counts['runs'])}), each counted from 0: {launches}; of "
@@ -3786,6 +3817,334 @@ def phase_stream(workdir: Path, cfg) -> dict:
         if n <= 0:
             raise AssertionError(f"{name} was not launched by phase 4s's "
                                  f"streamed runs")
+    return launches
+
+
+# -------------------------------------------------------------- phase 4h
+
+HIER_K = 5000           # --num-hierarchical-sequences, the CLI default
+HIER_SMALL_K = 2000     # 4h (f): rounds on phase 4's corpus
+TOL_HIER_TABLE = 1e-6   # 4h (c): the first round's MAP table, round-staged
+                        # (fp32 sums on the card) against the host loader's
+                        # (fp64 sums), max error over max |table|: the z2
+                        # means are the same bits, the sums' order differs;
+                        # measured 1.89e-7 (TOL_DEV_LB's 1e-5 before it)
+TOL_HIER_EPOCH = 5e-4   # 4h (c): each epoch's train loss and dev bound,
+                        # relative: two tables 1.9e-7 apart grow through
+                        # 877 steps a round to 1.5e-4-1.9e-4, measured
+                        # (TOL_MESH_EPOCH's 1e-3 before it)
+HIER_ROUND = re.compile(r"Round at epoch (\d+) \((\d+) sequences, [^)]*\): "
+                        r"(.*)")
+
+
+def round_lines(out: str) -> list[dict]:
+    """The rounds a run entered, as ``Rounds.loader_for`` prints them:
+    ``{"epoch", "k", "seconds": {stage: s}, "fresh"}``."""
+    rounds = []
+    for m in HIER_ROUND.finditer(out):
+        stages = dict(part.rsplit(" ", 2)[:2] for part in m[3].split(", "))
+        rounds.append({"epoch": int(m[1]), "k": int(m[2]),
+                       "seconds": {k: float(v) for k, v in stages.items()},
+                       "fresh": "re-entered" not in m[0]})
+    return rounds
+
+
+def hier_tier_profile(cfg, loader, tier: str) -> dict:
+    """10 warm dispatches of K = 8 steps of a hierarchical round at the CLI
+    defaults under torch.profiler (:func:`profiled_dispatches`), after the
+    round's turnover: ``round`` (the round's sub-pack staged at its
+    ceiling, the plan padded to the run's length) or ``host`` (the round's
+    loader batches); ``loader`` is the big corpus's training loader."""
+    from pytorch_scalablefhvae_tpu_torch.data.device_store import (
+        DeviceDataSource,
+    )
+    from pytorch_scalablefhvae_tpu_torch.train.device_step import PlanInputs
+    from pytorch_scalablefhvae_tpu_torch.train.graphs import (
+        HostInputs,
+        StepBundle,
+    )
+    from pytorch_scalablefhvae_tpu_torch.train.rounds import (
+        Rounds,
+        round_ceiling,
+    )
+    from pytorch_scalablefhvae_tpu_torch.train.step import (
+        create_train_state,
+        make_optimizer,
+    )
+
+    dev = torch.device("cuda")
+    ds, k8 = loader.dataset, K_DISPATCH
+    k, ceiling = round_ceiling("auto", ds.store, HIER_K, 4 << 30,
+                               verbose=False)
+    source = (DeviceDataSource(ds.store.subset([], materialize=True), dev,
+                               pad_to_rows=ceiling)
+              if tier == "round" else None)
+    state = create_train_state(seeded_model(cfg, k))
+    opt = make_optimizer(1e-3, 0.95, 0.999)
+    rounds = Rounds(cfg, loader, tier, source, k, dev)
+    sub = rounds.loader_for(0, state, resumed=False, verbose=False)
+    sub.set_epoch(0)
+    if tier == "host":
+        inputs = HostInputs(k8, B_TRAIN, ds.seg_len, D, dev)
+        batches = iter(sub)
+    else:
+        plan, arrays = source.stage_epoch(sub.dataset, sub._order(), B_TRAIN,
+                                          pad_rows=rounds.plan_rows)
+        inputs = PlanInputs(source.data, B_TRAIN, ds.seg_len)
+        inputs.load_plan(arrays, plan.n_real)
+    bundle = StepBundle(state, opt, 10.0, k8, inputs, dev)
+
+    def dispatch(d: int) -> torch.Tensor:
+        if tier == "host":
+            inputs.load([next(batches) for _ in range(k8)])
+        else:
+            inputs.set_base(d * k8 * B_TRAIN)
+        return bundle()["loss"].clone()
+
+    out = profiled_dispatches(dispatch, k8)
+    out["turnover"] = rounds.turnovers[-1][1]
+    if tier == "host":
+        batches.close()
+    return out
+
+
+def phase_hier(workdir: Path, cfg) -> dict:
+    """Phase 4h: ``train --hierarchical`` at the CLI defaults (K = 5,000) on
+    4s-big's corpus, over the 4 GiB budget, so ``auto`` stages each round's
+    sub-pack (reused when phase 4s left it, else written): (a) K = 8, two
+    rounds; (b) the same at K = 1, bit for bit; (c) the host loader at K =
+    8, within ``TOL_HIER_TABLE`` and ``TOL_HIER_EPOCH``; (d) two-epoch
+    rounds, a run stopped by ``--max-steps`` in the round's second epoch
+    and resumed, bit for bit, without a second MAP init; (e) bfloat16
+    staging; (f) phase 4's corpus with 2,000-sequence rounds on the device
+    tier (views), K = 8 against K = 1. Each round's table is checked to be
+    the MAP pass's with its moments zeroed, and each staged MAP init to be
+    kernel #8's chunk-skip pass. Returns the launches of the phase's runs
+    (``train_hier``), each counted from 0 (:func:`counted_run`)."""
+    from pytorch_scalablefhvae_tpu_torch.cli.main import main as cli
+    from pytorch_scalablefhvae_tpu_torch.ops import window_gather
+    from pytorch_scalablefhvae_tpu_torch.train import rounds
+    from pytorch_scalablefhvae_tpu_torch.train.driver import (
+        build_loaders,
+        split_manifests,
+    )
+
+    log("== phase 4h: sfhvae train --hierarchical (K = 5,000 sequences a "
+        "round) at the CLI defaults, a corpus over the 4 GiB budget")
+    t_phase = time.perf_counter()
+    root, pack = workdir / "big", workdir / "big_pack"
+    bcfg = big_config(root)
+    if split_manifests(bcfg, root)["train"]["len_pth"].exists():
+        log("4h: phase 4s's corpus reused")
+    else:
+        bcfg, _ = write_big_corpus(root)
+    gather = window_gather.windowed_chunk_gather
+    k8 = ["--steps-per-dispatch", str(K_DISPATCH)]
+    counts: dict = {}
+    inits, swaps = [], []
+    real_init, real_swap = rounds.Rounds.map_init, rounds.replace_mu2_table
+
+    def map_init(self, state, ds):
+        n, bf16 = gather.launches, gather.launches_bf16
+        real_init(self, state, ds)
+        inits.append({"tier": self.tier, "chunked": self.chunked,
+                      "skip": self.skip, "batches": self.map_batches,
+                      "launches": gather.launches - n,
+                      "bf16": gather.launches_bf16 - bf16})
+
+    def swap(state, table):
+        real_swap(state, table)
+        ok = (torch.equal(state.model.mu2_table, table)
+              and not state.mu["mu2_table"].any()
+              and not state.nu["mu2_table"].any())
+        swaps.append((ok, table.cpu().numpy()))
+
+    def hier_run(name: str, exp_root: Path, *flags, epochs: int = 2,
+                 data: Path = root, run_cfg=bcfg,
+                 cache=("--pack-cache-dir", str(pack))):
+        """One counted CLI run (on the big corpus, its store memory-mapped
+        from ``pack`` after the first): its output, records, and the MAP
+        inits and table swaps it made."""
+        n_init = len(inits)
+        t0 = time.perf_counter()
+        out = counted_run(counts, f"4h {name}", lambda: run_cli(
+            cli, train_args(run_cfg, data, exp_root, "--hierarchical",
+                            *cache, *flags, "--epochs", str(epochs))))
+        wall = time.perf_counter() - t0
+        recs = metrics_of(exp_root, epochs)
+        log(f"4h {name}: " + "; ".join(
+            f"epoch {r['epoch']} {r['train_steps']} steps, "
+            f"{1e3 * r['train_seconds'] / r['train_steps']:.3f} ms/step, "
+            f"{r['train_segments_per_sec']:.1f} segments/s, train loss "
+            f"{r['train_loss']!r}, dev LB {r['val_lower_bound']!r}"
+            for r in recs)
+            + f"; rounds {round_lines(out)}; MAP inits {inits[n_init:]}; "
+            f"#8 launches {gather.launches}; {wall:.1f} s with loading; card "
+            f"{smi_name_power()}")
+        for r in recs:
+            if not np.isfinite([r["train_loss"], r["val_lower_bound"]]).all():
+                raise AssertionError(f"4h {name}: epoch {r['epoch']} is not "
+                                     f"finite")
+        return out, recs, inits[n_init:], swaps[n_init:]
+
+    def equal_runs(name: str, a: Path, b: Path, epochs: list) -> None:
+        differ = {e: differing_arrays(
+            a / f"fhvae_synthetic_np_fbank_e{e}.npz",
+            b / f"fhvae_synthetic_np_fbank_e{e}.npz") for e in epochs}
+        recs = [[r[k] for k in ("train_loss", "train_steps", "step",
+                                "val_loss", "val_lower_bound", "val_log_qy")]
+                for r in (*metrics_in(a), *metrics_in(b))]
+        same = recs[:len(epochs)] == recs[len(epochs):]
+        log(f"4h {name}: checkpoint arrays differing {differ}; records "
+            f"equal {same}")
+        if any(differ.values()) or not same:
+            raise AssertionError(f"4h {name}: the runs differ")
+
+    def staged_inits(name: str, made: list, n: int, bf16: bool = False):
+        ok = (len(made) == n and all(
+            i["tier"] == "round" and i["chunked"] and i["skip"] == 8
+            and i["launches"] == i["batches"] > 0
+            and (i["bf16"] == i["launches"] if bf16 else i["bf16"] == 0)
+            for i in made))
+        if not ok:
+            raise AssertionError(f"4h {name}: the MAP inits {made} are not "
+                                 f"{n} chunk-skip passes through #8")
+
+    rounds.Rounds.map_init, rounds.replace_mu2_table = map_init, swap
+    try:
+        # (a) round-staged, K = 8, two rounds
+        exp_a = workdir / "hier_a"
+        out, recs_a, made_a, swaps_a = hier_run("(a) round-staged, K = 8",
+                                                exp_a, *k8)
+        turn = round_lines(out)
+        if "stage their subset device-resident" not in out or len(turn) != 2 \
+                or not all(t["fresh"] and t["k"] == HIER_K for t in turn):
+            raise AssertionError("4h (a): the run did not stage two rounds "
+                                 "of 5,000 sequences")
+        staged_inits("(a)", made_a, 2)
+        if not all(ok for ok, _ in swaps_a):
+            raise AssertionError("4h (a): a round's table is not the MAP "
+                                 "pass's, or its moments were not zeroed")
+        log(f"4h (a) turnovers, seconds by stage: "
+            f"{[t['seconds'] for t in turn]}; card {smi_name_power()}")
+
+        # (b) the same at K = 1: bit for bit
+        exp_b = workdir / "hier_b"
+        hier_run("(b) round-staged, K = 1", exp_b)
+        equal_runs("(b) K = 1 vs (a) K = 8", run_dir(exp_b, 2),
+                   run_dir(exp_a, 2), [0, 1])
+
+        # (c) the host loader, K = 8
+        exp_c = workdir / "hier_c"
+        out, recs_c, made_c, swaps_c = hier_run(
+            "(c) host loader, K = 8", exp_c, "--data-placement", "host", *k8)
+        if "device-resident" in out or [i["tier"] for i in made_c] != \
+                ["host", "host"]:
+            raise AssertionError("4h (c): the host-loader run staged data")
+        ref = swaps_a[0][1]
+        table_err = float(np.abs(swaps_c[0][1] - ref).max()
+                          / np.abs(ref).max())
+        gaps = [max(abs(c[k] / a[k] - 1) for k in ("train_loss",
+                                                   "val_lower_bound"))
+                for a, c in zip(recs_a, recs_c)]
+        log(f"4h (c) host loader vs (a) round-staged: first round's MAP "
+            f"table, max error over max |table| {table_err:.3e} (tol "
+            f"{TOL_HIER_TABLE:g}); per epoch, the larger relative gap of "
+            f"train loss and dev LB {[f'{g:.3e}' for g in gaps]} (tol "
+            f"{TOL_HIER_EPOCH:g})")
+        if not (table_err <= TOL_HIER_TABLE
+                and max(gaps) <= TOL_HIER_EPOCH):
+            raise AssertionError("4h (c): the host loader's hierarchical "
+                                 "run disagrees with the round-staged one")
+
+        # (d) two-epoch rounds: stopped in the round's second epoch and
+        # resumed, against the run never stopped
+        two = [*k8, "--hierarchical-round-epochs", "2"]
+        exp_d = workdir / "hier_d"
+        _, recs_d, _, _ = hier_run("(d) two-epoch rounds, K = 8", exp_d, *two)
+        whole = gather.launches
+        cap = int(recs_d[0]["train_steps"]) + 2 * RESUME_EVERY + 3
+        args = train_args(bcfg, root, workdir / "hier_d_cut", "--hierarchical",
+                          "--pack-cache-dir", str(pack), *two, "--epochs",
+                          "2")
+        n_init = len(inits)
+        out, mid = counted_run(counts, "4h (d) stopped and resumed",
+                               lambda: kill_and_resume(
+                                   cli, "4h (d)", root, args,
+                                   run_dir(workdir / "hier_d_cut", 2), cap))
+        cut = gather.launches
+        re_entered = [t for t in round_lines(out) if not t["fresh"]]
+        log(f"4h (d): the cursor at epoch {mid['epoch']}, batch "
+            f"{mid['batches_done']}; the resume re-entered {re_entered}; #8 "
+            f"launches, stopped and resumed {cut} vs the run never stopped "
+            f"{whole}; MAP inits of the two {inits[n_init:]}")
+        if mid["epoch"] != 1 or len(re_entered) != 1 or cut != whole \
+                or len(inits) - n_init != 1:
+            raise AssertionError("4h (d): the resume did not re-enter the "
+                                 "round with its restored table")
+        check_resumed("4h (d)", run_dir(workdir / "hier_d_cut", 2),
+                      run_dir(exp_d, 2), [0, 1])
+
+        # (e) bfloat16 staging
+        out, recs_e, made_e, _ = hier_run(
+            "(e) round-staged bfloat16, K = 8", workdir / "hier_e",
+            "--data-placement", "stream", "--transfer-dtype", "bfloat16",
+            *k8, epochs=1)
+        staged_inits("(e)", made_e, 1, bf16=True)
+        log(f"4h (e) bfloat16 vs (a)'s epoch 0 in float32: train loss "
+            f"{recs_e[0]['train_loss']!r} vs {recs_a[0]['train_loss']!r} "
+            f"(relative gap "
+            f"{abs(recs_e[0]['train_loss'] / recs_a[0]['train_loss'] - 1):.3e}"
+            f"), dev LB {recs_e[0]['val_lower_bound']!r} vs "
+            f"{recs_a[0]['val_lower_bound']!r}")
+        if "stage their subset device-resident" not in out:
+            raise AssertionError("4h (e): the bfloat16 run did not stage "
+                                 "its rounds")
+
+        # (f) phase 4's corpus, 2,000-sequence rounds on the device tier
+        small = ["--num-hierarchical-sequences", str(HIER_SMALL_K)]
+        for k in (K_DISPATCH, 1):
+            out, _, made_f, _ = hier_run(
+                f"(f) device tier, {HIER_SMALL_K} a round, K = {k}",
+                workdir / f"hier_f{k}", *small, "--steps-per-dispatch",
+                str(k), epochs=1, data=workdir / "data", run_cfg=cfg,
+                cache=())
+            if "Training data device-resident" not in out or [
+                    (i["tier"], i["launches"] > 0) for i in made_f] != [
+                    ("device", True)]:
+                raise AssertionError("4h (f): the rounds did not run on the "
+                                     "device tier through #8")
+        equal_runs(f"(f) K = {K_DISPATCH} vs K = 1",
+                   run_dir(workdir / f"hier_f{K_DISPATCH}", 1),
+                   run_dir(workdir / "hier_f1", 1), [0])
+    finally:
+        rounds.Rounds.map_init, rounds.replace_mu2_table = real_init, real_swap
+
+    loader, _ = build_loaders(bcfg.replace(data=dataclasses.replace(
+        bcfg.data, pack_cache_dir=str(pack))), root, True)
+    for tier in ("round", "host"):
+        p = hier_tier_profile(bcfg, loader, tier)
+        log(f"4h {tier} tier, K = {K_DISPATCH}, 10 warm dispatches after a "
+            f"turnover ({', '.join(f'{k} {v:.3f} s' for k, v in p['turnover'].items())}): "
+            f"host wall {p['wall']:.3f} ms/step, device busy "
+            f"{p['busy']:.3f} (copies {p['copies']:.3f}), idle share "
+            f"{p['idle']:.3f}, {B_TRAIN / p['wall'] * 1e3:.1f} segments/s, "
+            f"{p['launches']:.1f} kernels a step; card {smi_name_power()}")
+        if p["chains"] == 0:
+            raise AssertionError(f"torch.profiler saw no LSTM kernel in the "
+                                 f"{tier} tier's dispatches")
+        torch.cuda.empty_cache()
+    del loader
+    launches = counts["launches"]
+    log(f"launches during the phase's {len(counts['runs'])} runs "
+        f"({', '.join(counts['runs'])}), each counted from 0: {launches}; of "
+        f"the LSTM entries', through the tensor-core form: "
+        f"{counts['tensor_core']}; #8 on bf16 rows: {counts['bf16']}")
+    check_tensor_core(launches, counts["tensor_core"], "phase 4h")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched by phase 4h")
+    log(f"phase 4h took {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -4623,9 +4982,9 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", default=None,
                         help="comma-separated phases to run after phase 1 "
-                             "(2, 2f, 2b, 2c, 2d, 2e, 3, 3b, 4, 4k, 4s, 4b, "
-                             "4q, 5, 4r; 2 includes 2f, 4k, 4b and 4r need "
-                             "4); default all")
+                             "(2, 2f, 2b, 2c, 2d, 2e, 3, 3b, 4, 4k, 4s, 4h, "
+                             "4b, 4q, 5, 4r; 2 includes 2f, 4k, 4b and 4r "
+                             "need 4); default all")
     only = parser.parse_args(argv).only
     only = None if only is None else set(only.split(","))
     if only is not None and "2" in only:
@@ -4659,7 +5018,7 @@ def main(argv=None) -> int:
             if not on("3"):
                 write_corpus(workdir / "wav")
             by_path["preprocess"] = phase_preprocess(workdir)
-        if on("4") or on("4s") or on("5"):
+        if on("4") or on("4s") or on("4h") or on("5"):
             t0 = time.perf_counter()
             cfg = write_feature_corpus(workdir / "data")
             log(f"corpus written in {time.perf_counter() - t0:.1f} s")
@@ -4671,7 +5030,10 @@ def main(argv=None) -> int:
             by_path["train_k8"] = phase_train_k8(
                 workdir, cfg, {**runs, "launches": by_path["train"]})
         if on("4s"):
-            by_path["train_stream"] = phase_stream(workdir, cfg)
+            by_path["train_stream"] = phase_stream(workdir, cfg,
+                                                   keep_big=on("4h"))
+        if on("4h"):
+            by_path["train_hier"] = phase_hier(workdir, cfg)
         if on("4b"):
             by_path["eval"] = phase_eval(workdir)
         if on("4q"):

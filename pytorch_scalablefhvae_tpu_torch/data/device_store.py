@@ -12,9 +12,11 @@ the budget streams through the device instead (``data/stream_store.py``).
 
 The host-side pieces are this package's own numpy copies of the JAX
 package's: ``EpochPlan``, ``build_epoch_plan``, ``STORE_TAIL_SLACK``,
-``staging_itemsize`` and ``resolve_data_placement``. Not ported yet
-(``ROADMAP.md``): the on-device epoch plan (``make_device_epoch_plan``) and
-a store sharded over a mesh (``--shard-device-store``): on a mesh every
+``staging_itemsize`` and ``resolve_data_placement``. A hierarchical round
+on a store over the budget stages its sub-pack into a buffer of a fixed
+row ceiling (``DeviceDataSource(pad_to_rows=)``, ``restage``). Not ported
+yet (``ROADMAP.md``): the on-device epoch plan (``make_device_epoch_plan``)
+and a store sharded over a mesh (``--shard-device-store``): on a mesh every
 rank stages the whole store, the JAX package's default, and gathers its
 rows of each planned batch from it; a mesh stages float32 only.
 """
@@ -210,36 +212,88 @@ def copy_rows(dst: torch.Tensor, data: np.ndarray,
 class DeviceDataSource:
     """The packed store on ``device`` in ``store_dtype`` (``"float32"``,
     ``"bfloat16"`` or ``"int8"``), plus per-epoch plan uploads. ``data`` is
-    the staged tensor, or a :class:`Quantized` for int8."""
+    the staged tensor, or a :class:`Quantized` for int8.
+
+    ``pad_to_rows``: the staged buffer's row count, at least the store's
+    rows and ``STORE_TAIL_SLACK``, for per-round sub-pack staging
+    (hierarchical rounds on a store over the budget): every round's sub-pack
+    is staged by :meth:`restage` into this one allocation, whose address a
+    captured K-step graph keeps."""
 
     def __init__(self, store, device: torch.device,
-                 store_dtype: str = "float32"):
-        data = store.data
-        rows, dim = data.shape
-        device = torch.device(device)
-        # one allocation and one copy; the slack rows stay zero (byte 0 in
-        # int8: never addressed by a real plan row)
-        buf = torch.zeros((rows + STORE_TAIL_SLACK, dim),
-                          dtype=STAGING_DTYPES[store_dtype], device=device)
+                 store_dtype: str = "float32", pad_to_rows: int | None = None):
+        rows, dim = store.data.shape
+        total = rows + STORE_TAIL_SLACK
+        if pad_to_rows is not None:
+            if total > pad_to_rows:
+                raise ValueError(
+                    f"staged store needs {total} rows (incl. slack) but "
+                    f"pad_to_rows={pad_to_rows}; raise the ceiling")
+            total = pad_to_rows
+        # one allocation; the rows past a store's stay zero (byte 0 in int8:
+        # never addressed by a real plan row)
+        self.device = torch.device(device)
+        self.store_dtype = store_dtype
+        buf = torch.zeros((total, dim), dtype=STAGING_DTYPES[store_dtype],
+                          device=self.device)
         if store_dtype == "int8":
+            zeros = torch.zeros(dim, dtype=torch.float32, device=self.device)
+            self.data = Quantized(buf, zeros, zeros.clone())
+        else:
+            self.data = buf
+        self.restage(store)
+
+    @property
+    def rows(self) -> torch.Tensor:
+        """The staged rows (the bytes of an int8 store)."""
+        return self.data.rows if isinstance(self.data, Quantized) \
+            else self.data
+
+    def restage(self, store) -> None:
+        """Copy ``store`` into the buffer in place, its rows first and zeros
+        after them (int8: its own columns' scale and offset). The copies run
+        on the current stream, so a step issued before reads the rows it was
+        issued with; raises when the store and the tail slack do not fit."""
+        data = store.data
+        rows, buf = data.shape[0], self.rows
+        if rows + STORE_TAIL_SLACK > buf.shape[0]:
+            raise ValueError(
+                f"a store of {rows} rows (and {STORE_TAIL_SLACK} of slack) "
+                f"does not fit the staged buffer's {buf.shape[0]}")
+        if self.store_dtype == "int8":
             q, scale, offset = quantize_columns(data)
             buf[:rows].copy_(torch.from_numpy(q))
-            self.data = Quantized(buf, torch.from_numpy(scale).to(device),
-                                  torch.from_numpy(offset).to(device))
+            self.data.scale.copy_(torch.from_numpy(scale))
+            self.data.offset.copy_(torch.from_numpy(offset))
         else:
             copy_rows(buf, data)
-            self.data = buf
-        self.device = device
+        buf[rows:].zero_()
 
     def upload(self, arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device,
                                                              dtype)
 
     def stage_epoch(self, dataset: SegmentDataset, order: np.ndarray,
-                    batch_size: int):
+                    batch_size: int, pad_rows: int | None = None):
         """Upload one epoch's plan: ``(plan, (seq_idx [Npad] int64,
-        abs_starts [Npad] int64, nsegs_tab [S] float32))`` on the device."""
-        plan = build_epoch_plan(dataset, order, batch_size)
+        abs_starts [Npad] int64, nsegs_tab [S] float32))`` on the device;
+        ``pad_rows``: the index arrays' fixed length (``build_epoch_plan``),
+        so that every hierarchical round's plan has one shape."""
+        plan = build_epoch_plan(dataset, order, batch_size, pad_rows=pad_rows)
         return plan, (self.upload(plan.seq_idx, torch.long),
                       self.upload(plan.abs_starts, torch.long),
                       self.upload(dataset.nsegs, torch.float32))
+
+    def stage_meta(self, dataset: SegmentDataset,
+                   pad_seqs: int | None = None):
+        """The per-sequence vectors the chunked MAP pass takes: each
+        sequence's first frame in the staged buffer and its window count
+        (int64), zero-padded to ``pad_seqs`` sequences (window count 0: no
+        window, nothing summed)."""
+        starts = np.asarray(dataset.store.seq_starts, np.int64)
+        nsegs = np.asarray(dataset.nsegs, np.int64)
+        if pad_seqs is not None and pad_seqs > len(nsegs):
+            pad = pad_seqs - len(nsegs)
+            starts = np.concatenate([starts, np.zeros(pad, np.int64)])
+            nsegs = np.concatenate([nsegs, np.zeros(pad, np.int64)])
+        return self.upload(starts, torch.long), self.upload(nsegs, torch.long)

@@ -447,16 +447,23 @@ TIER_WORDS = {"device": "staging it whole", "stream": "streaming it",
 
 def resolve_tier(placement: str, store, max_bytes: int,
                  store_dtype: str = "float32", verbose: bool = True,
-                 mesh_run: bool = False) -> str:
+                 mesh_run: bool = False, hierarchical: bool = False) -> str:
     """The run's data tier, ``"device"``, ``"stream"`` or ``"host"``, as
     ``resolve_data_mode`` decides it on one device from the placement and
     the budget alone: ``device`` raises its ``ValueError`` when the store is
     over ``max_bytes``; ``auto`` stages it when it fits and streams it
     otherwise, and says which (where ``verbose``: one rank of a mesh says
     it). A mesh stages whole stores only: the streamed tier there raises,
-    naming ``--data-placement host``, which trains such a store on a mesh."""
+    naming ``--data-placement host``, which trains such a store on a mesh.
+
+    ``hierarchical``: rounds of a subset of the store. A store that fits
+    stages whole (``auto``, ``device``) and a round's subset is a view of
+    it; over the budget (or at ``stream``) the tier is ``"host"``, which the
+    training loop turns into per-round staging of the subset where one
+    round fits (``train/rounds.py``)."""
     mode = resolve_data_mode(placement, store, max_bytes=max_bytes,
-                             store_dtype=store_dtype)
+                             store_dtype=store_dtype,
+                             hierarchical=hierarchical)
     if mode == "stream" and mesh_run:
         raise NotImplementedError(
             "the streamed tier (--data-placement stream, or auto with a "
@@ -467,7 +474,11 @@ def resolve_tier(placement: str, store, max_bytes: int,
         nbytes = (store.data.shape[0] * store.dim
                   * staging_itemsize(store_dtype))
         within = "within" if mode == "device" else "over"
+        words = TIER_WORDS[mode]
+        if hierarchical and mode == "host":
+            words = ("staging each hierarchical round's subset where one "
+                     "fits, else training from the host loader")
         print(f"data placement auto: the packed store is {nbytes / 1e6:.1f} "
               f"MB in {store_dtype}, {within} the device-store budget of "
-              f"{max_bytes / 1e6:.1f} MB; {TIER_WORDS[mode]}")
+              f"{max_bytes / 1e6:.1f} MB; {words}")
     return mode

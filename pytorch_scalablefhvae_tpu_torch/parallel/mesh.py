@@ -142,6 +142,10 @@ def make_mesh(mesh_shape: tuple[int, int], device: torch.device) -> Mesh:
         g = dist.new_group([i * m + j for j in range(m)])
         if i == rank // m:
             model_group = g
+    # no rank goes on until every rank's groups are connected: one that
+    # raises right after (a setting refused on a mesh) would otherwise
+    # close its sockets under another rank's gloo handshake
+    dist.barrier()
     return Mesh((d, m), rank, data_group, model_group, torch.device(device))
 
 

@@ -174,6 +174,17 @@ def load_params(checkpoint_file, model: torch.nn.Module) -> dict:
     return meta
 
 
+def saved_table_rows(checkpoint_file, model: torch.nn.Module) -> int:
+    """The row count of the mu2 table a port or JAX ``.npz`` holds
+    (``model`` names the JAX checkpoint's leaves)."""
+    meta = read_checkpoint_meta(checkpoint_file)
+    name = next(n for n in model.state_dict() if n.endswith("mu2_table"))
+    if meta.get("format") != PORT_FORMAT:
+        name = f"leaf_{jax_leaf_names(model.state_dict()).index(name)}"
+    with np.load(checkpoint_file) as z:
+        return int(z[name].shape[0])
+
+
 def train_state_from_jax(leaves, names) -> dict:
     """A JAX ``TrainState``'s leaves (``tree_leaves`` order) -> the port's:
     ``{"params", "mu", "nu"}`` (name -> array) plus ``count`` and ``step``.

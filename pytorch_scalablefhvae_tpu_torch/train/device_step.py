@@ -229,6 +229,9 @@ def device_map_pass(model, store, seq_idx_all, starts_all, n_real: int, *,
                      pz2_var / pmu2_var, store.device, mesh)
 
 
+MAP_SPB = 16  # windows per chunk of the chunked MAP passes
+
+
 def chunk_layout(sel_starts, sel_nsegs, *, spb: int, seg_shift: int,
                  rows: int, chunk_skip: int = 1):
     """The chunked schedule of ``rows`` windows (a multiple of ``spb``):
@@ -261,7 +264,7 @@ def chunk_layout(sel_starts, sel_nsegs, *, spb: int, seg_shift: int,
 def device_map_pass_chunked(model, store, sel_starts, sel_nsegs, *,
                             seg_len: int, seg_shift: int, batch_size: int,
                             n_batches: int, num_rows: int, pz2_var: float,
-                            spb: int = 16, pmu2_var: float = 1.0,
+                            spb: int = MAP_SPB, pmu2_var: float = 1.0,
                             chunk_skip: int = 1) -> torch.Tensor:
     """A split's MAP mu2 table over the chunked schedule of
     :func:`chunk_layout` (``make_device_map_pass_chunked``): each batch's

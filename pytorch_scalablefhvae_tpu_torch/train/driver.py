@@ -59,7 +59,6 @@ def check_ported(config: ExperimentConfig) -> None:
         f"--mesh with --transfer-dtype {d.transfer_dtype}":
             on_mesh and d.transfer_dtype != "float32",
         "--shard-device-store": d.shard_device_store,
-        "--hierarchical": t.sample_hierarchical,
         "--ckpt-backend orbax": t.ckpt_backend == "orbax",
         "--legacy": t.legacy,
         "--profile-dir": t.profile_dir is not None,

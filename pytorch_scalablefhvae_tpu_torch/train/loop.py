@@ -42,9 +42,13 @@ and the epoch, each step's noise of the seed and the step), so a killed
 and resumed run equals an uninterrupted one bit for bit, and the epoch
 checkpoint deletes the step checkpoints it supersedes.
 
-Hierarchical rounds, the streamed tier and compressed staging on a mesh,
-K-step dispatch on a mesh and profiling are not ported yet
-(``ROADMAP.md``; ``train/driver.py`` refuses them).
+Hierarchical rounds (``--hierarchical``, ``train/rounds.py``) run on one
+device: each epoch trains on its round's loader through the runners above,
+on the device tier (a round's subset a view of the staged store), per-round
+staging of a store over the budget (:func:`run_device_epoch` on the round's
+buffer), or the host loader. Hierarchical rounds, the streamed tier and
+compressed staging on a mesh, K-step dispatch on a mesh and profiling are
+not ported yet (``ROADMAP.md``; ``train/driver.py`` refuses them).
 """
 
 from __future__ import annotations
@@ -82,6 +86,7 @@ from pytorch_scalablefhvae_tpu_torch.parallel.mesh import (
 )
 from pytorch_scalablefhvae_tpu_torch.train import checkpoint as ckpt
 from pytorch_scalablefhvae_tpu_torch.train.device_step import (
+    MAP_SPB,
     PlanInputs,
     device_eval_pass,
     device_map_pass,
@@ -92,6 +97,11 @@ from pytorch_scalablefhvae_tpu_torch.train.graphs import HostInputs, StepBundle
 from pytorch_scalablefhvae_tpu_torch.train.metrics import (
     MetricHistory,
     MetricWriter,
+)
+from pytorch_scalablefhvae_tpu_torch.train.rounds import (
+    Rounds,
+    check_round_table,
+    round_ceiling,
 )
 from pytorch_scalablefhvae_tpu_torch.train.step import (
     Optimizer,
@@ -388,11 +398,14 @@ def run_device_epoch(state: TrainState, optimizer: Optimizer,
                      source: DeviceDataSource, loader: SegmentLoader,
                      alpha: float, device: torch.device, epoch: int,
                      mesh=None, bundle: StepBundle | None = None,
-                     cursor: EpochCursor | None = None) -> EpochStats:
+                     cursor: EpochCursor | None = None,
+                     plan_rows: int | None = None) -> EpochStats:
     """One epoch of train steps gathered from the staged store, over the
     host loader's own permutation for ``epoch``, so both tiers train on the
     same batches, from the ``cursor``'s batch on (:func:`run_plan`, which
-    also clamps the dispatches at ``--max-steps``).
+    also clamps the dispatches at ``--max-steps``). ``plan_rows``: the
+    plan's fixed length (a hierarchical round's, so that every round's plan
+    fills the bundle's buffers).
 
     Each step's loss comes back to the host after the next step has been
     issued (lag one), so the host never waits on the step it just issued;
@@ -404,7 +417,8 @@ def run_device_epoch(state: TrainState, optimizer: Optimizer,
     loader.set_epoch(epoch)
     cursor = cursor or EpochCursor(state)
     ds, B = loader.dataset, loader.batch_size
-    plan, arrays = source.stage_epoch(ds, loader._order(), B)
+    plan, arrays = source.stage_epoch(ds, loader._order(), B,
+                                      pad_rows=plan_rows)
     cursor.losses.start_clock()
     run_plan(state, optimizer, source.data, arrays, plan, cursor.start, alpha,
              cursor, bundle, ds.seg_len, mesh)
@@ -534,9 +548,6 @@ def dev_pass(model, loader: SegmentLoader, alpha: float,
                           table=torch.from_numpy(table).to(device), mesh=mesh)
 
 
-MAP_SPB = 16  # windows per chunk of the chunked dev MAP pass
-
-
 @dataclass
 class DeviceSplit:
     """A split staged for the device dev pass: its store, its ordered array
@@ -609,15 +620,22 @@ def staged_mb(store, store_dtype: str, rows: int | None = None) -> float:
 
 def stage_train_tier(config: ExperimentConfig, tier: str,
                      train_loader: SegmentLoader, device: torch.device,
-                     verbose: bool):
-    """The training tier's source, ``DeviceDataSource`` (``"device"``) or
-    ``StreamingDeviceSource`` (``"stream"``; chunks of
+                     verbose: bool, ceiling: int | None = None):
+    """The training tier's source, ``DeviceDataSource`` (``"device"``; or
+    ``"round"``, an empty buffer of ``ceiling`` rows for hierarchical
+    rounds) or ``StreamingDeviceSource`` (``"stream"``; chunks of
     ``--stream-chunk-bytes``, by default a quarter of the budget), in the
     run's transfer dtype, and the bytes it holds on the device as the dev
-    split's budget counts them: the whole store, or three chunks (two
-    slots and what a draining dispatch still reads, as the JAX loop counts
-    them)."""
+    split's budget counts them: the whole store, the ceiling's rows (each
+    round is staged into the same buffer, in stream order), or three chunks
+    (two slots and what a draining dispatch still reads, as the JAX loop
+    counts them)."""
     ds, dtype = train_loader.dataset, config.data.transfer_dtype
+    if tier == "round":
+        # the ceiling's rows, empty: each round restages its sub-pack
+        source = DeviceDataSource(ds.store.subset([], materialize=True),
+                                  device, dtype, pad_to_rows=ceiling)
+        return source, ceiling * ds.store.dim * staging_itemsize(dtype)
     if tier == "device":
         source = DeviceDataSource(ds.store, device, dtype)
         if verbose:
@@ -692,7 +710,8 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
     checkpoint each, early stopping by patience. A non-finite training loss
     stops the run with ``diverged`` set, before that epoch is saved. The
     data tier is resolved first (:func:`resolve_tier`): the device-resident
-    store, the streamed tier, or the host loader. A mesh run
+    store, the streamed tier, or the host loader; for hierarchical rounds
+    also per-round staging (``train/rounds.py``). A mesh run
     (``config.train.mesh_shape`` other than ``(1, 1)``, or an initialised
     ``torch.distributed``) is one call of this on every rank, each with its
     own ``device``."""
@@ -712,17 +731,35 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
         config.save(exp_dir / "config.json")
 
     ds = train_loader.dataset
-    tier = resolve_tier(config.data.data_placement, ds.store,
+    hier = config.train.sample_hierarchical
+    if hier and mesh is not None:
+        raise NotImplementedError(
+            "--mesh with --hierarchical is not yet ported to PyTorch "
+            "(ROADMAP.md, item 10)")
+    placement = config.data.data_placement
+    tier = resolve_tier(placement, ds.store,
                         config.data.device_store_max_bytes,
                         config.data.transfer_dtype, verbose=first,
-                        mesh_run=mesh is not None)
+                        mesh_run=mesh is not None, hierarchical=hier)
+    seg_len, dim, num_seqs = ds.seg_len, ds.store.dim, ds.num_seqs
+    ceiling = None
+    if hier:
+        # a round's K rows size the table; over the budget each round's
+        # sub-pack is staged where one fits (which may lower K)
+        num_seqs = min(config.train.num_hierarchical_sequences, num_seqs)
+        if tier == "host" and placement != "host":
+            num_seqs, ceiling = round_ceiling(
+                placement, ds.store, num_seqs,
+                config.data.device_store_max_bytes,
+                config.data.transfer_dtype, verbose)
+            if ceiling is not None:
+                tier = "round"
     source, dev_split = None, None
     if tier != "host":
         source, train_bytes = stage_train_tier(config, tier, train_loader,
-                                               dev, verbose)
+                                               dev, verbose, ceiling)
         dev_split = stage_dev_tier(config, dev_loader, dev, train_bytes,
                                    verbose, mesh_run=mesh is not None)
-    seg_len, dim, num_seqs = ds.seg_len, ds.store.dim, ds.num_seqs
     seed = config.train.seed
     model = build_model(config.model.model_type, seg_len * dim, config.model,
                         num_seqs, feat_dim=dim,
@@ -756,9 +793,14 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
     mid = None  # the cursor of a mid-epoch checkpoint resumed from
     corpus_fp = ckpt.corpus_fingerprint(ds.store.seq_keys)
     if continue_from is not None:
-        meta = ckpt.load_train_state(continue_from, state, finetune=finetune,
-                                     expected_num_seqs=num_seqs,
-                                     expected_fingerprint=corpus_fp)
+        # a hierarchical table is the round's, re-estimated at the next
+        # turnover: another corpus is no fault, another K is
+        if hier and not finetune:
+            check_round_table(continue_from, model, num_seqs)
+        meta = ckpt.load_train_state(
+            continue_from, state, finetune=finetune,
+            expected_num_seqs=None if hier else num_seqs,
+            expected_fingerprint=None if hier else corpus_fp)
         start_epoch = meta["start_epoch"]
         best_epoch = meta.get("best_epoch", 0)
         best_val_lb = meta.get("best_val_lb", -np.inf)
@@ -792,6 +834,8 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
                   + (", replayed as one CUDA graph" if dev.type == "cuda"
                      else ""))
 
+    rounds = Rounds(config, train_loader, tier, source, num_seqs, dev) \
+        if hier else None
     writer = MetricWriter(exp_dir, config.run_id()) if first else None
     extra = {"num_seqs": num_seqs, "feat_dim": dim, "seg_len": seg_len,
              "corpus_fingerprint": corpus_fp}
@@ -806,6 +850,8 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
         return result
     for epoch in range(start_epoch, config.train.epochs):
         on_cursor = mid is not None and epoch == int(mid["epoch"])
+        loader = train_loader if rounds is None else rounds.loader_for(
+            epoch, state, on_cursor, verbose)
 
         def save_mid(batches_done, partials, epoch=epoch):
             save_state(exp_dir, state, config, epoch, best_epoch,
@@ -816,16 +862,17 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
         cursor = EpochCursor(state, mid if on_cursor else None, every,
                              max_steps, save_mid)
         try:
-            if tier == "device":
-                stats = run_device_epoch(state, optimizer, source,
-                                         train_loader, alpha, dev, epoch,
-                                         mesh, bundle, cursor)
+            if tier in ("device", "round"):
+                stats = run_device_epoch(
+                    state, optimizer, source, loader, alpha, dev, epoch,
+                    mesh, bundle, cursor,
+                    None if rounds is None else rounds.plan_rows)
             elif tier == "stream":
                 stats = run_stream_epoch(state, optimizer, source,
                                          train_loader, alpha, dev, epoch,
                                          bundle, cursor)
             else:
-                stats = run_epoch(state, optimizer, train_loader, alpha, dev,
+                stats = run_epoch(state, optimizer, loader, alpha, dev,
                                   epoch, mesh, bundle, cursor)
         except StopRun as stop:
             if stop.diverged:  # the save gate read a non-finite loss

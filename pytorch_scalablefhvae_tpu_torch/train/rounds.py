@@ -1,0 +1,291 @@
+"""Hierarchical rounds (``train --hierarchical``): counterpart of the round
+code of the JAX package's ``train/loop.py``.
+
+Each round trains against a subset of K sequences drawn from the corpus, so
+the mu2 table and the discriminative softmax are O(K) whatever the corpus
+size (the scalable configuration of arXiv 1804.03201). A round lasts
+``--hierarchical-round-epochs`` epochs. Its boundaries are absolute (``epoch
+% R == 0``), and its draw, dataset and loader are keyed by its boundary
+epoch ``e0`` (:func:`round_keys`, :func:`round_loader`), so a resume
+anywhere inside a round rebuilds it exactly. When a round turns over, its
+table is MAP-initialised from the current encoder and its Adam moments are
+reset (``step.replace_mu2_table``); re-entering a live round on a resume
+keeps the restored table.
+
+A hierarchical run takes one of three tiers, as the JAX loop gives it:
+
+- ``device``: the store fits the budget and is staged whole; a round's
+  subset is a view of it (absolute frame offsets);
+- ``round``: the store is over the budget (``auto``, ``stream``, or an
+  explicit ``device``), but a round's worst-case sub-pack fits three
+  quarters of it (:func:`round_ceiling`): each round materialises its
+  sub-pack on the host and stages it into ONE buffer of a fixed row ceiling
+  (``DeviceDataSource.restage``), in the compute stream's order, so a
+  captured K-step graph keeps reading the same address and no step issued
+  before a turnover reads the next round's rows. The dev split is budgeted
+  against one ceiling (the JAX loop counts two, for the buffer it drops
+  while a dispatch still reads it);
+- ``host``: the host loader.
+
+On the two staged tiers every round's plan is padded to one length (the K
+largest sequences' windows), so one captured graph serves every round, and
+the MAP init is one chunked pass through kernel #8 (every
+``--map-init-chunk-skip``-th chunk of 16 windows of each sequence), or the
+array-plan pass for int8 stores and random windows; on the host tier it is
+``estimate_split_mu2`` over the same chunks.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+
+import numpy as np
+import torch
+
+from pytorch_scalablefhvae_tpu_torch.data.device_store import (
+    STORE_TAIL_SLACK,
+    build_epoch_plan,
+    staging_itemsize,
+)
+from pytorch_scalablefhvae_tpu_torch.data.loader import SegmentLoader
+from pytorch_scalablefhvae_tpu_torch.data.segments import (
+    SegmentDataset,
+    chunk_skip_indices,
+)
+from pytorch_scalablefhvae_tpu_torch.train import checkpoint as ckpt
+from pytorch_scalablefhvae_tpu_torch.train.device_step import (
+    MAP_SPB,
+    device_map_pass,
+    device_map_pass_chunked,
+)
+from pytorch_scalablefhvae_tpu_torch.train.step import (
+    TrainState,
+    replace_mu2_table,
+)
+
+MAP_BATCH_ROWS = 2048  # the MAP init's batch: the train batch times
+                       # max(1, 2048 // batch)
+
+
+def round_ceiling(placement: str, store, k: int, max_bytes: int,
+                  store_dtype: str = "float32",
+                  verbose: bool = True) -> tuple[int, int | None]:
+    """Per-round staging of a hierarchical run whose store is over the
+    budget: ``(K, ceiling)``, the effective round size and the row count of
+    the buffer every round's sub-pack is staged into, or ``(k, None)`` when
+    not even the longest sequence fits (``auto``: the host loader trains;
+    an explicit ``device`` or ``stream`` raises the JAX package's
+    ``ValueError``).
+
+    The sub-pack may take three quarters of ``max_bytes`` in
+    ``store_dtype``. K is the largest round size whose worst-case draw, the
+    K longest sequences, fits, since the table's rows are fixed for the run;
+    a K below ``k`` is announced whatever ``verbose`` is, as the JAX loop
+    announces it only under ``verbose``."""
+    isz = staging_itemsize(store_dtype)
+    k = min(k, store.num_seqs)
+    budget_rows = (max_bytes * 3 // 4) // max(store.dim * isz, 1)
+    floor = int(np.max(store.lens)) + STORE_TAIL_SLACK
+    if budget_rows < floor:
+        if placement in ("device", "stream"):
+            raise ValueError(
+                f"data_placement={placement} with hierarchical sampling "
+                f"stages each round's sub-pack, but the longest sequence "
+                f"needs {floor} rows and the device-store budget allows "
+                f"only {int(budget_rows)} — raise --device-store-max-bytes, "
+                f"use --transfer-dtype bfloat16/int8, or use "
+                f"data_placement=auto/host")
+        return k, None
+    desc = np.sort(np.asarray(store.lens))[::-1][:k]
+    k_eff = int(np.searchsorted(np.cumsum(desc),
+                                budget_rows - STORE_TAIL_SLACK,
+                                side="right"))
+    if k_eff < k:
+        print(f"Hierarchical round size reduced {k} -> {k_eff}: a round's "
+              f"worst-case sub-pack must fit the device-store budget (raise "
+              f"--device-store-max-bytes or use --transfer-dtype "
+              f"bfloat16/int8 for larger rounds)")
+    ceiling = int(desc[:k_eff].sum()) + STORE_TAIL_SLACK
+    if verbose:
+        print(f"Hierarchical rounds stage their subset device-resident "
+              f"({ceiling * store.dim * isz / 1e6:.1f} MB ceiling per round)")
+    return k_eff, ceiling
+
+
+def round_keys(seq_keys, k: int, seed: int, e0: int) -> list:
+    """The keys of the round that starts at epoch ``e0``."""
+    rng = np.random.default_rng((seed + 23) * 1_000_003 + e0)
+    return list(rng.choice(seq_keys, size=k, replace=False))
+
+
+def round_loader(full: SegmentDataset, sub_store, batch_size: int, seed: int,
+                 e0: int, transfer_dtype: str = "float32") -> SegmentLoader:
+    """The shuffled loader of the round that starts at epoch ``e0`` over
+    ``sub_store``, its subset of ``full``'s store."""
+    ds = SegmentDataset(sub_store, seg_len=full.seg_len,
+                        seg_shift=full.seg_shift, rand_seg=full.rand_seg,
+                        seed=seed + e0)
+    return SegmentLoader(ds, batch_size, shuffle=True, seed=seed + 31 * e0,
+                         transfer_dtype=transfer_dtype)
+
+
+def check_round_table(checkpoint_file, model, k: int) -> None:
+    """Refuse a hierarchical resume whose checkpoint's table has another row
+    count than this run's effective round size ``k`` (the JAX package
+    fails there with a shape error)."""
+    rows = ckpt.saved_table_rows(checkpoint_file, model)
+    if rows != k:
+        raise ValueError(
+            f"{checkpoint_file} holds a hierarchical round table of {rows} "
+            f"rows, but this run's round size K is {k}. K is "
+            f"min(--num-hierarchical-sequences, the corpus's sequences), "
+            f"reduced where the store is over --device-store-max-bytes so "
+            f"that a round's worst-case sub-pack fits it in "
+            f"--transfer-dtype; resume with the settings that gave K = "
+            f"{rows}, or with --finetune")
+
+
+class Rounds:
+    """A hierarchical run's rounds on its ``tier`` (``"device"``,
+    ``"round"`` or ``"host"``; ``source``: the staged store of the first
+    two), ``k`` sequences each: :meth:`loader_for` gives an epoch's loader,
+    turning the round over at its boundary. ``plan_rows``: the fixed length
+    of a staged tier's epoch plans. ``turnovers``: per round entered,
+    ``(e0, seconds by stage, fresh)``."""
+
+    def __init__(self, config, loader: SegmentLoader, tier: str, source,
+                 k: int, device: torch.device):
+        ds = loader.dataset
+        self.full, self.batch_size = ds, loader.batch_size
+        self.tier, self.source, self.k, self.device = tier, source, k, device
+        self.every = max(config.train.hierarchical_round_epochs, 1)
+        self.seed = config.train.seed
+        self.dtype = config.data.transfer_dtype
+        self.skip = max(config.train.map_init_chunk_skip, 1)
+        self.current: SegmentLoader | None = None
+        self.turnovers: list = []
+        B = loader.batch_size
+        top = np.sort(np.asarray(ds.nsegs, np.int64))[-k:]
+        self.plan_rows = None
+        if tier != "host":
+            rows = int(top.sum())
+            self.plan_rows = rows + (-rows) % B
+        self.map_batch = B * max(1, MAP_BATCH_ROWS // B)
+        self.chunked = (tier != "host" and not ds.rand_seg
+                        and self.dtype != "int8"
+                        and self.map_batch % MAP_SPB == 0
+                        and (MAP_SPB - 1) * ds.seg_shift + ds.seg_len
+                        <= STORE_TAIL_SLACK)
+        need = (self.chunk_rows(top) if self.chunked else int(top.sum()))
+        self.map_batches = max(-(-need // self.map_batch), 1)
+
+    def chunk_rows(self, nsegs) -> int:
+        """Rows of the chunked MAP plan of sequences of ``nsegs`` windows:
+        every ``skip``-th chunk of ``MAP_SPB`` of each, whole chunks."""
+        chunks = -(-np.asarray(nsegs, np.int64) // MAP_SPB)
+        return int((-(-chunks // self.skip) * MAP_SPB).sum())
+
+    def loader_for(self, epoch: int, state: TrainState, resumed: bool,
+                   verbose: bool = True) -> SegmentLoader:
+        """``epoch``'s loader: the current round's, or, at a boundary epoch
+        or at the run's first, the new round's, its sub-pack staged on the
+        ``round`` tier. The table is MAP-initialised only when the round
+        turns over: not when the run re-enters a live round, at an epoch
+        inside it or, ``resumed``, at the cursor of a mid-epoch
+        checkpoint."""
+        boundary = epoch % self.every == 0
+        if self.current is not None and not boundary:
+            return self.current
+        e0 = epoch - epoch % self.every
+        fresh = boundary and not resumed
+        store, secs = self.full.store, {}
+        t0 = time.perf_counter()
+        keys = round_keys(store.seq_keys, self.k, self.seed, e0)
+        secs["draw"] = time.perf_counter() - t0
+        if self.tier == "round":
+            frames = int(sum(store.lens[store.seq2idx[k]] for k in keys))
+            if frames + STORE_TAIL_SLACK > self.source.rows.shape[0]:
+                raise RuntimeError(
+                    f"round draw needs {frames} frames but the staging "
+                    f"ceiling holds "
+                    f"{self.source.rows.shape[0] - STORE_TAIL_SLACK}: the "
+                    f"ceiling must cover the K largest sequences")
+            t0 = time.perf_counter()
+            sub = store.subset(keys, materialize=True)
+            secs["materialise"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            self.source.restage(sub)
+            self._sync()
+            secs["stage"] = time.perf_counter() - t0
+        else:
+            sub = store.subset(keys)
+        t0 = time.perf_counter()
+        self.current = round_loader(self.full, sub, self.batch_size,
+                                    self.seed, e0, self.dtype)
+        secs["draw"] += time.perf_counter() - t0
+        if fresh:
+            t0 = time.perf_counter()
+            self.map_init(state, self.current.dataset)
+            self._sync()
+            secs["map_init"] = time.perf_counter() - t0
+        self.turnovers.append((e0, secs, fresh))
+        if verbose:
+            print(f"Round at epoch {e0} ({self.k} sequences, "
+                  f"{self.every} epoch{'s' if self.every > 1 else ''}"
+                  f"{'' if fresh else ', re-entered: the restored table kept'}"
+                  f"): " + ", ".join(f"{name} {s:.3f} s"
+                                     for name, s in secs.items()))
+        return self.current
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def map_init(self, state: TrainState, ds: SegmentDataset) -> None:
+        """The round's table, MAP-estimated from the current encoder's z2
+        means, zero-padded to the model's table rows, in place of the last
+        round's, with its moments reset."""
+        model = state.model
+        pz2_var = math.exp(model.pz2_logvar)
+        if self.tier == "host":
+            from pytorch_scalablefhvae_tpu_torch.train.loop import (
+                estimate_split_mu2,
+            )
+
+            idx = (chunk_skip_indices(ds.seq_idx, spb=MAP_SPB, skip=self.skip)
+                   if self.skip > 1 and not ds.rand_seg else None)
+            est = SegmentLoader(ds, self.batch_size, shuffle=False, seed=0,
+                                transfer_dtype=self.dtype, indices=idx)
+            est_table = estimate_split_mu2(model, est, self.k, pz2_var,
+                                           self.device)
+            table = torch.zeros((model.table_rows, est_table.shape[1]))
+            table[:self.k] = torch.from_numpy(est_table)
+            table = table.to(self.device)
+        elif self.chunked:
+            need = self.chunk_rows(ds.nsegs)
+            if need > self.map_batches * self.map_batch:
+                raise RuntimeError(
+                    f"round MAP plan needs {need} rows but the pass holds "
+                    f"{self.map_batches * self.map_batch}: the ceiling must "
+                    f"cover the K largest sequences")
+            starts, nsegs = self.source.stage_meta(ds, pad_seqs=self.k)
+            table = device_map_pass_chunked(
+                model, self.source.data, starts, nsegs, seg_len=ds.seg_len,
+                seg_shift=ds.seg_shift, batch_size=self.map_batch,
+                n_batches=self.map_batches, num_rows=model.table_rows,
+                pz2_var=pz2_var, spb=MAP_SPB, chunk_skip=self.skip)
+        else:
+            # every window, in sequence order: the plan is padded to the
+            # ceiling, and raises where the round needs more
+            plan = build_epoch_plan(
+                ds, np.arange(len(ds)), self.map_batch,
+                pad_rows=self.map_batches * self.map_batch)
+            table = device_map_pass(
+                model, self.source.data,
+                self.source.upload(plan.seq_idx, torch.long),
+                self.source.upload(plan.abs_starts, torch.long), plan.n_real,
+                seg_len=ds.seg_len, batch_size=self.map_batch,
+                n_batches=self.map_batches, num_rows=model.table_rows,
+                pz2_var=pz2_var)
+        replace_mu2_table(state, table)

@@ -74,6 +74,22 @@ def create_train_state(model: torch.nn.Module, seed: int = 0) -> TrainState:
     return TrainState(model=model, mu=mu, nu=nu, count=0, step=0, seed=seed)
 
 
+@torch.no_grad()
+def replace_mu2_table(state: TrainState, table: torch.Tensor) -> None:
+    """A hierarchical round's turnover (the JAX loop's
+    ``_replace_mu2_table``): the new round's table into ``mu2_table`` and
+    its Adam ``mu`` and ``nu`` zeroed, matched by the parameter's name, not
+    by shape; the other moments, ``count`` and ``step`` stay. In place
+    (``copy_``, ``zero_``): a captured K-step graph keeps the addresses of
+    the parameters and the moments, so a tensor bound in their place would
+    never be read by its replays."""
+    for name, p in state.model.named_parameters():
+        if name.rsplit(".", 1)[-1] == "mu2_table":
+            p.copy_(table)
+            state.mu[name].zero_()
+            state.nu[name].zero_()
+
+
 @dataclass(frozen=True)
 class Optimizer:
     """Global-norm clip, then Adam in optax's bias-corrected form.

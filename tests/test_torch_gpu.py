@@ -1174,3 +1174,78 @@ def test_streamed_epoch_k8_equals_k1(cuda, dtype):
         assert torch.equal(p, b.params()[n]), n
         assert torch.equal(a.mu[n], b.mu[n]), n
         assert torch.equal(a.nu[n], b.nu[n]), n
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_round_staged_epochs_k8_equal_k1(cuda, dtype):
+    """Three hierarchical rounds staged one after another into one buffer
+    on the card, each MAP-initialised through kernel #8, each round's epoch
+    eight steps to a CUDA graph replay, against the same rounds one step at
+    a time: the same losses, parameters and moments, bit for bit. A store
+    or a table bound anew under the captured graph would differ here."""
+    from pytorch_scalablefhvae_tpu_torch.config import (
+        DataConfig,
+        ExperimentConfig,
+        TrainConfig,
+    )
+    from pytorch_scalablefhvae_tpu_torch.data.device_store import (
+        DeviceDataSource,
+    )
+    from pytorch_scalablefhvae_tpu_torch.data.feature_store import (
+        FeatureStore,
+    )
+    from pytorch_scalablefhvae_tpu_torch.data.loader import SegmentLoader
+    from pytorch_scalablefhvae_tpu_torch.data.segments import SegmentDataset
+    from pytorch_scalablefhvae_tpu_torch.models.fhvae import FHVAE
+    from pytorch_scalablefhvae_tpu_torch.ops import window_gather
+    from pytorch_scalablefhvae_tpu_torch.train import loop, rounds
+    from pytorch_scalablefhvae_tpu_torch.train.device_step import PlanInputs
+    from pytorch_scalablefhvae_tpu_torch.train.graphs import StepBundle
+    from pytorch_scalablefhvae_tpu_torch.train.step import (
+        create_train_state,
+        make_optimizer,
+    )
+
+    rng = np.random.default_rng(5)
+    store = FeatureStore.from_arrays({
+        f"s{i}": rng.standard_normal((n, 8)).astype(np.float32)
+        for i, n in enumerate(rng.integers(60, 160, 120))})
+    loader = SegmentLoader(SegmentDataset(store, seg_len=20, seg_shift=8), 16,
+                           shuffle=True, seed=0, prefetch=0)
+    cfg = ExperimentConfig(data=DataConfig(transfer_dtype=dtype),
+                           train=TrainConfig(seed=2))
+    k, ceiling = rounds.round_ceiling("stream", store, 20, 1 << 30, dtype,
+                                      verbose=False)
+    model = FHVAE(160, z1_hus=(H, H), z2_hus=(H, H), x_hus=(H, H), z1_dim=4,
+                  z2_dim=4, num_seqs=k, feat_dim=8,
+                  generator=torch.Generator().manual_seed(1))
+    opt = make_optimizer(1e-3, 0.95, 0.999)
+    runs = []
+    for steps in (1, 8):
+        m = FHVAE(160, z1_hus=(H, H), z2_hus=(H, H), x_hus=(H, H), z1_dim=4,
+                  z2_dim=4, num_seqs=k, feat_dim=8)
+        m.load_state_dict(model.state_dict())
+        state = create_train_state(m.to(cuda), seed=2)
+        source = DeviceDataSource(store.subset([], materialize=True), cuda,
+                                  dtype, pad_to_rows=ceiling)
+        r = rounds.Rounds(cfg, loader, "round", source, k, cuda)
+        bundle = (None if steps == 1 else StepBundle(
+            state, opt, 10.0, steps, PlanInputs(source.data, 16, 20), cuda))
+        launches, losses = window_gather.windowed_chunk_gather.launches, []
+        for epoch in range(3):
+            sub = r.loader_for(epoch, state, resumed=False, verbose=False)
+            stats = loop.run_device_epoch(state, opt, source, sub, 10.0, cuda,
+                                          epoch, bundle=bundle,
+                                          plan_rows=r.plan_rows)
+            losses.append(stats.train_loss)
+        assert window_gather.windowed_chunk_gather.launches - launches == \
+            3 * r.map_batches
+        if bundle is not None:
+            assert bundle.graph is not None
+        runs.append((state, losses))
+    (a, la), (b, lb) = runs
+    assert la == lb and a.step == b.step > 0
+    for n, p in a.params().items():
+        assert torch.equal(p, b.params()[n]), n
+        assert torch.equal(a.mu[n], b.mu[n]), n
+        assert torch.equal(a.nu[n], b.nu[n]), n

@@ -51,6 +51,7 @@ PORT_MODULES = [
     "pytorch_scalablefhvae_tpu_torch.train.device_step",
     "pytorch_scalablefhvae_tpu_torch.train.graphs",
     "pytorch_scalablefhvae_tpu_torch.train.loop",
+    "pytorch_scalablefhvae_tpu_torch.train.rounds",
     "pytorch_scalablefhvae_tpu_torch.train.driver",
     "pytorch_scalablefhvae_tpu_torch.train.metrics",
     "pytorch_scalablefhvae_tpu_torch.ops.lstm_cuda",

@@ -197,7 +197,7 @@ def test_divergence_exits_2(corpus, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--hierarchical"],
+    ["--mesh", "2,1", "--hierarchical"],
     pytest.param(["--mesh", "2,1", "--shard-device-store"], id="--mesh 2,1"),
     ["--ckpt-backend", "orbax"],
     ["--legacy"], ["--profile-dir", "prof"], ["--tensorboard"],
@@ -214,7 +214,8 @@ def test_unported_flag_raises(corpus, tmp_path, flags):
     ``--steps-per-dispatch``, ``--data-placement stream`` and
     ``--transfer-dtype`` on one device run: ``tests/test_torch_multi_step.py``,
     ``tests/test_torch_stream.py``; ``--ckpt-every-steps`` and
-    ``--max-steps`` everywhere: ``tests/test_torch_ckpt_steps.py``.)"""
+    ``--max-steps`` everywhere: ``tests/test_torch_ckpt_steps.py``;
+    ``--hierarchical`` on one device: ``tests/test_torch_hier.py``.)"""
     with pytest.raises(NotImplementedError):
         main(train_args(corpus, tmp_path, *flags))
 
