@@ -172,6 +172,34 @@ prints no result line):
    (torch.profiler: host wall, busy, idle share) and each turnover's
    stages (draw, sub-pack materialised, staged, MAP init) timed. Every LSTM
    launch is tensor-core, and the seven train entries are launched;
+4m. ``--model-type simple_fhvae``, the reference's own model, at the CLI
+   defaults (input 20 x 80, H 128, z 16, batch 256) on phase 4's corpus:
+   (a) the first three steps through #5/#6 against the plain versions
+   (``TOL_TRAIN_LOSS``, ``TOL_TRAIN_UPDATE``), then 10 warm dispatches of
+   the device tier at K = 1 and K = 8 (torch.profiler: host wall, busy,
+   idle share); (b) two epochs at K = 1 and at K = 8, bit for bit (the
+   MLPs' cuBLAS products inside the captured graph); then at K = 8, since
+   an eager step is host-bound: (c) one host-loader epoch, its train loss
+   and dev bound within ``TOL_DEV_LB`` of the device tier's; (d) a run
+   stopped by ``--max-steps`` at epoch 1, batch 50 and resumed, equal to
+   (b)'s K = 8 run; (e) one streamed epoch at
+   ``STREAM_BUDGET`` equal to its host replay; (f) ``eval`` and ``probe``
+   of the best checkpoint (the bound within ``TOL_DEV_LB`` of the best
+   epoch's) and three ``serve`` requests from its copy that says
+   ``extractor: "jax"`` (#9); (g) ``import-checkpoint`` of a reference-schema
+   ``.tar`` written here with ``torch.save`` from seeded weights, then a
+   ``--finetune`` epoch from it. #1-#4 launch 0 times in its runs, #5, #6,
+   #8 and #9 more;
+4p. ``--epoch-plan device`` at the fhvae defaults on phase 4's corpus: (b)
+   each epoch's plan derived on the card a permutation of the host plan's
+   real rows with the padding at the tail, two epochs two orders, its time
+   against the host's order, plan and upload; (a) two epochs at K = 8 equal
+   to K = 1 bit for bit; (c) stopped at epoch 1, batch 50 at K = 8 and
+   resumed in a new process, equal to (a)'s K = 1 run; (d) two
+   2,000-sequence rounds on
+   the device tier, K = 8 equal to K = 1; (e) the streamed tier prints the
+   JAX package's note and trains the host plan's epoch (4s-check's fp32
+   epoch, or its own);
 4b. ``eval`` and ``probe`` of phase 4's experiment through the port's CLI
    (dev split, 400 sequences, batch 2048): the three forward kernel entries
    launched, every LSTM launch through the tensor-core form; the eval's dev
@@ -245,7 +273,9 @@ kernel entry. ``launches`` sums ``launches_by_path``: the counts of the
 runs on the streamed tier (``train_stream``: the sum over those seven runs,
 each counted alone; its device-tier, host-loader and whole-bf16 runs are
 not counted), phase 4h's hierarchical runs (``train_hier``: every CLI run
-of the phase, each counted alone), the eval of phase 4b (``eval``), the mesh run's rank 0
+of the phase, each counted alone), phase 4m's simple_fhvae runs and served
+requests (``train_simple``: each counted alone), phase 4p's runs in this
+process (``train_plan``), the eval of phase 4b (``eval``), the mesh run's rank 0
 (``mesh``: the ``2,2`` epoch) and phase 4r's stopped and resumed runs in
 this process (``train_resume``: every run of (a) to (d) and the NaN gate's;
 the mesh's ranks are processes of their own), each set to 0 just before its
@@ -2230,16 +2260,18 @@ def serve_entries():
             fbank_cuda.fused_logmel_frames)
 
 
-def serve_three(exp: Path, wav_dir: Path, out_dir: Path):
-    """Start the port's ``serve`` on ``exp``; a ping, three encode requests
-    (the first writes its latents to ``out_dir``), a malformed request and a
-    shutdown, each response checked. Returns the three responses, their
-    times and the kernel launches counted during the three requests."""
+def serve_three(exp: Path, wav_dir: Path, out_dir: Path,
+                model_type: str = "fhvae"):
+    """Start the port's ``serve`` on ``exp``, a ``model_type`` experiment;
+    a ping, three encode requests (the first writes its latents to
+    ``out_dir``), a malformed request and a shutdown, each response checked.
+    Returns the three responses, their times and the kernel launches counted
+    during the three requests."""
     t0 = time.perf_counter()
     server = Server(exp)
     ready = server.read()
     log(f"server ready in {time.perf_counter() - t0:.2f} s: {ready}")
-    if not (ready.get("ok") and ready.get("model_type") == "fhvae"):
+    if not (ready.get("ok") and ready.get("model_type") == model_type):
         raise AssertionError(f"bad ready line: {ready}")
     pong, _ = server.ask(json.dumps({"id": "p", "cmd": "ping"}))
     if not (pong.get("ok") and pong.get("batch_size") == B):
@@ -2258,7 +2290,9 @@ def serve_three(exp: Path, wav_dir: Path, out_dir: Path):
     launches = {e.__name__: e.launches for e in entries}
     log(f"launches during the requests: {launches}; of the LSTM entries', "
         f"through the tensor-core form: {tensor_core_counts(entries)}")
-    check_tensor_core(launches, tensor_core_counts(entries), "the requests")
+    if model_type == "fhvae":
+        check_tensor_core(launches, tensor_core_counts(entries),
+                          "the requests")
 
     bad, _ = server.ask("{not json")
     bye, _ = server.ask(json.dumps({"id": "s", "cmd": "shutdown"}))
@@ -2563,7 +2597,8 @@ def seeded_model(cfg, num_seqs: int = N_TABLE):
     """The model the CLI starts from (seed 0), on the card."""
     from pytorch_scalablefhvae_tpu_torch.models.base import build_model
 
-    return build_model("fhvae", cfg.data.seg_len * D, cfg.model, num_seqs,
+    return build_model(cfg.model.model_type, cfg.data.seg_len * D, cfg.model,
+                       num_seqs,
                        feat_dim=D,
                        generator=torch.Generator().manual_seed(0)).cuda()
 
@@ -3040,12 +3075,13 @@ def bundle_case(cfg, root: Path, tier: str, k: int):
 
     dev = torch.device("cuda")
     loader, source, plan, arrays = staged_epoch0(cfg, root)
+    rows = loader.batch_size
     state = create_train_state(seeded_model(cfg))
     if tier == "host":
-        inputs = HostInputs(k, B_TRAIN, cfg.data.seg_len, D, dev)
+        inputs = HostInputs(k, rows, cfg.data.seg_len, D, dev)
         batches = iter(loader)
     else:
-        inputs = PlanInputs(source.data, B_TRAIN, cfg.data.seg_len)
+        inputs = PlanInputs(source.data, rows, cfg.data.seg_len)
         inputs.load_plan(arrays, plan.n_real)
     bundle = StepBundle(state, make_optimizer(1e-3, 0.95, 0.999), 10.0, k,
                         inputs, dev)
@@ -3054,7 +3090,7 @@ def bundle_case(cfg, root: Path, tier: str, k: int):
         if tier == "host":
             inputs.load([next(batches) for _ in range(k)])
         else:
-            inputs.set_base(d * k * B_TRAIN)
+            inputs.set_base(d * k * rows)
         return bundle()["loss"].clone()
 
     return bundle, dispatch
@@ -3337,8 +3373,8 @@ def train_args(cfg, root: Path, exp_root: Path, *extra) -> list:
             "--exp-root", str(exp_root), *extra]
 
 
-def run_dir(exp_root: Path, epochs: int) -> Path:
-    return exp_root / "synthetic_np_fbank" / f"fhvae_e{epochs}_p10_a10.0"
+def run_dir(exp_root: Path, epochs: int, model: str = "fhvae") -> Path:
+    return exp_root / "synthetic_np_fbank" / f"{model}_e{epochs}_p10_a10.0"
 
 
 def metrics_of(exp_root: Path, epochs: int = 1) -> list[dict]:
@@ -3822,6 +3858,22 @@ def phase_stream(workdir: Path, cfg, keep_big: bool = False) -> dict:
 
 # -------------------------------------------------------------- phase 4h
 
+def equal_runs(name: str, a: Path, b: Path, epochs: list,
+               stem: str = "fhvae_synthetic_np_fbank") -> None:
+    """Two runs' checkpoints of ``epochs`` and their records, bit for
+    bit."""
+    differ = {e: differing_arrays(a / f"{stem}_e{e}.npz",
+                                  b / f"{stem}_e{e}.npz") for e in epochs}
+    recs = [[r[k] for k in ("train_loss", "train_steps", "step", "val_loss",
+                            "val_lower_bound", "val_log_qy")]
+            for r in (*metrics_in(a), *metrics_in(b))]
+    same = recs[:len(epochs)] == recs[len(epochs):]
+    log(f"{name}: checkpoint arrays differing {differ}; records equal "
+        f"{same}")
+    if any(differ.values()) or not same:
+        raise AssertionError(f"{name}: the runs differ")
+
+
 HIER_K = 5000           # --num-hierarchical-sequences, the CLI default
 HIER_SMALL_K = 2000     # 4h (f): rounds on phase 4's corpus
 TOL_HIER_TABLE = 1e-6   # 4h (c): the first round's MAP table, round-staged
@@ -3987,19 +4039,6 @@ def phase_hier(workdir: Path, cfg) -> dict:
                                      f"finite")
         return out, recs, inits[n_init:], swaps[n_init:]
 
-    def equal_runs(name: str, a: Path, b: Path, epochs: list) -> None:
-        differ = {e: differing_arrays(
-            a / f"fhvae_synthetic_np_fbank_e{e}.npz",
-            b / f"fhvae_synthetic_np_fbank_e{e}.npz") for e in epochs}
-        recs = [[r[k] for k in ("train_loss", "train_steps", "step",
-                                "val_loss", "val_lower_bound", "val_log_qy")]
-                for r in (*metrics_in(a), *metrics_in(b))]
-        same = recs[:len(epochs)] == recs[len(epochs):]
-        log(f"4h {name}: checkpoint arrays differing {differ}; records "
-            f"equal {same}")
-        if any(differ.values()) or not same:
-            raise AssertionError(f"4h {name}: the runs differ")
-
     def staged_inits(name: str, made: list, n: int, bf16: bool = False):
         ok = (len(made) == n and all(
             i["tier"] == "round" and i["chunked"] and i["skip"] == 8
@@ -4031,7 +4070,7 @@ def phase_hier(workdir: Path, cfg) -> dict:
         # (b) the same at K = 1: bit for bit
         exp_b = workdir / "hier_b"
         hier_run("(b) round-staged, K = 1", exp_b)
-        equal_runs("(b) K = 1 vs (a) K = 8", run_dir(exp_b, 2),
+        equal_runs("4h (b) K = 1 vs (a) K = 8", run_dir(exp_b, 2),
                    run_dir(exp_a, 2), [0, 1])
 
         # (c) the host loader, K = 8
@@ -4114,7 +4153,7 @@ def phase_hier(workdir: Path, cfg) -> dict:
                     ("device", True)]:
                 raise AssertionError("4h (f): the rounds did not run on the "
                                      "device tier through #8")
-        equal_runs(f"(f) K = {K_DISPATCH} vs K = 1",
+        equal_runs(f"4h (f) K = {K_DISPATCH} vs K = 1",
                    run_dir(workdir / f"hier_f{K_DISPATCH}", 1),
                    run_dir(workdir / "hier_f1", 1), [0])
     finally:
@@ -4145,6 +4184,430 @@ def phase_hier(workdir: Path, cfg) -> dict:
         if n <= 0:
             raise AssertionError(f"{name} was not launched by phase 4h")
     log(f"phase 4h took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# -------------------------------------------------------------- phase 4m
+
+SIMPLE_B = 256   # 4m: the CLI's training batch of simple_fhvae (cli/args.py)
+SIMPLE = "simple_fhvae"
+SIMPLE_STEM = f"{SIMPLE}_synthetic_np_fbank"
+
+
+def simple_config(cfg):
+    """Phase 4's run with ``--model-type simple_fhvae`` at the CLI's widths
+    and its batch."""
+    from pytorch_scalablefhvae_tpu_torch.config import ModelConfig
+
+    return cfg.replace(model=ModelConfig(model_type=SIMPLE),
+                       data=dataclasses.replace(
+                           cfg.data, training_batch_size=SIMPLE_B))
+
+
+def simple_profile(cfg, root: Path, k: int) -> dict:
+    """:func:`profiled_dispatches` of the device tier at ``k`` steps a
+    dispatch: eager steps at K = 1, the CUDA graph's replays above."""
+    if k > 1:
+        return profiled_dispatches(bundle_case(cfg, root, "device", k)[1], k)
+    from pytorch_scalablefhvae_tpu_torch.train.device_step import (
+        device_train_step,
+    )
+    from pytorch_scalablefhvae_tpu_torch.train.step import (
+        create_train_state,
+        make_optimizer,
+    )
+
+    loader, source, plan, arrays = staged_epoch0(cfg, root)
+    state = create_train_state(seeded_model(cfg))
+    opt = make_optimizer(1e-3, 0.95, 0.999)
+
+    def dispatch(d: int) -> torch.Tensor:
+        return device_train_step(
+            state, opt, source.data, arrays, d * SIMPLE_B, plan.n_real, 10.0,
+            batch_size=SIMPLE_B, seg_len=cfg.data.seg_len)["loss"]
+
+    return profiled_dispatches(dispatch, 1)
+
+
+def write_reference_tar(path: Path, seed: int = 0) -> dict:
+    """A checkpoint in the reference's schema (utils.py:116-152) and its
+    modules' names (simple_fhvae.py:8-37, 127-244) at the CLI's widths, its
+    weights drawn from ``seed`` as torch's ``Linear`` draws them. Returns
+    its ``state_dict``."""
+    g = torch.Generator().manual_seed(seed)
+    state = {}
+
+    def linear(name: str, d_in: int, d_out: int) -> None:
+        lim = 1.0 / np.sqrt(d_in)
+        state[f"{name}.weight"] = (torch.rand((d_out, d_in), generator=g)
+                                   * 2 - 1) * lim
+        state[f"{name}.bias"] = (torch.rand(d_out, generator=g) * 2 - 1) * lim
+
+    for mod, d_in in (("z1_pre_encoder", T * D + Z),
+                      ("z2_pre_encoder", T * D), ("pre_decoder", 2 * Z)):
+        linear(f"{mod}.fc1.linear", d_in, H)
+        linear(f"{mod}.fc2.linear", H, H)
+    for mod, dim in (("z1_gauss_layer", Z), ("z2_gauss_layer", Z),
+                     ("dec_gauss_layer", T * D)):
+        linear(f"{mod}.mulayer", H, dim)
+        linear(f"{mod}.logvar_layer", H, dim)
+    torch.save({"best_val_lb": -1500.0, "best_epoch": 3, "epoch": 5,
+                "model_type": SIMPLE,
+                "model_params": ([H, H], [H, H], Z, Z, [H, H]),
+                "optimizer": {}, "state_dict": state, "summary_vals": {},
+                "values": {"train_loss_results": [2.0e3, 1.8e3]}}, path)
+    return state
+
+
+def phase_simple(workdir: Path, cfg) -> dict:
+    """Phase 4m: ``--model-type simple_fhvae``, the reference's own model,
+    at the CLI defaults (batch 256) on phase 4's corpus. Returns the launches
+    of its CLI runs and serve requests, each counted alone
+    (``train_simple``)."""
+    from pytorch_scalablefhvae_tpu_torch.cli.main import main as cli
+    from pytorch_scalablefhvae_tpu_torch.config import ExperimentConfig
+    from pytorch_scalablefhvae_tpu_torch.ops import fbank_cuda
+    from pytorch_scalablefhvae_tpu_torch.train import checkpoint as ckpt
+
+    log(f"== phase 4m: sfhvae train, eval, probe, serve and "
+        f"import-checkpoint of the simple_fhvae model on the card (CLI "
+        f"defaults, batch {SIMPLE_B})")
+    t_phase = time.perf_counter()
+    root = workdir / "data"
+    scfg = simple_config(cfg)
+    counts: dict = {}
+
+    def simple_run(name: str, exp_root: Path, *extra) -> str:
+        return counted_run(counts, f"4m {name}", lambda: run_cli(
+            cli, train_args(cfg, root, exp_root, "--model-type", SIMPLE,
+                            *extra)))
+
+    # (a) the first steps through #5/#6 against the plain versions
+    compare_first_steps(scfg, root)
+    for k in (1, K_DISPATCH):
+        p = simple_profile(scfg, root, k)
+        log(f"4m device tier, K = {k}, 10 warm dispatches: host wall "
+            f"{p['wall']:.3f} ms/step, device busy {p['busy']:.3f} ms/step, "
+            f"idle share {p['idle']:.3f}, {p['launches']:.1f} kernels a "
+            f"step, {SIMPLE_B / p['wall'] * 1e3:.1f} segments/s; first "
+            f"dispatch {p['eager']:.3f} ms/step"
+            + (f", capture {p['capture']:.3f} s" if k > 1 else "")
+            + f"; card {smi_name_power()}")
+        torch.cuda.empty_cache()
+
+    # (b) two epochs at K = 1 and at K = 8
+    runs = {}
+    for k in (1, K_DISPATCH):
+        out = simple_run(f"(b) K = {k}", workdir / f"simple_k{k}",
+                         "--epochs", "2", "--steps-per-dispatch", str(k))
+        runs[k] = run_dir(workdir / f"simple_k{k}", 2, SIMPLE)
+        if "Training data device-resident" not in out or (
+                k > 1 and "replayed as one CUDA graph" not in out):
+            raise AssertionError(f"4m (b) K = {k} did not take the device "
+                                 f"tier and its dispatch")
+        for r in metrics_in(runs[k]):
+            log(f"4m (b) K = {k} epoch {r['epoch']}: train loss "
+                f"{r['train_loss']!r}, {r['train_steps']} steps, "
+                f"{1e3 * r['train_seconds'] / r['train_steps']:.3f} ms/step, "
+                f"{r['train_segments_per_sec']:.1f} segments/s, dev LB "
+                f"{r['val_lower_bound']!r}")
+    equal_runs(f"4m (b) K = {K_DISPATCH} vs K = 1", runs[K_DISPATCH],
+               runs[1], [0, 1], SIMPLE_STEM)
+    recs = metrics_in(runs[1])
+    if not (np.isfinite([r["train_loss"] for r in recs]).all()
+            and recs[1]["train_loss"] < recs[0]["train_loss"]):
+        raise AssertionError("4m: the train loss is not finite and falling")
+    n = int(recs[0]["train_steps"])
+
+    # (c)-(g) run at K = 8, which (b) holds equal to K = 1: an eager step
+    # is host-bound (PERF.md, section 5)
+    k8 = ["--steps-per-dispatch", str(K_DISPATCH)]
+
+    # (c) one epoch from the host loader
+    simple_run("(c) host loader", workdir / "simple_host", "--epochs", "1",
+               "--data-placement", "host", *k8)
+    host, = metrics_in(run_dir(workdir / "simple_host", 1, SIMPLE))
+    gaps = [abs(host[k] / recs[0][k] - 1) for k in ("train_loss",
+                                                     "val_lower_bound")]
+    log(f"4m (c) host loader vs device tier, epoch 0: train loss "
+        f"{host['train_loss']!r} vs {recs[0]['train_loss']!r}, dev LB "
+        f"{host['val_lower_bound']!r} vs {recs[0]['val_lower_bound']!r} "
+        f"(relative gaps {gaps[0]:.3e}, {gaps[1]:.3e}; tol {TOL_DEV_LB:g})")
+    if not max(gaps) <= TOL_DEV_LB:
+        raise AssertionError("4m (c): the host loader's epoch disagrees")
+
+    # (d) stopped inside epoch 1 and resumed
+    exp_root = workdir / "simple_resume"
+    counted_run(counts, "4m (d) stopped and resumed", lambda: kill_and_resume(
+        cli, "4m (d)", root, train_args(cfg, root, exp_root, "--model-type",
+                                        SIMPLE, "--epochs", "2", *k8),
+        run_dir(exp_root, 2, SIMPLE), n + RESUME_EVERY, stem=SIMPLE_STEM))
+    check_resumed("4m (d)", run_dir(exp_root, 2, SIMPLE), runs[K_DISPATCH],
+                  [0, 1], stem=SIMPLE_STEM)
+
+    # (e) one streamed epoch against its host replay
+    exp_root = workdir / "simple_stream"
+    out = simple_run("(e) streamed", exp_root, "--device-store-max-bytes",
+                     str(STREAM_BUDGET), "--epochs", "1", *k8)
+    if "streams through the device" not in out:
+        raise AssertionError("4m (e) did not stream")
+    rec, = metrics_in(run_dir(exp_root, 1, SIMPLE))
+    loss, val, state, split, steps = stream_replay(scfg, root, "float32")
+    differ = states_differ(checkpoint_state(scfg, run_dir(
+        exp_root, 1, SIMPLE) / f"{SIMPLE_STEM}_e0.npz"), state)
+    log(f"4m (e) streamed epoch vs its host replay: train loss "
+        f"{rec['train_loss']!r} vs {loss!r}, dev LB {rec['val_lower_bound']!r}"
+        f" vs {val['lower_bound']!r}, {rec['train_steps']} steps vs {steps}; "
+        f"tensors differing {differ[:3]}; "
+        f"{1e3 * rec['train_seconds'] / rec['train_steps']:.3f} ms/step")
+    if (rec["train_loss"] != loss or rec["val_lower_bound"]
+            != val["lower_bound"] or differ or rec["train_steps"] != steps):
+        raise AssertionError("4m (e): the streamed epoch differs from its "
+                             "host replay")
+    del state, split
+    torch.cuda.empty_cache()
+
+    # (f) eval and probe of the best checkpoint, then three served requests
+    # of the experiment's copy that says extractor "jax"
+    t0 = time.perf_counter()
+    out = counted_run(counts, "4m (f) eval", lambda: run_cli(cli, [
+        "eval", str(runs[1]), "--set-name", "dev", "--data-root", str(root)]))
+    eval_s = time.perf_counter() - t0
+    probe = json.loads(run_cli(cli, ["probe", str(runs[1]), "--set-name",
+                                     "dev", "--data-root", str(root)]))
+    metrics = json.loads((runs[1] / "eval" / "dev" / "metrics.json")
+                         .read_text())
+    best = ckpt.read_checkpoint_meta(ckpt.find_best_checkpoint(runs[1]))
+    lb = recs[best["best_epoch"]]["val_lower_bound"]
+    lb_err = abs(metrics["lower_bound"] - lb) / abs(lb)
+    log(f"4m (f) eval {eval_s:.3f} s, stages {eval_stages(out)}; dev LB "
+        f"{metrics['lower_bound']!r} vs the best epoch's {lb!r} (relative "
+        f"{lb_err:.3e}, tol {TOL_DEV_LB:g}); probe z2 "
+        f"{probe['z2_speaker_probe']['test_acc']}, z1 "
+        f"{probe['z1_speaker_probe']['test_acc']}")
+    if not lb_err <= TOL_DEV_LB or probe != metrics["probes"]:
+        raise AssertionError("4m (f): eval or probe disagree with training")
+    wav_dir = workdir / "wav"
+    if not wav_dir.exists():
+        write_corpus(wav_dir)
+    exp_jax = workdir / "simple_serve"
+    shutil.copytree(runs[1], exp_jax, ignore=shutil.ignore_patterns("eval"))
+    served_cfg = ExperimentConfig.load(exp_jax / "config.json")
+    served_cfg.replace(features=dataclasses.replace(
+        served_cfg.features, extractor="jax")).save(exp_jax / "config.json")
+    responses, seconds, served = serve_three(
+        exp_jax, wav_dir, workdir / "simple_served", model_type=SIMPLE)
+    for name, c in served.items():
+        counts["launches"][name] = counts["launches"].get(name, 0) + c
+    counts["runs"].append("4m (f) serve")
+    log(f"4m (f) served: {responses[0]['segments']} segments a request, "
+        f"times {[round(t, 4) for t in seconds]} s; launches {served}")
+    if served[fbank_cuda.fused_logmel_frames.__name__] <= 0:
+        raise AssertionError("4m (f): #9 served no request")
+
+    # (g) a reference .tar imported, then a finetune epoch from it
+    tar = workdir / "simple_fhvae_reference_e5.tar"
+    state_dict = write_reference_tar(tar)
+    run_cli(cli, ["import-checkpoint", str(tar), str(workdir / "imported"),
+                  "--num-seqs", str(N_TABLE)])
+    npz = workdir / "imported" / "simple_fhvae_imported_e5.npz"
+    with np.load(npz) as z:
+        landed = (np.array_equal(z["z2_pre.layers.0.w"], state_dict[
+            "z2_pre_encoder.fc1.linear.weight"].numpy().T)
+                  and np.array_equal(z["dec_gauss.logvar.b"], state_dict[
+                      "dec_gauss_layer.logvar_layer.bias"].numpy())
+                  and not z["mu2_table"].any())
+    exp_root = workdir / "simple_finetune"
+    simple_run("(g) finetune", exp_root, "--epochs", "1", "--continue-from",
+               str(npz), "--finetune", *k8)
+    ft, = metrics_in(run_dir(exp_root, 1, SIMPLE))
+    log(f"4m (g) import-checkpoint of a reference .tar: weights landed "
+        f"transposed, the table zero: {landed}; finetune epoch train loss "
+        f"{ft['train_loss']!r}, dev LB {ft['val_lower_bound']!r}, "
+        f"{ft['train_steps']} steps")
+    if not landed or not np.isfinite([ft["train_loss"],
+                                      ft["val_lower_bound"]]).all():
+        raise AssertionError("4m (g): the import or its finetune failed")
+
+    launches = counts["launches"]
+    log(f"launches during phase 4m's {len(counts['runs'])} runs "
+        f"({', '.join(counts['runs'])}), each counted from 0: {launches}; "
+        f"card {smi_name_power()}")
+    for name, c in launches.items():
+        lstm = name.startswith("lstm2")
+        if (c > 0) == lstm:
+            raise AssertionError(f"4m: {name} was launched {c} times")
+    log(f"phase 4m took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# -------------------------------------------------------------- phase 4p
+
+
+def plan_check(cfg, root: Path) -> None:
+    """4p (b): the device planner on phase 4's training set: each epoch's
+    plan a permutation of the host plan's real rows, the padding at the
+    tail, two epochs two orders; its time against the host upload it
+    replaces (order, plan and copy to the card)."""
+    from pytorch_scalablefhvae_tpu_torch.data.device_store import (
+        DeviceDataSource,
+        DeviceEpochPlanner,
+        build_epoch_plan,
+    )
+    from pytorch_scalablefhvae_tpu_torch.train.driver import build_loaders
+
+    dev = torch.device("cuda")
+    loader, _ = build_loaders(cfg, root, True)
+    ds, rows = loader.dataset, loader.batch_size
+    n_real = len(ds)
+    source = DeviceDataSource(ds.store, dev)
+    planner = DeviceEpochPlanner(source, cfg.train.seed, ds.seg_shift,
+                                 n_real + (-n_real) % rows)
+    planner.stage(ds)
+    host = build_epoch_plan(ds, np.arange(n_real), rows)
+    want = torch.sort(torch.from_numpy(host.seq_idx[:n_real].astype(np.int64)
+                                       << 32 | host.abs_starts[:n_real]
+                                       .astype(np.int64)).to(dev))[0]
+    firsts = []
+    for epoch in (0, 1):
+        _, (seq, starts, _) = planner.plan(epoch, n_real, rows)
+        keys = seq[:n_real] << 32 | starts[:n_real]
+        if not (torch.equal(torch.sort(keys)[0], want)
+                and not seq[n_real:].any() and not starts[n_real:].any()):
+            raise AssertionError(f"4p (b): epoch {epoch}'s plan is not a "
+                                 f"permutation with the padding at the tail")
+        firsts.append(keys[:rows].clone())
+    if torch.equal(*firsts):
+        raise AssertionError("4p (b): two epochs planned one order")
+
+    def planned():
+        planner.plan(2, n_real, rows)
+        torch.cuda.synchronize()
+
+    def uploaded():
+        loader.set_epoch(2)
+        source.stage_epoch(ds, loader._order(), rows)
+        torch.cuda.synchronize()
+
+    walls = {}
+    for name, fn in (("device plan", planned), ("host upload", uploaded)):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fn()
+        walls[name] = (time.perf_counter() - t0) * 1e2
+    # CUDA events around calls back to back: a plan is ~20 small launches,
+    # of which torch.profiler drops the first in a trace taken late in
+    # this script
+    plan_ms = time_ms(lambda: planner.plan(2, n_real, rows), 10)
+    log(f"4p (b) {n_real} segments, {planner.n_rows} plan rows: both epochs "
+        f"permutations of the host plan with the padding at the tail, their "
+        f"orders differ; a plan derived on the card {walls['device plan']:.3f}"
+        f" ms wall ({plan_ms:.3f} ms by CUDA events), the host's order, plan "
+        f"and upload it replaces {walls['host upload']:.3f} ms wall; card "
+        f"{smi_name_power()}")
+    del source, planner
+    torch.cuda.empty_cache()
+
+
+def phase_plan(workdir: Path, cfg) -> dict:
+    """Phase 4p: ``train --epoch-plan device`` at the fhvae CLI defaults on
+    phase 4's corpus. Returns the launches of its runs in this process,
+    each counted alone (``train_plan``)."""
+    from pytorch_scalablefhvae_tpu_torch.cli.main import main as cli
+
+    log("== phase 4p: sfhvae train --epoch-plan device on the card (plans "
+        "derived on the card from a seed)")
+    t_phase = time.perf_counter()
+    root = workdir / "data"
+    flag = ["--epoch-plan", "device"]
+    counts: dict = {}
+
+    def plan_run(name: str, exp_root: Path, *extra) -> str:
+        out = counted_run(counts, f"4p {name}", lambda: run_cli(
+            cli, train_args(cfg, root, exp_root, *flag, *extra)))
+        for r in metrics_in(next(exp_root.glob("synthetic_np_fbank/*"))):
+            log(f"4p {name} epoch {r['epoch']}: train loss "
+                f"{r['train_loss']!r}, {r['train_steps']} steps, "
+                f"{1e3 * r['train_seconds'] / r['train_steps']:.3f} ms/step, "
+                f"dev LB {r['val_lower_bound']!r}")
+        return out
+
+    plan_check(cfg, root)
+
+    # (a) the device tier, K = 8 against K = 1 over two epochs
+    for k in (1, K_DISPATCH):
+        out = plan_run(f"(a) K = {k}", workdir / f"plan_k{k}", "--epochs",
+                       "2", "--steps-per-dispatch", str(k))
+        if "Epoch plans derive on the device" not in out:
+            raise AssertionError(f"4p (a) K = {k} did not plan on the card")
+    ref = run_dir(workdir / "plan_k1", 2)
+    equal_runs(f"4p (a) K = {K_DISPATCH} vs K = 1",
+               run_dir(workdir / f"plan_k{K_DISPATCH}", 2), ref, [0, 1])
+
+    # (c) stopped inside epoch 1, resumed in a new process
+    n = int(metrics_in(ref)[0]["train_steps"])
+    exp_root = workdir / "plan_resume"
+    exp = run_dir(exp_root, 2)
+    plan_run("(c) stopped", exp_root, "--epochs", "2", "--ckpt-every-steps",
+             str(RESUME_EVERY), "--max-steps", str(n + RESUME_EVERY),
+             "--steps-per-dispatch", str(K_DISPATCH))
+    last = step_checkpoints(exp)[-1]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytorch_scalablefhvae_tpu_torch.cli.main",
+         "train", "--dataset", "synthetic", "--preprocessed", "--data-root",
+         str(root), "--continue-from", str(last), "--resume-override",
+         "max_steps=0"], cwd=Path(__file__).resolve().parent,
+        capture_output=True, text=True, timeout=900)
+    log(f"4p (c) resumed from {last.name} in a new process: exit "
+        f"{proc.returncode} in {time.perf_counter() - t0:.1f} s; "
+        f"{proc.stdout.strip().splitlines()[-3:]}")
+    if proc.returncode != 0 or f"mid-epoch at batch {RESUME_EVERY}" \
+            not in proc.stdout:
+        raise AssertionError(f"4p (c): the resume failed: "
+                             f"{proc.stderr[-2000:]}")
+    check_resumed("4p (c)", exp, ref, [0, 1])
+
+    # (d) two hierarchical rounds of 2,000 sequences, device tier
+    small = ["--hierarchical", "--num-hierarchical-sequences",
+             str(HIER_SMALL_K), "--epochs", "2"]
+    for k in (1, K_DISPATCH):
+        out = plan_run(f"(d) rounds, K = {k}", workdir / f"plan_hier{k}",
+                       *small, "--steps-per-dispatch", str(k))
+        if out.count(f"({HIER_SMALL_K} sequences, 1 epoch)") != 2 \
+                or "Training data device-resident" not in out:
+            raise AssertionError(f"4p (d) K = {k}: not two rounds on the "
+                                 f"device tier")
+    equal_runs(f"4p (d) rounds, K = {K_DISPATCH} vs K = 1",
+               run_dir(workdir / f"plan_hier{K_DISPATCH}", 2),
+               run_dir(workdir / "plan_hier1", 2), [0, 1])
+
+    # (e) the streamed tier ignores the flag: the host plan's epoch
+    stream = ["--device-store-max-bytes", str(STREAM_BUDGET),
+              "--transfer-dtype", "float32", "--epochs", "1"]
+    out = plan_run("(e) streamed", workdir / "plan_stream", *stream)
+    note = "epoch_plan=device ignored: training data is chunk-streamed"
+    ref = run_dir(workdir / "stream_float32", 1)
+    if not (ref / "fhvae_synthetic_np_fbank_e0.npz").exists():
+        run_cli(cli, train_args(cfg, root, workdir / "plan_stream_ref",
+                                *stream))
+        ref = run_dir(workdir / "plan_stream_ref", 1)
+    if note not in out:
+        raise AssertionError("4p (e): the streamed run printed no note")
+    equal_runs("4p (e) streamed with the flag vs without",
+               run_dir(workdir / "plan_stream", 1), ref, [0])
+
+    launches = counts["launches"]
+    log(f"launches during phase 4p's {len(counts['runs'])} runs in this "
+        f"process ({', '.join(counts['runs'])}), each counted from 0: "
+        f"{launches}; of the LSTM entries', through the tensor-core form: "
+        f"{counts['tensor_core']}; card {smi_name_power()}")
+    check_tensor_core(launches, counts["tensor_core"], "phase 4p")
+    for name, c in launches.items():
+        if c <= 0:
+            raise AssertionError(f"{name} was not launched by phase 4p")
+    log(f"phase 4p took {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -4737,7 +5200,9 @@ def record_gap(got: dict, want: dict) -> list:
 
 def kill_and_resume(cli, name: str, root: Path, args: list, exp: Path,
                     cap: int, resume_flags: tuple = (),
-                    at_cap: bool = False) -> tuple[str, dict]:
+                    at_cap: bool = False,
+                    stem: str = "fhvae_synthetic_np_fbank"
+                    ) -> tuple[str, dict]:
     """``args`` with ``--ckpt-every-steps RESUME_EVERY --max-steps cap``,
     then resumed from its last step checkpoint with ``max_steps=0``. The
     stopped run must have saved step ``cap`` exactly and no checkpoint of
@@ -4754,7 +5219,7 @@ def kill_and_resume(cli, name: str, root: Path, args: list, exp: Path,
     last = step_checkpoints(exp)[-1]
     meta = ckpt.read_checkpoint_meta(last)
     mid = meta["mid_epoch"]
-    ended = exp / f"fhvae_synthetic_np_fbank_e{mid['epoch']}.npz"
+    ended = exp / f"{stem}_e{mid['epoch']}.npz"
     log(f"{name}: stopped at step {meta['step']} (cap {cap}), epoch "
         f"{mid['epoch']} batch {mid['batches_done']}; step checkpoints "
         f"{[p.name for p in step_checkpoints(exp)]}")
@@ -4785,12 +5250,13 @@ def kill_and_resume(cli, name: str, root: Path, args: list, exp: Path,
     return out, mid
 
 
-def check_resumed(name: str, exp: Path, ref: Path, epochs: list) -> None:
+def check_resumed(name: str, exp: Path, ref: Path, epochs: list,
+                  stem: str = "fhvae_synthetic_np_fbank") -> None:
     """The resumed run's checkpoint of the last epoch and its records of
     ``epochs`` against the uninterrupted run's (``ref``): every tensor and
     the dev metrics bit for bit, ``train_loss`` to 1e-12."""
     last = max(epochs)
-    ckpt_name = f"fhvae_synthetic_np_fbank_e{last}.npz"
+    ckpt_name = f"{stem}_e{last}.npz"
     differ = differing_arrays(exp / ckpt_name, ref / ckpt_name)
     got = {r["epoch"]: r for r in metrics_in(exp)}
     want = {r["epoch"]: r for r in metrics_in(ref)}
@@ -4983,8 +5449,8 @@ def main(argv=None) -> int:
     parser.add_argument("--only", default=None,
                         help="comma-separated phases to run after phase 1 "
                              "(2, 2f, 2b, 2c, 2d, 2e, 3, 3b, 4, 4k, 4s, 4h, "
-                             "4b, 4q, 5, 4r; 2 includes 2f, 4k, 4b and 4r "
-                             "need 4); default all")
+                             "4m, 4p, 4b, 4q, 5, 4r; 2 includes 2f, 4k, 4b "
+                             "and 4r need 4); default all")
     only = parser.parse_args(argv).only
     only = None if only is None else set(only.split(","))
     if only is not None and "2" in only:
@@ -5018,7 +5484,7 @@ def main(argv=None) -> int:
             if not on("3"):
                 write_corpus(workdir / "wav")
             by_path["preprocess"] = phase_preprocess(workdir)
-        if on("4") or on("4s") or on("4h") or on("5"):
+        if any(on(p) for p in ("4", "4s", "4h", "4m", "4p", "5")):
             t0 = time.perf_counter()
             cfg = write_feature_corpus(workdir / "data")
             log(f"corpus written in {time.perf_counter() - t0:.1f} s")
@@ -5034,6 +5500,10 @@ def main(argv=None) -> int:
                                                    keep_big=on("4h"))
         if on("4h"):
             by_path["train_hier"] = phase_hier(workdir, cfg)
+        if on("4m"):
+            by_path["train_simple"] = phase_simple(workdir, cfg)
+        if on("4p"):
+            by_path["train_plan"] = phase_plan(workdir, cfg)
         if on("4b"):
             by_path["eval"] = phase_eval(workdir)
         if on("4q"):

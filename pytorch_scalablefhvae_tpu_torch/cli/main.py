@@ -7,6 +7,7 @@
     python -m pytorch_scalablefhvae_tpu_torch.cli.main serve EXP_DIR
     python -m pytorch_scalablefhvae_tpu_torch.cli.main eval EXP_DIR ...
     python -m pytorch_scalablefhvae_tpu_torch.cli.main probe EXP_DIR ...
+    python -m pytorch_scalablefhvae_tpu_torch.cli.main import-checkpoint ...
 
 ``preprocess``, ``extract`` and ``train`` take the JAX CLI's flags (this
 package's copy of ``cli/args.py``); ``--device`` is ``cuda`` (the default)
@@ -26,7 +27,8 @@ command with ``--distributed``. ``--dist-backend nccl`` (the default) gives
 every rank a card of its own; ``gloo`` lets ranks share a card and is what
 ``--device cpu`` needs.
 ``prep-timit`` and ``prep-librispeech`` write the corpus manifests.
-``import-checkpoint`` exists here only to say that it is not yet ported.
+``import-checkpoint`` converts a reference ``.tar`` checkpoint into a port
+checkpoint for ``train --continue-from ... --finetune`` (``compat.py``).
 Exit codes as the JAX CLI's: 0, or 2 when training diverged.
 """
 
@@ -34,8 +36,6 @@ from __future__ import annotations
 
 import argparse
 import sys
-
-NOT_YET_PORTED = ("import-checkpoint",)
 
 
 def _cmd_preprocess(args) -> int:
@@ -239,11 +239,16 @@ def _cmd_probe(args) -> int:
     return 0
 
 
-def _cmd_not_ported(args) -> int:
-    print(f"sfhvae {args.command}: not yet ported to PyTorch (ROADMAP.md); "
-          f"run it with python -m pytorch_scalablefhvae_tpu.cli.main",
-          file=sys.stderr)
-    return 2
+def _cmd_import_checkpoint(args) -> int:
+    from pytorch_scalablefhvae_tpu_torch.compat import (
+        import_reference_checkpoint,
+    )
+
+    path = import_reference_checkpoint(args.checkpoint, args.out_dir,
+                                       args.num_seqs,
+                                       mu2_init_std=args.mu2_init_std)
+    print(f"Wrote {path}")
+    return 0
 
 
 def _add_run_flags(p: argparse.ArgumentParser) -> None:
@@ -402,17 +407,25 @@ def build_parser() -> argparse.ArgumentParser:
                    default=["test-clean", "test-other"])
     p.set_defaults(fn=_cmd_prep_librispeech)
 
-    for name in NOT_YET_PORTED:
-        p = sub.add_parser(name, help="not yet ported", add_help=False)
-        p.set_defaults(fn=_cmd_not_ported)
+    p = sub.add_parser(
+        "import-checkpoint",
+        help="Convert a reference PyTorch .tar checkpoint (utils.py:116-152 "
+             "schema) to this framework's npz format for --continue-from "
+             "--finetune (the reference never persisted a mu2 table, so the "
+             "imported table is fresh and resume is finetune-like)",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    p.add_argument("checkpoint", type=str, help="Reference .tar checkpoint")
+    p.add_argument("out_dir", type=str, help="Output directory for the npz")
+    p.add_argument("--num-seqs", type=int, required=True,
+                   help="mu2 table rows (training-corpus sequence count)")
+    p.add_argument("--mu2-init-std", type=float, default=0.0,
+                   help="stddev of the fresh mu2 table (0 = zeros)")
+    p.set_defaults(fn=_cmd_import_checkpoint)
     return parser
 
 
 def main(argv=None) -> int:
-    parser = build_parser()
-    args, extra = parser.parse_known_args(argv)
-    if extra and args.fn is not _cmd_not_ported:
-        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = build_parser().parse_args(argv)
     return args.fn(args)
 
 

@@ -14,11 +14,14 @@ The host-side pieces are this package's own numpy copies of the JAX
 package's: ``EpochPlan``, ``build_epoch_plan``, ``STORE_TAIL_SLACK``,
 ``staging_itemsize`` and ``resolve_data_placement``. A hierarchical round
 on a store over the budget stages its sub-pack into a buffer of a fixed
-row ceiling (``DeviceDataSource(pad_to_rows=)``, ``restage``). Not ported
-yet (``ROADMAP.md``): the on-device epoch plan (``make_device_epoch_plan``)
-and a store sharded over a mesh (``--shard-device-store``): on a mesh every
-rank stages the whole store, the JAX package's default, and gathers its
-rows of each planned batch from it; a mesh stages float32 only.
+row ceiling (``DeviceDataSource(pad_to_rows=)``, ``restage``).
+``--epoch-plan device`` derives each epoch's plan on the device from the
+per-sequence vectors and a seeded generator (:func:`make_device_epoch_plan`,
+:class:`DeviceEpochPlanner`) instead of uploading it. Not ported yet
+(``ROADMAP.md``): a store sharded over a mesh (``--shard-device-store``): on
+a mesh every rank stages the whole store, the JAX package's default, and
+gathers its rows of each planned batch from it; a mesh stages float32
+only.
 """
 
 from __future__ import annotations
@@ -125,6 +128,44 @@ def build_epoch_plan(
         abs_starts = np.concatenate([abs_starts, np.zeros(pad, np.int32)])
     return EpochPlan(seq_idx=seq_idx, abs_starts=abs_starts, n_real=n_real,
                      batch_size=batch_size, n_rows=rows)
+
+
+def make_device_epoch_plan(generator: torch.Generator | None,
+                           seq_starts: torch.Tensor, nsegs: torch.Tensor,
+                           n_real: int, n_rows: int, seg_shift: int,
+                           shuffle: bool = True):
+    """One epoch's plan derived on the device (the JAX package's in-graph
+    planner): ``(seq_idx [n_rows], abs_starts [n_rows])``, int64, on
+    ``seq_starts``' device.
+
+    Segment ``g`` belongs to the sequence whose window range holds it (the
+    ``repeat_interleave`` of ``nsegs``, found by ``searchsorted`` over its
+    prefix sums, so nothing waits for the device); its first frame is
+    ``seq_starts[s] + (g - offs[s]) * seg_shift``. Rows at or past ``n_real``
+    (``sum(nsegs)``) are padding ``(0, 0)``. With ``shuffle`` the real rows
+    are permuted by ``torch.randperm`` drawn from ``generator`` (on the same
+    device), any uniform permutation being an epoch order; the padding stays
+    at the tail. Without it the plan is sequence-major, the host plan of
+    ``np.arange`` (:func:`build_epoch_plan`). Deterministic windowing only:
+    random windows are drawn on the host."""
+    if n_real > n_rows:
+        raise ValueError(f"n_real={n_real} segments do not fit a plan of "
+                         f"n_rows={n_rows}")
+    dev = seq_starts.device
+    nsegs = nsegs.to(torch.long)
+    ends = torch.cumsum(nsegs, 0)
+    g = torch.arange(n_rows, device=dev)
+    seq = torch.searchsorted(ends, g, right=True).clamp(max=len(nsegs) - 1)
+    starts = seq_starts.to(torch.long)[seq] + (g - (ends - nsegs)[seq]) \
+        * seg_shift
+    real = g < n_real
+    seq = torch.where(real, seq, 0)
+    starts = torch.where(real, starts, 0)
+    if shuffle:
+        perm = torch.randperm(n_real, generator=generator, device=dev)
+        seq[:n_real] = seq[perm]
+        starts[:n_real] = starts[perm]
+    return seq, starts
 
 
 def resolve_data_placement(
@@ -297,3 +338,43 @@ class DeviceDataSource:
             starts = np.concatenate([starts, np.zeros(pad, np.int64)])
             nsegs = np.concatenate([nsegs, np.zeros(pad, np.int64)])
         return self.upload(starts, torch.long), self.upload(nsegs, torch.long)
+
+
+def plan_seed(seed: int, epoch: int) -> int:
+    """The generator seed of ``epoch``'s device plan: a function of the run's
+    seed and the epoch alone, so a mid-epoch resume derives the plan the run
+    never stopped had (``train/step.py`` ``noise_seed``'s form)."""
+    return (((seed + 41) & 0xFFFFFFFF) << 32) | (epoch & 0xFFFFFFFF)
+
+
+class DeviceEpochPlanner:
+    """``--epoch-plan device`` on a staged ``source``: each epoch's plan of
+    ``n_rows`` rows (the run's ceiling, so one captured graph serves every
+    round) derived on the device by :func:`make_device_epoch_plan` from the
+    per-sequence vectors, which :meth:`stage` uploads once per run, or once
+    per hierarchical round, and a generator seeded by :func:`plan_seed`."""
+
+    def __init__(self, source: DeviceDataSource, seed: int, seg_shift: int,
+                 n_rows: int):
+        self.source, self.seed = source, seed
+        self.seg_shift, self.n_rows = seg_shift, n_rows
+        self.generator = torch.Generator(device=source.device)
+        self.meta = None
+
+    def stage(self, dataset: SegmentDataset,
+              pad_seqs: int | None = None) -> None:
+        """Upload ``dataset``'s sequence starts and window counts (zero
+        padded to ``pad_seqs``) and its float window-count table."""
+        starts, nsegs = self.source.stage_meta(dataset, pad_seqs)
+        self.meta = (starts, nsegs, nsegs.to(torch.float32))
+
+    def plan(self, epoch: int, n_real: int, batch_size: int):
+        """``epoch``'s ``(plan, (seq_idx, abs_starts, nsegs_tab))``, as
+        ``DeviceDataSource.stage_epoch`` returns the host plan's."""
+        starts, nsegs, nsegs_tab = self.meta
+        self.generator.manual_seed(plan_seed(self.seed, epoch))
+        seq, abs_starts = make_device_epoch_plan(
+            self.generator, starts, nsegs, n_real, self.n_rows,
+            self.seg_shift)
+        return (EpochPlan.meta(n_real, batch_size),
+                (seq, abs_starts, nsegs_tab))

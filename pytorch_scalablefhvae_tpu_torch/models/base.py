@@ -111,12 +111,13 @@ def build_model(model_type: str, input_size: int, cfg, num_seqs: int,
                 feat_dim: int | None = None, generator=None):
     """Model factory over ``ModelConfig.model_type``."""
     from pytorch_scalablefhvae_tpu_torch.models.fhvae import FHVAE
+    from pytorch_scalablefhvae_tpu_torch.models.simple_fhvae import (
+        SimpleFHVAE,
+    )
 
-    if model_type == "simple_fhvae":
-        raise NotImplementedError(
-            "simple_fhvae is not yet ported to PyTorch (ROADMAP.md, queue of "
-            "port slices); the recurrent fhvae is")
-    if model_type == "fhvae":
-        return FHVAE.from_config(input_size, cfg, num_seqs,
-                                 feat_dim=feat_dim or 80, generator=generator)
-    raise ValueError(f"Unknown model_type {model_type!r}")
+    models = {"simple_fhvae": SimpleFHVAE, "fhvae": FHVAE}
+    if model_type not in models:
+        raise ValueError(f"Unknown model_type {model_type!r}")
+    return models[model_type].from_config(
+        input_size, cfg, num_seqs, feat_dim=feat_dim or 80,
+        generator=generator)

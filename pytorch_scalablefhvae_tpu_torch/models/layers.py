@@ -1,7 +1,8 @@
 """Neural-net building blocks: counterpart of ``models/layers.py``.
 
 Parameters keep the JAX layout and tree names: a dense layer is
-``x @ w + b`` with ``w [d_in, d_out]``; a Gaussian head holds ``mu`` and
+``x @ w + b`` with ``w [d_in, d_out]``; an MLP holds ``layers``, a list of
+dense layers (``z2_pre.layers.0.w``); a Gaussian head holds ``mu`` and
 ``logvar`` dense layers. Initialization: Glorot-uniform weights, zero biases,
 drawn from an explicit ``torch.Generator``.
 """
@@ -30,6 +31,14 @@ class Dense(nn.Module):
         self.b = nn.Parameter(torch.zeros(d_out))
 
 
+class MLP(nn.Module):
+    def __init__(self, d_in: int, hus, generator: torch.Generator):
+        super().__init__()
+        dims = [d_in, *hus]
+        self.layers = nn.ModuleList(Dense(a, b, generator)
+                                    for a, b in zip(dims, dims[1:]))
+
+
 class GaussHead(nn.Module):
     def __init__(self, d_in: int, dim: int, generator: torch.Generator):
         super().__init__()
@@ -44,6 +53,14 @@ def dense(p: Dense, x: torch.Tensor, compute_dtype: str = "float32"):
     if compute_dtype == "bfloat16":
         x, w = x.to(torch.bfloat16).float(), w.to(torch.bfloat16).float()
     return x @ w + p.b
+
+
+def mlp(p: MLP, x: torch.Tensor, compute_dtype: str = "float32"):
+    """A ReLU after every dense layer (the reference's stacked
+    ``VariableLinearLayer``)."""
+    for layer in p.layers:
+        x = torch.relu(dense(layer, x, compute_dtype))
+    return x
 
 
 def gauss_head(p: GaussHead, x: torch.Tensor, compute_dtype: str = "float32",

@@ -40,17 +40,15 @@ from pytorch_scalablefhvae_tpu_torch.train.loop import TrainResult, run_training
 
 def check_ported(config: ExperimentConfig) -> None:
     """Raise ``NotImplementedError`` (naming ROADMAP.md) for a setting the
-    port does not run yet. ``--epoch-plan device`` is refused rather than
-    ignored: on the device-resident tier it means an in-graph shuffle.
-    ``--ckpt-every-steps`` and ``--max-steps`` are not in the table: they
-    run on every tier, at any K and on a mesh (``train/loop.py``
-    :class:`EpochCursor`); the loop refuses them with ``--legacy`` by a
-    ``ValueError``, as the JAX loop does, which this table's ``--legacy``
-    entry reaches first until legacy epochs are ported."""
+    port does not run yet. ``--ckpt-every-steps`` and ``--max-steps`` are
+    not in the table: they run on every tier, at any K and on a mesh
+    (``train/loop.py`` :class:`EpochCursor`); the loop refuses them with
+    ``--legacy`` by a ``ValueError``, as the JAX loop does, which this
+    table's ``--legacy`` entry reaches first until legacy epochs are
+    ported."""
     t, d = config.train, config.data
     on_mesh = tuple(t.mesh_shape) != (1, 1)
     refused = {
-        "--model-type simple_fhvae": config.model.model_type == "simple_fhvae",
         "--mesh with --hierarchical": on_mesh and t.sample_hierarchical,
         "--mesh with --steps-per-dispatch > 1":
             on_mesh and t.steps_per_dispatch > 1,
@@ -65,7 +63,6 @@ def check_ported(config: ExperimentConfig) -> None:
         "--tensorboard": t.tensorboard,
         "--visdom": t.plot_curves,
         "--log-params": t.log_params,
-        "--epoch-plan device": d.epoch_plan == "device",
     }
     for flag, hit in refused.items():
         if hit:

@@ -46,7 +46,11 @@ Hierarchical rounds (``--hierarchical``, ``train/rounds.py``) run on one
 device: each epoch trains on its round's loader through the runners above,
 on the device tier (a round's subset a view of the staged store), per-round
 staging of a store over the budget (:func:`run_device_epoch` on the round's
-buffer), or the host loader. Hierarchical rounds, the streamed tier and
+buffer), or the host loader. With ``--epoch-plan device`` the staged
+tiers' epoch plans are derived on the device from the seed and the epoch
+(``data/device_store.py`` ``DeviceEpochPlanner``) instead of uploaded; the
+host loader and the streamed tier say they ignore it, as the JAX loop
+does. Hierarchical rounds, the streamed tier and
 compressed staging on a mesh, K-step dispatch on a mesh and profiling are
 not ported yet (``ROADMAP.md``; ``train/driver.py`` refuses them).
 """
@@ -69,6 +73,7 @@ from pytorch_scalablefhvae_tpu_torch.config import ExperimentConfig
 from pytorch_scalablefhvae_tpu_torch.data.device_store import (
     STORE_TAIL_SLACK,
     DeviceDataSource,
+    DeviceEpochPlanner,
     EpochPlan,
     resolve_data_placement,
     staging_itemsize,
@@ -399,13 +404,18 @@ def run_device_epoch(state: TrainState, optimizer: Optimizer,
                      alpha: float, device: torch.device, epoch: int,
                      mesh=None, bundle: StepBundle | None = None,
                      cursor: EpochCursor | None = None,
-                     plan_rows: int | None = None) -> EpochStats:
+                     plan_rows: int | None = None,
+                     planner: DeviceEpochPlanner | None = None
+                     ) -> EpochStats:
     """One epoch of train steps gathered from the staged store, over the
     host loader's own permutation for ``epoch``, so both tiers train on the
     same batches, from the ``cursor``'s batch on (:func:`run_plan`, which
     also clamps the dispatches at ``--max-steps``). ``plan_rows``: the
     plan's fixed length (a hierarchical round's, so that every round's plan
-    fills the bundle's buffers).
+    fills the bundle's buffers). With a ``planner`` (``--epoch-plan
+    device``) the epoch's plan is derived on the device instead, a
+    permutation of its own; :func:`run_plan` copies it into the bundle's
+    buffers in stream order before the first dispatch.
 
     Each step's loss comes back to the host after the next step has been
     issued (lag one), so the host never waits on the step it just issued;
@@ -417,8 +427,11 @@ def run_device_epoch(state: TrainState, optimizer: Optimizer,
     loader.set_epoch(epoch)
     cursor = cursor or EpochCursor(state)
     ds, B = loader.dataset, loader.batch_size
-    plan, arrays = source.stage_epoch(ds, loader._order(), B,
-                                      pad_rows=plan_rows)
+    if planner is not None:
+        plan, arrays = planner.plan(epoch, len(ds), B)
+    else:
+        plan, arrays = source.stage_epoch(ds, loader._order(), B,
+                                          pad_rows=plan_rows)
     cursor.losses.start_clock()
     run_plan(state, optimizer, source.data, arrays, plan, cursor.start, alpha,
              cursor, bundle, ds.seg_len, mesh)
@@ -834,8 +847,26 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
                   + (", replayed as one CUDA graph" if dev.type == "cuda"
                      else ""))
 
-    rounds = Rounds(config, train_loader, tier, source, num_seqs, dev) \
-        if hier else None
+    staged = tier in ("device", "round")
+    device_plan = config.data.epoch_plan == "device" and staged
+    if device_plan and ds.rand_seg:
+        raise ValueError(
+            "--epoch-plan device requires deterministic windowing (rand_seg "
+            "draws window starts on the host); use --epoch-plan host")
+    if config.data.epoch_plan == "device" and not staged and first:
+        print("epoch_plan=device ignored: training data is "
+              + ("chunk-streamed (plans are per-chunk, host-derived)"
+                 if tier == "stream" else "host-resident"))
+    rounds = Rounds(config, train_loader, tier, source, num_seqs, dev,
+                    device_plan) if hier else None
+    planner = None if rounds is None else rounds.planner
+    if device_plan and rounds is None:
+        rows = len(ds) + (-len(ds)) % train_loader.batch_size
+        planner = DeviceEpochPlanner(source, seed, ds.seg_shift, rows)
+        planner.stage(ds)
+    if device_plan and verbose:
+        print("Epoch plans derive on the device (upload: one generator "
+              "seed)")
     writer = MetricWriter(exp_dir, config.run_id()) if first else None
     extra = {"num_seqs": num_seqs, "feat_dim": dim, "seg_len": seg_len,
              "corpus_fingerprint": corpus_fp}
@@ -866,7 +897,7 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
                 stats = run_device_epoch(
                     state, optimizer, source, loader, alpha, dev, epoch,
                     mesh, bundle, cursor,
-                    None if rounds is None else rounds.plan_rows)
+                    None if rounds is None else rounds.plan_rows, planner)
             elif tier == "stream":
                 stats = run_stream_epoch(state, optimizer, source,
                                          train_loader, alpha, dev, epoch,

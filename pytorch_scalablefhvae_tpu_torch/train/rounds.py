@@ -28,7 +28,9 @@ A hierarchical run takes one of three tiers, as the JAX loop gives it:
 - ``host``: the host loader.
 
 On the two staged tiers every round's plan is padded to one length (the K
-largest sequences' windows), so one captured graph serves every round, and
+largest sequences' windows), so one captured graph serves every round
+(``--epoch-plan device`` derives it on the device from the round's
+per-sequence vectors, staged at every turnover and re-entry), and
 the MAP init is one chunked pass through kernel #8 (every
 ``--map-init-chunk-skip``-th chunk of 16 windows of each sequence), or the
 array-plan pass for int8 stores and random windows; on the host tier it is
@@ -45,6 +47,7 @@ import torch
 
 from pytorch_scalablefhvae_tpu_torch.data.device_store import (
     STORE_TAIL_SLACK,
+    DeviceEpochPlanner,
     build_epoch_plan,
     staging_itemsize,
 )
@@ -151,11 +154,13 @@ class Rounds:
     ``"round"`` or ``"host"``; ``source``: the staged store of the first
     two), ``k`` sequences each: :meth:`loader_for` gives an epoch's loader,
     turning the round over at its boundary. ``plan_rows``: the fixed length
-    of a staged tier's epoch plans. ``turnovers``: per round entered,
-    ``(e0, seconds by stage, fresh)``."""
+    of a staged tier's epoch plans; ``planner``: with ``device_plan`` (a
+    staged tier's ``--epoch-plan device``) the planner that derives them,
+    its vectors staged at every round entered. ``turnovers``: per round
+    entered, ``(e0, seconds by stage, fresh)``."""
 
     def __init__(self, config, loader: SegmentLoader, tier: str, source,
-                 k: int, device: torch.device):
+                 k: int, device: torch.device, device_plan: bool = False):
         ds = loader.dataset
         self.full, self.batch_size = ds, loader.batch_size
         self.tier, self.source, self.k, self.device = tier, source, k, device
@@ -179,6 +184,9 @@ class Rounds:
                         <= STORE_TAIL_SLACK)
         need = (self.chunk_rows(top) if self.chunked else int(top.sum()))
         self.map_batches = max(-(-need // self.map_batch), 1)
+        self.planner = (DeviceEpochPlanner(source, self.seed, ds.seg_shift,
+                                           self.plan_rows)
+                        if device_plan else None)
 
     def chunk_rows(self, nsegs) -> int:
         """Rows of the chunked MAP plan of sequences of ``nsegs`` windows:
@@ -224,6 +232,10 @@ class Rounds:
         self.current = round_loader(self.full, sub, self.batch_size,
                                     self.seed, e0, self.dtype)
         secs["draw"] += time.perf_counter() - t0
+        if self.planner is not None:
+            # the round's planner vectors, also on a re-entry that keeps
+            # the restored table: every epoch's plan derives from them
+            self.planner.stage(self.current.dataset, pad_seqs=self.k)
         if fresh:
             t0 = time.perf_counter()
             self.map_init(state, self.current.dataset)
@@ -269,7 +281,8 @@ class Rounds:
                     f"round MAP plan needs {need} rows but the pass holds "
                     f"{self.map_batches * self.map_batch}: the ceiling must "
                     f"cover the K largest sequences")
-            starts, nsegs = self.source.stage_meta(ds, pad_seqs=self.k)
+            starts, nsegs = (self.planner.meta[:2] if self.planner
+                             else self.source.stage_meta(ds, pad_seqs=self.k))
             table = device_map_pass_chunked(
                 model, self.source.data, starts, nsegs, seg_len=ds.seg_len,
                 seg_shift=ds.seg_shift, batch_size=self.map_batch,

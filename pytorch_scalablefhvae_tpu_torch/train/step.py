@@ -1,6 +1,7 @@
 """Training, evaluation and encoding steps: counterpart of ``train/step.py``.
 
-One train step is forward (``FHVAE.apply`` with ``sample=True``), the loss
+One train step is forward (the model's ``apply`` with ``sample=True``:
+``FHVAE`` or ``SimpleFHVAE``, which share its surface), the loss
 ``-mean(lower_bound + alpha * log_qy)`` over real rows, backward (through
 the kernels' autograd Functions), a global-norm clip and Adam, as the JAX
 package's ``optax.chain(clip_by_global_norm(100), adam(lr, b1, b2))``.

@@ -1249,3 +1249,158 @@ def test_round_staged_epochs_k8_equal_k1(cuda, dtype):
         assert torch.equal(p, b.params()[n]), n
         assert torch.equal(a.mu[n], b.mu[n]), n
         assert torch.equal(a.nu[n], b.nu[n]), n
+
+
+# ------------------------------------------------ --epoch-plan device
+
+
+def test_device_epoch_plan_on_the_card(cuda):
+    """The planner on the card: unshuffled, the CPU's plan; shuffled, a
+    permutation of it with the padding at the tail, the same for the same
+    seed (two generators) and another for another epoch."""
+    from pytorch_scalablefhvae_tpu_torch.data.device_store import (
+        DeviceDataSource,
+        DeviceEpochPlanner,
+        make_device_epoch_plan,
+    )
+    from pytorch_scalablefhvae_tpu_torch.data.feature_store import (
+        FeatureStore,
+    )
+    from pytorch_scalablefhvae_tpu_torch.data.segments import SegmentDataset
+
+    rng = np.random.default_rng(3)
+    store = FeatureStore.from_arrays({
+        f"s{i}": rng.standard_normal((n, 8)).astype(np.float32)
+        for i, n in enumerate(rng.integers(20, 400, 500))})
+    ds = SegmentDataset(store, seg_len=20, seg_shift=8)
+    n_real, n_rows = len(ds), len(ds) + 77
+    source = DeviceDataSource(store, cuda)
+    starts, nsegs = source.stage_meta(ds)
+    got = make_device_epoch_plan(None, starts, nsegs, n_real, n_rows, 8,
+                                 shuffle=False)
+    want = make_device_epoch_plan(None, starts.cpu(), nsegs.cpu(), n_real,
+                                  n_rows, 8, shuffle=False)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    base = sorted(zip(*(t[:n_real].tolist() for t in want)))
+    plans = []
+    for epoch in (0, 0, 1):
+        planner = DeviceEpochPlanner(source, seed=5, seg_shift=8,
+                                     n_rows=n_rows)
+        planner.stage(ds)
+        _, (seq, abs_starts, _) = planner.plan(epoch, n_real, 64)
+        assert seq.is_cuda and seq.shape == (n_rows,)
+        assert sorted(zip(seq[:n_real].tolist(),
+                          abs_starts[:n_real].tolist())) == base
+        assert not seq[n_real:].any() and not abs_starts[n_real:].any()
+        plans.append((seq.cpu(), abs_starts.cpu()))
+    assert all(torch.equal(a, b) for a, b in zip(plans[0], plans[1]))
+    assert not torch.equal(plans[0][0], plans[2][0])
+
+
+SIMPLE = dict(z1_hus=(128, 128), z2_hus=(128, 128), x_hus=(128, 128),
+              z1_dim=16, z2_dim=16)
+
+
+def test_simple_fhvae_step_through_the_kernels_matches_plain(cuda):
+    """A ``simple_fhvae`` train step at the CLI's widths (input 20 x 80, H
+    128, z 16, batch 256, a 4,620-row table): its gradients through
+    kernels #5/#6 against the plain versions (1e-4 of their norm, the
+    fhvae's limit above), and no LSTM kernel launched."""
+    from pytorch_scalablefhvae_tpu_torch.models.base import loss_from_outputs
+    from pytorch_scalablefhvae_tpu_torch.models.simple_fhvae import (
+        SimpleFHVAE,
+    )
+
+    model = SimpleFHVAE(1600, num_seqs=4620, feat_dim=80,
+                        generator=torch.Generator().manual_seed(4),
+                        **SIMPLE).to(cuda)
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((256, 20, 80), generator=g).to(cuda)
+    seq = torch.randint(0, 4620, (256,), generator=g).to(cuda)
+    nsegs = torch.full((256,), 30.0, device=cuda)
+    noise = {"z2": torch.randn((256, 16), generator=g).to(cuda),
+             "z1": torch.randn((256, 16), generator=g).to(cuda)}
+
+    def grads():
+        out = model.apply(x, seq, nsegs, sample=True, noise=noise)
+        loss, _ = loss_from_outputs(out, torch.ones(256, device=cuda), 10.0)
+        return torch.autograd.grad(loss, list(model.parameters()))
+
+    lstm = (lstm_cuda.lstm2_tm_proj, lstm_cuda.lstm2_tm,
+            lstm_cuda.lstm2_tm_proj_bwd, lstm_cuda.lstm2_tm_bwd)
+    before = [e.launches for e in lstm]
+    fwd = discriminative.discriminative_log_qy.launches
+    bwd = discriminative.discriminative_log_qy_bwd.launches
+    got = grads()
+    assert discriminative.discriminative_log_qy.launches == fwd + 1
+    assert discriminative.discriminative_log_qy_bwd.launches == bwd + 1
+    assert [e.launches for e in lstm] == before
+    saved = discriminative.discriminative_log_qy
+    discriminative.discriminative_log_qy = \
+        discriminative.discriminative_log_qy_reference
+    try:
+        want = grads()
+    finally:
+        discriminative.discriminative_log_qy = saved
+    assert rel_norm(got, want) <= 1e-4
+
+
+def test_simple_fhvae_device_plans_k8_equal_k1(cuda):
+    """Two epochs of ``simple_fhvae`` on device-derived plans, eight steps
+    to a CUDA graph replay (the MLPs' cuBLAS products captured beside the
+    hand-written kernels), against the same epochs one step at a time: the
+    same losses, parameters and moments, bit for bit. A replay that read
+    the previous epoch's plan would differ in the second epoch."""
+    from pytorch_scalablefhvae_tpu_torch.data.device_store import (
+        DeviceDataSource,
+        DeviceEpochPlanner,
+    )
+    from pytorch_scalablefhvae_tpu_torch.data.feature_store import (
+        FeatureStore,
+    )
+    from pytorch_scalablefhvae_tpu_torch.data.loader import SegmentLoader
+    from pytorch_scalablefhvae_tpu_torch.data.segments import SegmentDataset
+    from pytorch_scalablefhvae_tpu_torch.models.simple_fhvae import (
+        SimpleFHVAE,
+    )
+    from pytorch_scalablefhvae_tpu_torch.train import loop
+    from pytorch_scalablefhvae_tpu_torch.train.device_step import PlanInputs
+    from pytorch_scalablefhvae_tpu_torch.train.graphs import StepBundle
+    from pytorch_scalablefhvae_tpu_torch.train.step import (
+        create_train_state,
+        make_optimizer,
+    )
+
+    rng = np.random.default_rng(6)
+    store = FeatureStore.from_arrays({
+        f"s{i}": rng.standard_normal((n, 80)).astype(np.float32)
+        for i, n in enumerate(rng.integers(60, 200, 150))})
+    ds = SegmentDataset(store, seg_len=20, seg_shift=8)
+    loader = SegmentLoader(ds, 64, shuffle=True, seed=0, prefetch=0)
+    model = SimpleFHVAE(1600, num_seqs=ds.num_seqs, feat_dim=80,
+                        generator=torch.Generator().manual_seed(1), **SIMPLE)
+    opt = make_optimizer(1e-3, 0.95, 0.999)
+    runs = []
+    for k in (1, 8):
+        m = SimpleFHVAE(1600, num_seqs=ds.num_seqs, feat_dim=80, **SIMPLE)
+        m.load_state_dict(model.state_dict())
+        state = create_train_state(m.to(cuda), seed=2)
+        source = DeviceDataSource(store, cuda)
+        planner = DeviceEpochPlanner(source, 2, 8, len(ds) + (-len(ds)) % 64)
+        planner.stage(ds)
+        bundle = (None if k == 1 else StepBundle(
+            state, opt, 10.0, k, PlanInputs(source.data, 64, 20), cuda))
+        losses = [loop.run_device_epoch(state, opt, source, loader, 10.0,
+                                        cuda, epoch, bundle=bundle,
+                                        planner=planner).train_loss
+                  for epoch in range(2)]
+        if bundle is not None:
+            assert bundle.graph is not None
+        runs.append((state, losses))
+    (a, la), (b, lb) = runs
+    assert la == lb and a.step == b.step > 16
+    for n, p in a.params().items():
+        assert torch.equal(p, b.params()[n]), n
+        assert torch.equal(a.mu[n], b.mu[n]), n
+        assert torch.equal(a.nu[n], b.nu[n]), n

@@ -46,6 +46,8 @@ PORT_MODULES = [
     "pytorch_scalablefhvae_tpu_torch.eval.evaluate",
     "pytorch_scalablefhvae_tpu_torch.eval.probes",
     "pytorch_scalablefhvae_tpu_torch.models.fhvae",
+    "pytorch_scalablefhvae_tpu_torch.models.simple_fhvae",
+    "pytorch_scalablefhvae_tpu_torch.compat",
     "pytorch_scalablefhvae_tpu_torch.train.checkpoint",
     "pytorch_scalablefhvae_tpu_torch.train.step",
     "pytorch_scalablefhvae_tpu_torch.train.device_step",

@@ -121,6 +121,9 @@ def test_serve_protocol(exp_dir, wav_dir, tmp_path):
 
 
 def test_cli_encode_and_not_ported(exp_dir, wav_dir, tmp_path, capsys):
+    """``encode`` through the CLI; and ``import-checkpoint``, once not
+    ported, parses and fails on a missing file with the JAX CLI's error
+    (``tests/test_torch_compat.py`` runs it)."""
     rc = main(["encode", str(exp_dir), str(wav_dir), "--output-dir",
                str(tmp_path / "cli"), "--device", "cpu", "--batch-size", "16"])
     assert rc == 0
@@ -128,8 +131,10 @@ def test_cli_encode_and_not_ported(exp_dir, wav_dir, tmp_path, capsys):
                             device="cpu", verbose=False)
     with np.load(tmp_path / "cli" / "latents.npz") as z:
         np.testing.assert_array_equal(z["mu2_map"], one_shot["mu2_map"])
-    assert main(["import-checkpoint", str(exp_dir)]) == 2
-    assert "not yet ported" in capsys.readouterr().err
+    with pytest.raises(FileNotFoundError):
+        main(["import-checkpoint", str(exp_dir / "missing.tar"),
+              str(tmp_path / "imported"), "--num-seqs", str(NSEQ)])
+    assert not (tmp_path / "imported").exists()
 
 
 @pytest.mark.parametrize("fbank_pallas", ["auto", "always"])

@@ -201,8 +201,7 @@ def test_divergence_exits_2(corpus, tmp_path, capsys):
     pytest.param(["--mesh", "2,1", "--shard-device-store"], id="--mesh 2,1"),
     ["--ckpt-backend", "orbax"],
     ["--legacy"], ["--profile-dir", "prof"], ["--tensorboard"],
-    ["--visdom"], ["--log-params"], ["--model-type", "simple_fhvae"],
-    ["--epoch-plan", "device"], ["--lstm-pallas", "never"],
+    ["--visdom"], ["--log-params"], ["--lstm-pallas", "never"],
     ["--mesh", "2,1", "--data-placement", "stream"],
     ["--mesh", "2,1", "--transfer-dtype", "bfloat16"],
     ["--mesh", "2,1", "--transfer-dtype", "int8"],
@@ -215,7 +214,9 @@ def test_unported_flag_raises(corpus, tmp_path, flags):
     ``--transfer-dtype`` on one device run: ``tests/test_torch_multi_step.py``,
     ``tests/test_torch_stream.py``; ``--ckpt-every-steps`` and
     ``--max-steps`` everywhere: ``tests/test_torch_ckpt_steps.py``;
-    ``--hierarchical`` on one device: ``tests/test_torch_hier.py``.)"""
+    ``--hierarchical`` on one device: ``tests/test_torch_hier.py``;
+    ``--model-type simple_fhvae``: ``tests/test_torch_simple_fhvae.py``;
+    ``--epoch-plan device``: ``tests/test_torch_epoch_plan.py``.)"""
     with pytest.raises(NotImplementedError):
         main(train_args(corpus, tmp_path, *flags))
 
