@@ -253,7 +253,31 @@ prints no result line):
    they differ, held within the gap of two uninterrupted mesh epochs).
    Without phases 4s or 5 it runs their reference epochs itself. Logged:
    the wall time of each step-checkpoint save beside the card's name and
-   power limit.
+   power limit;
+4l. every single-device train flag, on phase 4's corpus with its dev split
+   cut to its first 32 sequences (a legacy dev pass runs a forward per
+   segment at batch 1), run last: first, ``plain_stack`` must not have
+   been called by any earlier phase in this process (e); (a) ``--legacy
+   --steps-per-epoch 300 --log-interval 100`` for 2 epochs at the fhvae
+   defaults: the first three steps at batch 1 through kernels #1-#6
+   against the plain versions (``TOL_TRAIN_LOSS``, ``TOL_TRAIN_UPDATE``),
+   the progress lines and the ``_legacy`` run directory, a resume from
+   epoch 0's checkpoint given ``--steps-per-dispatch 8`` (which legacy
+   epochs ignore) equal to the K = 1 run never stopped bit for bit, ms/step
+   of the eager batch-1 steps and the batch-1 dev passes' seconds; every
+   LSTM launch in the tensor-core form; (b) ``--profile-dir`` for one epoch at
+   K = 1 and at K = 8: the Chrome trace parses, and at K = 1 it names every
+   kernel the epoch's wrappers launched (the trace's count printed beside
+   the wrappers'); (c) ``--tensorboard --log-params --visdom`` for one epoch
+   at K = 8: ``metrics.jsonl``, the event file and ``curves.svg`` where
+   tensorboard and matplotlib are installed (else the line says so), and
+   the gradient snapshot of epoch 0 through the kernels against the plain
+   versions (``TOL_TRAIN_UPDATE`` of its norm); (d) one epoch at ``--z1-hus
+   256 128 --z2-hus 256 128 --x-hus 256 128``: #1-#4 launched 0 times,
+   #5/#6 launched, ``plain_stack`` called, the train loss within
+   ``TOL_TRAIN_LOSS`` of the same epoch through the plain versions; one at
+   H 256 for all three stacks: the FMA kernels launched, ``plain_stack``
+   not called.
 
 ``python3 chip_smoke.py --only 2e,5`` runs the environment phase and the
 phases named (while working on one; ``2`` includes ``2f``, ``4k``, ``4b``
@@ -278,8 +302,9 @@ requests (``train_simple``: each counted alone), phase 4p's runs in this
 process (``train_plan``), the eval of phase 4b (``eval``), the mesh run's rank 0
 (``mesh``: the ``2,2`` epoch) and phase 4r's stopped and resumed runs in
 this process (``train_resume``: every run of (a) to (d) and the NaN gate's;
-the mesh's ranks are processes of their own), each set to 0 just before its
-path and read just after. ``ms``
+the mesh's ranks are processes of their own) and phase 4l's ``--legacy``
+runs (``train_legacy``: its two CLI runs of (a), each counted alone),
+each set to 0 just before its path and read just after. ``ms``
 and ``plain_ms`` are the bf16-operand times of an LSTM entry's heaviest form,
 and for ``windowed_chunk_gather``, ``fused_logmel_frames`` and the two
 discriminative forward entries the device time per call by torch.profiler
@@ -5442,6 +5467,375 @@ def phase_resume(workdir: Path, cfg) -> dict:
     return launches
 
 
+# -------------------------------------------------------------- phase 4l
+
+LEGACY_STEPS = 300   # 4l (a): --steps-per-epoch (the CLI's 5,000, cut)
+LEGACY_LOG = 100     # 4l (a): --log-interval
+N_DEV_CUT = 32       # 4l: dev sequences kept of phase 4's 400; a legacy dev
+                     # pass runs a forward per segment at batch 1
+LEGACY_RUN = f"fhvae_e{{}}_s{LEGACY_STEPS}_p10_a10.0_legacy"
+UNEQUAL, WIDE = ("256", "128"), ("256", "256")   # 4l (d): the three stacks
+PROGRESS_LINE = re.compile(r"^====> Train Epoch: (\d+) \[(\d+)/(\d+) "
+                           r"\((\d+)%\)\]\tLoss: (\S+)$", re.M)
+# 4l (b): the kernel that each call of an entry launches once in the
+# tensor-core forms (the CLI defaults), and the entries that launch it
+TRACE_KERNELS = {
+    "lstm2_fwd_xproj_kernel": ("lstm2_tm_proj",),
+    "lstm2_fwd_chain_kernel": ("lstm2_tm_proj", "lstm2_tm"),
+    "lstm2_bwd_chain_kernel": ("lstm2_tm_proj_bwd", "lstm2_tm_bwd"),
+    "disc_fwd_kernel": ("discriminative_log_qy",),
+    "disc_bwd_fused_kernel": ("discriminative_log_qy_bwd",),
+    "window_gather_kernel": ("windowed_chunk_gather",),
+}
+
+
+def cut_dev_corpus(cfg, root: Path, out: Path, n_dev: int) -> None:
+    """Manifests under ``out`` for phase 4's features under ``root``: the
+    whole training split, the first ``n_dev`` dev sequences."""
+    from pytorch_scalablefhvae_tpu_torch.train.driver import split_manifests
+
+    src, dst = split_manifests(cfg, root), split_manifests(cfg, out)
+    for split, keep in (("train", None), ("dev", n_dev)):
+        for key in ("feat_pth", "len_pth"):
+            lines = src[split][key].read_text().splitlines(keepends=True)
+            dst[split][key].parent.mkdir(parents=True, exist_ok=True)
+            dst[split][key].write_text("".join(lines[:keep]))
+
+
+def plain_stack_calls() -> int:
+    from pytorch_scalablefhvae_tpu_torch.models import fhvae
+
+    return fhvae.plain_stack_calls
+
+
+def trace_kernel_counts(path: Path) -> dict:
+    """Kernel events of a Chrome trace by name, and its graph launches."""
+    events = json.loads(path.read_text())["traceEvents"]
+    counts: dict = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            counts[e["name"]] = counts.get(e["name"], 0) + 1
+    graphs = sum(1 for e in events if e.get("name") == "cudaGraphLaunch")
+    return {"kernels": counts, "graph_launches": graphs}
+
+
+@contextmanager
+def counting_profiles(seen: list):
+    """The train loop's ``epoch_profile`` wrapped to append, per profiled
+    epoch, the train entries' launches inside it."""
+    from pytorch_scalablefhvae_tpu_torch.train import loop
+
+    real = loop.epoch_profile
+
+    @contextmanager
+    def counted(*args, **kw):
+        entries = train_entries()
+        before = {e.__name__: e.launches for e in entries}
+        with real(*args, **kw) as prof:
+            yield prof
+            torch.cuda.synchronize()
+        seen.append({e.__name__: e.launches - before[e.__name__]
+                     for e in entries})
+
+    loop.epoch_profile = counted
+    try:
+        yield
+    finally:
+        loop.epoch_profile = real
+
+
+@contextmanager
+def timed_dev_passes(seconds: list):
+    """The train loop's host-loader ``dev_pass`` timed (synchronised wall
+    seconds of each call appended to ``seconds``)."""
+    from pytorch_scalablefhvae_tpu_torch.train import loop
+
+    real = loop.dev_pass
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    loop.dev_pass = timed
+    try:
+        yield
+    finally:
+        loop.dev_pass = real
+
+
+def snapshot_gap(cfg, root: Path, ckpt_path: Path) -> tuple:
+    """4l (c): the ``--log-params`` gradient snapshot of ``ckpt_path``'s
+    state on epoch 0's first batch, through the kernels and through the
+    plain versions on the card: the gap over the snapshot's norm, the
+    largest gap of one tensor over its own norm, and the launches of the
+    kernels' snapshot."""
+    from pytorch_scalablefhvae_tpu_torch.train.driver import build_loaders
+    from pytorch_scalablefhvae_tpu_torch.train.loop import batch_tensors
+    from pytorch_scalablefhvae_tpu_torch.train.step import (
+        make_grad_step,
+        snapshot_noise,
+    )
+
+    dev = torch.device("cuda")
+    state = checkpoint_state(cfg, ckpt_path)
+    loader = build_loaders(cfg, root, True)[0]
+    loader.set_epoch(0)
+    b = batch_tensors(next(iter(loader)), dev)
+    noise = snapshot_noise(state, 0, b[0].shape[0], dev)
+    grad_step = make_grad_step(10.0)
+    entries = train_entries()
+    reset_counts(entries)
+    got = grad_step(state, *b, noise)
+    torch.cuda.synchronize()
+    launched = {e.__name__: e.launches for e in entries}
+    with plain_versions():
+        want = grad_step(state, *b, noise)
+    num = sum(float((got[n] - want[n]).norm()) ** 2 for n in want)
+    den = sum(float(want[n].norm()) ** 2 for n in want)
+    worst = max(float((got[n] - want[n]).norm()
+                      / want[n].norm().clamp_min(1e-30)) for n in want)
+    return (num / den) ** 0.5, worst, launched
+
+
+def phase_legacy(workdir: Path, cfg) -> dict:
+    """Phase 4l: every single-device train flag on the card, on phase 4's
+    corpus with its dev split cut to ``N_DEV_CUT`` sequences: (a)
+    ``--legacy`` step epochs at batch 1; (b) ``--profile-dir`` at K = 1 and
+    K = 8; (c) ``--tensorboard --log-params --visdom`` at K = 8; (d) the
+    stacks the recurrence kernels do not take, and H 256 stacks, which they
+    do. Returns the launches of (a)'s CLI runs, each counted alone
+    (``train_legacy``)."""
+    import importlib.util
+
+    from pytorch_scalablefhvae_tpu_torch.cli.main import main as cli
+    from pytorch_scalablefhvae_tpu_torch.ops import lstm_cuda
+    from pytorch_scalablefhvae_tpu_torch.train.driver import build_loaders
+
+    log(f"== phase 4l: --legacy at batch 1, --profile-dir, --tensorboard "
+        f"--log-params --visdom, and other LSTM stacks on the card (phase "
+        f"4's corpus, {N_DEV_CUT} of its {N_DEV} dev sequences)")
+    t_phase = time.perf_counter()
+    if plain_stack_calls():
+        raise AssertionError(f"4l (e): an earlier phase ran plain_stack "
+                             f"{plain_stack_calls()} times")
+    log("4l (e): plain_stack was called 0 times by every earlier phase in "
+        "this process")
+    root = workdir / "data_4l"
+    cut_dev_corpus(cfg, workdir / "data", root, N_DEV_CUT)
+    lcfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, legacy=True, steps_per_epoch=LEGACY_STEPS,
+        log_interval=LEGACY_LOG))
+    legacy = ["--legacy", "--steps-per-epoch", str(LEGACY_STEPS),
+              "--log-interval", str(LEGACY_LOG)]
+    counts: dict = {}
+
+    def legacy_run(name: str, exp_root: Path, *extra) -> str:
+        return counted_run(counts, f"4l {name}", lambda: run_cli(
+            cli, train_args(cfg, root, exp_root, *legacy, *extra)))
+
+    # (a) --legacy at the fhvae defaults: the first B = 1 steps against the
+    # plain versions, then two step epochs at K = 1 (their dev passes
+    # timed) and the second again, resumed at K = 8
+    compare_first_steps(lcfg, root)
+    dev_s: list = []
+    with timed_dev_passes(dev_s):
+        out = legacy_run("(a) K = 1", workdir / "legacy_k1", "--epochs", "2")
+    run = workdir / "legacy_k1" / "synthetic_np_fbank" / LEGACY_RUN.format(2)
+    lines = [(int(e), int(s), int(n), float(v))
+             for e, s, n, _, v in PROGRESS_LINE.findall(out)]
+    want = [(e, i * LEGACY_LOG - 1) for e in (0, 1)
+            for i in range(1, LEGACY_STEPS // LEGACY_LOG + 1)]
+    if ([(e, s) for e, s, _, _ in lines] != want
+            or not np.isfinite([v for *_, v in lines]).all()
+            or "training from the host loader (--legacy)" not in out
+            or "steps per dispatch" in out or not run.is_dir()):
+        raise AssertionError(f"4l (a): progress lines {lines[:3]}..., the "
+                             f"host loader or the run directory {run} "
+                             f"missing")
+    recs = metrics_in(run)
+    if [r["train_steps"] for r in recs] != [LEGACY_STEPS] * 2 or \
+            not np.isfinite([r["val_lower_bound"] for r in recs]).all():
+        raise AssertionError(f"4l (a): records {recs}")
+    for r in recs:
+        log(f"4l (a) K = 1 epoch {r['epoch']}: train loss "
+            f"{r['train_loss']!r}, {int(r['train_steps'])} steps of batch 1, "
+            f"{1e3 * r['train_seconds'] / r['train_steps']:.3f} ms/step "
+            f"(eager, B = 1); dev LB {r['val_lower_bound']!r}")
+    log(f"4l (a) progress lines: {len(lines)}, e.g. "
+        f"{out[out.index('====> Train Epoch'):].splitlines()[0]!r}")
+    # epoch 1 again, resumed from epoch 0's checkpoint and given
+    # --steps-per-dispatch 8, which legacy epochs ignore: the run never
+    # stopped, at K = 1, bit for bit
+    stem = "fhvae_synthetic_np_fbank"
+    resumed = workdir / "legacy_resume" / LEGACY_RUN.format(2)
+    resumed.mkdir(parents=True)
+    for name in ("config.json", f"{stem}_e0.npz", f"{stem}_e0.json"):
+        shutil.copy(run / name, resumed / name)
+    out = legacy_run("(a) resumed at K = 8", workdir / "unused",
+                     "--continue-from", str(resumed / f"{stem}_e0.npz"),
+                     "--resume-override",
+                     f"steps_per_dispatch={K_DISPATCH}")
+    differ = differing_arrays(resumed / f"{stem}_e1.npz",
+                              run / f"{stem}_e1.npz")
+    gap = record_gap(metrics_in(resumed)[-1], recs[1])
+    log(f"4l (a) resumed from epoch 0's checkpoint at --steps-per-dispatch "
+        f"{K_DISPATCH} vs the run never stopped at K = 1, epoch 1: arrays "
+        f"differing {differ}, record keys differing {gap}")
+    if (differ or gap or "Resumed from" not in out
+            or "steps per dispatch" in out):
+        raise AssertionError("4l (a): the resumed legacy run differs")
+    n_dev = len(build_loaders(lcfg, root, True)[1])
+    log(f"4l (a) K = 1 dev passes at batch 1 ({n_dev} segments of "
+        f"{N_DEV_CUT} sequences, MAP encode then scoring): "
+        f"{', '.join(f'{t:.3f}' for t in dev_s)} s, "
+        f"{1e3 * min(dev_s) / n_dev:.3f}-{1e3 * max(dev_s) / n_dev:.3f} ms "
+        f"a segment; card {smi_name_power()}")
+    if len(dev_s) != 2:
+        raise AssertionError(f"4l (a): {len(dev_s)} dev passes timed")
+    launches = counts["launches"]
+    log(f"launches during phase 4l (a)'s {len(counts['runs'])} runs "
+        f"({', '.join(counts['runs'])}), each counted from 0: {launches}; "
+        f"of the LSTM entries', through the tensor-core form: "
+        f"{counts['tensor_core']}")
+    check_tensor_core(launches, counts["tensor_core"], "phase 4l (a)")
+    for name, n in launches.items():
+        if (n > 0) != (name != "windowed_chunk_gather"):
+            raise AssertionError(f"4l (a): {name} launched {n} times")
+    t_a = time.perf_counter() - t_phase
+
+    # (b) --profile-dir: one epoch at K = 1 and one at K = 8
+    t0 = time.perf_counter()
+    for k in (1, K_DISPATCH):
+        prof = workdir / f"profile_k{k}"
+        seen: list = []
+        with counting_profiles(seen):
+            out = run_cli(cli, train_args(
+                cfg, root, workdir / f"profiled_k{k}", "--epochs", "1",
+                "--steps-per-dispatch", str(k), "--profile-dir", str(prof),
+                "--profile-epoch", "3"))
+        traces = list(prof.glob("*.pt.trace.json"))
+        if len(traces) != 1 or len(seen) != 1 or \
+                f"Wrote profiler trace to {prof}" not in out:
+            raise AssertionError(f"4l (b) K = {k}: traces {traces}, "
+                                 f"profiled epochs {len(seen)}")
+        found = trace_kernel_counts(traces[0])
+        rows = []
+        for kernel, names in TRACE_KERNELS.items():
+            wrappers = sum(seen[0][n] for n in names)
+            in_trace = sum(c for name, c in found["kernels"].items()
+                           if kernel in name)
+            rows.append((kernel, in_trace, wrappers))
+            if k == 1 and wrappers and not in_trace:
+                raise AssertionError(f"4l (b): the K = 1 trace names no "
+                                     f"{kernel} of {wrappers} calls")
+        log(f"4l (b) --profile-dir at K = {k}: {traces[0].name} "
+            f"({traces[0].stat().st_size / 1e6:.1f} MB), "
+            f"{sum(found['kernels'].values())} kernel events, "
+            f"{found['graph_launches']} cudaGraphLaunch; kernel (trace "
+            f"count vs the wrappers' calls): "
+            + ", ".join(f"{n} {t} vs {w}" for n, t, w in rows))
+    t_b = time.perf_counter() - t0
+
+    # (c) --tensorboard --log-params --visdom at K = 8
+    t0 = time.perf_counter()
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("tensorboard", "matplotlib")}
+    for m, ok in have.items():
+        if not ok:
+            log(f"4l (c): {m} is not installed on this machine; its "
+                f"output is not checked")
+    tb = workdir / "tb"
+    out = run_cli(cli, train_args(
+        cfg, root, workdir / "observed", "--epochs", "1",
+        "--steps-per-dispatch", str(K_DISPATCH), "--tensorboard",
+        "--log-params", "--visdom", "--tb-log-dir", str(tb)))
+    obs = workdir / "observed" / "synthetic_np_fbank" / "fhvae_e1_p10_a10.0"
+    rec, = metrics_in(obs)
+    events = list(tb.glob("events.out.tfevents.*"))
+    svg = obs / "curves.svg"
+    if (not np.isfinite(rec["train_loss"])
+            or bool(events) != have["tensorboard"]
+            or ("falling back to JSONL only" in out) == have["tensorboard"]
+            or svg.is_file() != have["matplotlib"]):
+        raise AssertionError(f"4l (c): record {rec}, event files {events}, "
+                             f"curves {svg.is_file()}")
+    rel, worst, snap = snapshot_gap(cfg, root, obs / f"{stem}_e0.npz")
+    log(f"4l (c) gradient snapshot of epoch 0 (its first batch of "
+        f"{B_TRAIN}), kernels vs plain on the card: {rel:.3e} of its norm "
+        f"(tol {TOL_TRAIN_UPDATE:g}; the largest of one tensor "
+        f"{worst:.3e}); launches {snap}; event files {len(events)}, "
+        f"curves.svg {svg.is_file()}")
+    if not rel <= TOL_TRAIN_UPDATE or not all(
+            snap[n] > 0 for n in snap if n != "windowed_chunk_gather"):
+        raise AssertionError("4l (c): the snapshot disagrees with plain")
+    t_c = time.perf_counter() - t0
+
+    # (d) one epoch each: unequal stacks (the plain route, #5/#6 alone) at
+    # K = 8, against the same epoch through the plain versions; then H 256
+    # stacks (the FMA kernels) at K = 1
+    t0 = time.perf_counter()
+
+    def stacks(widths):
+        return [f for flag in ("--z1-hus", "--z2-hus", "--x-hus")
+                for f in (flag, *widths)]
+
+    stack_counts: dict = {}
+    losses = {}
+    for path in ("kernels", "plain"):
+        before = plain_stack_calls()
+        exp_root = workdir / f"stacks_{path}"
+        with plain_versions() if path == "plain" else nullcontext():
+            stack_counts[path] = {}
+            counted_run(stack_counts[path], f"4l (d) {path}", lambda: run_cli(
+                cli, train_args(cfg, root, exp_root, "--epochs", "1",
+                                "--steps-per-dispatch", str(K_DISPATCH),
+                                *stacks(UNEQUAL))))
+        rec, = metrics_in(run_dir(exp_root, 1))
+        losses[path] = (rec, plain_stack_calls() - before)
+    (rk, calls), (rp, _) = losses["kernels"], losses["plain"]
+    got = stack_counts["kernels"]["launches"]
+    loss_gap = abs(rk["train_loss"] / rp["train_loss"] - 1)
+    log(f"4l (d) stacks {'/'.join(UNEQUAL)}: launches {got}, plain_stack "
+        f"{calls} calls; train loss {rk['train_loss']!r} vs "
+        f"{rp['train_loss']!r} through the plain versions (relative "
+        f"{loss_gap:.3e}, tol {TOL_TRAIN_LOSS:g}), "
+        f"{1e3 * rk['train_seconds'] / rk['train_steps']:.3f} ms/step, dev "
+        f"LB {rk['val_lower_bound']!r}")
+    if (any(got[e.__name__] for e in train_entries()[:2] + train_entries()[3:5])
+            or not got["discriminative_log_qy"]
+            or not got["discriminative_log_qy_bwd"] or not calls
+            or not np.isfinite(rk["train_loss"])
+            or not loss_gap <= TOL_TRAIN_LOSS):
+        raise AssertionError("4l (d): the unequal stacks' epoch")
+    wide: dict = {}
+    before = plain_stack_calls()
+    counted_run(wide, "4l (d) H 256", lambda: run_cli(cli, train_args(
+        cfg, root, workdir / "stacks_wide", "--epochs", "1",
+        *stacks(WIDE))))
+    rec, = metrics_in(run_dir(workdir / "stacks_wide", 1))
+    log(f"4l (d) stacks {'/'.join(WIDE)}: launches {wide['launches']}, of "
+        f"them tensor-core {wide['tensor_core']}; plain_stack "
+        f"{plain_stack_calls() - before} calls; train loss "
+        f"{rec['train_loss']!r}, "
+        f"{1e3 * rec['train_seconds'] / rec['train_steps']:.3f} ms/step")
+    lstm = [e.__name__ for e in (lstm_cuda.lstm2_tm_proj, lstm_cuda.lstm2_tm,
+                                 lstm_cuda.lstm2_tm_proj_bwd,
+                                 lstm_cuda.lstm2_tm_bwd)]
+    if (plain_stack_calls() != before or not np.isfinite(rec["train_loss"])
+            or not all(wide["launches"][n] > 0 for n in lstm)
+            or any(wide["tensor_core"][n] for n in lstm)):
+        raise AssertionError("4l (d): the H 256 stacks' epoch")
+    t_d = time.perf_counter() - t0
+    log(f"phase 4l took {time.perf_counter() - t_phase:.1f} s: (a) "
+        f"{t_a:.1f}, (b) {t_b:.1f}, (c) {t_c:.1f}, (d) {t_d:.1f}; card "
+        f"{smi_name_power()}")
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5449,8 +5843,8 @@ def main(argv=None) -> int:
     parser.add_argument("--only", default=None,
                         help="comma-separated phases to run after phase 1 "
                              "(2, 2f, 2b, 2c, 2d, 2e, 3, 3b, 4, 4k, 4s, 4h, "
-                             "4m, 4p, 4b, 4q, 5, 4r; 2 includes 2f, 4k, 4b "
-                             "and 4r need 4); default all")
+                             "4m, 4p, 4b, 4q, 5, 4r, 4l; 2 includes 2f, 4k, "
+                             "4b and 4r need 4); default all")
     only = parser.parse_args(argv).only
     only = None if only is None else set(only.split(","))
     if only is not None and "2" in only:
@@ -5465,53 +5859,66 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this check "
               "needs a GPU", file=sys.stderr)
         return 1
-    phase_environment()
+    t_start = time.perf_counter()
+    seconds: dict = {}
+
+    def timed(phase: str, fn, *args, **kw):
+        """``fn(*args, **kw)``, its wall seconds kept under ``phase``."""
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            seconds[phase] = round(time.perf_counter() - t0, 1)
+
+    timed("1", phase_environment)
     results: dict = {}
     for phase, fn in (("2", phase_kernels), ("2f", phase_disc_forward),
                       ("2b", phase_backward),
                       ("2c", phase_gather), ("2d", phase_logmel),
                       ("2e", phase_sharded)):
         if on(phase):
-            results.update(fn())
+            results.update(timed(phase, fn))
     workdir = Path(__file__).resolve().parent / "build" / "chip_smoke"
     shutil.rmtree(workdir, ignore_errors=True)
     workdir.mkdir(parents=True)
     by_path: dict = {}
     try:
         if on("3"):
-            by_path.update(phase_serve(workdir))
+            by_path.update(timed("3", phase_serve, workdir))
         if on("3b"):
             if not on("3"):
                 write_corpus(workdir / "wav")
-            by_path["preprocess"] = phase_preprocess(workdir)
-        if any(on(p) for p in ("4", "4s", "4h", "4m", "4p", "5")):
-            t0 = time.perf_counter()
-            cfg = write_feature_corpus(workdir / "data")
-            log(f"corpus written in {time.perf_counter() - t0:.1f} s")
+            by_path["preprocess"] = timed("3b", phase_preprocess, workdir)
+        if any(on(p) for p in ("4", "4s", "4h", "4m", "4p", "5", "4l")):
+            cfg = timed("corpus", write_feature_corpus, workdir / "data")
+            log(f"corpus written in {seconds['corpus']:.1f} s")
         epoch0 = None
         if on("4"):
-            by_path["train"], runs = phase_train(workdir, cfg)
+            by_path["train"], runs = timed("4", phase_train, workdir, cfg)
             epoch0 = runs["device"][0]
         if on("4k"):
-            by_path["train_k8"] = phase_train_k8(
-                workdir, cfg, {**runs, "launches": by_path["train"]})
+            by_path["train_k8"] = timed(
+                "4k", phase_train_k8, workdir, cfg,
+                {**runs, "launches": by_path["train"]})
         if on("4s"):
-            by_path["train_stream"] = phase_stream(workdir, cfg,
-                                                   keep_big=on("4h"))
+            by_path["train_stream"] = timed("4s", phase_stream, workdir, cfg,
+                                            keep_big=on("4h"))
         if on("4h"):
-            by_path["train_hier"] = phase_hier(workdir, cfg)
+            by_path["train_hier"] = timed("4h", phase_hier, workdir, cfg)
         if on("4m"):
-            by_path["train_simple"] = phase_simple(workdir, cfg)
+            by_path["train_simple"] = timed("4m", phase_simple, workdir, cfg)
         if on("4p"):
-            by_path["train_plan"] = phase_plan(workdir, cfg)
+            by_path["train_plan"] = timed("4p", phase_plan, workdir, cfg)
         if on("4b"):
-            by_path["eval"] = phase_eval(workdir)
+            by_path["eval"] = timed("4b", phase_eval, workdir)
         if on("4q"):
-            phase_quality(workdir)
+            timed("4q", phase_quality, workdir)
         if on("5"):
-            by_path["mesh"] = phase_mesh(workdir, cfg, epoch0)
+            by_path["mesh"] = timed("5", phase_mesh, workdir, cfg, epoch0)
         if on("4r"):
-            by_path["train_resume"] = phase_resume(workdir, cfg)
+            by_path["train_resume"] = timed("4r", phase_resume, workdir, cfg)
+        if on("4l"):
+            by_path["train_legacy"] = timed("4l", phase_legacy, workdir, cfg)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     if "jax" in sys.modules:
@@ -5538,6 +5945,8 @@ def main(argv=None) -> int:
         for k in kernels:
             if k["launches"] <= 0:
                 raise AssertionError(f"{k['name']} was launched by no path")
+    log(f"wall seconds by phase: {seconds}; {time.perf_counter() - t_start:.1f}"
+        f" s in all; card {smi_name_power()}")
     print(smi_name_power())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -447,13 +447,16 @@ TIER_WORDS = {"device": "staging it whole", "stream": "streaming it",
 
 def resolve_tier(placement: str, store, max_bytes: int,
                  store_dtype: str = "float32", verbose: bool = True,
-                 mesh_run: bool = False, hierarchical: bool = False) -> str:
+                 mesh_run: bool = False, hierarchical: bool = False,
+                 legacy: bool = False) -> str:
     """The run's data tier, ``"device"``, ``"stream"`` or ``"host"``, as
     ``resolve_data_mode`` decides it on one device from the placement and
     the budget alone: ``device`` raises its ``ValueError`` when the store is
     over ``max_bytes``; ``auto`` stages it when it fits and streams it
     otherwise, and says which (where ``verbose``: one rank of a mesh says
-    it). A mesh stages whole stores only: the streamed tier there raises,
+    it). ``legacy`` (``--legacy`` step epochs at batch 1) takes the host
+    loader: ``auto`` resolves to it, ``device`` and ``stream`` raise JAX's
+    ``ValueError``. A mesh stages whole stores only: the streamed tier there raises,
     naming ``--data-placement host``, which trains such a store on a mesh.
 
     ``hierarchical``: rounds of a subset of the store. A store that fits
@@ -462,7 +465,7 @@ def resolve_tier(placement: str, store, max_bytes: int,
     training loop turns into per-round staging of the subset where one
     round fits (``train/rounds.py``)."""
     mode = resolve_data_mode(placement, store, max_bytes=max_bytes,
-                             store_dtype=store_dtype,
+                             legacy=legacy, store_dtype=store_dtype,
                              hierarchical=hierarchical)
     if mode == "stream" and mesh_run:
         raise NotImplementedError(
@@ -473,9 +476,11 @@ def resolve_tier(placement: str, store, max_bytes: int,
     if verbose and placement == "auto":
         nbytes = (store.data.shape[0] * store.dim
                   * staging_itemsize(store_dtype))
-        within = "within" if mode == "device" else "over"
+        within = "within" if nbytes <= max_bytes else "over"
         words = TIER_WORDS[mode]
-        if hierarchical and mode == "host":
+        if legacy:
+            words = "training from the host loader (--legacy)"
+        elif hierarchical and mode == "host":
             words = ("staging each hierarchical round's subset where one "
                      "fits, else training from the host loader")
         print(f"data placement auto: the packed store is {nbytes / 1e6:.1f} "

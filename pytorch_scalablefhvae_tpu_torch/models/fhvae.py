@@ -17,9 +17,20 @@ Every forward follows the JAX package's time-major fused dataflow
 - the ELBO reduces over the time-major reconstruction.
 
 The recurrences run the CUDA kernels for CUDA tensors and their plain
-versions on the CPU (``ops/lstm_cuda.py``). A stack the kernel does not take
-raises; the TPU path's scan fallback, wavefront schedule, scan unroll and
-VMEM gates have no counterpart here.
+versions on the CPU (``ops/lstm_cuda.py``). Which route a stack takes is
+decided by its shape alone, once, when the model is built
+(:meth:`LSTMStack.kernel_takes`): two equal-width layers, T >= 2 and a
+width within the kernels' block (``lstm_cuda.MAX_H``) take the kernels;
+every other stack (one or three cells, unequal widths, T = 1, and wide
+two-layer stacks, which the JAX package sends from its Pallas recurrence to
+the scan when they are over its VMEM budget) runs :func:`plain_stack`, a
+time loop per layer in plain PyTorch on any device: the counterpart of the
+JAX package's scan path, on which the reference has no Pallas kernel. On
+that route the z1 stack reads ``[x, z2]`` and the decoder ``[z1, z2]`` at
+every frame, as the scan path does, and the operands are rounded by
+``compute_dtype``, not ``lstm_mm_dtype`` (which only the kernels read).
+``plain_stack_calls`` counts its calls. The wavefront schedule, scan unroll
+and VMEM gates have no counterpart here.
 """
 
 from __future__ import annotations
@@ -38,6 +49,39 @@ from pytorch_scalablefhvae_tpu_torch.models.base import (
 )
 from pytorch_scalablefhvae_tpu_torch.ops import lstm_cuda
 from pytorch_scalablefhvae_tpu_torch.parallel.mesh import gather_rows
+
+
+# calls of plain_stack, on every device: a stack the kernels take never
+# gets here, so on CUDA it counts the stacks they do not take
+plain_stack_calls = 0
+
+
+def plain_stack(cells, xs: torch.Tensor, compute_dtype: str = "float32"):
+    """A stacked LSTM over time-major ``xs [T, B, D]`` as the JAX scan path
+    runs it (``run_lstm``): per layer the input projection of all steps at
+    once, then a time loop of the recurrent product and the cell; operands
+    rounded to bf16 with ``compute_dtype="bfloat16"``, products and sums in
+    fp32. ``cells``: ``[(w, b), ...]``, ``w [d_in + H, 4H]`` (input rows
+    first). Returns ``(tops [T, B, H_last], h_last [B, H_last])``;
+    differentiable by autograd."""
+    global plain_stack_calls
+    plain_stack_calls += 1
+    T, B, _ = xs.shape
+    seq, h = xs, None
+    for w, b in cells:
+        hid = w.shape[1] // 4
+        d_in = w.shape[0] - hid
+        w_x, w_h = w[:d_in], w[d_in:]
+        xg = layers.matmul(seq.reshape(T * B, d_in), w_x, compute_dtype) \
+            .reshape(T, B, 4 * hid) + b
+        h = c = xs.new_zeros((B, hid))
+        tops = []
+        for t in range(T):
+            h, c = lstm_cuda._cell(xg[t] + layers.matmul(h, w_h,
+                                                          compute_dtype), c)
+            tops.append(h)
+        seq = torch.stack(tops)
+    return seq, h
 
 
 class LSTMCell(nn.Module):
@@ -72,6 +116,12 @@ class LSTMStack(nn.Module):
         w1, w2 = self.cells[0].w, self.cells[1].w
         hid = w2.shape[1] // 4
         return w1.shape[1] == w2.shape[1] and w2.shape[0] == 2 * hid and T >= 2
+
+    def kernel_takes(self, T: int) -> bool:
+        """Whether the recurrence kernels take this stack at ``T`` steps:
+        :meth:`two_layer_ok` and a hidden width within their block."""
+        return (self.two_layer_ok(T)
+                and self.cells[1].w.shape[1] // 4 <= lstm_cuda.MAX_H)
 
 
 class FHVAE(nn.Module):
@@ -111,6 +161,10 @@ class FHVAE(nn.Module):
         self.dec_gauss = layers.GaussHead(x_hus[-1], feat_dim, g)
         self.mu2_table = nn.Parameter(
             mu2_init_std * torch.randn((num_seqs, z2_dim), generator=g))
+        # each stack's route, by its shape at the segment's T
+        T = input_size // feat_dim
+        self.kernel_stacks = {name: getattr(self, name).kernel_takes(T)
+                              for name in ("z2_lstm", "z1_lstm", "dec_lstm")}
 
     @classmethod
     def from_config(cls, input_size: int, cfg, num_seqs: int,
@@ -142,33 +196,31 @@ class FHVAE(nn.Module):
 
     # ------------------------------------------------------------ pieces
 
-    def _check_stacks(self, T: int) -> None:
-        for name in ("z2_lstm", "z1_lstm", "dec_lstm"):
-            if not getattr(self, name).two_layer_ok(T):
-                raise NotImplementedError(
-                    f"{name}: the recurrence kernel takes two equal-width "
-                    f"layers and T >= 2 (got T={T}); other stacks are not yet "
-                    f"ported (ROADMAP.md)")
-
-    def _proj(self, a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        if self.compute_dtype == "bfloat16":
-            a, w = a.to(torch.bfloat16).float(), w.to(torch.bfloat16).float()
-        return a @ w
+    def _z2_trunk(self, xt):
+        """The z2 stack's last hidden state ``[B, H]`` on ``xt [T, B, D]``."""
+        if self.kernel_stacks["z2_lstm"]:
+            return lstm_cuda.lstm2_tm_proj(self.z2_lstm.pairs(), xt, None,
+                                           self.lstm_mm_dtype,
+                                           with_tops=False)[1]
+        return plain_stack(self.z2_lstm.pairs(), xt, self.compute_dtype)[1]
 
     def _encode_tm(self, xt, sample, generator, noise=None):
         """Both encoders on time-major ``xt [T, B, D]``."""
-        D = xt.shape[2]
+        T, B, D = xt.shape
         cdt, mm = self.compute_dtype, self.lstm_mm_dtype
         noise = noise or {}
-        _, h2 = lstm_cuda.lstm2_tm_proj(self.z2_lstm.pairs(), xt, None, mm,
-                                        with_tops=False)
+        h2 = self._z2_trunk(xt)
         z2_mu, z2_logvar, z2 = layers.gauss_head(
             self.z2_gauss, h2, cdt, sample, eps=noise.get("z2"),
             generator=generator)
-        c1 = self.z1_lstm.cells[0]
-        xg_z = self._proj(z2, c1.w[D:D + z2.shape[-1]]) + c1.b  # [B, 4H]
-        _, h1 = lstm_cuda.lstm2_tm_proj(self.z1_lstm.pairs(), xt, xg_z, mm,
-                                        with_tops=False)
+        if self.kernel_stacks["z1_lstm"]:
+            c1 = self.z1_lstm.cells[0]
+            xg_z = layers.matmul(z2, c1.w[D:D + z2.shape[-1]], cdt) + c1.b
+            _, h1 = lstm_cuda.lstm2_tm_proj(self.z1_lstm.pairs(), xt, xg_z,
+                                            mm, with_tops=False)
+        else:
+            xz = torch.cat([xt, z2.expand(T, B, z2.shape[-1])], dim=-1)
+            _, h1 = plain_stack(self.z1_lstm.pairs(), xz, cdt)
         z1_mu, z1_logvar, z1 = layers.gauss_head(
             self.z1_gauss, h1, cdt, sample, eps=noise.get("z1"),
             generator=generator)
@@ -178,11 +230,17 @@ class FHVAE(nn.Module):
     def _decode_tm(self, z1, z2, T: int):
         """Decoder: ``(x_mu, x_logvar)``, each time-major ``[T, B, F]``."""
         B = z1.shape[0]
-        c1 = self.dec_lstm.cells[0]
         z = torch.cat([z1, z2], dim=-1)
-        xg_c = self._proj(z, c1.w[: z.shape[-1]]) + c1.b  # [B, 4H]
-        tops, _ = lstm_cuda.lstm2_tm(self.dec_lstm.pairs(), xg_c, T=T,
-                                     mm_dtype=self.lstm_mm_dtype)
+        if self.kernel_stacks["dec_lstm"]:
+            c1 = self.dec_lstm.cells[0]
+            xg_c = layers.matmul(z, c1.w[: z.shape[-1]],
+                                 self.compute_dtype) + c1.b  # [B, 4H]
+            tops, _ = lstm_cuda.lstm2_tm(self.dec_lstm.pairs(), xg_c, T=T,
+                                         mm_dtype=self.lstm_mm_dtype)
+        else:
+            tops, _ = plain_stack(self.dec_lstm.pairs(),
+                                  z.expand(T, B, z.shape[-1]),
+                                  self.compute_dtype)
         x_mu, x_logvar, _ = layers.gauss_head(
             self.dec_gauss, tops.reshape(T * B, -1), self.compute_dtype)
         return (x_mu.reshape(T, B, self.feat_dim),
@@ -193,7 +251,6 @@ class FHVAE(nn.Module):
     def encode(self, x, sample: bool = False,
                generator: torch.Generator | None = None) -> dict:
         """Posteriors of both latents for ``x [B, T, D]``."""
-        self._check_stacks(x.shape[1])
         return self._encode_tm(x.float().transpose(0, 1).contiguous(),
                                sample, generator)
 
@@ -202,7 +259,6 @@ class FHVAE(nn.Module):
         """Per-frame Gaussians ``(x_mu, x_logvar, x_sample)``, each
         ``[B, T, F]``; ``T`` defaults to ``input_size // feat_dim``."""
         T = num_frames or self.input_size // self.feat_dim
-        self._check_stacks(T)
         x_mu, x_logvar = (a.transpose(0, 1)
                           for a in self._decode_tm(z1, z2, T))
         if not sample:
@@ -213,10 +269,7 @@ class FHVAE(nn.Module):
 
     def encode_z2(self, x) -> torch.Tensor:
         """Posterior mean of the sequence latent alone, ``[B, z2_dim]``."""
-        self._check_stacks(x.shape[1])
-        xt = x.float().transpose(0, 1).contiguous()
-        _, h2 = lstm_cuda.lstm2_tm_proj(self.z2_lstm.pairs(), xt, None,
-                                        self.lstm_mm_dtype, with_tops=False)
+        h2 = self._z2_trunk(x.float().transpose(0, 1).contiguous())
         return layers.dense(self.z2_gauss.mu, h2, self.compute_dtype)
 
     def apply(self, x, seq_idx, nsegs, sample: bool = False,
@@ -239,7 +292,6 @@ class FHVAE(nn.Module):
         gather and log_qy.
         """
         B, T, _ = x.shape
-        self._check_stacks(T)
         xt = x.float().transpose(0, 1).contiguous()
         enc = self._encode_tm(xt, sample, generator, noise)
         x_mu_tm, x_logvar_tm = self._decode_tm(enc["z1"], enc["z2"], T)

@@ -46,13 +46,18 @@ class GaussHead(nn.Module):
         self.logvar = Dense(d_in, dim, generator)
 
 
-def dense(p: Dense, x: torch.Tensor, compute_dtype: str = "float32"):
-    """``x @ w + b``; ``compute_dtype="bfloat16"`` rounds both operands to
-    bf16 and accumulates in fp32 (the MXU semantics of the JAX layer)."""
-    w = p.w
+def matmul(x: torch.Tensor, w: torch.Tensor,
+           compute_dtype: str = "float32") -> torch.Tensor:
+    """``x @ w``; ``compute_dtype="bfloat16"`` rounds both operands to bf16
+    and accumulates in fp32 (the MXU semantics of the JAX layer)."""
     if compute_dtype == "bfloat16":
         x, w = x.to(torch.bfloat16).float(), w.to(torch.bfloat16).float()
-    return x @ w + p.b
+    return x @ w
+
+
+def dense(p: Dense, x: torch.Tensor, compute_dtype: str = "float32"):
+    """``x @ w + b``, the product by :func:`matmul`."""
+    return matmul(x, p.w, compute_dtype) + p.b
 
 
 def mlp(p: MLP, x: torch.Tensor, compute_dtype: str = "float32"):

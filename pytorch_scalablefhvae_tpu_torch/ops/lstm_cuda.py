@@ -340,6 +340,9 @@ def _xadd_strides(xadd: torch.Tensor, T: int, proj: bool) -> tuple[int, int]:
 
 TC_H = 128       # the hidden width of the tensor-core forms
 TC_MAX_D = 128   # their widest fused input
+MAX_H = 512      # the widest hidden layer of every form: the FMA kernels'
+                 # blocks run kNRG (2) threads a unit, at most 1024
+                 # (csrc/lstm2_common.cuh; sfhvae_lstm2_threads)
 
 
 def forward_form(mm_dtype: str, H: int, D: int) -> str:

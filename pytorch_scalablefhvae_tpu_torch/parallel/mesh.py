@@ -219,6 +219,15 @@ def gather_table_rows(mesh: Mesh, *shards: torch.Tensor) -> list[torch.Tensor]:
     return list(whole)
 
 
+def whole_tensors(mesh: Mesh, named: dict) -> dict:
+    """``named`` (name -> tensor) with every row-sharded leaf
+    (:func:`is_sharded`) gathered whole by :func:`gather_table_rows`; every
+    rank takes part."""
+    sharded = [k for k, v in named.items() if is_sharded(k, v)]
+    return {**named, **dict(zip(sharded, gather_table_rows(
+        mesh, *(named[k] for k in sharded))))}
+
+
 def replicas_equal(mesh: Mesh, tensors) -> bool:
     """Whether the replicated ``tensors`` hold the same bits on every rank:
     their largest and smallest value over all ranks must coincide, element

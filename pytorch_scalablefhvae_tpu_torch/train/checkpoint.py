@@ -41,10 +41,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from pytorch_scalablefhvae_tpu_torch.parallel.mesh import (
-    gather_table_rows,
-    is_sharded,
-)
+from pytorch_scalablefhvae_tpu_torch.parallel.mesh import whole_tensors
 
 _SCHEMA_VERSION = 1
 PORT_FORMAT = "torch_named"
@@ -310,9 +307,7 @@ def save_checkpoint(checkpoint_dir, model: torch.nn.Module, *, model_type: str,
             tensors[_NU + n] = train_state.nu[n]
     mesh = getattr(model, "shard_mesh", None)
     if mesh is not None:
-        sharded = [k for k, v in tensors.items() if is_sharded(k, v)]
-        tensors.update(zip(sharded, gather_table_rows(
-            mesh, *(tensors[k] for k in sharded))))
+        tensors = whole_tensors(mesh, tensors)
         if mesh.rank != 0:
             return npz_path
     checkpoint_dir.mkdir(parents=True, exist_ok=True)

@@ -13,7 +13,7 @@ package's; ``split_manifests`` says where a preprocessed corpus's
 extracted first, the ``jax`` extractor's on the run's device.
 
 :func:`check_ported` refuses every setting whose code path is not yet
-ported, naming ``ROADMAP.md``. The data tier (the device-resident store,
+ported, naming ``ROADMAP.md``: what is left of the mesh. The data tier (the device-resident store,
 the streamed tier or the host loader) is resolved by ``train/loop.py``,
 which also runs the mesh branch: on a mesh every rank calls
 :func:`train_from_config` with its own device (``cli/main.py`` starts the
@@ -43,9 +43,7 @@ def check_ported(config: ExperimentConfig) -> None:
     port does not run yet. ``--ckpt-every-steps`` and ``--max-steps`` are
     not in the table: they run on every tier, at any K and on a mesh
     (``train/loop.py`` :class:`EpochCursor`); the loop refuses them with
-    ``--legacy`` by a ``ValueError``, as the JAX loop does, which this
-    table's ``--legacy`` entry reaches first until legacy epochs are
-    ported."""
+    ``--legacy`` by a ``ValueError``, as the JAX loop does."""
     t, d = config.train, config.data
     on_mesh = tuple(t.mesh_shape) != (1, 1)
     refused = {
@@ -58,11 +56,6 @@ def check_ported(config: ExperimentConfig) -> None:
             on_mesh and d.transfer_dtype != "float32",
         "--shard-device-store": d.shard_device_store,
         "--ckpt-backend orbax": t.ckpt_backend == "orbax",
-        "--legacy": t.legacy,
-        "--profile-dir": t.profile_dir is not None,
-        "--tensorboard": t.tensorboard,
-        "--visdom": t.plot_curves,
-        "--log-params": t.log_params,
     }
     for flag, hit in refused.items():
         if hit:
@@ -74,12 +67,26 @@ def check_ported(config: ExperimentConfig) -> None:
                 f"train")
 
 
+def check_batch_split(config: ExperimentConfig) -> None:
+    """Raise the JAX package's ``ValueError`` for a training batch that the
+    data axis of ``--mesh`` does not divide: the JAX loop's first step
+    cannot shard it. Under ``--legacy`` the batch is 1, so any data axis
+    above 1 raises. Checked before the ranks start."""
+    d = config.train.mesh_shape[0]
+    batch = 1 if config.train.legacy else config.data.training_batch_size
+    if batch % d:
+        raise ValueError(
+            f"the data axis ({d}) must divide the training batch size "
+            f"({batch}{', --legacy' if config.train.legacy else ''})")
+
+
 def build_loaders(config: ExperimentConfig, data_root: str | Path = ".",
                   is_preprocessed: bool = True,
                   fbank_conf: str | Path = "./misc/fbank.conf",
                   device: str = "cuda"
                   ) -> tuple[SegmentLoader, SegmentLoader]:
-    """The shuffled training loader and the ordered dev loader."""
+    """The shuffled training loader and the ordered dev loader; under
+    ``--legacy`` both at batch size 1 (JAX ``train/driver.py``)."""
     dcfg = config.data
     min_len = dcfg.min_len if dcfg.min_len is not None else dcfg.seg_len
     if is_preprocessed:
@@ -104,8 +111,11 @@ def build_loaders(config: ExperimentConfig, data_root: str | Path = ".",
                              seed=config.train.seed,
                              transfer_dtype=dcfg.transfer_dtype)
 
-    return (make_loader("train", dcfg.training_batch_size, True),
-            make_loader("dev", dcfg.dev_batch_size, False))
+    train_bs, dev_bs = dcfg.training_batch_size, dcfg.dev_batch_size
+    if config.train.legacy:
+        train_bs = dev_bs = 1
+    return (make_loader("train", train_bs, True),
+            make_loader("dev", dev_bs, False))
 
 
 def resolve_run_config(config: ExperimentConfig,
@@ -131,6 +141,7 @@ def resolve_run_config(config: ExperimentConfig,
             "--resume-override only applies when resuming (--continue-from); "
             "set the flag directly for a fresh run")
     check_ported(config)
+    check_batch_split(config)
     return config
 
 

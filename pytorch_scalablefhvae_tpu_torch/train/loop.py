@@ -51,8 +51,15 @@ tiers' epoch plans are derived on the device from the seed and the epoch
 (``data/device_store.py`` ``DeviceEpochPlanner``) instead of uploaded; the
 host loader and the streamed tier say they ignore it, as the JAX loop
 does. Hierarchical rounds, the streamed tier and
-compressed staging on a mesh, K-step dispatch on a mesh and profiling are
-not ported yet (``ROADMAP.md``; ``train/driver.py`` refuses them).
+compressed staging on a mesh and K-step dispatch on a mesh are not ported
+yet (``ROADMAP.md``; ``train/driver.py`` refuses them).
+
+``--legacy`` runs the reference's step epochs on the host loader at batch 1
+(:class:`LegacyEpochs`; eager steps, K ignored). The observability flags:
+``--tensorboard`` (with ``--log-params`` a histogram of every parameter and
+of its gradient from :func:`make_grad_step` on the epoch's first batch),
+``--visdom`` (``curves.svg``, ``train/plots.py``) and ``--profile-dir``
+(:func:`epoch_profile`: one epoch's training under ``torch.profiler``).
 """
 
 from __future__ import annotations
@@ -88,6 +95,7 @@ from pytorch_scalablefhvae_tpu_torch.parallel.mesh import (
     make_mesh,
     replicas_equal,
     shard_model,
+    whole_tensors,
 )
 from pytorch_scalablefhvae_tpu_torch.train import checkpoint as ckpt
 from pytorch_scalablefhvae_tpu_torch.train.device_step import (
@@ -103,6 +111,7 @@ from pytorch_scalablefhvae_tpu_torch.train.metrics import (
     MetricHistory,
     MetricWriter,
 )
+from pytorch_scalablefhvae_tpu_torch.train.plots import write_curves_svg
 from pytorch_scalablefhvae_tpu_torch.train.rounds import (
     Rounds,
     check_round_table,
@@ -115,7 +124,9 @@ from pytorch_scalablefhvae_tpu_torch.train.step import (
     encode_step,
     eval_step,
     host_to_device,
+    make_grad_step,
     make_optimizer,
+    snapshot_noise,
     train_step,
 )
 from pytorch_scalablefhvae_tpu_torch.utils.device import resolve_device
@@ -300,13 +311,38 @@ def batch_tensors(b, device: torch.device, mesh=None):
     return tuple(host_to_device(a, device) for a in arrays)
 
 
+@dataclass(frozen=True)
+class LegacyEpochs:
+    """``--legacy`` step epochs (the reference's ``train_model.py``): an
+    epoch ends after ``steps_per_epoch`` batches of its shuffled order, or
+    at the loader's end if that comes first, and every ``log_interval``
+    batches the loop prints the JAX loop's progress line (where
+    ``verbose``)."""
+
+    steps_per_epoch: int
+    log_interval: int
+    verbose: bool = True
+
+    def after(self, batch_idx: int, epoch: int, loader: SegmentLoader,
+              loss: float) -> bool:
+        """Print the progress line when due; True when the epoch ends."""
+        if self.verbose and (batch_idx + 1) % self.log_interval == 0:
+            pct = 100.0 * batch_idx / len(loader)
+            print(f"====> Train Epoch: {epoch} "
+                  f"[{batch_idx * loader.batch_size}/{len(loader.dataset)} "
+                  f"({pct:.0f}%)]\tLoss: {loss:.6f}")
+        return (batch_idx + 1) % self.steps_per_epoch == 0
+
+
 def run_epoch(state: TrainState, optimizer: Optimizer, loader: SegmentLoader,
               alpha: float, device: torch.device, epoch: int,
               mesh=None, bundle: StepBundle | None = None,
-              cursor: EpochCursor | None = None) -> EpochStats:
+              cursor: EpochCursor | None = None,
+              legacy: LegacyEpochs | None = None) -> EpochStats:
     """One epoch of train steps over ``loader``'s order for ``epoch``, from
     the ``cursor``'s batch on (a mid-epoch resume; by default the first,
-    with no step cadence).
+    with no step cadence); with ``legacy``, a step epoch of its first
+    batches (:class:`LegacyEpochs`).
 
     Every step's loss comes back to the host (one scalar, the only sync per
     step); a non-finite loss ends the epoch at once with ``diverged``. The
@@ -321,7 +357,7 @@ def run_epoch(state: TrainState, optimizer: Optimizer, loader: SegmentLoader,
     losses = cursor.losses
     losses.start_clock()
     with contextlib.closing(loader.batches_from(cursor.start)) as batches:
-        for b in batches:
+        for i, b in enumerate(batches):
             metrics = train_step(state, optimizer,
                                  *batch_tensors(b, device, mesh), alpha,
                                  mesh=mesh)
@@ -329,6 +365,9 @@ def run_epoch(state: TrainState, optimizer: Optimizer, loader: SegmentLoader,
             if not losses.finish():
                 break
             cursor.after(1)
+            if legacy is not None and legacy.after(i, epoch, loader,
+                                                   losses.values[-1]):
+                break
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return losses.stats()
@@ -690,6 +729,28 @@ def stage_dev_tier(config: ExperimentConfig, dev_loader: SegmentLoader,
     return split
 
 
+@contextlib.contextmanager
+def epoch_profile(profile_dir: str, name: str, device: torch.device,
+                  verbose: bool = True):
+    """``--profile-dir``: the epoch's training (not its dev pass) under
+    ``torch.profiler`` with CPU and, on a GPU, CUDA activities, written as a
+    Chrome trace ``<profile_dir>/<name>.pt.trace.json`` (the JAX loop's
+    ``jax.profiler`` trace of the same epoch). The epoch runners synchronise
+    the device before they return, so the trace holds the epoch's kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield prof
+    out = Path(profile_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out / f"{name}.pt.trace.json"))
+    if verbose:
+        print(f"Wrote profiler trace to {profile_dir}")
+
+
 def save_state(exp_dir: Path, state: TrainState, config: ExperimentConfig,
                epoch: int, best_epoch: int, best_val_lb: float,
                history: MetricHistory, extra_meta: dict,
@@ -750,17 +811,19 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
             "--mesh with --hierarchical is not yet ported to PyTorch "
             "(ROADMAP.md, item 10)")
     placement = config.data.data_placement
+    legacy = config.train.legacy
     tier = resolve_tier(placement, ds.store,
                         config.data.device_store_max_bytes,
                         config.data.transfer_dtype, verbose=first,
-                        mesh_run=mesh is not None, hierarchical=hier)
+                        mesh_run=mesh is not None, hierarchical=hier,
+                        legacy=legacy)
     seg_len, dim, num_seqs = ds.seg_len, ds.store.dim, ds.num_seqs
     ceiling = None
     if hier:
         # a round's K rows size the table; over the budget each round's
         # sub-pack is staged where one fits (which may lower K)
         num_seqs = min(config.train.num_hierarchical_sequences, num_seqs)
-        if tier == "host" and placement != "host":
+        if tier == "host" and placement != "host" and not legacy:
             num_seqs, ceiling = round_ceiling(
                 placement, ds.store, num_seqs,
                 config.data.device_store_max_bytes,
@@ -796,7 +859,7 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
     # cursor, which holds since that order is a function of (seed, epoch)
     every = max(config.train.ckpt_every_steps, 0)
     max_steps = max(config.train.max_steps, 0)
-    if (every or max_steps) and config.train.legacy:
+    if (every or max_steps) and legacy:
         raise ValueError(
             "--ckpt-every-steps/--max-steps are not supported with legacy "
             "step-epochs (their schedule is not a pure function of "
@@ -827,7 +890,8 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
                   + (f", mid-epoch at batch {int(mid['batches_done'])})"
                      if mid is not None else ")"))
 
-    k = config.train.steps_per_dispatch
+    # legacy step epochs run one eager step a batch, as the JAX loop does
+    k = 1 if legacy else config.train.steps_per_dispatch
     bundle = None
     if k > 1:
         if mesh is not None:
@@ -867,7 +931,20 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
     if device_plan and verbose:
         print("Epoch plans derive on the device (upload: one generator "
               "seed)")
-    writer = MetricWriter(exp_dir, config.run_id()) if first else None
+    t = config.train
+    writer = (MetricWriter(exp_dir, config.run_id(), tensorboard=t.tensorboard,
+                           tb_log_dir=t.tb_log_dir, log_params=t.log_params)
+              if first else None)
+    # the --log-params snapshot: one more forward and backward an epoch, on
+    # every rank of a mesh; only with --tensorboard, as the JAX loop builds it
+    grad_step = (make_grad_step(alpha, mesh)
+                 if t.log_params and t.tensorboard else None)
+    if start_epoch > 0 and first:
+        writer.replay_history(history, start_epoch)
+    legacy_epochs = (LegacyEpochs(t.steps_per_epoch, t.log_interval, verbose)
+                     if legacy else None)
+    profile_at = (min(t.profile_epoch, t.epochs - 1)
+                  if t.profile_dir is not None else None)
     extra = {"num_seqs": num_seqs, "feat_dim": dim, "seg_len": seg_len,
              "corpus_fingerprint": corpus_fp}
     result = TrainResult(state, best_epoch, best_val_lb, start_epoch - 1,
@@ -878,6 +955,8 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
         if verbose:
             print(f"--max-steps {max_steps} already reached at restore "
                   f"(step {state.step}); nothing to train")
+        if first:
+            writer.close()
         return result
     for epoch in range(start_epoch, config.train.epochs):
         on_cursor = mid is not None and epoch == int(mid["epoch"])
@@ -892,33 +971,41 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
 
         cursor = EpochCursor(state, mid if on_cursor else None, every,
                              max_steps, save_mid)
-        try:
-            if tier in ("device", "round"):
-                stats = run_device_epoch(
-                    state, optimizer, source, loader, alpha, dev, epoch,
-                    mesh, bundle, cursor,
-                    None if rounds is None else rounds.plan_rows, planner)
-            elif tier == "stream":
-                stats = run_stream_epoch(state, optimizer, source,
-                                         train_loader, alpha, dev, epoch,
-                                         bundle, cursor)
-            else:
-                stats = run_epoch(state, optimizer, loader, alpha, dev,
-                                  epoch, mesh, bundle, cursor)
-        except StopRun as stop:
-            if stop.diverged:  # the save gate read a non-finite loss
-                stats = cursor.losses.stats()
-            else:
-                if verbose:
-                    print(f"Reached --max-steps {max_steps} at epoch {epoch}, "
-                          f"batch {cursor.done} (step {state.step}); "
-                          f"mid-epoch checkpoint saved")
-                result = TrainResult(state, best_epoch, best_val_lb, epoch,
-                                     history)
-                break
+        # the trace's stem: the run, the epoch and, on a mesh, the rank
+        profiling = (epoch_profile(
+            t.profile_dir, f"{config.run_id()}_e{epoch}"
+            + ("" if mesh is None else f"_rank{mesh.rank}"), dev, verbose)
+            if epoch == profile_at else contextlib.nullcontext())
+        with profiling:
+            try:
+                if tier in ("device", "round"):
+                    stats = run_device_epoch(
+                        state, optimizer, source, loader, alpha, dev, epoch,
+                        mesh, bundle, cursor,
+                        None if rounds is None else rounds.plan_rows, planner)
+                elif tier == "stream":
+                    stats = run_stream_epoch(state, optimizer, source,
+                                             train_loader, alpha, dev, epoch,
+                                             bundle, cursor)
+                else:
+                    stats = run_epoch(state, optimizer, loader, alpha, dev,
+                                      epoch, mesh, bundle, cursor,
+                                      legacy_epochs)
+            except StopRun as stop:
+                if stop.diverged:  # the save gate read a non-finite loss
+                    stats = cursor.losses.stats()
+                else:
+                    if verbose:
+                        print(f"Reached --max-steps {max_steps} at epoch "
+                              f"{epoch}, batch {cursor.done} (step "
+                              f"{state.step}); mid-epoch checkpoint saved")
+                    result = TrainResult(state, best_epoch, best_val_lb,
+                                         epoch, history)
+                    break
         if stats.diverged:
             if first:
                 print("Training diverged")
+                writer.close()
             result.diverged, result.last_epoch = True, epoch
             return result
         if verbose and tier == "stream" and cursor.start:
@@ -956,8 +1043,22 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
             "val_neg_kld_z2": val.get("neg_kld_z2", float("nan")),
             "val_log_pmu2": val.get("log_pmu2", float("nan")),
         }
+        grads = params = None
+        if grad_step is not None:
+            with contextlib.closing(loader.batches_from(0)) as batches:
+                b = next(batches)
+            feats, *rest = batch_tensors(b, dev, mesh)
+            grads = grad_step(state, feats, *rest, snapshot_noise(
+                state, epoch, feats.shape[0], dev, mesh))
+            params = state.params()
+            if mesh is not None:
+                grads = whole_tensors(mesh, grads)
+                params = whole_tensors(mesh, params)
         if first:
-            writer.write_epoch(epoch, scalars)
+            writer.write_epoch(epoch, scalars, params=params, grads=grads)
+            if t.plot_curves:
+                write_curves_svg(history, exp_dir / "curves.svg",
+                                 config.run_id())
         if check_best(val["lower_bound"], best_val_lb):
             best_epoch, best_val_lb = epoch, val["lower_bound"]
         save_state(exp_dir, state, config, epoch, best_epoch, best_val_lb,
@@ -978,6 +1079,8 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
             if verbose:
                 print("Training terminated!")
             break
+    if first:
+        writer.close()
     if verbose:
         print("Training complete!")
     return result

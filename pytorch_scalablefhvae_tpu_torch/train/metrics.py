@@ -2,8 +2,14 @@
 
 ``MetricHistory`` is the per-epoch history a checkpoint carries (the
 reference's ``values`` dict); ``MetricWriter`` appends one JSON record per
-epoch to ``<exp_dir>/metrics.jsonl``. TensorBoard and the curves plot are
-not yet ported (ROADMAP.md).
+epoch to ``<exp_dir>/metrics.jsonl`` and, with ``--tensorboard``, writes the
+JAX package's TensorBoard series: each scalar as ``<run_id>/<key>`` at step
+``epoch + 1``, and with ``--log-params`` a histogram of every parameter and
+of its gradient (``grads/``) under the tag the JAX writer derives from its
+params tree (:func:`histogram_tag`), so that a run resumed from a JAX
+checkpoint continues the same series. ``torch.utils.tensorboard`` is
+imported lazily; where it is missing the writer says so and writes the
+JSONL alone, as the JAX writer does. The curves plot is ``train/plots.py``.
 """
 
 from __future__ import annotations
@@ -45,16 +51,48 @@ class MetricHistory:
                 for k, d in self.values.items()}
 
 
-class MetricWriter:
-    """Appends one JSON record per epoch to ``<exp_dir>/metrics.jsonl``."""
+# keys of the port's JSONL records for its step cadence, which the JAX
+# writer's records (and so its TensorBoard series) do not have
+JSONL_ONLY = ("train_steps", "train_seconds", "step")
 
-    def __init__(self, exp_dir: str | Path, run_id: str):
+
+def histogram_tag(name: str, prefix: str = "") -> str:
+    """The JAX writer's tag of a parameter: its ``tree_flatten_with_path``
+    path, quotes removed (``[z2_lstm]/[cells]/[0]/[w]``), from the port's
+    dotted name (``z2_lstm.cells.0.w``; ``train/checkpoint.py``)."""
+    return prefix + "/".join(f"[{part}]" for part in name.split("."))
+
+
+class MetricWriter:
+    """Writes one JSON record per epoch to ``<exp_dir>/metrics.jsonl`` and,
+    with ``tensorboard``, the epoch's scalars (and with ``log_params`` the
+    histograms) to an event file in ``tb_log_dir``."""
+
+    def __init__(self, exp_dir: str | Path, run_id: str,
+                 tensorboard: bool = False,
+                 tb_log_dir: str | Path = "./visualize/tensorboard",
+                 log_params: bool = False):
         self.exp_dir = Path(exp_dir)
         self.exp_dir.mkdir(parents=True, exist_ok=True)
         self.jsonl_path = self.exp_dir / "metrics.jsonl"
         self.run_id = run_id
+        self.log_params = log_params
+        self._tb = None
+        if tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
 
-    def write_epoch(self, epoch: int, scalars: Mapping[str, float]) -> None:
+                Path(tb_log_dir).mkdir(parents=True, exist_ok=True)
+                self._tb = SummaryWriter(str(tb_log_dir))
+            except ImportError as e:
+                print(f"TensorBoard unavailable ({e}); falling back to "
+                      f"JSONL only")
+
+    def write_epoch(self, epoch: int, scalars: Mapping[str, float],
+                    params: Mapping | None = None,
+                    grads: Mapping | None = None) -> None:
+        """The epoch's record; ``params`` and ``grads`` (name -> tensor, the
+        table whole on a mesh) go to histograms under ``--log-params``."""
         rec = {"epoch": epoch, "run_id": self.run_id}
         # non-finite values serialize as null: json.dumps' default NaN
         # token is invalid JSON for strict consumers (jq, JSON.parse)
@@ -62,3 +100,45 @@ class MetricWriter:
                     for k, v in scalars.items()})
         with open(self.jsonl_path, "a") as f:
             f.write(json.dumps(rec) + "\n")
+        if self._tb is None:
+            return
+        for k, v in scalars.items():
+            if k not in JSONL_ONLY:
+                self._tb.add_scalar(f"{self.run_id}/{k}", float(v), epoch + 1)
+        if self.log_params and params is not None:
+            self._write_histograms("", params, epoch)
+        if self.log_params and grads is not None:
+            self._write_histograms("grads/", grads, epoch)
+        self._tb.flush()
+
+    def _write_histograms(self, prefix: str, named: Mapping, epoch: int):
+        for name, t in named.items():
+            self._tb.add_histogram(
+                histogram_tag(name, prefix),
+                t.detach().float().cpu().numpy().ravel(), epoch + 1)
+
+    # history key -> the per-epoch scalar it records, so that a resumed
+    # run's curves continue the same TensorBoard series
+    _HISTORY_TO_SCALAR = {
+        "train_loss_results": "train_loss",
+        "val_loss_results": "val_loss",
+        "lower_bound_results": "val_lower_bound",
+        "discrim_loss_results": "val_log_qy",
+    }
+
+    def replay_history(self, history: MetricHistory, up_to_epoch: int) -> None:
+        """Write the epochs before ``up_to_epoch`` of a resumed run's history
+        to TensorBoard again."""
+        if self._tb is None:
+            return
+        for ep in range(up_to_epoch):
+            for key, tag in self._HISTORY_TO_SCALAR.items():
+                if ep in history.values[key]:
+                    self._tb.add_scalar(f"{self.run_id}/{tag}",
+                                        float(history.values[key][ep]),
+                                        ep + 1)
+        self._tb.flush()
+
+    def close(self) -> None:
+        if self._tb is not None:
+            self._tb.close()

@@ -211,19 +211,27 @@ def draw_noise(model, generator: torch.Generator, batch: int,
                               device=device)}
 
 
-def step_noise(state: TrainState, batch: int, device: torch.device,
-               mesh=None) -> dict[str, torch.Tensor]:
-    """This step's reparameterization noise: z2's draw, then z1's. With a
-    ``mesh``, ``batch`` is this rank's row count: the draw is the whole
-    batch's and the rank keeps its rows."""
+def seeded_noise(model, seed: int, batch: int, device: torch.device,
+                 mesh=None) -> dict[str, torch.Tensor]:
+    """:func:`draw_noise` from a generator on ``device`` seeded with
+    ``seed``. With a ``mesh``, ``batch`` is this rank's row count: the draw
+    is the whole batch's and the rank keeps its rows."""
     g = torch.Generator(device=device)
-    g.manual_seed(noise_seed(state.seed, state.step))
+    g.manual_seed(seed)
     rows = slice(None)
     if mesh is not None:
         batch *= mesh.shape[0]
         rows = mesh.local_rows(batch)
-    eps = draw_noise(state.model, g, batch, device)
+    eps = draw_noise(model, g, batch, device)
     return {k: v[rows] for k, v in eps.items()}
+
+
+def step_noise(state: TrainState, batch: int, device: torch.device,
+               mesh=None) -> dict[str, torch.Tensor]:
+    """This step's reparameterization noise: z2's draw, then z1's
+    (:func:`seeded_noise` of ``(seed, step)``)."""
+    return seeded_noise(state.model, noise_seed(state.seed, state.step),
+                        batch, device, mesh)
 
 
 def _sum_over_data(mesh, grads: list, metrics: dict):
@@ -239,13 +247,11 @@ def _sum_over_data(mesh, grads: list, metrics: dict):
     return out[:len(grads)], dict(zip(metrics, out[len(grads):]))
 
 
-def step_body(state: TrainState, optimizer: Optimizer, feats, seq_idx, nsegs,
-              weight, alpha: float, noise: dict, mesh=None,
-              bc: torch.Tensor | None = None) -> dict:
-    """A step's device work: forward, loss, backward, clip and Adam in
-    place; returns the step's metrics (0-dim tensors on the batch's device,
-    keys ``METRIC_KEYS``). With ``bc`` (see :meth:`Optimizer.update`) it
-    touches no host state."""
+def batch_grads(state: TrainState, feats, seq_idx, nsegs, weight,
+                alpha: float, noise: dict, mesh=None):
+    """Forward, loss and backward of one batch: ``(grads, metrics)``, the
+    gradient of every parameter by name (in the JAX tree's leaf order; on a
+    mesh summed over the data group) and the batch's metrics."""
     out = state.model.apply(feats, seq_idx, nsegs, sample=True, noise=noise)
     loss, metrics = loss_from_outputs(out, weight, alpha, mesh)
     params = state.params()
@@ -255,8 +261,49 @@ def step_body(state: TrainState, optimizer: Optimizer, feats, seq_idx, nsegs,
              for p, g in zip(params.values(), grads)]
     if mesh is not None:
         grads, metrics = _sum_over_data(mesh, grads, metrics)
-    optimizer.update(state, dict(zip(params, grads)), mesh, bc)
+    return dict(zip(params, grads)), metrics
+
+
+def step_body(state: TrainState, optimizer: Optimizer, feats, seq_idx, nsegs,
+              weight, alpha: float, noise: dict, mesh=None,
+              bc: torch.Tensor | None = None) -> dict:
+    """A step's device work: forward, loss, backward (:func:`batch_grads`),
+    clip and Adam in place; returns the step's metrics (0-dim tensors on the
+    batch's device, keys ``METRIC_KEYS``). With ``bc`` (see
+    :meth:`Optimizer.update`) it touches no host state."""
+    grads, metrics = batch_grads(state, feats, seq_idx, nsegs, weight, alpha,
+                                 noise, mesh)
+    optimizer.update(state, grads, mesh, bc)
     return {k: v.detach() for k, v in metrics.items()}
+
+
+def snapshot_noise(state: TrainState, epoch: int, batch: int,
+                   device: torch.device, mesh=None) -> dict:
+    """The noise of epoch ``epoch``'s gradient snapshot: the JAX loop draws
+    it from its eval key folded with ``100000 + epoch``; here
+    :func:`seeded_noise` of ``(seed + 17, 100000 + epoch)``."""
+    return seeded_noise(state.model,
+                        noise_seed(state.seed + 17, 100000 + epoch), batch,
+                        device, mesh)
+
+
+def make_grad_step(alpha: float, mesh=None):
+    """The ``--log-params`` gradient snapshot (JAX ``make_grad_step``): the
+    gradient of every parameter for one batch, with no update, through the
+    step's own forward and backward (:func:`batch_grads`, so on CUDA the
+    kernels' forward and backward). It runs eagerly, also beside a K-step
+    bundle, whose captured graph reads the parameters and never this
+    snapshot's tensors. Returns ``fn(state, feats, seq_idx, nsegs, weight,
+    noise) -> {name: grad}``; on a mesh every rank calls it with its rows,
+    and the table's gradient is the rank's shard."""
+
+    def grad_step(state: TrainState, feats, seq_idx, nsegs, weight,
+                  noise: dict) -> dict:
+        grads, _ = batch_grads(state, feats, seq_idx, nsegs, weight, alpha,
+                               noise, mesh)
+        return {k: v.detach() for k, v in grads.items()}
+
+    return grad_step
 
 
 def train_step(state: TrainState, optimizer: Optimizer, feats, seq_idx, nsegs,

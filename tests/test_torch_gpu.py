@@ -1404,3 +1404,184 @@ def test_simple_fhvae_device_plans_k8_equal_k1(cuda):
         assert torch.equal(p, b.params()[n]), n
         assert torch.equal(a.mu[n], b.mu[n]), n
         assert torch.equal(a.nu[n], b.nu[n]), n
+
+
+# ------------------------------------------------ --legacy, stacks, snapshot
+
+FHVAE_CLI = dict(z1_hus=(128, 128), z2_hus=(128, 128), x_hus=(128, 128),
+                 z1_dim=16, z2_dim=16, num_seqs=4620, feat_dim=80)
+
+
+def plain_model_versions():
+    """Swap the kernel entries the model calls for their plain versions;
+    returns the callable that swaps them back."""
+    saved = (lstm_cuda.lstm2_tm_proj, lstm_cuda.lstm2_tm,
+             discriminative.discriminative_log_qy)
+    lstm_cuda.lstm2_tm_proj = lstm_cuda.lstm2_tm_proj_reference
+    lstm_cuda.lstm2_tm = lstm_cuda.lstm2_tm_reference
+    discriminative.discriminative_log_qy = \
+        discriminative.discriminative_log_qy_reference
+
+    def restore():
+        (lstm_cuda.lstm2_tm_proj, lstm_cuda.lstm2_tm,
+         discriminative.discriminative_log_qy) = saved
+    return restore
+
+
+def model_entries():
+    return (lstm_cuda.lstm2_tm_proj, lstm_cuda.lstm2_tm,
+            lstm_cuda.lstm2_tm_proj_bwd, lstm_cuda.lstm2_tm_bwd,
+            discriminative.discriminative_log_qy,
+            discriminative.discriminative_log_qy_bwd)
+
+
+# --legacy trains at batch 1: below every kernel's row tile (the tensor-core
+# forward's 64-row input products and 16-row clusters, the FMA forms' 8-row
+# blocks). Three steps against the plain versions with the limits of
+# chip_smoke.py's train phase (TOL_TRAIN_LOSS, TOL_TRAIN_UPDATE)
+@pytest.mark.parametrize("rows", [1, 5])
+def test_small_batch_train_steps_through_the_kernels_match_plain(cuda, rows):
+    import copy
+
+    from pytorch_scalablefhvae_tpu_torch.models.fhvae import FHVAE
+    from pytorch_scalablefhvae_tpu_torch.train.step import (
+        create_train_state,
+        make_optimizer,
+        train_step,
+    )
+
+    model = FHVAE(1600, generator=torch.Generator().manual_seed(4),
+                  **FHVAE_CLI).to(cuda)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    g = torch.Generator().manual_seed(5)
+    batches = [(torch.randn((rows, 20, 80), generator=g).to(cuda),
+                torch.randint(0, 4620, (rows,), generator=g).to(cuda),
+                torch.full((rows,), 30.0, device=cuda),
+                torch.ones(rows, device=cuda)) for _ in range(3)]
+    runs = {}
+    for path in ("kernels", "plain"):
+        state = create_train_state(copy.deepcopy(model))
+        opt = make_optimizer(1e-3, 0.95, 0.999)
+        before = [e.launches for e in model_entries()]
+        restore = plain_model_versions() if path == "plain" else None
+        try:
+            losses = [float(train_step(state, opt, *b, 10.0)["loss"])
+                      for b in batches]
+        finally:
+            if restore:
+                restore()
+        launched = [e.launches - n for e, n in zip(model_entries(), before)]
+        assert all(n > 0 for n in launched) == (path == "kernels"), launched
+        runs[path] = losses, {n: p.detach() for n, p in
+                              state.model.named_parameters()}
+    (lk, pk), (lp, pp) = runs["kernels"], runs["plain"]
+    assert max(abs(a - b) / abs(b) for a, b in zip(lk, lp)) <= 1e-3
+    for n in start:
+        upd = (pp[n] - start[n]).norm().clamp_min(1e-30)
+        assert float((pk[n] - pp[n]).norm() / upd) <= 0.1, n
+
+
+def test_grad_snapshot_through_the_kernels_matches_plain(cuda):
+    """The ``--log-params`` snapshot (``make_grad_step``) on the card, fp32
+    LSTM operands: through #1-#6 against the plain versions, 1e-4 of each
+    gradient's norm (the model-gradient limit above); it updates nothing."""
+    from pytorch_scalablefhvae_tpu_torch.models.fhvae import FHVAE
+    from pytorch_scalablefhvae_tpu_torch.train.step import (
+        create_train_state,
+        make_grad_step,
+        snapshot_noise,
+    )
+
+    model = FHVAE(1600, lstm_mm_dtype="float32",
+                  generator=torch.Generator().manual_seed(4),
+                  **FHVAE_CLI).to(cuda)
+    state = create_train_state(model, seed=3)
+    g = torch.Generator().manual_seed(6)
+    b = (torch.randn((64, 20, 80), generator=g).to(cuda),
+         torch.randint(0, 4620, (64,), generator=g).to(cuda),
+         torch.full((64,), 30.0, device=cuda), torch.ones(64, device=cuda))
+    noise = snapshot_noise(state, 2, 64, cuda)
+    grad_step = make_grad_step(10.0)
+    before = [e.launches for e in model_entries()]
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    got = grad_step(state, *b, noise)
+    assert all(e.launches > n for e, n in zip(model_entries(), before))
+    restore = plain_model_versions()
+    try:
+        want = grad_step(state, *b, noise)
+    finally:
+        restore()
+    assert list(got) == list(want) == state.names
+    assert rel_norm(list(got.values()), list(want.values())) <= 1e-4
+    for n, p in model.named_parameters():
+        assert torch.equal(p, params[n]), n
+
+
+@pytest.mark.parametrize("width", [128, 256])
+def test_kernel_stacks_never_reach_the_plain_route(cuda, width):
+    """At the CLI's stacks (tensor-core forms) and at H 256 (the FMA forms)
+    a forward and backward launches #1-#4 and never ``plain_stack``."""
+    from pytorch_scalablefhvae_tpu_torch.models import fhvae
+    from pytorch_scalablefhvae_tpu_torch.models.base import loss_from_outputs
+
+    hus = (width, width)
+    model = fhvae.FHVAE(1600, **{**FHVAE_CLI, "z1_hus": hus, "z2_hus": hus,
+                                 "x_hus": hus},
+                        generator=torch.Generator().manual_seed(4)).to(cuda)
+    assert all(model.kernel_stacks.values())
+    x = torch.randn((64, 20, 80), device=cuda)
+    seq = torch.randint(0, 4620, (64,), device=cuda)
+    calls = fhvae.plain_stack_calls
+    before = [e.launches for e in model_entries()]
+    tc = [e.launches_tc for e in model_entries()[:4]]
+    out = model.apply(x, seq, torch.full((64,), 30.0, device=cuda),
+                      sample=True)
+    loss, _ = loss_from_outputs(out, torch.ones(64, device=cuda), 10.0)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert fhvae.plain_stack_calls == calls
+    assert all(e.launches > n for e, n in zip(model_entries(), before))
+    took_tc = [e.launches_tc > n for e, n in zip(model_entries()[:4], tc)]
+    assert took_tc == [width == 128] * 4
+
+
+def test_unequal_stacks_launch_no_lstm_kernel(cuda):
+    """``--z1-hus 256 128 --z2-hus 256 128 --x-hus 256 128``: every stack on
+    the plain route (three calls a forward), #1-#4 launched 0 times, #5/#6
+    once each; the gradients equal those through the plain
+    ``log q(y|z2)`` within 1e-4 of their norm."""
+    from pytorch_scalablefhvae_tpu_torch.models import fhvae
+    from pytorch_scalablefhvae_tpu_torch.models.base import loss_from_outputs
+
+    hus = (256, 128)
+    model = fhvae.FHVAE(1600, **{**FHVAE_CLI, "z1_hus": hus, "z2_hus": hus,
+                                 "x_hus": hus},
+                        generator=torch.Generator().manual_seed(4)).to(cuda)
+    assert not any(model.kernel_stacks.values())
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn((64, 20, 80), generator=g).to(cuda)
+    seq = torch.randint(0, 4620, (64,), generator=g).to(cuda)
+    noise = {k: torch.randn((64, 16), generator=g).to(cuda)
+             for k in ("z2", "z1")}
+
+    def grads():
+        out = model.apply(x, seq, torch.full((64,), 30.0, device=cuda),
+                          sample=True, noise=noise)
+        loss, _ = loss_from_outputs(out, torch.ones(64, device=cuda), 10.0)
+        return torch.autograd.grad(loss, list(model.parameters()))
+
+    calls = fhvae.plain_stack_calls
+    before = [e.launches for e in model_entries()]
+    got = grads()
+    torch.cuda.synchronize()
+    launched = [e.launches - n for e, n in zip(model_entries(), before)]
+    assert launched == [0, 0, 0, 0, 1, 1]
+    assert fhvae.plain_stack_calls == calls + 3
+    saved = discriminative.discriminative_log_qy
+    discriminative.discriminative_log_qy = \
+        discriminative.discriminative_log_qy_reference
+    try:
+        want = grads()
+    finally:
+        discriminative.discriminative_log_qy = saved
+    assert rel_norm(got, want) <= 1e-4

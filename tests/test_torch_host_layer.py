@@ -37,6 +37,8 @@ import pytorch_scalablefhvae_tpu.features.pipeline as jax_pipeline
 import pytorch_scalablefhvae_tpu.native.binding as jax_native
 import pytorch_scalablefhvae_tpu.utils.audio_io as jax_audio
 import pytorch_scalablefhvae_tpu.utils.kaldi_ark as jax_ark
+import pytorch_scalablefhvae_tpu.train.metrics as jax_metrics
+import pytorch_scalablefhvae_tpu.train.plots as jax_plots
 import pytorch_scalablefhvae_tpu.utils.manifest as jax_manifest
 import pytorch_scalablefhvae_tpu_torch.cli.args as port_args
 import pytorch_scalablefhvae_tpu_torch.config as port_config
@@ -57,6 +59,8 @@ import pytorch_scalablefhvae_tpu_torch.features.pipeline as port_pipeline
 import pytorch_scalablefhvae_tpu_torch.native.binding as port_native
 import pytorch_scalablefhvae_tpu_torch.utils.audio_io as port_audio
 import pytorch_scalablefhvae_tpu_torch.utils.kaldi_ark as port_ark
+import pytorch_scalablefhvae_tpu_torch.train.metrics as port_metrics
+import pytorch_scalablefhvae_tpu_torch.train.plots as port_plots
 import pytorch_scalablefhvae_tpu_torch.utils.manifest as port_manifest
 
 REPO = Path(__file__).resolve().parents[1]
@@ -743,3 +747,26 @@ def test_pipeline_paths_and_preprocess(tmp_path, monkeypatch):
     want = jax_pipeline.preprocess_data(want_cfg, root="r")
     assert got == want
     same_tree(tmp_path / "port", tmp_path / "jax")
+
+
+# ---- training curves ------------------------------------------------------
+
+def test_write_curves_svg(tmp_path, monkeypatch):
+    """``curves.svg`` of the same history (one series empty), byte for byte:
+    matplotlib's date and id salt pinned, as two runs' files differ in
+    them alone."""
+    import matplotlib
+
+    monkeypatch.setenv("SOURCE_DATE_EPOCH", "0")
+    monkeypatch.setitem(matplotlib.rcParams, "svg.hashsalt", "sfhvae")
+    values = {"train_loss_results": {"0": 2.5e3, "1": 2.1e3, "2": 1.9e3},
+              "val_loss_results": {"0": 2.4e3, "1": 2.2e3},
+              "lower_bound_results": {"0": -2.3e3, "1": -2.0e3}}
+    assert port_plots.SERIES == jax_plots.SERIES
+    for name, plots, metrics in (("port", port_plots, port_metrics),
+                                 ("jax", jax_plots, jax_metrics)):
+        assert plots.write_curves_svg(metrics.MetricHistory(values),
+                                      tmp_path / f"{name}.svg", "run_id")
+    assert (tmp_path / "port.svg").read_bytes() == \
+        (tmp_path / "jax.svg").read_bytes()
+    assert not list(tmp_path.glob("*.tmp"))

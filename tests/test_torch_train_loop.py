@@ -7,7 +7,7 @@ checkpoints, the best-model copy and finite dev metrics are written; a run
 resumed after one epoch equals an uninterrupted one bit for bit; the dev
 pass matches the JAX package's on the same parameters and loader; a JAX
 ``TrainState`` checkpoint resumes in the port; divergence exits 2; every
-setting not yet ported raises; and the port's own ``preprocess`` / ``extract``
+setting not yet ported (what is left of the mesh) raises; and the port's own ``preprocess`` / ``extract``
 with ``--extractor jax`` write what the JAX package's ``prepare_jax`` writes.
 """
 
@@ -199,9 +199,7 @@ def test_divergence_exits_2(corpus, tmp_path, capsys):
 @pytest.mark.parametrize("flags", [
     ["--mesh", "2,1", "--hierarchical"],
     pytest.param(["--mesh", "2,1", "--shard-device-store"], id="--mesh 2,1"),
-    ["--ckpt-backend", "orbax"],
-    ["--legacy"], ["--profile-dir", "prof"], ["--tensorboard"],
-    ["--visdom"], ["--log-params"], ["--lstm-pallas", "never"],
+    ["--ckpt-backend", "orbax"], ["--lstm-pallas", "never"],
     ["--mesh", "2,1", "--data-placement", "stream"],
     ["--mesh", "2,1", "--transfer-dtype", "bfloat16"],
     ["--mesh", "2,1", "--transfer-dtype", "int8"],
@@ -216,14 +214,12 @@ def test_unported_flag_raises(corpus, tmp_path, flags):
     ``--max-steps`` everywhere: ``tests/test_torch_ckpt_steps.py``;
     ``--hierarchical`` on one device: ``tests/test_torch_hier.py``;
     ``--model-type simple_fhvae``: ``tests/test_torch_simple_fhvae.py``;
-    ``--epoch-plan device``: ``tests/test_torch_epoch_plan.py``.)"""
+    ``--epoch-plan device``: ``tests/test_torch_epoch_plan.py``;
+    ``--legacy``: ``tests/test_torch_legacy.py``; ``--profile-dir``,
+    ``--tensorboard``, ``--log-params`` and ``--visdom``:
+    ``tests/test_torch_observability.py``.)"""
     with pytest.raises(NotImplementedError):
         main(train_args(corpus, tmp_path, *flags))
-
-
-def test_log_params_raises_naming_the_roadmap(corpus, tmp_path):
-    with pytest.raises(NotImplementedError, match=r"--log-params.*ROADMAP\.md"):
-        main(train_args(corpus, tmp_path, "--log-params"))
 
 
 @pytest.mark.parametrize("mm,h,d,form", [
