@@ -144,10 +144,12 @@ prints no result line):
    device-resident tier, finite, their gaps from float32 logged. 4s-big,
    the CLI defaults over the default 4 GiB budget: a synthetic corpus of
    10,000 training sequences of 1,000-1,900 frames (~4.6 GB in float32)
-   and 400 dev ones; one epoch with no placement flags (``auto`` streams ~5
-   chunks of 1 GiB), one at K = 8, one from the host loader at K = 8 and
-   one at ``--transfer-dtype bfloat16`` and K = 8 (staged whole): ms/step,
-   segments/s and link bytes an epoch of each, the idle share of 10 warm
+   and 400 dev ones, packed once (``--pack-cache-dir``, kept for 4h); runs
+   stopped by ``--max-steps`` 504 past their first chunk switch, with no
+   placement flags (``auto`` streams ~5 chunks of 1 GiB), at K = 8, from
+   the host loader at K = 8 and at ``--transfer-dtype bfloat16`` and K = 8
+   (staged whole): ms/step, segments/s and link bytes an epoch of each
+   (the stopped epochs' partials), the idle share of 10 warm
    dispatches of each tier (torch.profiler), and the host's and the
    compute stream's waits at each chunk switch of a K = 8 epoch. Every LSTM
    launch of the phase's train runs took the tensor-core form, and each of
@@ -234,6 +236,21 @@ prints no result line):
    starts the two ranks itself) and on one device. Last, one epoch of
    ``--mesh 1,1 --distributed --dist-backend nccl`` in one rank, so that
    NCCL's MAX and SUM all-reduces run on the card;
+5t. the data tiers of the ``2,2`` mesh on phase 4's corpus, four gloo
+   ranks on the card started once, each running every CLI run in turn
+   with ``--distributed``: ``auto`` over a 256 MiB budget streams the 370
+   MB store and with ``--shard-device-store`` stages it row-sharded (twice
+   the budget), the lines rank 0 prints checked; row-sharded against
+   replicated bit for bit on the device tier (20 steps) and on the streamed
+   tier in float32 (a whole epoch in chunks of 24 MiB, its dev split staged)
+   and int8 (40 steps), each pair crossing chunk switches; the row-sharded
+   streamed epoch against the single-device streamed epoch
+   (``TOL_MESH_EPOCH``, ``TOL_MESH_LOG_QY``); that run stopped by
+   ``--max-steps`` one batch into a chunk and resumed, bit for bit against
+   the run never stopped; per-rank link MB an epoch, ms/step and rank 0's
+   waits at each chunk switch (``switch_waits()``); #7 launched once a
+   step forward and backward on rank 0, #6 and #8 never, every LSTM launch
+   tensor-core;
 4r. step checkpoints and mid-epoch resume at the CLI defaults on phase 4's
    corpus (runs after phase 5, whose epoch it reuses): runs stopped by
    ``--max-steps`` inside an epoch with ``--ckpt-every-steps 50`` (the
@@ -300,7 +317,9 @@ not counted), phase 4h's hierarchical runs (``train_hier``: every CLI run
 of the phase, each counted alone), phase 4m's simple_fhvae runs and served
 requests (``train_simple``: each counted alone), phase 4p's runs in this
 process (``train_plan``), the eval of phase 4b (``eval``), the mesh run's rank 0
-(``mesh``: the ``2,2`` epoch) and phase 4r's stopped and resumed runs in
+(``mesh``: the ``2,2`` epoch), rank 0 of phase 5t's mesh runs
+(``mesh_tiers``: all of them, counted from 0 before the first) and phase
+4r's stopped and resumed runs in
 this process (``train_resume``: every run of (a) to (d) and the NaN gate's;
 the mesh's ranks are processes of their own) and phase 4l's ``--legacy``
 runs (``train_legacy``: its two CLI runs of (a), each counted alone),
@@ -3390,6 +3409,9 @@ STREAM_BUDGET = 96 << 20   # 4s-check: phase 4's 370 MB store streams in
 BIG_SEQS = {"train": 10_000, "dev": 400}   # 4s-big's corpus
 BIG_FRAMES = (1000, 1901)  # frames a sequence: LibriSpeech's 10-19 s
                            # utterances at 100 frames a second
+BIG_CAP = 504              # 4s-big's CLI runs: --max-steps, 63 dispatches
+                           # of 8 of a ~1,750-step epoch, past the first
+                           # switch of ~400-step chunks
 
 
 def train_args(cfg, root: Path, exp_root: Path, *extra) -> list:
@@ -3764,22 +3786,34 @@ def big_tier_profile(cfg, loader, tier: str, k: int) -> dict:
 
 def stream_big(workdir: Path, counts: dict, keep: bool = False) -> dict:
     """4s-big: the CLI defaults over the default budget on a corpus whose
-    fp32 store is over it. One epoch each: no placement flags (``auto``
-    streams ~5 chunks of 1 GiB), the same at K = 8, the host loader at K =
-    8 (what the port did before it could stream), and ``--transfer-dtype
-    bfloat16`` at K = 8 (the store fits at 2 bytes, and is staged whole);
-    ms/step, segments/s and link bytes an epoch of each, and the idle share
-    of 10 warm dispatches (torch.profiler) of each tier. The two streamed
+    fp32 store is over it. Each run stopped by ``--max-steps BIG_CAP``, past
+    its first chunk switch (the figures are the stopped epoch's partials):
+    no placement flags (``auto`` streams ~5 chunks of 1 GiB), the same at K
+    = 8, the host loader at K = 8 (what the port did before it could
+    stream), and ``--transfer-dtype bfloat16`` at K = 8 (the store fits at
+    2 bytes, and is staged whole); ms/step, segments/s and link bytes an
+    epoch of each, and the idle share of 10 warm dispatches (torch.profiler)
+    of each tier. The store is packed once (``--pack-cache-dir``, shared
+    with phase 4h) and memory-mapped by every later load. The two streamed
     runs' launches go into ``counts`` (:func:`counted_run`); the host
     loader's and the whole bfloat16 store's are not counted. ``keep``: leave
-    the corpus for phase 4h."""
+    the corpus and its pack for phase 4h."""
     from pytorch_scalablefhvae_tpu_torch.cli.main import main as cli
+    from pytorch_scalablefhvae_tpu_torch.train import checkpoint as ckpt
+    from pytorch_scalablefhvae_tpu_torch.train.driver import build_loaders
 
-    root = workdir / "big"
+    root, pack = workdir / "big", workdir / "big_pack"
     cfg, nbytes = write_big_corpus(root)
     if nbytes <= 4 << 30:
         raise AssertionError(f"the big corpus ({nbytes} bytes) is not over "
                              f"the default budget")
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data,
+                                               pack_cache_dir=str(pack)))
+    t0 = time.perf_counter()
+    loader, _ = build_loaders(cfg, root, True)
+    epoch_steps = len(loader)
+    log(f"4s-big: the training store packed and loaded in "
+        f"{time.perf_counter() - t0:.1f} s; {epoch_steps} steps an epoch")
     k8 = ["--steps-per-dispatch", str(K_DISPATCH)]
     runs = {"stream, K = 1": [], "stream, K = 8": k8,
             "host loader, K = 8": ["--data-placement", "host", *k8],
@@ -3792,7 +3826,9 @@ def stream_big(workdir: Path, counts: dict, keep: bool = False) -> dict:
     for i, (name, flags) in enumerate(runs.items()):
         exp_root = workdir / f"big_{i}"
         t0 = time.perf_counter()
-        args = train_args(cfg, root, exp_root, *flags, "--epochs", "1")
+        args = train_args(cfg, root, exp_root, "--pack-cache-dir", str(pack),
+                          *flags, "--epochs", "1", "--max-steps",
+                          str(BIG_CAP))
         if want[name] == "streaming it":
             text = counted_run(counts, f"4s-big {name}",
                                lambda: run_cli(cli, args))
@@ -3805,32 +3841,29 @@ def stream_big(workdir: Path, counts: dict, keep: bool = False) -> dict:
         m = re.search(r"streams through the device \((\d+) chunks of "
                       r"([\d.]+) MB in float32, double-buffered; ([\d.]+) MB "
                       r"over the link", text)
-        rec, = metrics_of(exp_root)
-        ms = 1e3 * rec["train_seconds"] / rec["train_steps"]
+        mid = ckpt.read_checkpoint_meta(
+            step_checkpoints(run_dir(exp_root, 1))[-1])["mid_epoch"]
+        steps, secs = int(mid["batches_done"]), mid["elapsed_s"]
+        ms, loss = 1e3 * secs / steps, mid["loss_sum"] / mid["count_sum"]
+        sps = mid["count_sum"] / secs
         if m is not None:
             link = f"{m[3]} MB ({m[1]} chunks of {m[2]} MB)"
         elif name.startswith("host"):
-            link = (f"{rec['train_steps'] * B_TRAIN * seg_bytes / 1e6:.0f} "
-                    f"MB (every window's frames)")
+            link = (f"{epoch_steps * B_TRAIN * seg_bytes / 1e6:.0f} MB "
+                    f"(every window's frames)")
         else:
             link = f"{nbytes / 2e6:.0f} MB once a run (the staged store)"
-        log(f"4s-big {name}: {rec['train_steps']} steps, {ms:.3f} ms/step, "
-            f"{rec['train_segments_per_sec']:.1f} segments/s, link {link}; "
-            f"train loss {rec['train_loss']:.4f}, dev LB "
-            f"{rec['val_lower_bound']:.4f}; {wall:.1f} s with loading; card "
-            f"{smi_name_power()}")
-        if not np.isfinite(rec["train_loss"]):
-            raise AssertionError(f"4s-big {name}: the loss is not finite")
-        out[name] = {"ms_per_step": ms, "steps": rec["train_steps"],
-                     "segments_per_s": rec["train_segments_per_sec"]}
+        log(f"4s-big {name}: {steps} steps of {epoch_steps} "
+            f"(--max-steps), {ms:.3f} ms/step, {sps:.1f} segments/s, link "
+            f"{link} an epoch; train loss {loss:.4f} over those steps; "
+            f"{wall:.1f} s with loading; card {smi_name_power()}")
+        if steps != BIG_CAP or not np.isfinite(loss):
+            raise AssertionError(f"4s-big {name}: {steps} steps, or the loss "
+                                 f"is not finite")
+        out[name] = {"ms_per_step": ms, "steps": steps,
+                     "segments_per_s": sps}
         if name == "stream, K = 1" and not (m and 4 <= int(m[1]) <= 6):
             raise AssertionError("4s-big: auto did not stream about 5 chunks")
-    from pytorch_scalablefhvae_tpu_torch.train.driver import build_loaders
-
-    t0 = time.perf_counter()
-    loader, _ = build_loaders(cfg, root, True)
-    log(f"4s-big: the training store loaded in {time.perf_counter() - t0:.1f}"
-        f" s")
     for tier, k in (("stream", 1), ("stream", K_DISPATCH),
                     ("host", K_DISPATCH), ("bf16", K_DISPATCH)):
         p = big_tier_profile(cfg, loader, tier, k)
@@ -3854,6 +3887,7 @@ def stream_big(workdir: Path, counts: dict, keep: bool = False) -> dict:
     del loader
     if not keep:
         shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(pack, ignore_errors=True)
     return out
 
 
@@ -5185,6 +5219,252 @@ def phase_mesh(workdir: Path, cfg, single_epoch0: dict | None) -> dict:
     return ranks[0]["launches"]
 
 
+# ------------------------------------------------------------- phase 5t
+
+TIERS_BUDGET = 256 << 20   # 5t: auto streams phase 4's 370 MB store; the
+                           # budget x 2 row-sharded stages it whole
+TIERS_CAP = 20             # 5t: steps of the auto run and the device pair
+TIERS_INT8_CAP = 40        # 5t: steps of the int8 pair (~4 chunks of ~33)
+
+
+def _mesh_tiers_rank(workdir: str) -> int:
+    """One rank of phase 5t's ``2,2`` mesh: every run of ``tiers.json``
+    through the CLI in turn, then this rank's launches over all of them
+    (counted from 0 before the first), each run's wall seconds and the
+    waits at each chunk switch of its streamed epochs (``switch_waits()``),
+    into ``tiers_rank<r>.json``."""
+    import torch.distributed as dist
+
+    from pytorch_scalablefhvae_tpu_torch.cli.main import main as cli
+    from pytorch_scalablefhvae_tpu_torch.train import loop
+
+    work = Path(workdir)
+    rank = dist.get_rank()
+    runs = json.loads((work / "tiers.json").read_text())
+    real, current, waits = loop.run_stream_epoch, [None], {}
+
+    def spy(state, optimizer, source, *args, **kw):
+        try:
+            return real(state, optimizer, source, *args, **kw)
+        finally:
+            waits.setdefault(current[0], []).append(source.switch_waits())
+
+    out = {"texts": {}, "wall": {}}
+    loop.run_stream_epoch = spy
+    reset_counts(mesh_entries())
+    try:
+        for name, args in runs.items():
+            current[0] = name
+            t0 = time.perf_counter()
+            out["texts"][name] = run_cli(cli, args + [
+                "--distributed", "--dist-backend", "gloo"])
+            out["wall"][name] = time.perf_counter() - t0
+    finally:
+        loop.run_stream_epoch = real
+    out["launches"] = {e.__name__: e.launches for e in mesh_entries()}
+    out["launches_tc"] = tensor_core_counts(mesh_entries())
+    out["waits"] = waits
+    (work / f"tiers_rank{rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def mid_epoch(exp: Path, stop: int) -> dict:
+    """The ``mid_epoch`` cursor of a run stopped at step ``stop`` of its
+    first epoch."""
+    from pytorch_scalablefhvae_tpu_torch.train import checkpoint as ckpt
+
+    return ckpt.read_checkpoint_meta(
+        exp / f"fhvae_synthetic_np_fbank_e0s{stop}.npz")["mid_epoch"]
+
+
+def phase_mesh_tiers(workdir: Path, cfg) -> dict:
+    """Phase 5t: the data tiers of a ``2,2`` mesh (four gloo ranks sharing
+    the card, started once, each running every CLI run in turn) on phase
+    4's corpus at the CLI defaults: ``auto`` over ``TIERS_BUDGET`` streams
+    and with ``--shard-device-store`` stages the store row-sharded (the
+    lines rank 0 prints); sharded against replicated bit for bit on the
+    device tier and on the streamed tier in float32 (a whole epoch, dev
+    split staged) and int8 (chunks of ``STREAM_BUDGET // 4``); the sharded
+    streamed epoch against the single-device streamed epoch; that run
+    stopped by ``--max-steps`` inside a chunk and resumed, against the run
+    never stopped. Returns rank 0's launches over the phase's mesh runs
+    (``mesh_tiers``)."""
+    from pytorch_scalablefhvae_tpu_torch.cli.main import main as cli
+    from pytorch_scalablefhvae_tpu_torch.parallel.launch import run_ranks
+    from pytorch_scalablefhvae_tpu_torch.train.driver import build_loaders
+
+    log(f"== phase 5t: sfhvae train --mesh {MESH[0]},{MESH[1]} "
+        f"--dist-backend gloo on the data tiers: auto over the budget, "
+        f"--shard-device-store, float32 and int8 streamed chunks")
+    t_phase = time.perf_counter()
+    root, work = workdir / "data", workdir / "tiers"
+    work.mkdir()
+    pack = ["--pack-cache-dir", str(workdir / "tiers_pack")]
+    t0 = time.perf_counter()
+    cached = cfg.replace(data=dataclasses.replace(cfg.data,
+                                                  pack_cache_dir=pack[1]))
+    loader, _ = build_loaders(cached, root, True)
+    nbytes = loader.dataset.store.data.nbytes
+    del loader
+    batches = stream_chunk_batches(cached, root)
+    c = next(i for i, n in enumerate(batches) if i and n >= 2)
+    stop = sum(batches[:c]) + 1
+    log(f"5t: the packed stores cached in {time.perf_counter() - t0:.1f} s "
+        f"({nbytes / 1e6:.1f} MB of training rows); epoch 0's chunks at "
+        f"{STREAM_BUDGET // 4 >> 20} MiB take {batches} batches, the stopped "
+        f"run stops one batch into chunk {c}, at step {stop}")
+    chunk = ["--stream-chunk-bytes", str(STREAM_BUDGET // 4)]
+    stream = ["--data-placement", "stream", *chunk]
+    shard = "--shard-device-store"
+    flags = {
+        "auto": ["--device-store-max-bytes", str(TIERS_BUDGET),
+                 "--max-steps", str(TIERS_CAP)],
+        "auto sharded": ["--device-store-max-bytes", str(TIERS_BUDGET), shard,
+                         "--max-steps", str(TIERS_CAP)],
+        # the dev split on the host in both: no budget beside the store
+        "device": ["--data-placement", "device", "--device-store-max-bytes",
+                   str(nbytes), "--max-steps", str(TIERS_CAP)],
+        "stream float32": stream,
+        "stream float32 sharded": [*stream, shard],
+        "stream int8": [*stream, "--transfer-dtype", "int8", "--max-steps",
+                        str(TIERS_INT8_CAP)],
+        "stream int8 sharded": [*stream, "--transfer-dtype", "int8", shard,
+                                "--max-steps", str(TIERS_INT8_CAP)],
+        "stopped": [*stream, shard, "--max-steps", str(stop)],
+    }
+    exp = {name: work / name.replace(" ", "_") for name in flags}
+    mesh = ["--mesh", f"{MESH[0]},{MESH[1]}"]
+    runs = {name: train_args(cfg, root, exp[name], *mesh, *pack, *f,
+                             "--epochs", "1")
+            for name, f in flags.items()}
+    runs["resumed"] = ["train", "--dataset", "synthetic", "--preprocessed",
+                       "--data-root", str(root), "--continue-from",
+                       str(run_dir(exp["stopped"], 1)
+                           / f"fhvae_synthetic_np_fbank_e0s{stop}.npz"),
+                       "--resume-override", "max_steps=0"]
+    (work / "tiers.json").write_text(json.dumps(runs))
+
+    # the single-device streamed epoch (this process: the kernels build
+    # here, before the ranks start)
+    one = work / "one"
+    t0 = time.perf_counter()
+    run_cli(cli, train_args(cfg, root, one, *pack, *stream, "--epochs", "1"))
+    one_rec, = metrics_of(one)
+    log(f"5t: the single-device streamed epoch in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    world = MESH[0] * MESH[1]
+    codes = run_ranks(_mesh_tiers_rank, world, (str(work),), backend="gloo",
+                      device="cuda", timeout_s=120, join_timeout_s=600)
+    log(f"5t: the {world} ranks exited with {codes} after "
+        f"{time.perf_counter() - t0:.1f} s")
+    if codes != [0] * world:
+        raise AssertionError(f"the mesh's ranks exited with {codes}")
+    info = json.loads((work / "tiers_rank0.json").read_text())
+    texts, wall = info["texts"], info["wall"]
+
+    # auto over the budget: streamed, and staged whole row-sharded
+    mb = TIERS_BUDGET / 1e6
+    want = {"auto": (f"over the device-store budget of {mb:.1f} MB; "
+                     f"streaming it", "Training data streams through the "
+                     "device"),
+            "auto sharded": (f"within the device-store budget of "
+                             f"{2 * mb:.1f} MB ({mb:.1f} MB a device x 2, "
+                             f"row-sharded over the model axis); staging it "
+                             f"whole", "MB staged, row-sharded)")}
+    for name, lines in want.items():
+        said = [line for line in texts[name].splitlines()
+                if "data placement auto" in line or "Training data" in line]
+        log(f"5t {name}, rank 0 said: {said}")
+        if not all(w in texts[name] for w in lines):
+            raise AssertionError(f"5t {name}: the tier lines {said} are not "
+                                 f"{lines}")
+
+    # sharded against replicated, bit for bit
+    def same_steps(name: str, a: str, b: str, steps: int) -> None:
+        differ = differing_arrays(
+            run_dir(exp[a], 1) / f"fhvae_synthetic_np_fbank_e0s{steps}.npz",
+            run_dir(exp[b], 1) / f"fhvae_synthetic_np_fbank_e0s{steps}.npz")
+        ma, mb_ = mid_epoch(run_dir(exp[a], 1), steps), \
+            mid_epoch(run_dir(exp[b], 1), steps)
+        log(f"5t {name}, {steps} steps, sharded vs replicated: loss sums "
+            f"{ma['loss_sum']!r} vs {mb_['loss_sum']!r}; checkpoint arrays "
+            f"differing {differ}; {1e3 * ma['elapsed_s'] / steps:.2f} vs "
+            f"{1e3 * mb_['elapsed_s'] / steps:.2f} ms/step")
+        if differ or ma["loss_sum"] != mb_["loss_sum"]:
+            raise AssertionError(f"5t {name}: sharded and replicated differ")
+
+    same_steps("device tier", "auto sharded", "device", TIERS_CAP)
+    equal_runs("5t streamed float32 epoch, sharded vs replicated",
+               run_dir(exp["stream float32 sharded"], 1),
+               run_dir(exp["stream float32"], 1), [0])
+    same_steps("streamed int8", "stream int8 sharded", "stream int8",
+               TIERS_INT8_CAP)
+    for name in ("stream float32", "stream float32 sharded", "stream int8",
+                 "stream int8 sharded"):
+        m = re.search(r"\((\d+) chunks of ([\d.]+) MB in \w+, double-buffered"
+                      r"[^;]*; ([\d.]+) MB over the link an epoch a rank",
+                      texts[name])
+        w = info["waits"][name][0]
+        log(f"5t {name}: {m[1]} chunks of {m[2]} MB, {m[3]} MB over each "
+            f"rank's link an epoch; at its {len(w)} chunk switches rank 0's "
+            f"host waited {[round(h * 1e3, 3) for h, _ in w]} ms and its "
+            f"compute stream {[ms and round(ms, 3) for _, ms in w]} ms; run "
+            f"{wall[name]:.1f} s")
+
+    # the sharded streamed epoch against one device's
+    rec, = metrics_of(exp["stream float32 sharded"])
+    errs = {k: abs(rec[k] - one_rec[k]) / abs(one_rec[k])
+            for k in ("train_loss", "val_lower_bound", "val_log_qy")}
+    log(f"5t: the streamed epoch on the {MESH} mesh, row-sharded, vs one "
+        f"device: train loss {rec['train_loss']!r} vs "
+        f"{one_rec['train_loss']!r}, dev LB {rec['val_lower_bound']!r} vs "
+        f"{one_rec['val_lower_bound']!r} (relative differences {errs}, tol "
+        f"{TOL_MESH_EPOCH:g}, log_qy {TOL_MESH_LOG_QY:g}); "
+        f"{1e3 * rec['train_seconds'] / rec['train_steps']:.2f} ms/step "
+        f"with four processes time-slicing one card (one process: "
+        f"{1e3 * one_rec['train_seconds'] / one_rec['train_steps']:.2f}); "
+        f"card {smi_name_power()}")
+    if not all(e <= (TOL_MESH_LOG_QY if k == "val_log_qy" else TOL_MESH_EPOCH)
+               for k, e in errs.items()):
+        raise AssertionError(f"5t: the streamed mesh epoch disagrees with "
+                             f"one device's: {errs}")
+
+    # stopped inside a chunk and resumed, against the run never stopped
+    stopped = run_dir(exp["stopped"], 1)
+    left = step_checkpoints(stopped)
+    if left:
+        raise AssertionError(f"5t: step checkpoints outlived the epoch: "
+                             f"{[p.name for p in left]}")
+    check_resumed("5t streamed, row-sharded, stopped at step "
+                  f"{stop} and resumed", stopped,
+                  run_dir(exp["stream float32 sharded"], 1), [0])
+
+    # rank 0's launches: #7 once a step, forward and backward
+    steps = (3 * TIERS_CAP + 2 * TIERS_INT8_CAP
+             + 3 * int(rec["train_steps"]))
+    c = info["launches"]
+    log(f"5t: rank 0's launches over the phase's mesh runs ({steps} steps, "
+        f"dev passes included): {c}; LSTM entries through the tensor-core "
+        f"form: {info['launches_tc']}")
+    check_tensor_core(c, info["launches_tc"], "phase 5t, rank 0")
+    if not (c["discriminative_log_qy_sharded"] == steps
+            and c["discriminative_log_qy_sharded_bwd"] == steps
+            and c["discriminative_log_qy_bwd"] == 0
+            and c["windowed_chunk_gather"] == 0
+            and c["discriminative_log_qy"] > 0
+            and min(c["lstm2_tm_proj"], c["lstm2_tm"],
+                    c["lstm2_tm_proj_bwd"], c["lstm2_tm_bwd"]) > 0):
+        raise AssertionError("5t: kernel #7 must be launched once per step "
+                             "forward and backward, #6 and #8 never, the "
+                             "others at least once")
+    log(f"phase 5t took {time.perf_counter() - t_phase:.1f} s; card "
+        f"{smi_name_power()}")
+    return c
+
+
 # -------------------------------------------------------------- phase 4r
 
 RESUME_EVERY = 50    # phase 4r's --ckpt-every-steps
@@ -5843,7 +6123,7 @@ def main(argv=None) -> int:
     parser.add_argument("--only", default=None,
                         help="comma-separated phases to run after phase 1 "
                              "(2, 2f, 2b, 2c, 2d, 2e, 3, 3b, 4, 4k, 4s, 4h, "
-                             "4m, 4p, 4b, 4q, 5, 4r, 4l; 2 includes 2f, 4k, "
+                             "4m, 4p, 4b, 4q, 5, 5t, 4r, 4l; 2 includes 2f, 4k, "
                              "4b and 4r need 4); default all")
     only = parser.parse_args(argv).only
     only = None if only is None else set(only.split(","))
@@ -5889,7 +6169,8 @@ def main(argv=None) -> int:
             if not on("3"):
                 write_corpus(workdir / "wav")
             by_path["preprocess"] = timed("3b", phase_preprocess, workdir)
-        if any(on(p) for p in ("4", "4s", "4h", "4m", "4p", "5", "4l")):
+        if any(on(p) for p in ("4", "4s", "4h", "4m", "4p", "5", "5t",
+                               "4l")):
             cfg = timed("corpus", write_feature_corpus, workdir / "data")
             log(f"corpus written in {seconds['corpus']:.1f} s")
         epoch0 = None
@@ -5915,6 +6196,8 @@ def main(argv=None) -> int:
             timed("4q", phase_quality, workdir)
         if on("5"):
             by_path["mesh"] = timed("5", phase_mesh, workdir, cfg, epoch0)
+        if on("5t"):
+            by_path["mesh_tiers"] = timed("5t", phase_mesh_tiers, workdir, cfg)
         if on("4r"):
             by_path["train_resume"] = timed("4r", phase_resume, workdir, cfg)
         if on("4l"):

@@ -17,11 +17,18 @@ on a store over the budget stages its sub-pack into a buffer of a fixed
 row ceiling (``DeviceDataSource(pad_to_rows=)``, ``restage``).
 ``--epoch-plan device`` derives each epoch's plan on the device from the
 per-sequence vectors and a seeded generator (:func:`make_device_epoch_plan`,
-:class:`DeviceEpochPlanner`) instead of uploading it. Not ported yet
-(``ROADMAP.md``): a store sharded over a mesh (``--shard-device-store``): on
-a mesh every rank stages the whole store, the JAX package's default, and
-gathers its rows of each planned batch from it; a mesh stages float32
-only.
+:class:`DeviceEpochPlanner`) instead of uploading it.
+
+On a mesh (``DeviceDataSource(mesh=)``) the store is staged without the
+tail slack (the chunked MAP pass does not run there) in any transfer dtype.
+By default every rank stages the whole store, the JAX package's default;
+with ``shard_store`` and a model axis ``m > 1`` (``--shard-device-store``;
+on one device a no-op, as in the JAX package) the row count is padded to a
+multiple of ``m`` and rank ``(i, j)`` stages rows ``[j R/m, (j+1) R/m)``
+only, a :class:`RowShard` whose windows the gather sums over the model
+group (``train/device_step.py`` ``gather_segments``). An int8 store is
+quantized whole on every rank, so every rank holds the same scale and
+offset.
 """
 
 from __future__ import annotations
@@ -168,6 +175,18 @@ def make_device_epoch_plan(generator: torch.Generator | None,
     return seq, starts
 
 
+def model_axis(mesh) -> int:
+    """The model-axis size of a mesh (``shape`` ``(d, m)``); 1 without
+    one."""
+    return 1 if mesh is None else mesh.shape[1]
+
+
+def store_budget(max_bytes: int, mesh=None, shard_store: bool = False) -> int:
+    """The device-store budget of a run: ``max_bytes`` per device, times the
+    model axis when the store is row-sharded over it."""
+    return max_bytes * (model_axis(mesh) if shard_store else 1)
+
+
 def resolve_data_placement(
     placement: str,
     store,
@@ -192,9 +211,7 @@ def resolve_data_placement(
         return False
     itemsize = staging_itemsize(store_dtype)
     nbytes = store.data.shape[0] * store.dim * itemsize
-    budget = max_bytes
-    if mesh is not None and shard_store:
-        budget = max_bytes * mesh.shape["model"]
+    budget = store_budget(max_bytes, mesh, shard_store)
     if placement == "device":
         if nbytes > budget:
             # fail here with a configuration error instead of an opaque
@@ -214,6 +231,25 @@ def resolve_data_placement(
 
 STAGING_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                   "int8": torch.uint8}
+
+
+class RowShard(NamedTuple):
+    """This rank's part of a store row-sharded over the model axis of
+    ``mesh``: of every ``period`` rows (the padded store, or one streamed
+    chunk's slot) the rank holds the ``per`` rows from ``lo`` on, the
+    periods one after the other in ``local`` (a tensor in the staging dtype,
+    or a ``Quantized``). Row ``g`` of the whole store is ``local[(g //
+    period) * per + g % period - lo]`` on the rank that owns it."""
+
+    local: "torch.Tensor | Quantized"
+    lo: int
+    per: int
+    period: int
+    mesh: object
+
+    @property
+    def device(self) -> torch.device:
+        return self.local.device
 
 
 class Quantized(NamedTuple):
@@ -253,62 +289,90 @@ def copy_rows(dst: torch.Tensor, data: np.ndarray,
 class DeviceDataSource:
     """The packed store on ``device`` in ``store_dtype`` (``"float32"``,
     ``"bfloat16"`` or ``"int8"``), plus per-epoch plan uploads. ``data`` is
-    the staged tensor, or a :class:`Quantized` for int8.
+    the staged tensor, or a :class:`Quantized` for int8, or on a mesh with
+    ``shard_store`` a :class:`RowShard` of either.
 
     ``pad_to_rows``: the staged buffer's row count, at least the store's
     rows and ``STORE_TAIL_SLACK``, for per-round sub-pack staging
     (hierarchical rounds on a store over the budget): every round's sub-pack
     is staged by :meth:`restage` into this one allocation, whose address a
-    captured K-step graph keeps."""
+    captured K-step graph keeps. ``mesh``: a rank's mesh; no tail slack
+    there, and with ``shard_store`` (a no-op when the model axis is 1) the
+    rows padded to a multiple of the model axis and this rank's
+    ``mesh.store_rows`` of them staged."""
 
     def __init__(self, store, device: torch.device,
-                 store_dtype: str = "float32", pad_to_rows: int | None = None):
+                 store_dtype: str = "float32", pad_to_rows: int | None = None,
+                 mesh=None, shard_store: bool = False):
         rows, dim = store.data.shape
-        total = rows + STORE_TAIL_SLACK
+        self.slack = STORE_TAIL_SLACK if mesh is None else 0
+        total = rows + self.slack
         if pad_to_rows is not None:
             if total > pad_to_rows:
                 raise ValueError(
                     f"staged store needs {total} rows (incl. slack) but "
                     f"pad_to_rows={pad_to_rows}; raise the ceiling")
             total = pad_to_rows
+        self.shard_store = bool(shard_store and model_axis(mesh) > 1)
+        if self.shard_store:
+            total += (-total) % model_axis(mesh)
+            self.window = mesh.store_rows(total)
+        else:
+            self.window = slice(0, total)
+        self.total_rows = total
         # one allocation; the rows past a store's stay zero (byte 0 in int8:
         # never addressed by a real plan row)
         self.device = torch.device(device)
         self.store_dtype = store_dtype
-        buf = torch.zeros((total, dim), dtype=STAGING_DTYPES[store_dtype],
+        buf = torch.zeros((self.window.stop - self.window.start, dim),
+                          dtype=STAGING_DTYPES[store_dtype],
                           device=self.device)
         if store_dtype == "int8":
             zeros = torch.zeros(dim, dtype=torch.float32, device=self.device)
             self.data = Quantized(buf, zeros, zeros.clone())
         else:
             self.data = buf
+        if self.shard_store:
+            self.data = RowShard(self.data, self.window.start, buf.shape[0],
+                                 total, mesh)
         self.restage(store)
+
+    @property
+    def staged(self) -> "torch.Tensor | Quantized":
+        """What this device holds: ``data``, or a :class:`RowShard`'s
+        rows."""
+        return self.data.local if isinstance(self.data, RowShard) \
+            else self.data
 
     @property
     def rows(self) -> torch.Tensor:
         """The staged rows (the bytes of an int8 store)."""
-        return self.data.rows if isinstance(self.data, Quantized) \
-            else self.data
+        staged = self.staged
+        return staged.rows if isinstance(staged, Quantized) else staged
 
     def restage(self, store) -> None:
         """Copy ``store`` into the buffer in place, its rows first and zeros
-        after them (int8: its own columns' scale and offset). The copies run
-        on the current stream, so a step issued before reads the rows it was
-        issued with; raises when the store and the tail slack do not fit."""
+        after them (int8: the whole store's columns' scale and offset; a
+        row shard: this rank's window of the rows). The copies run on the
+        current stream, so a step issued before reads the rows it was
+        issued with; raises when the store and the tail slack do not
+        fit."""
         data = store.data
         rows, buf = data.shape[0], self.rows
-        if rows + STORE_TAIL_SLACK > buf.shape[0]:
+        if rows + self.slack > self.total_rows:
             raise ValueError(
-                f"a store of {rows} rows (and {STORE_TAIL_SLACK} of slack) "
-                f"does not fit the staged buffer's {buf.shape[0]}")
+                f"a store of {rows} rows (and {self.slack} of slack) "
+                f"does not fit the staged buffer's {self.total_rows}")
+        lo = self.window.start
+        hi = max(min(self.window.stop, rows), lo)
         if self.store_dtype == "int8":
             q, scale, offset = quantize_columns(data)
-            buf[:rows].copy_(torch.from_numpy(q))
-            self.data.scale.copy_(torch.from_numpy(scale))
-            self.data.offset.copy_(torch.from_numpy(offset))
+            buf[:hi - lo].copy_(torch.from_numpy(q[lo:hi]))
+            self.staged.scale.copy_(torch.from_numpy(scale))
+            self.staged.offset.copy_(torch.from_numpy(offset))
         else:
-            copy_rows(buf, data)
-        buf[rows:].zero_()
+            copy_rows(buf, data[lo:hi])
+        buf[hi - lo:].zero_()
 
     def upload(self, arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device,

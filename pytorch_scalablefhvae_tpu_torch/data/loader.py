@@ -74,7 +74,11 @@ class SegmentLoader:
         "bfloat16" halves host->device transfer bytes (and device memory for the staged
         batch); the model upcasts to float32 on entry, so only the feature
         quantization (~3 decimal digits) changes. Opt-in: useful when the
-        input link, not compute, bounds throughput.
+        input link, not compute, bounds throughput. "int8" stages only the
+        device tiers' stores: the loader then emits float32 batches, as the
+        JAX package's does. On a mesh every rank assembles the whole batch
+        and moves its rows of it, in either dtype
+        (``train/loop.py`` ``batch_tensors``).
 
         ``indices``: optional fixed subset of GLOBAL segment indices to
         iterate instead of the whole dataset (e.g. the chunk-skip subsample

@@ -44,6 +44,15 @@ The device half is torch's own, not a translation of ``jax.device_put``:
 - the per-sequence ``nsegs`` table staged once.
 
 On the CPU the same code runs with plain copies and no events.
+
+On a mesh every rank runs its own source: the schedule and the chunk plans
+are functions of the seed, so every rank switches chunk at the same batch.
+With ``shard_store`` and a model axis ``m > 1`` (``--shard-device-store``)
+``chunk_rows`` is padded to a multiple of ``m`` and a rank fills and copies
+only its rows of each chunk (``mesh.store_rows``), so its link carries 1/m
+of each chunk; ``data`` is then a ``RowShard`` whose period is one slot.
+An int8 chunk is quantized whole on every rank (its scale and offset are
+the whole chunk's, as in the JAX package) before the rank takes its rows.
 """
 
 from __future__ import annotations
@@ -60,9 +69,12 @@ from pytorch_scalablefhvae_tpu_torch.data.device_store import (
     STAGING_DTYPES,
     EpochPlan,
     Quantized,
+    RowShard,
     copy_rows,
+    model_axis,
     resolve_data_placement,
     staging_itemsize,
+    store_budget,
 )
 from pytorch_scalablefhvae_tpu_torch.data.quantize import quantize_columns
 from pytorch_scalablefhvae_tpu_torch.data.segments import SegmentDataset
@@ -152,7 +164,8 @@ class StreamingDeviceSource:
 
     def __init__(self, dataset: SegmentDataset, chunk_bytes: int,
                  batch_size: int, device: torch.device,
-                 store_dtype: str = "float32"):
+                 store_dtype: str = "float32", mesh=None,
+                 shard_store: bool = False):
         store = dataset.store
         self.dataset = dataset
         self.quantized = store_dtype == "int8"
@@ -161,6 +174,13 @@ class StreamingDeviceSource:
         self.chunks = partition_chunks(store.lens, dataset.nsegs, store.dim,
                                        self.itemsize, chunk_bytes)
         self.chunk_rows = max(c.n_frames for c in self.chunks)
+        self.shard_store = bool(shard_store and model_axis(mesh) > 1)
+        if self.shard_store:
+            self.chunk_rows += (-self.chunk_rows) % model_axis(mesh)
+            self.window = mesh.store_rows(self.chunk_rows)
+        else:
+            self.window = slice(0, self.chunk_rows)
+        per = self.window.stop - self.window.start
         # fixed plan length: every chunk's plan pads to a whole number of
         # batches; only each chunk's real batches are dispatched
         segs = max(c.n_segments for c in self.chunks)
@@ -169,11 +189,11 @@ class StreamingDeviceSource:
         self.device = torch.device(device)
 
         dim, cuda = store.dim, self.device.type == "cuda"
-        self._slots = torch.zeros((2, self.chunk_rows, dim), dtype=self.dtype,
+        self._slots = torch.zeros((2, per, dim), dtype=self.dtype,
                                   device=self.device)
-        self._host = [torch.zeros((self.chunk_rows, dim), dtype=self.dtype,
+        self._host = [torch.zeros((per, dim), dtype=self.dtype,
                                   pin_memory=cuda) for _ in range(2)]
-        flat = self._slots.view(2 * self.chunk_rows, dim)
+        flat = self._slots.view(2 * per, dim)
         if self.quantized:
             # per slot (scale, offset) on the host and the device; the
             # current chunk's in `data`
@@ -184,6 +204,9 @@ class StreamingDeviceSource:
             self.data = Quantized(flat, self._cur_q[0], self._cur_q[1])
         else:
             self.data = flat
+        if self.shard_store:
+            self.data = RowShard(self.data, self.window.start, per,
+                                 self.chunk_rows, mesh)
         # per-sequence nsegs table (global rows), staged once per run
         self.nsegs_tab = torch.from_numpy(
             dataset.nsegs.astype(np.float32)).to(self.device)
@@ -203,8 +226,10 @@ class StreamingDeviceSource:
     # ---- host side ----
 
     def _quantized_chunk(self, spec: ChunkSpec):
-        """``(q [chunk_rows, D] uint8, scale [D], offset [D])`` of a chunk:
-        chunk partitions are fixed for the run and the quantize parameters
+        """``(q [rows, D] uint8, scale [D], offset [D])`` of a chunk, ``q``
+        this device's window of its rows, zero-padded: the whole chunk is
+        quantized, so a row shard's scale and offset are the chunk's. Chunk
+        partitions are fixed for the run and the quantize parameters
         deterministic, so each chunk is quantized once, up to the cache's
         byte cap."""
         cached = self._qcache.get(spec.frame_base)
@@ -214,16 +239,18 @@ class StreamingDeviceSource:
             q, scale, offset = quantize_columns(real)
             buf = np.zeros((self.chunk_rows, data.shape[1]), np.uint8)
             buf[: spec.n_frames] = q
-            cached = (buf, scale, offset)
-            if self._qcache_left >= buf.nbytes:
+            rows = np.ascontiguousarray(buf[self.window])
+            cached = (rows, scale, offset)
+            if self._qcache_left >= rows.nbytes:
                 self._qcache[spec.frame_base] = cached
-                self._qcache_left -= buf.nbytes
+                self._qcache_left -= rows.nbytes
         return cached
 
     def host_bytes_per_epoch(self) -> int:
-        """Link bytes one epoch ships (chunk padding included)."""
+        """Link bytes one epoch ships to this device (chunk padding
+        included; a row shard's rows only)."""
         row = self.dataset.store.dim * self.itemsize
-        per_chunk = self.chunk_rows * row
+        per_chunk = (self.window.stop - self.window.start) * row
         if self.quantized:  # + the per-column scale/offset f32 legs
             per_chunk += 2 * self.dataset.store.dim * 4
         return per_chunk * len(self.chunks)
@@ -262,21 +289,22 @@ class StreamingDeviceSource:
         return plan, seq_pad, start_pad
 
     def _fill(self, spec: ChunkSpec, slot: int) -> None:
-        """Fill host buffer ``slot`` with the chunk's rows, in the staging
-        dtype and zero-padded, once its last copy has left it (the filler
-        thread)."""
+        """Fill host buffer ``slot`` with the chunk's rows of this device's
+        window, in the staging dtype and zero-padded, once its last copy has
+        left it (the filler thread)."""
         if self._copied[slot] is not None:
             self._copied[slot].synchronize()
-        host = self._host[slot]
+        host, lo = self._host[slot], self.window.start
         if self.quantized:
             buf, scale, offset = self._quantized_chunk(spec)
             host.copy_(torch.from_numpy(buf))
             self._host_q[slot].copy_(torch.from_numpy(np.stack([scale,
                                                                 offset])))
             return
+        hi = max(min(self.window.stop, spec.n_frames), lo)
         data = self.dataset.store.data
-        copy_rows(host, data[spec.frame_base: spec.frame_base + spec.n_frames])
-        host[spec.n_frames:].zero_()
+        copy_rows(host, data[spec.frame_base + lo: spec.frame_base + hi])
+        host[hi - lo:].zero_()
 
     # ---- device side ----
 
@@ -447,43 +475,42 @@ TIER_WORDS = {"device": "staging it whole", "stream": "streaming it",
 
 def resolve_tier(placement: str, store, max_bytes: int,
                  store_dtype: str = "float32", verbose: bool = True,
-                 mesh_run: bool = False, hierarchical: bool = False,
-                 legacy: bool = False) -> str:
+                 mesh=None, shard_store: bool = False,
+                 hierarchical: bool = False, legacy: bool = False) -> str:
     """The run's data tier, ``"device"``, ``"stream"`` or ``"host"``, as
-    ``resolve_data_mode`` decides it on one device from the placement and
-    the budget alone: ``device`` raises its ``ValueError`` when the store is
-    over ``max_bytes``; ``auto`` stages it when it fits and streams it
+    ``resolve_data_mode`` decides it from the placement and the budget, on
+    one device or on a rank of ``mesh``, where ``shard_store`` scales the
+    budget by the model axis: ``device`` raises its ``ValueError`` when the
+    store is over the budget; ``auto`` stages it when it fits and streams it
     otherwise, and says which (where ``verbose``: one rank of a mesh says
     it). ``legacy`` (``--legacy`` step epochs at batch 1) takes the host
     loader: ``auto`` resolves to it, ``device`` and ``stream`` raise JAX's
-    ``ValueError``. A mesh stages whole stores only: the streamed tier there raises,
-    naming ``--data-placement host``, which trains such a store on a mesh.
+    ``ValueError``.
 
     ``hierarchical``: rounds of a subset of the store. A store that fits
     stages whole (``auto``, ``device``) and a round's subset is a view of
     it; over the budget (or at ``stream``) the tier is ``"host"``, which the
     training loop turns into per-round staging of the subset where one
     round fits (``train/rounds.py``)."""
-    mode = resolve_data_mode(placement, store, max_bytes=max_bytes,
-                             legacy=legacy, store_dtype=store_dtype,
+    mode = resolve_data_mode(placement, store, mesh, shard_store=shard_store,
+                             max_bytes=max_bytes, legacy=legacy,
+                             store_dtype=store_dtype,
                              hierarchical=hierarchical)
-    if mode == "stream" and mesh_run:
-        raise NotImplementedError(
-            "the streamed tier (--data-placement stream, or auto with a "
-            "store over --device-store-max-bytes) on a --mesh is not yet "
-            "ported to PyTorch (ROADMAP.md, item 10); on a mesh, train such "
-            "a store from the host loader with --data-placement host")
     if verbose and placement == "auto":
         nbytes = (store.data.shape[0] * store.dim
                   * staging_itemsize(store_dtype))
-        within = "within" if nbytes <= max_bytes else "over"
+        budget = store_budget(max_bytes, mesh, shard_store)
+        within = "within" if nbytes <= budget else "over"
         words = TIER_WORDS[mode]
         if legacy:
             words = "training from the host loader (--legacy)"
         elif hierarchical and mode == "host":
             words = ("staging each hierarchical round's subset where one "
                      "fits, else training from the host loader")
+        sharded = (f" ({max_bytes / 1e6:.1f} MB a device x "
+                   f"{model_axis(mesh)}, row-sharded over the model axis)"
+                   if budget != max_bytes else "")
         print(f"data placement auto: the packed store is {nbytes / 1e6:.1f} "
               f"MB in {store_dtype}, {within} the device-store budget of "
-              f"{max_bytes / 1e6:.1f} MB; {words}")
+              f"{budget / 1e6:.1f} MB{sharded}; {words}")
     return mode

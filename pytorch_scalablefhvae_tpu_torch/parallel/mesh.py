@@ -11,7 +11,11 @@ GSPMD place the collectives, the port runs one process per rank under
 - axis "model": the mu2 table and its two Adam moments are row-sharded, rank
   ``j`` of a model group holding rows ``[j N_pad/m, (j+1) N_pad/m)`` of the
   table padded to a multiple of ``m``; the discriminative log-sum-exp and the
-  ELBO's row gather reduce over the model group.
+  ELBO's row gather reduce over the model group. With
+  ``--shard-device-store`` the staged store and the streamed chunks are
+  row-sharded the same way (:meth:`Mesh.store_rows`), and every window
+  gathered from them is summed over the model group
+  (:meth:`Mesh.model_sum_`).
 
 Everything else is replicated: all ranks hold the same bits, because every
 rank computes the same numbers from the same all-reduced values
@@ -83,6 +87,11 @@ class Mesh:
     def model_sum(self, t: torch.Tensor) -> torch.Tensor:
         return self.all_reduce_(t.clone(), MODEL_AXIS)
 
+    def model_sum_(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed in place over the model group (the row-sharded
+        store's gather: each rank's rows, -0.0 elsewhere)."""
+        return self.all_reduce_(t, MODEL_AXIS)
+
     def data_sum(self, t: torch.Tensor) -> torch.Tensor:
         return self.all_reduce_(t.clone(), DATA_AXIS)
 
@@ -110,13 +119,25 @@ class Mesh:
 
     def table_rows(self, rows_padded: int) -> slice:
         """The rows of the padded mu2 table that this rank holds."""
-        m = self.shape[1]
-        if rows_padded % m:
-            raise ValueError(
-                f"mu2 table rows ({rows_padded}) must be a multiple of the "
-                f"model axis ({m}); pad with parallel.mesh.padded_num_seqs")
-        per = rows_padded // m
-        return slice(self.model_index * per, (self.model_index + 1) * per)
+        return model_shard(self, rows_padded, "mu2 table rows")
+
+    def store_rows(self, rows_padded: int) -> slice:
+        """The rows of a store or a streamed chunk row-sharded over the
+        model axis (``--shard-device-store``) that this rank stages: the
+        table's rule, ``[j R/m, (j+1) R/m)`` of ``R = rows_padded``."""
+        return model_shard(self, rows_padded, "row-sharded store rows")
+
+
+def model_shard(mesh, rows_padded: int, what: str) -> slice:
+    """Rank ``(i, j)``'s rows ``[j R/m, (j+1) R/m)`` of ``R = rows_padded``
+    rows row-sharded over the model axis of ``mesh``."""
+    m = mesh.shape[1]
+    if rows_padded % m:
+        raise ValueError(
+            f"{what} ({rows_padded}) must be a multiple of the model axis "
+            f"({m}); pad with parallel.mesh.padded_num_seqs")
+    per = rows_padded // m
+    return slice(mesh.model_index * per, (mesh.model_index + 1) * per)
 
 
 def make_mesh(mesh_shape: tuple[int, int], device: torch.device) -> Mesh:

@@ -32,10 +32,13 @@ until the caller fetches it.
 Padding rows of a plan are (sequence 0, frame 0) with weight 0, so given the
 same permutation the steps train exactly as the host loader does.
 
-On a mesh of ranks the store is replicated on every rank and a rank gathers
-only its rows of each planned batch (:func:`rank_views`); the eval sums and
-the MAP sums are added up over the data group. The chunked MAP pass does not
-run on a mesh (as in the JAX loop): the array-plan pass does.
+On a mesh of ranks a rank gathers only its rows of each planned batch
+(:func:`rank_views`), from the store replicated on every rank or, with
+``--shard-device-store``, row-sharded over the model axis
+(:func:`gather_sharded`, one definition for the train step, the eval pass
+and the array-plan MAP pass); the eval sums and the MAP sums are added up
+over the data group. The chunked MAP pass does not run on a mesh (as in the
+JAX loop): the array-plan pass does.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ import torch
 from pytorch_scalablefhvae_tpu_torch.data.device_store import (
     STORE_TAIL_SLACK,
     Quantized,
+    RowShard,
 )
 from pytorch_scalablefhvae_tpu_torch.ops.window_gather import (
     windowed_chunk_gather,
@@ -61,11 +65,37 @@ def gather_segments(store, starts, seg_len: int):
     as the JAX package's ``jnp.take`` outside any kernel, in the store's
     dtype; a ``Quantized`` store's windows dequantized after the gather as
     ``q.float() * scale + offset`` in fp32 (two roundings, the bits of
-    ``quantize.dequantize``)."""
+    ``quantize.dequantize``); a ``RowShard``'s by
+    :func:`gather_sharded`."""
     idx = starts[:, None] + torch.arange(seg_len, device=store.device)[None, :]
+    if isinstance(store, RowShard):
+        return gather_sharded(store, idx)
+    return _take(store, idx)
+
+
+def _take(store, idx):
     if isinstance(store, Quantized):
         return store.rows[idx].float() * store.scale + store.offset
     return store[idx]
+
+
+def gather_sharded(store: RowShard, idx: torch.Tensor) -> torch.Tensor:
+    """The rows ``idx`` of a store row-sharded over the model axis, in fp32
+    on every rank of the model group, which must pass the same ``idx``
+    (JAX ``_make_gather``'s ``gather_local`` under ``shard_map``): each rank
+    takes the rows at ``clip(idx - lo)`` of its period, dequantizes an int8
+    window and upcasts a bf16 one (the model upcasts on entry), writes -0.0
+    where it does not own the frame, and the group sums in fp32. Exactly
+    one rank owns a frame and ``x + -0.0 == x`` for every ``x``, -0.0 and
+    +0.0 included, so the windows hold the replicated store's values bit
+    for bit; a window across a shard boundary needs nothing of its own,
+    since the mask is per frame."""
+    rel = idx % store.period - store.lo
+    own = (rel >= 0) & (rel < store.per)
+    local = (idx // store.period) * store.per + rel.clamp(0, store.per - 1)
+    g = _take(store.local, local).float()
+    g = torch.where(own[..., None], g, -0.0)
+    return store.mesh.model_sum_(g)
 
 
 def batch_views(store, seq_idx_all, starts_all, nsegs_tab, off: int,

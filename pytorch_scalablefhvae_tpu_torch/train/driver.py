@@ -43,18 +43,16 @@ def check_ported(config: ExperimentConfig) -> None:
     port does not run yet. ``--ckpt-every-steps`` and ``--max-steps`` are
     not in the table: they run on every tier, at any K and on a mesh
     (``train/loop.py`` :class:`EpochCursor`); the loop refuses them with
-    ``--legacy`` by a ``ValueError``, as the JAX loop does."""
-    t, d = config.train, config.data
+    ``--legacy`` by a ``ValueError``, as the JAX loop does. A mesh runs
+    every data tier in every transfer dtype, with or without
+    ``--shard-device-store``, which is a no-op on one device, as in the JAX
+    package."""
+    t = config.train
     on_mesh = tuple(t.mesh_shape) != (1, 1)
     refused = {
         "--mesh with --hierarchical": on_mesh and t.sample_hierarchical,
         "--mesh with --steps-per-dispatch > 1":
             on_mesh and t.steps_per_dispatch > 1,
-        "--mesh with --data-placement stream":
-            on_mesh and d.data_placement == "stream",
-        f"--mesh with --transfer-dtype {d.transfer_dtype}":
-            on_mesh and d.transfer_dtype != "float32",
-        "--shard-device-store": d.shard_device_store,
         "--ckpt-backend orbax": t.ckpt_backend == "orbax",
     }
     for flag, hit in refused.items():

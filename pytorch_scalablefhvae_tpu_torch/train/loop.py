@@ -29,9 +29,11 @@ budget.
 
 On a mesh (``parallel/mesh.py``; ``--mesh d,m``, one process per rank) every
 rank runs this same loop in step: it pads and shards the mu2 table, takes its
-rows of every batch on either the host loader or the device tier, and splits
-both dev passes over the data ranks when the dev batch size divides by ``d``
-(else every rank runs them whole). All decisions (divergence, best epoch,
+rows of every batch on any tier (the host loader, the device tier or the
+streamed tier, in any transfer dtype; with ``--shard-device-store`` the
+staged store, the dev split's and the streamed chunks row-sharded over the
+model axis), and splits both dev passes over the data ranks when the dev
+batch size divides by ``d`` (else every rank runs them whole). All decisions (divergence, best epoch,
 early stopping) are taken from all-reduced values, so the ranks take them
 together; rank 0 alone prints, writes ``metrics.jsonl`` and the checkpoints.
 
@@ -50,9 +52,8 @@ buffer), or the host loader. With ``--epoch-plan device`` the staged
 tiers' epoch plans are derived on the device from the seed and the epoch
 (``data/device_store.py`` ``DeviceEpochPlanner``) instead of uploaded; the
 host loader and the streamed tier say they ignore it, as the JAX loop
-does. Hierarchical rounds, the streamed tier and
-compressed staging on a mesh and K-step dispatch on a mesh are not ported
-yet (``ROADMAP.md``; ``train/driver.py`` refuses them).
+does. Hierarchical rounds on a mesh and K-step dispatch on a mesh are not
+ported yet (``ROADMAP.md``, item 10; ``train/driver.py`` refuses them).
 
 ``--legacy`` runs the reference's step epochs on the host loader at batch 1
 (:class:`LegacyEpochs`; eager steps, K ignored). The observability flags:
@@ -490,7 +491,8 @@ def run_stream_epoch(state: TrainState, optimizer: Optimizer,
                      source: StreamingDeviceSource, loader: SegmentLoader,
                      alpha: float, device: torch.device, epoch: int,
                      bundle: StepBundle | None = None,
-                     cursor: EpochCursor | None = None) -> EpochStats:
+                     cursor: EpochCursor | None = None,
+                     mesh=None) -> EpochStats:
     """One epoch of the streamed tier: the chunks in the epoch's shuffled
     order, each chunk's segments in its own permutation
     (``source.epoch_schedule``), gathered from the chunk's slot while the
@@ -501,7 +503,9 @@ def run_stream_epoch(state: TrainState, optimizer: Optimizer,
     theirs. From a mid-epoch ``cursor`` the chunks wholly behind it are
     never staged (``epoch_batches(skip_batches=)``); the cursor counts the
     epoch's batches across chunks, and a stop in the middle of a chunk
-    closes the chunk generator, which releases its filler thread."""
+    closes the chunk generator, which releases its filler thread. On a
+    ``mesh`` every rank streams the same schedule and takes its rows of each
+    batch (``rank_views``)."""
     loader.set_epoch(epoch)
     cursor = cursor or EpochCursor(state)
     seg_len = loader.dataset.seg_len
@@ -512,7 +516,7 @@ def run_stream_epoch(state: TrainState, optimizer: Optimizer,
         for chunk in chunks:
             if not run_plan(state, optimizer, source.data, chunk.arrays,
                             chunk.plan, chunk.start_batch, alpha, cursor,
-                            bundle, seg_len):
+                            bundle, seg_len, mesh):
                 break
     cursor.losses.finish()
     if device.type == "cuda":
@@ -614,18 +618,20 @@ class DeviceSplit:
 
 
 def stage_split(loader: SegmentLoader, device: torch.device,
-                mesh_run: bool = False,
-                store_dtype: str = "float32") -> DeviceSplit:
-    """Stage ``loader``'s split (ordered) on ``device`` in ``store_dtype``.
-    Its MAP pass is the chunked one (kernel #8, on float32 or bfloat16 rows)
-    when windows are deterministic, the store is not int8, the batch is a
-    multiple of ``MAP_SPB``, a chunk's region fits the store's slack and
-    the run is not a mesh run, as the JAX loop decides it."""
+                mesh=None, store_dtype: str = "float32",
+                shard_store: bool = False) -> DeviceSplit:
+    """Stage ``loader``'s split (ordered) on ``device`` in ``store_dtype``,
+    on a rank of ``mesh`` row-sharded with ``shard_store``. Its MAP pass is
+    the chunked one (kernel #8, on float32 or bfloat16 rows) when windows
+    are deterministic, the store is not int8, the batch is a multiple of
+    ``MAP_SPB``, a chunk's region fits the store's slack and the run is not
+    a mesh run, as the JAX loop decides it."""
     ds, B = loader.dataset, loader.batch_size
-    source = DeviceDataSource(ds.store, device, store_dtype)
+    source = DeviceDataSource(ds.store, device, store_dtype, mesh=mesh,
+                              shard_store=shard_store)
     plan, arrays = source.stage_epoch(ds, np.arange(len(ds)), B)
     chunked = None
-    if (not mesh_run and not ds.rand_seg and store_dtype != "int8"
+    if (mesh is None and not ds.rand_seg and store_dtype != "int8"
             and B % MAP_SPB == 0
             and (MAP_SPB - 1) * ds.seg_shift + ds.seg_len <= STORE_TAIL_SLACK):
         padded = int((-(-ds.nsegs // MAP_SPB) * MAP_SPB).sum())
@@ -672,7 +678,7 @@ def staged_mb(store, store_dtype: str, rows: int | None = None) -> float:
 
 def stage_train_tier(config: ExperimentConfig, tier: str,
                      train_loader: SegmentLoader, device: torch.device,
-                     verbose: bool, ceiling: int | None = None):
+                     verbose: bool, ceiling: int | None = None, mesh=None):
     """The training tier's source, ``DeviceDataSource`` (``"device"``; or
     ``"round"``, an empty buffer of ``ceiling`` rows for hierarchical
     rounds) or ``StreamingDeviceSource`` (``"stream"``; chunks of
@@ -680,52 +686,60 @@ def stage_train_tier(config: ExperimentConfig, tier: str,
     run's transfer dtype, and the bytes it holds on the device as the dev
     split's budget counts them: the whole store, the ceiling's rows (each
     round is staged into the same buffer, in stream order), or three chunks
-    (two slots and what a draining dispatch still reads, as the JAX loop
-    counts them)."""
+    (two slots and what a draining dispatch still reads), of the whole
+    store whether or not it is row-sharded over ``mesh``
+    (``--shard-device-store``), as the JAX loop counts them."""
     ds, dtype = train_loader.dataset, config.data.transfer_dtype
+    shard = config.data.shard_device_store
     if tier == "round":
         # the ceiling's rows, empty: each round restages its sub-pack
         source = DeviceDataSource(ds.store.subset([], materialize=True),
                                   device, dtype, pad_to_rows=ceiling)
         return source, ceiling * ds.store.dim * staging_itemsize(dtype)
     if tier == "device":
-        source = DeviceDataSource(ds.store, device, dtype)
+        source = DeviceDataSource(ds.store, device, dtype, mesh=mesh,
+                                  shard_store=shard)
         if verbose:
             print(f"Training data device-resident "
-                  f"({staged_mb(ds.store, dtype):.0f} MB staged)")
+                  f"({staged_mb(ds.store, dtype):.0f} MB staged"
+                  f"{', row-sharded' if source.shard_store else ''})")
         return source, ds.store.data.shape[0] * ds.store.dim \
             * staging_itemsize(dtype)
     chunk_bytes = (config.data.stream_chunk_bytes
                    or max(config.data.device_store_max_bytes // 4, 1))
     source = StreamingDeviceSource(ds, chunk_bytes, train_loader.batch_size,
-                                   device, dtype)
+                                   device, dtype, mesh=mesh, shard_store=shard)
     if verbose:
         print(f"Training data streams through the device "
               f"({len(source.chunks)} chunks of "
               f"{staged_mb(ds.store, dtype, source.chunk_rows):.1f} MB in "
-              f"{dtype}, double-buffered; "
+              f"{dtype}, double-buffered"
+              f"{', row-sharded' if source.shard_store else ''}; "
               f"{source.host_bytes_per_epoch() / 1e6:.1f} MB over the link "
-              f"an epoch)")
+              f"an epoch{' a rank' if mesh is not None else ''})")
     return source, 3 * source.chunk_rows * ds.store.dim * source.itemsize
 
 
 def stage_dev_tier(config: ExperimentConfig, dev_loader: SegmentLoader,
                    device: torch.device, train_bytes: int, verbose: bool,
-                   mesh_run: bool = False) -> DeviceSplit | None:
+                   mesh=None) -> DeviceSplit | None:
     """The dev split staged in the run's transfer dtype where it fits what
     the training tier's ``train_bytes`` leave of the budget (``"auto"``
     against the rest, so that a train store that barely fits never runs out
-    of memory for the dev split), or ``None``."""
+    of memory for the dev split; scaled by the model axis when it is
+    row-sharded over ``mesh``), or ``None``."""
     dev_store, dtype = dev_loader.dataset.store, config.data.transfer_dtype
+    shard = config.data.shard_device_store
     if not resolve_data_placement(
-            "auto", dev_store, store_dtype=dtype,
+            "auto", dev_store, mesh, shard_store=shard, store_dtype=dtype,
             max_bytes=max(config.data.device_store_max_bytes - train_bytes,
                           0)):
         return None
-    split = stage_split(dev_loader, device, mesh_run, dtype)
+    split = stage_split(dev_loader, device, mesh, dtype, shard)
     if verbose:
         print(f"Dev split device-resident ({staged_mb(dev_store, dtype):.0f} "
-              f"MB staged)")
+              f"MB staged"
+              f"{', row-sharded' if split.source.shard_store else ''})")
     return split
 
 
@@ -814,9 +828,9 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
     legacy = config.train.legacy
     tier = resolve_tier(placement, ds.store,
                         config.data.device_store_max_bytes,
-                        config.data.transfer_dtype, verbose=first,
-                        mesh_run=mesh is not None, hierarchical=hier,
-                        legacy=legacy)
+                        config.data.transfer_dtype, verbose=first, mesh=mesh,
+                        shard_store=config.data.shard_device_store,
+                        hierarchical=hier, legacy=legacy)
     seg_len, dim, num_seqs = ds.seg_len, ds.store.dim, ds.num_seqs
     ceiling = None
     if hier:
@@ -833,9 +847,9 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
     source, dev_split = None, None
     if tier != "host":
         source, train_bytes = stage_train_tier(config, tier, train_loader,
-                                               dev, verbose, ceiling)
+                                               dev, verbose, ceiling, mesh)
         dev_split = stage_dev_tier(config, dev_loader, dev, train_bytes,
-                                   verbose, mesh_run=mesh is not None)
+                                   verbose, mesh)
     seed = config.train.seed
     model = build_model(config.model.model_type, seg_len * dim, config.model,
                         num_seqs, feat_dim=dim,
@@ -986,7 +1000,7 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
                 elif tier == "stream":
                     stats = run_stream_epoch(state, optimizer, source,
                                              train_loader, alpha, dev, epoch,
-                                             bundle, cursor)
+                                             bundle, cursor, mesh)
                 else:
                     stats = run_epoch(state, optimizer, loader, alpha, dev,
                                       epoch, mesh, bundle, cursor,

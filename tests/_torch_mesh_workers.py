@@ -88,6 +88,33 @@ def train_steps(inp, out_dir, shape, dims, alpha):
     return 0
 
 
+def sharded_gather(inp, out_dir, shape):
+    """The windows of this rank's batch rows gathered from a store staged
+    row-sharded over the model axis (``--shard-device-store``), in each
+    transfer dtype, and the rows the rank staged."""
+    from types import SimpleNamespace
+
+    from pytorch_scalablefhvae_tpu_torch.data.device_store import (
+        DeviceDataSource,
+    )
+    from pytorch_scalablefhvae_tpu_torch.train.device_step import (
+        gather_segments,
+    )
+
+    mesh = pmesh.make_mesh(shape, CPU)
+    with np.load(inp) as z:
+        data, starts, seg_len = z["data"], z["starts"], int(z["seg_len"])
+    starts = torch.from_numpy(starts[mesh.local_rows(len(starts))]).long()
+    out = {}
+    for dtype in ("float32", "bfloat16", "int8"):
+        src = DeviceDataSource(SimpleNamespace(data=data), CPU, dtype,
+                               mesh=mesh, shard_store=True)
+        out[dtype] = gather_segments(src.data, starts, seg_len)
+        out[f"{dtype}.rows"] = src.rows.float()
+    _save(out_dir, **out)
+    return 0
+
+
 def raise_in_rank_one():
     """Rank 1 fails; rank 0 waits for it in a collective."""
     if dist.get_rank() == 1:

@@ -29,6 +29,7 @@ Limits and their reasons:
 """
 
 import json
+import types
 
 import jax
 import jax.numpy as jnp
@@ -400,9 +401,21 @@ def test_resolve_tier_by_the_budget(corpus, capsys, dtype):
 
 
 def test_streamed_tier_on_a_mesh_raises(corpus):
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md, item 10.*--data-placement host"):
-        resolve_tier("auto", store_of(corpus), 1, mesh_run=True)
+    """On a mesh the streamed tier raises only where it raises on one device
+    (``--legacy``), and ``device`` over the budget raises, the budget scaled
+    by the model axis when the store is row-sharded; ``auto`` streams a
+    store over it (``tests/test_torch_mesh_tiers.py`` trains it)."""
+    store = store_of(corpus)
+    nbytes = store.data.shape[0] * store.dim * 4
+    mesh = types.SimpleNamespace(shape=(2, 2))
+    with pytest.raises(ValueError, match="legacy"):
+        resolve_tier("stream", store, nbytes, mesh=mesh, legacy=True)
+    with pytest.raises(ValueError, match="device-store budget"):
+        resolve_tier("device", store, nbytes // 2 - 1, mesh=mesh,
+                     shard_store=True)
+    assert resolve_tier("auto", store, nbytes - 1, mesh=mesh) == "stream"
+    assert resolve_tier("auto", store, nbytes // 2, mesh=mesh,
+                        shard_store=True) == "device"
 
 
 @pytest.mark.parametrize("placement", ["auto", "stream", "device", "host"])

@@ -198,16 +198,13 @@ def test_divergence_exits_2(corpus, tmp_path, capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--mesh", "2,1", "--hierarchical"],
-    pytest.param(["--mesh", "2,1", "--shard-device-store"], id="--mesh 2,1"),
     ["--ckpt-backend", "orbax"], ["--lstm-pallas", "never"],
-    ["--mesh", "2,1", "--data-placement", "stream"],
-    ["--mesh", "2,1", "--transfer-dtype", "bfloat16"],
-    ["--mesh", "2,1", "--transfer-dtype", "int8"],
 ], ids=lambda f: " ".join(f))
 def test_unported_flag_raises(corpus, tmp_path, flags):
-    """(``--mesh`` itself runs now: ``tests/test_torch_parallel.py``; what
-    still raises on a mesh is a store sharded over it, the streamed tier,
-    compressed staging, hierarchical rounds and K-step dispatch.
+    """(``--mesh`` itself runs now: ``tests/test_torch_parallel.py``, and
+    on every data tier, in every transfer dtype and with a store sharded
+    over it: ``tests/test_torch_mesh_tiers.py``; what still raises on a mesh
+    is hierarchical rounds and K-step dispatch.
     ``--steps-per-dispatch``, ``--data-placement stream`` and
     ``--transfer-dtype`` on one device run: ``tests/test_torch_multi_step.py``,
     ``tests/test_torch_stream.py``; ``--ckpt-every-steps`` and
