@@ -233,9 +233,8 @@ prints no result line):
    holds equal bit for bit across the ranks; #7's forward and backward must
    have been launched once per step and rank, #6 and #8 never. The epoch's
    checkpoint is then resumed for one epoch by ``train --mesh 1,2`` (the CLI
-   starts the two ranks itself) and on one device. Last, one epoch of
-   ``--mesh 1,1 --distributed --dist-backend nccl`` in one rank, so that
-   NCCL's MAX and SUM all-reduces run on the card;
+   starts the two ranks itself) and on one device (phase 5k runs the
+   one-rank NCCL epoch);
 5t. the data tiers of the ``2,2`` mesh on phase 4's corpus, four gloo
    ranks on the card started once, each running every CLI run in turn
    with ``--distributed``: ``auto`` over a 256 MiB budget streams the 370
@@ -251,6 +250,29 @@ prints no result line):
    waits at each chunk switch (``switch_waits()``); #7 launched once a
    step forward and backward on rank 0, #6 and #8 never, every LSTM launch
    tensor-core;
+5k. ``--mesh d,m --steps-per-dispatch 8`` on phase 4's corpus. (a) One
+   rank of ``--mesh 1,1 --distributed --dist-backend nccl``: 10 warm
+   dispatches of 8 eager mesh steps under torch.profiler (host wall against
+   device busy, the host calls of most self time), then a mesh bundle from
+   the same start replayed as one CUDA graph a dispatch with its all-reduces
+   inside (host wall, busy and idle share, ``cudaGraphLaunch`` calls, the
+   NCCL kernels among the replayed ones by name, and #1-#4 and #7 counted by
+   the profiler against the wrappers' launches), both states equal bit for
+   bit; then an epoch through the CLI at K = 8 against K = 1 (metrics and
+   every checkpoint array bit for bit; the K = 8 run says that it replays)
+   and K = 1 against phase 4's epoch 0 (``TOL_MESH_EPOCH``), #7 once a
+   step forward and backward; (b) ``--mesh 2,2`` on four gloo ranks on the
+   card, started once, whose bundles run their steps eagerly (the runs say
+   so), each pair bit for bit in its step checkpoint and loss sum: the
+   device tier K = 8 against K = 1 (29 steps), row-sharded against
+   replicated at K = 8, streamed fp32 K = 8 against K = 1 over the first
+   three chunks of 24 MiB and one step more (a chunk whose batches do not
+   fill its last dispatch), and a K = 8 run stopped at 13 steps and
+   resumed to 29 against the run never stopped (loss sum to 1e-12);
+5n. (only when named: ``--only 5n``, on four cards) 5k (a) on a ``2,2``
+   NCCL mesh, a card a rank: the replayed graphs must hold NCCL kernels
+   (a one-rank communicator launches none), every rank's bundle state its
+   eager steps', the CLI epoch at K = 8 the K = 1 epoch's bits;
 4r. step checkpoints and mid-epoch resume at the CLI defaults on phase 4's
    corpus (runs after phase 5, whose epoch it reuses): runs stopped by
    ``--max-steps`` inside an epoch with ``--ckpt-every-steps 50`` (the
@@ -3146,8 +3168,14 @@ def profiled_dispatches(dispatch, k: int) -> dict:
     dispatch late: the first dispatch (eager) and the second (a bundle's
     capture and first replay) timed on the host clock, then 10 warm
     dispatches under torch.profiler: host wall, device busy, copies and
-    kernels per step, and the LSTM chains the profiler saw."""
+    kernels per step, and the LSTM chains the profiler saw; over the same
+    10 dispatches the kernels by name (``names``), the ``cudaGraphLaunch``
+    calls, the kernel wrappers' counts (``counted``: entry name -> launches)
+    and the host calls of most self time (``host``: name, ms a step, calls a
+    step)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from pytorch_scalablefhvae_tpu_torch.train.graphs import launch_counts
 
     t0 = time.perf_counter()
     dispatch(0).tolist()
@@ -3155,6 +3183,7 @@ def profiled_dispatches(dispatch, k: int) -> dict:
     t0 = time.perf_counter()
     dispatch(1).tolist()
     capture = time.perf_counter() - t0
+    before = launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3167,19 +3196,63 @@ def profiled_dispatches(dispatch, k: int) -> dict:
         pending.tolist()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / (10 * k)
-    events = [e for e in prof.key_averages()
+    after = launch_counts()
+    averages = prof.key_averages()
+    events = [e for e in averages
               if e.device_type == torch.autograd.DeviceType.CUDA
               and e.device_time_total > 0]
     kernels = [e for e in events
                if not e.key.startswith(("Memcpy", "Memset"))]
     busy = sum(e.device_time_total for e in events) / 1e3 / (10 * k)
+    host = sorted((e for e in averages
+                   if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)[:12]
     return {"eager": eager, "capture": capture, "wall": wall, "busy": busy,
             "idle": 1 - busy / wall,
             "copies": sum(e.device_time_total for e in events
                           if e.key.startswith("Memcpy")) / 1e3 / (10 * k),
             "launches": sum(e.count for e in kernels) / (10 * k),
             "chains": sum(e.count for e in kernels
-                          if "lstm2_fwd_chain" in e.key)}
+                          if "lstm2_fwd_chain" in e.key),
+            "names": {e.key: e.count for e in kernels},
+            "graph_launches": sum(e.count for e in averages
+                                  if e.key == "cudaGraphLaunch"),
+            "counted": {entry.__name__: after[(entry, c)] - n
+                        for (entry, c), n in before.items()
+                        if c == "launches" and after[(entry, c)] != n},
+            "host": [(e.key, e.self_cpu_time_total / 1e3 / (10 * k),
+                      e.count / (10 * k)) for e in host],
+            "host_by_kind": host_by_kind(averages, 10 * k)}
+
+
+def host_by_kind(averages, steps: int) -> dict:
+    """Self host time a step (ms) of a profiler window's CPU events by
+    kind: CUDA runtime calls that wait for the device (synchronize, event
+    or stream waits, blocking copies) or only issue work (launches,
+    asynchronous copies), the collectives' host side (``c10d``, NCCL),
+    autograd's nodes, the other ATen operators and the rest."""
+    kinds: dict = {}
+    for e in averages:
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        key = e.key
+        if key.startswith("cuda") and ("Synchronize" in key
+                                       or "Wait" in key or key in (
+                                           "cudaMemcpy", "cudaEventQuery")):
+            kind = "runtime, waits"
+        elif key.startswith("cuda"):
+            kind = "runtime, issues"
+        elif "nccl" in key.lower() or "c10d" in key or "comms" in key:
+            kind = "collectives"
+        elif "Backward" in key or key.endswith("Fn") or "autograd" in key:
+            kind = "autograd"
+        elif key.startswith("aten::"):
+            kind = "aten"
+        else:
+            kind = "other"
+        kinds[kind] = kinds.get(kind, 0.0) + e.self_cpu_time_total / 1e3 \
+            / steps
+    return kinds
 
 
 def bundle_breakdown(cfg, root: Path) -> dict:
@@ -5045,23 +5118,6 @@ def _mesh_rank(workdir: str) -> int:
     return rc
 
 
-def _nccl_rank(workdir: str) -> int:
-    """A one-rank ``--mesh 1,1`` run on NCCL: the all-reduces run on
-    the card (MAX and SUM, fp32) although there is nobody to reduce with."""
-    from pytorch_scalablefhvae_tpu_torch.cli.main import main as cli
-    from pytorch_scalablefhvae_tpu_torch.ops import discriminative as disc
-
-    work = Path(workdir)
-    args = json.loads((work / "train_args.json").read_text())
-    rc = cli(args + ["--exp-root", str(work / "experiments_nccl"), "--mesh",
-                     "1,1", "--distributed", "--dist-backend", "nccl",
-                     "--epochs", "1"])
-    (work / "nccl.json").write_text(json.dumps({
-        "rc": rc, "fwd": disc.discriminative_log_qy_sharded.launches,
-        "bwd": disc.discriminative_log_qy_sharded_bwd.launches}))
-    return rc
-
-
 def single_device_steps(cfg, root: Path, work: Path, n_cmp: int = 3,
                         n_more: int = 8) -> None:
     """The first ``n_cmp`` steps on one device through the kernels: their
@@ -5198,24 +5254,6 @@ def phase_mesh(workdir: Path, cfg, single_epoch0: dict | None) -> dict:
         raise AssertionError("the mesh checkpoint does not resume the same "
                              "on another mesh and on one device")
 
-    # NCCL: one rank, all-reduces run on the card
-    codes = run_ranks(_nccl_rank, 1, (str(workdir),), backend="nccl",
-                      device="cuda", timeout_s=120, join_timeout_s=300)
-    info = json.loads((workdir / "nccl.json").read_text()) \
-        if (workdir / "nccl.json").exists() else None
-    log(f"--mesh 1,1 --distributed --dist-backend nccl, one rank: exit "
-        f"{codes}, {info}")
-    nccl = read_metrics(workdir / "experiments_nccl", 1)[0]
-    gap = abs(nccl["train_loss"] - single_epoch0["train_loss"]) \
-        / abs(single_epoch0["train_loss"])
-    log(f"its epoch 0 train loss {nccl['train_loss']!r} differs from the run "
-        f"without a mesh by {gap:.3e} relative (tol {TOL_MESH_EPOCH:g}); "
-        f"{1e3 * nccl['train_seconds'] / nccl['train_steps']:.2f} ms/step")
-    if codes != [0] or info["fwd"] != steps or info["bwd"] != steps \
-            or not gap <= TOL_MESH_EPOCH:
-        raise AssertionError("the one-rank NCCL run failed, did not go "
-                             "through kernel #7, or disagrees with the run "
-                             "without a mesh")
     return ranks[0]["launches"]
 
 
@@ -5227,12 +5265,12 @@ TIERS_CAP = 20             # 5t: steps of the auto run and the device pair
 TIERS_INT8_CAP = 40        # 5t: steps of the int8 pair (~4 chunks of ~33)
 
 
-def _mesh_tiers_rank(workdir: str) -> int:
-    """One rank of phase 5t's ``2,2`` mesh: every run of ``tiers.json``
-    through the CLI in turn, then this rank's launches over all of them
-    (counted from 0 before the first), each run's wall seconds and the
-    waits at each chunk switch of its streamed epochs (``switch_waits()``),
-    into ``tiers_rank<r>.json``."""
+def _mesh_runs_rank(workdir: str, runs_name: str = "tiers") -> int:
+    """One rank of a ``2,2`` gloo mesh (phases 5t and 5k): every run of
+    ``<runs_name>.json`` through the CLI in turn, then this rank's launches
+    over all of them (counted from 0 before the first), each run's wall
+    seconds and the waits at each chunk switch of its streamed epochs
+    (``switch_waits()``), into ``<runs_name>_rank<r>.json``."""
     import torch.distributed as dist
 
     from pytorch_scalablefhvae_tpu_torch.cli.main import main as cli
@@ -5240,7 +5278,7 @@ def _mesh_tiers_rank(workdir: str) -> int:
 
     work = Path(workdir)
     rank = dist.get_rank()
-    runs = json.loads((work / "tiers.json").read_text())
+    runs = json.loads((work / f"{runs_name}.json").read_text())
     real, current, waits = loop.run_stream_epoch, [None], {}
 
     def spy(state, optimizer, source, *args, **kw):
@@ -5264,7 +5302,7 @@ def _mesh_tiers_rank(workdir: str) -> int:
     out["launches"] = {e.__name__: e.launches for e in mesh_entries()}
     out["launches_tc"] = tensor_core_counts(mesh_entries())
     out["waits"] = waits
-    (work / f"tiers_rank{rank}.json").write_text(json.dumps(out))
+    (work / f"{runs_name}_rank{rank}.json").write_text(json.dumps(out))
     return 0
 
 
@@ -5356,7 +5394,7 @@ def phase_mesh_tiers(workdir: Path, cfg) -> dict:
 
     t0 = time.perf_counter()
     world = MESH[0] * MESH[1]
-    codes = run_ranks(_mesh_tiers_rank, world, (str(work),), backend="gloo",
+    codes = run_ranks(_mesh_runs_rank, world, (str(work),), backend="gloo",
                       device="cuda", timeout_s=120, join_timeout_s=600)
     log(f"5t: the {world} ranks exited with {codes} after "
         f"{time.perf_counter() - t0:.1f} s")
@@ -5463,6 +5501,349 @@ def phase_mesh_tiers(workdir: Path, cfg) -> dict:
     log(f"phase 5t took {time.perf_counter() - t_phase:.1f} s; card "
         f"{smi_name_power()}")
     return c
+
+
+# ------------------------------------------------------------- phase 5k
+
+MESH_K = 8          # 5k: steps per dispatch on a mesh
+MESH_K_CAP = 29     # 5k (b): --max-steps of the device-tier pairs: three
+                    # dispatches of 8, then 5 steps clamped to eager ones
+MESH_K_STOP = 13    # 5k (b): the stopped run: a dispatch and 5 clamped
+                    # steps; resumed to MESH_K_CAP in two dispatches
+MESH_K_CHUNKS = 3   # 5k (b): the streamed pair runs this many chunks of
+                    # epoch 0 and one step of the next
+# 5k (a): the kernel that each call of an entry launches once in the
+# tensor-core forms on a mesh step, and the entries that launch it
+MESH_TRACE_KERNELS = {
+    "lstm2_fwd_xproj_kernel": ("lstm2_tm_proj",),
+    "lstm2_fwd_chain_kernel": ("lstm2_tm_proj", "lstm2_tm"),
+    "lstm2_bwd_chain_kernel": ("lstm2_tm_proj_bwd", "lstm2_tm_bwd"),
+    "disc_fwd_kernel": ("discriminative_log_qy_sharded",),
+    "disc_bwd_fused_kernel": ("discriminative_log_qy_sharded_bwd",),
+}
+
+
+def _mesh_k_nccl_rank(workdir: str, data_root: str, shape: tuple) -> int:
+    """A rank of an NCCL mesh of ``shape`` (phase 5k (a): one rank, ``1,1``;
+    5n: ``2,2`` on four cards). First 12 dispatches of ``MESH_K`` steps on
+    epoch 0's staged plan, eager on the mesh and replayed from a mesh
+    bundle, each from the seeded model, the last 10 of each under
+    torch.profiler (:func:`profiled_dispatches`), the two states compared
+    bit for bit; then ``--epochs 1`` through the CLI at K = 1 and K =
+    ``MESH_K``, each counted alone. Writes ``nccl_k_rank<r>.json``."""
+    from pytorch_scalablefhvae_tpu_torch.cli.main import main as cli
+    from pytorch_scalablefhvae_tpu_torch.config import ExperimentConfig
+    from pytorch_scalablefhvae_tpu_torch.parallel import mesh as mesh_module
+    from pytorch_scalablefhvae_tpu_torch.train.device_step import (
+        PlanInputs,
+        device_train_step,
+    )
+    from pytorch_scalablefhvae_tpu_torch.train.graphs import StepBundle
+    from pytorch_scalablefhvae_tpu_torch.train.step import (
+        create_train_state,
+        make_optimizer,
+    )
+
+    work, root = Path(workdir), Path(data_root)
+    cfg = ExperimentConfig.load(work / "config.json")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = mesh_module.make_mesh(shape, dev)
+    loader, source, plan, arrays = staged_epoch0(cfg, root)
+    rows, seg_len, k = loader.batch_size, cfg.data.seg_len, MESH_K
+    n_disp = plan.n_batches // k
+    opt = make_optimizer(1e-3, 0.95, 0.999)
+    states = [create_train_state(mesh_module.shard_model(seeded_model(cfg),
+                                                         mesh))
+              for _ in range(2)]
+
+    def eager(d: int) -> torch.Tensor:
+        return torch.stack([device_train_step(
+            states[0], opt, source.data, arrays, ((d % n_disp) * k + i) * rows,
+            plan.n_real, 10.0, batch_size=rows, seg_len=seg_len,
+            mesh=mesh)["loss"] for i in range(k)])
+
+    inputs = PlanInputs(source.data, rows, seg_len, mesh)
+    inputs.load_plan(arrays, plan.n_real)
+    bundle = StepBundle(states[1], opt, 10.0, k, inputs, dev, mesh)
+
+    def replayed(d: int) -> torch.Tensor:
+        inputs.set_base((d % n_disp) * k * rows)
+        return bundle()["loss"].clone()
+
+    out = {"eager": profiled_dispatches(eager, k),
+           "replayed": profiled_dispatches(replayed, k),
+           "replays": bundle.replays, "backend": mesh.backend}
+    a, b = states
+    out["differ"] = [n for n in a.params()
+                     if not (torch.equal(a.params()[n], b.params()[n])
+                             and torch.equal(a.mu[n], b.mu[n])
+                             and torch.equal(a.nu[n], b.nu[n]))]
+    out["steps"] = [a.step, b.step]
+    del a, b, states, bundle, inputs, loader, source, arrays
+    torch.cuda.empty_cache()
+
+    args = json.loads((work / "train_args.json").read_text())
+    for kk in (1, k):
+        reset_counts(mesh_entries())
+        out[f"text_k{kk}"] = run_cli(cli, args + [
+            "--exp-root", str(work / f"nccl_k{kk}"), "--mesh",
+            f"{shape[0]},{shape[1]}", "--distributed", "--dist-backend",
+            "nccl", "--epochs", "1", "--steps-per-dispatch", str(kk)])
+        out[f"launches_k{kk}"] = {e.__name__: e.launches
+                                  for e in mesh_entries()}
+        out[f"launches_tc_k{kk}"] = tensor_core_counts(mesh_entries())
+    (work / f"nccl_k_rank{mesh.rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def nccl_mesh_k(work: Path, root: Path, shape: tuple, tag: str,
+                single_epoch0: dict | None = None) -> dict:
+    """The ranks of an NCCL mesh of ``shape``, a card each
+    (:func:`_mesh_k_nccl_rank`), and what rank 0 saw: the eager step's host
+    wall against device busy and its host time by kind; the replayed
+    bundle's ms/step, busy and idle share, ``cudaGraphLaunch`` calls, the
+    NCCL kernels among the replayed kernels and #1-#4 and #7 by the
+    profiler against the wrappers; every rank's bundle state equal to its
+    eager steps'; the CLI epoch at K = ``MESH_K`` against K = 1, bit for
+    bit, #7 once a step forward and backward; K = 1 against the run
+    without a mesh where it is given. Returns rank 0's record."""
+    from pytorch_scalablefhvae_tpu_torch.parallel.launch import run_ranks
+
+    world = shape[0] * shape[1]
+    t0 = time.perf_counter()
+    codes = run_ranks(_mesh_k_nccl_rank, world, (str(work), str(root),
+                                                 shape),
+                      backend="nccl", device="cuda", timeout_s=120,
+                      join_timeout_s=600)
+    log(f"{tag}: the {world} NCCL ranks exited with {codes} after "
+        f"{time.perf_counter() - t0:.1f} s")
+    if codes != [0] * world:
+        raise AssertionError(f"{tag}: the NCCL ranks exited with {codes}")
+    ranks = [json.loads((work / f"nccl_k_rank{r}.json").read_text())
+             for r in range(world)]
+    info = ranks[0]
+    pe, pr = info["eager"], info["replayed"]
+    kinds = {k: round(v, 3) for k, v in sorted(
+        pe["host_by_kind"].items(), key=lambda kv: -kv[1])}
+    waits = [(n, round(ms, 3), round(c, 2)) for n, ms, c in pe["host"]]
+    log(f"{tag} the eager NCCL mesh step {shape}, rank 0, 10 warm "
+        f"dispatches of {MESH_K} steps at batch {B_TRAIN} (profiler on): "
+        f"host wall {pe['wall']:.3f} ms/step against device busy "
+        f"{pe['busy']:.3f} (idle share {pe['idle']:.3f}, "
+        f"{pe['launches']:.1f} kernels a step); host self time by kind, ms "
+        f"a step: {kinds}; host calls by self time (name, ms a step, calls "
+        f"a step): {waits}")
+    nccl = {n: c for n, c in pr["names"].items() if "nccl" in n.lower()}
+    rows_ = []
+    for kernel, names in MESH_TRACE_KERNELS.items():
+        rows_.append((kernel, sum(c for n, c in pr["names"].items()
+                                  if kernel in n),
+                      sum(pr["counted"].get(n, 0) for n in names)))
+    differ = {r: x["differ"] for r, x in enumerate(ranks) if x["differ"]}
+    log(f"{tag} the mesh bundle replayed, backend {info['backend']}, "
+        f"replays {info['replays']}: eager first dispatch {pr['eager']:.3f} "
+        f"ms/step, capture and first replay {pr['capture']:.3f} s; 10 warm "
+        f"replays: host wall {pr['wall']:.3f} ms/step, device busy "
+        f"{pr['busy']:.3f} (idle share {pr['idle']:.3f}), "
+        f"{pr['launches']:.1f} kernels a step, {pr['graph_launches']} "
+        f"cudaGraphLaunch; NCCL kernels among the replayed kernels: {nccl}; "
+        f"kernel (profiler count vs the wrappers' launches): "
+        + ", ".join(f"{n} {t} vs {w}" for n, t, w in rows_)
+        + f"; against the eager steps {pe['wall']:.3f} ms/step, busy "
+        f"{pe['busy']:.3f}; rank states after {info['steps']} steps, bundle "
+        f"vs eager, differing {differ}; card {smi_name_power()}")
+    if not (info["replays"] and info["backend"] == "nccl"
+            and pr["graph_launches"] == 10 and not differ
+            and info["steps"][0] == info["steps"][1]
+            and all(t == w > 0 for _, t, w in rows_)
+            and (world == 1 or nccl)):
+        raise AssertionError(f"{tag}: the NCCL mesh bundle did not replay "
+                             f"one graph a dispatch through the kernels (and "
+                             f"the collectives), or its state differs from "
+                             f"the eager steps'")
+    said = (f"{MESH_K} steps per dispatch, replayed as one CUDA graph "
+            f"(NCCL all-reduces inside)")
+    if said not in info[f"text_k{MESH_K}"]:
+        raise AssertionError(f"{tag}: the K = {MESH_K} run did not say "
+                             f"{said!r}")
+    k1 = metrics_of(work / "nccl_k1")[0]
+    k8 = metrics_of(work / f"nccl_k{MESH_K}")[0]
+    log(f"{tag} CLI epoch on the NCCL mesh {shape}, K = {MESH_K} vs K = 1: "
+        f"{k8['train_steps']} steps, train loss {k8['train_loss']!r} vs "
+        f"{k1['train_loss']!r}; "
+        f"{1e3 * k8['train_seconds'] / k8['train_steps']:.3f} vs "
+        f"{1e3 * k1['train_seconds'] / k1['train_steps']:.3f} ms/step "
+        f"(the K = {MESH_K} epoch's first dispatch eager, its second a "
+        f"capture, its last {int(k8['train_steps']) % MESH_K} steps eager); "
+        f"rank 0's launches K = {MESH_K} {info[f'launches_k{MESH_K}']}, K = "
+        f"1 {info['launches_k1']}")
+    equal_runs(f"{tag} NCCL mesh {shape}, K = {MESH_K} vs K = 1",
+               run_dir(work / f"nccl_k{MESH_K}", 1),
+               run_dir(work / "nccl_k1", 1), [0])
+    steps = int(k1["train_steps"])
+    for kk in (1, MESH_K):
+        c = info[f"launches_k{kk}"]
+        check_tensor_core(c, info[f"launches_tc_k{kk}"], f"{tag}, K = {kk}")
+        if not (c["discriminative_log_qy_sharded"] == steps
+                and c["discriminative_log_qy_sharded_bwd"] == steps
+                and c["discriminative_log_qy_bwd"] == 0
+                and c["windowed_chunk_gather"] == 0):
+            raise AssertionError(f"{tag} K = {kk}: kernel #7 must be "
+                                 f"launched once a step forward and "
+                                 f"backward, #6 and #8 never: {c}")
+    if single_epoch0 is not None:
+        gap = abs(k1["train_loss"] - single_epoch0["train_loss"]) \
+            / abs(single_epoch0["train_loss"])
+        log(f"{tag} the NCCL mesh's epoch 0 train loss {k1['train_loss']!r} "
+            f"differs from the run without a mesh by {gap:.3e} relative "
+            f"(tol {TOL_MESH_EPOCH:g})")
+        if not gap <= TOL_MESH_EPOCH:
+            raise AssertionError(f"{tag}: the NCCL mesh's epoch disagrees "
+                                 f"with the run without a mesh")
+    return info
+
+
+def mesh_k_workdir(workdir: Path, cfg, name: str):
+    """A phase's directory, phase 4's config with the shared pack cache
+    (saved there for the ranks) and the CLI's train arguments."""
+    root, work = workdir / "data", workdir / name
+    work.mkdir()
+    pack = ["--pack-cache-dir", str(workdir / "tiers_pack")]
+    cached = cfg.replace(data=dataclasses.replace(cfg.data,
+                                                  pack_cache_dir=pack[1]))
+    cached.save(work / "config.json")
+    (work / "train_args.json").write_text(json.dumps([
+        "train", "--dataset", "synthetic", "--preprocessed", "--data-root",
+        str(root), "--mvn-path", cfg.data.mvn_path, *pack]))
+    return root, work, cached, pack
+
+
+def phase_mesh_k_cards(workdir: Path, cfg) -> dict:
+    """Phase 5n (only when named, on four cards): :func:`nccl_mesh_k` on a
+    ``2,2`` NCCL mesh, a card a rank, whose replayed graphs hold the NCCL
+    all-reduce kernels (a one-rank communicator launches none). Returns
+    rank 0's launches of the K = ``MESH_K`` epoch."""
+    from pytorch_scalablefhvae_tpu_torch.train.driver import build_loaders
+
+    n = torch.cuda.device_count()
+    log(f"== phase 5n: sfhvae train --mesh {MESH[0]},{MESH[1]} "
+        f"--dist-backend nccl --steps-per-dispatch {MESH_K} on {n} cards")
+    if n < MESH[0] * MESH[1]:
+        raise AssertionError(f"5n needs {MESH[0] * MESH[1]} cards, found {n}")
+    t_phase = time.perf_counter()
+    root, work, cached, _ = mesh_k_workdir(workdir, cfg, "mesh_k_cards")
+    build_loaders(cached, root, True)  # the pack, before the ranks read it
+    info = nccl_mesh_k(work, root, MESH, "5n")
+    log(f"phase 5n took {time.perf_counter() - t_phase:.1f} s; cards "
+        f"{smi_name_power()}")
+    return info[f"launches_k{MESH_K}"]
+
+
+def phase_mesh_k(workdir: Path, cfg, single_epoch0: dict | None) -> dict:
+    """Phase 5k: ``train --mesh d,m --steps-per-dispatch MESH_K`` on phase
+    4's corpus. (a) One NCCL rank (``--mesh 1,1 --distributed``): where its
+    eager step's time goes; a mesh bundle replayed as one CUDA graph
+    against the same rank's eager steps (bits, ms/step, busy and idle
+    share, the graph launches, the NCCL kernels and #1-#4 and #7 the
+    profiler sees against the wrappers' counts); an epoch through the CLI
+    at K = 8 against K = 1, bit for bit, and K = 1 against one device.
+    (b) Four gloo ranks on the card (``--mesh 2,2``, started once), whose
+    bundles run eagerly: the device tier K = 8 against K = 1, row-sharded
+    against replicated at K = 8, streamed K = 8 against K = 1 over chunks
+    that split a dispatch window, and a K = 8 run stopped by
+    ``--max-steps`` and resumed against the run never stopped, each bit
+    for bit. Returns the NCCL K = 8 epoch's launches (``mesh_k8``)."""
+    from pytorch_scalablefhvae_tpu_torch.parallel.launch import run_ranks
+
+    log(f"== phase 5k: sfhvae train --mesh d,m --steps-per-dispatch "
+        f"{MESH_K}: one NCCL rank replays each dispatch as one CUDA graph; "
+        f"{MESH[0] * MESH[1]} gloo ranks on the card run theirs eagerly")
+    t_phase = time.perf_counter()
+    root, work, cached, pack = mesh_k_workdir(workdir, cfg, "mesh_k")
+
+    # (a) one NCCL rank
+    info = nccl_mesh_k(work, root, (1, 1), "5k (a)", single_epoch0)
+    torch.cuda.empty_cache()
+
+    # (b) four gloo ranks on the card
+    batches = stream_chunk_batches(cached, root)[:MESH_K_CHUNKS]
+    s_cap = sum(batches) + 1
+    if all(n % MESH_K == 0 for n in batches):
+        raise AssertionError(f"5k (b): no chunk of {batches} leaves a "
+                             f"dispatch window to split")
+    chunk = ["--stream-chunk-bytes", str(STREAM_BUDGET // 4)]
+    device = ["--data-placement", "device"]
+    kf = ("--steps-per-dispatch", str(MESH_K))
+    flags = {
+        # first: each rank's first run pays its warm-up (cuBLAS, modules)
+        "stopped": [*device, *kf, "--max-steps", str(MESH_K_STOP)],
+        "device K1": [*device, "--max-steps", str(MESH_K_CAP)],
+        "device K8": [*device, *kf, "--max-steps", str(MESH_K_CAP)],
+        "device sharded K8": [*device, "--shard-device-store", *kf,
+                              "--max-steps", str(MESH_K_CAP)],
+        "stream K1": ["--data-placement", "stream", *chunk, "--max-steps",
+                      str(s_cap)],
+        "stream K8": ["--data-placement", "stream", *chunk, *kf,
+                      "--max-steps", str(s_cap)],
+    }
+    exp = {name: work / name.replace(" ", "_") for name in flags}
+    mesh = ["--mesh", f"{MESH[0]},{MESH[1]}"]
+    runs = {name: train_args(cfg, root, exp[name], *mesh, *pack, *f,
+                             "--epochs", "1")
+            for name, f in flags.items()}
+    runs["resumed"] = ["train", "--dataset", "synthetic", "--preprocessed",
+                       "--data-root", str(root), "--continue-from",
+                       str(run_dir(exp["stopped"], 1)
+                           / f"fhvae_synthetic_np_fbank_e0s{MESH_K_STOP}.npz"),
+                       "--resume-override", f"max_steps={MESH_K_CAP}"]
+    (work / "mesh_k.json").write_text(json.dumps(runs))
+    t0 = time.perf_counter()
+    world = MESH[0] * MESH[1]
+    codes = run_ranks(_mesh_runs_rank, world, (str(work), "mesh_k"),
+                      backend="gloo", device="cuda", timeout_s=120,
+                      join_timeout_s=600)
+    log(f"5k (b): the {world} gloo ranks exited with {codes} after "
+        f"{time.perf_counter() - t0:.1f} s")
+    if codes != [0] * world:
+        raise AssertionError(f"5k (b): the mesh's ranks exited with {codes}")
+    texts = json.loads((work / "mesh_k_rank0.json").read_text())["texts"]
+    eager_line = (f"{MESH_K} steps per dispatch, run eagerly: gloo "
+                  f"all-reduces pass through the host")
+    if not all(eager_line in texts[n] for n in flags if "K8" in n):
+        raise AssertionError(f"5k (b): the gloo runs did not say "
+                             f"{eager_line!r}")
+
+    def same_steps(name: str, a: str, b: str, steps: int,
+                   loss_rtol: float = 0.0) -> None:
+        stem = f"fhvae_synthetic_np_fbank_e0s{steps}.npz"
+        differ = differing_arrays(run_dir(exp[a], 1) / stem,
+                                  run_dir(exp[b], 1) / stem)
+        ma, mb_ = (mid_epoch(run_dir(exp[n], 1), steps) for n in (a, b))
+        gap = abs(ma["loss_sum"] - mb_["loss_sum"]) / abs(mb_["loss_sum"])
+        log(f"5k (b) {name}, {steps} steps: loss sums {ma['loss_sum']!r} vs "
+            f"{mb_['loss_sum']!r} (relative gap {gap:.3e}, tol "
+            f"{loss_rtol:g}); checkpoint arrays differing {differ}; "
+            f"{1e3 * ma['elapsed_s'] / steps:.2f} vs "
+            f"{1e3 * mb_['elapsed_s'] / steps:.2f} ms/step (rank 0's host "
+            f"clock)")
+        if differ or not gap <= loss_rtol \
+                or ma["count_sum"] != mb_["count_sum"]:
+            raise AssertionError(f"5k (b) {name}: the runs differ")
+
+    same_steps(f"device tier, K = {MESH_K} vs K = 1", "device K8",
+               "device K1", MESH_K_CAP)
+    same_steps(f"device tier at K = {MESH_K}, row-sharded vs replicated",
+               "device sharded K8", "device K8", MESH_K_CAP)
+    log(f"5k (b) the streamed pair: epoch 0's first chunks take {batches} "
+        f"batches, the runs stop at step {s_cap}")
+    same_steps(f"streamed fp32, K = {MESH_K} vs K = 1", "stream K8",
+               "stream K1", s_cap)
+    same_steps(f"device tier K = {MESH_K}, stopped at {MESH_K_STOP} and "
+               f"resumed vs never stopped", "stopped", "device K8",
+               MESH_K_CAP, loss_rtol=1e-12)
+    log(f"phase 5k took {time.perf_counter() - t_phase:.1f} s; card "
+        f"{smi_name_power()}")
+    return info[f"launches_k{MESH_K}"]
 
 
 # -------------------------------------------------------------- phase 4r
@@ -6123,8 +6504,9 @@ def main(argv=None) -> int:
     parser.add_argument("--only", default=None,
                         help="comma-separated phases to run after phase 1 "
                              "(2, 2f, 2b, 2c, 2d, 2e, 3, 3b, 4, 4k, 4s, 4h, "
-                             "4m, 4p, 4b, 4q, 5, 5t, 4r, 4l; 2 includes 2f, 4k, "
-                             "4b and 4r need 4); default all")
+                             "4m, 4p, 4b, 4q, 5, 5t, 5k, 4r, 4l; 5n, on four "
+                             "cards, only when named; 2 includes 2f, 4k, "
+                             "4b and 4r need 4); default all but 5n")
     only = parser.parse_args(argv).only
     only = None if only is None else set(only.split(","))
     if only is not None and "2" in only:
@@ -6133,7 +6515,9 @@ def main(argv=None) -> int:
         only.add("4")
 
     def on(phase: str) -> bool:
-        return only is None or phase in only
+        # 5n needs four cards: it runs only when named
+        return (only is None and phase != "5n") or (only is not None
+                                                    and phase in only)
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -6170,7 +6554,7 @@ def main(argv=None) -> int:
                 write_corpus(workdir / "wav")
             by_path["preprocess"] = timed("3b", phase_preprocess, workdir)
         if any(on(p) for p in ("4", "4s", "4h", "4m", "4p", "5", "5t",
-                               "4l")):
+                               "5k", "5n", "4l")):
             cfg = timed("corpus", write_feature_corpus, workdir / "data")
             log(f"corpus written in {seconds['corpus']:.1f} s")
         epoch0 = None
@@ -6198,6 +6582,12 @@ def main(argv=None) -> int:
             by_path["mesh"] = timed("5", phase_mesh, workdir, cfg, epoch0)
         if on("5t"):
             by_path["mesh_tiers"] = timed("5t", phase_mesh_tiers, workdir, cfg)
+        if on("5k"):
+            by_path["mesh_k8"] = timed("5k", phase_mesh_k, workdir, cfg,
+                                       epoch0)
+        if on("5n"):
+            by_path["mesh_k8_cards"] = timed("5n", phase_mesh_k_cards,
+                                             workdir, cfg)
         if on("4r"):
             by_path["train_resume"] = timed("4r", phase_resume, workdir, cfg)
         if on("4l"):

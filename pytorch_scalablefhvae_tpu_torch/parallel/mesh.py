@@ -70,6 +70,11 @@ class Mesh:
     def model_index(self) -> int:
         return self.rank % self.shape[1]
 
+    @property
+    def backend(self) -> str:
+        """The process groups' backend: ``"nccl"`` or ``"gloo"``."""
+        return str(dist.get_backend(self.data_group))
+
     def _group(self, axis: str):
         if axis not in (DATA_AXIS, MODEL_AXIS):
             raise ValueError(f"unknown mesh axis {axis!r}")

@@ -10,8 +10,9 @@ index plan on the device, and build each batch there:
   ``train_step``;
 - :class:`PlanInputs`: the inputs of the K-step bundle (``train/graphs.py``,
   ``make_device_train_step(k)``): the epoch's plan in persistent buffers,
-  and step ``i`` of a dispatch reading the plan's rows at ``base + i * B``,
-  with ``base`` and ``n_real`` device scalars (:func:`batch_views_at`);
+  and step ``i`` of a dispatch reading the plan's rows at ``base + i * B``
+  (on a mesh this rank's rows of them), with ``base`` and ``n_real``
+  device scalars (:func:`batch_views_at`);
 - :func:`device_eval_pass`: per-batch weighted metric sums over a split,
   stacked on the device;
 - :func:`device_map_pass` (array plan) and :func:`device_map_pass_chunked`
@@ -123,7 +124,8 @@ def _plan_rows(store, seq_idx, starts, nsegs_tab, pos, n_real, seg_len: int):
 def batch_views_at(store, seq_idx_all, starts_all, nsegs_tab, off, n_real, *,
                    rows: torch.Tensor, seg_len: int):
     """:func:`batch_views` with ``off`` and ``n_real`` as 0-dim device
-    tensors and ``rows = arange(batch_size)`` on the device: the plan's rows
+    tensors and ``rows = arange(batch_size)`` on the device (on a mesh the
+    rank's ``arange(lo, hi)``, :func:`rank_views`'s rows): the plan's rows
     are picked by ``index_select`` at ``off + rows``, so a captured graph
     reads wherever the scalars point at replay time. The same gathers, so
     the same bits."""
@@ -136,19 +138,23 @@ def batch_views_at(store, seq_idx_all, starts_all, nsegs_tab, off, n_real, *,
 class PlanInputs:
     """The K-step bundle's inputs on a staged store (the device tier's
     whole store, or the streamed tier's two slots, whose address stays the
-    same whichever slot a chunk lands in): the plan ``(seq_idx_all,
-    starts_all, nsegs_tab)`` of an epoch or of a chunk copied into
-    persistent buffers (each plan is uploaded to new tensors; the graph
-    keeps the first addresses), the real-row count and the dispatch's first
-    plan row as device scalars."""
+    same whichever slot a chunk lands in; replicated or a ``RowShard``): the
+    plan ``(seq_idx_all, starts_all, nsegs_tab)`` of an epoch or of a chunk
+    copied into persistent buffers (each plan is uploaded to new tensors;
+    the graph keeps the first addresses), the real-row count and the
+    dispatch's first plan row as device scalars. On a ``mesh`` step ``i``
+    reads this rank's rows of its batch, plan rows ``base + i * batch_size
+    + local_rows``, as :func:`rank_views` reads them."""
 
-    def __init__(self, store, batch_size: int, seg_len: int):
+    def __init__(self, store, batch_size: int, seg_len: int, mesh=None):
         dev = store.device
         self.store, self.batch_size, self.seg_len = store, batch_size, seg_len
         self.plan = None
         self.base = torch.zeros((), dtype=torch.long, device=dev)
         self.n_real = torch.zeros((), dtype=torch.long, device=dev)
-        self.rows = torch.arange(batch_size, device=dev)
+        rows = (slice(0, batch_size) if mesh is None
+                else mesh.local_rows(batch_size))
+        self.rows = torch.arange(rows.start, rows.stop, device=dev)
 
     def load_plan(self, arrays, n_real: int) -> None:
         """This epoch's plan (``DeviceDataSource.stage_epoch``'s arrays) or

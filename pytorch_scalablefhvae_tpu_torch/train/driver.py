@@ -45,14 +45,12 @@ def check_ported(config: ExperimentConfig) -> None:
     (``train/loop.py`` :class:`EpochCursor`); the loop refuses them with
     ``--legacy`` by a ``ValueError``, as the JAX loop does. A mesh runs
     every data tier in every transfer dtype, with or without
-    ``--shard-device-store``, which is a no-op on one device, as in the JAX
-    package."""
+    ``--shard-device-store`` (a no-op on one device, as in the JAX
+    package), at any ``--steps-per-dispatch``."""
     t = config.train
     on_mesh = tuple(t.mesh_shape) != (1, 1)
     refused = {
         "--mesh with --hierarchical": on_mesh and t.sample_hierarchical,
-        "--mesh with --steps-per-dispatch > 1":
-            on_mesh and t.steps_per_dispatch > 1,
         "--ckpt-backend orbax": t.ckpt_backend == "orbax",
     }
     for flag, hit in refused.items():

@@ -3,9 +3,10 @@
 Counterpart of the JAX package's ``make_multi_train_step``
 (``train/step.py``), whose ``lax.scan`` runs K optimizer steps over stacked
 ``[K, B, ...]`` batches in one dispatched program; ``train/device_step.py``
-builds the same bundle over the staged store (``make_device_train_step(k)``).
-A step issued from Python costs several times its device work in host
-launches; replaying a graph of K steps issues them all at once.
+builds the same bundle over the staged store (``make_device_train_step(k)``)
+and ``parallel/sharded_step.py``'s ``make_sharded_multi_train_step`` the
+same on a mesh. A step issued from Python costs several times its device
+work in host launches; replaying a graph of K steps issues them all at once.
 
 :class:`StepBundle` runs the K steps through ``train/step.py``'s
 :func:`step_body`, the eager step's own body, so both give the same bits.
@@ -15,28 +16,38 @@ before each replay:
 - the batch inputs, through an inputs object whose ``views(i)`` gives step
   ``i``'s ``(feats, seq_idx, nsegs, weight)`` (:class:`HostInputs` here:
   static ``[K, B, ...]`` buffers filled from the host loader; the device
-  tier's plan offsets in ``train/device_step.py``);
+  tier's plan offsets in ``train/device_step.py``); on a mesh, this rank's
+  rows of each batch;
 - the K steps' Adam bias corrections, ``[K, 2]`` fp32, computed on the host
   from ``state.count`` as the eager step computes them
   (``Optimizer.bias_corrections``);
 - K persistent generators, one per step, registered with the graph and
   seeded before each replay from ``(seed, step + i)``: each step draws what
-  ``step_noise`` draws for it, so a resumed run repeats an uninterrupted one
+  ``step_noise`` draws for it (on a mesh the whole batch's noise, of which
+  the rank keeps its rows), so a resumed run repeats an uninterrupted one
   and no generator state is saved.
 
 Host state stays out of the graph: ``state.count`` and ``state.step`` are
 counted here per dispatch, and the kernel wrappers' launch counters, which
 count once while the capture runs the Python, are put back after the capture
-and advanced by the capture's counts at every replay.
+and advanced by the capture's counts at every replay (each rank of a mesh
+keeps its own).
 
-On a GPU the first dispatch runs the body eagerly: those are real steps, and
-they build the kernels and initialise cuBLAS, autograd and every kernel's
-shared-memory opt-in before anything is captured. The second dispatch
-captures the graph and replays it, and every later one replays it. A failed
-capture or replay raises; nothing falls back to eager steps. On the CPU
-every dispatch runs the body eagerly through the same buffers, with noise
-drawn from the same generators or handed in (the tests hand in the JAX
-draws).
+Whether a bundle replays a graph is decided by configuration before its
+first dispatch (:func:`replays_graph`): on a GPU without a mesh, or on a
+mesh whose backend is NCCL, whose all-reduces are kernels on the card and
+are captured with the steps (the data group's gradient sum, the model
+group's reductions of the sharded ``log_qy`` and of the clip, the row-sharded
+store's gather). gloo's all-reduce of a CUDA tensor passes through the host
+and cannot be captured: with gloo, as on the CPU, every dispatch runs the
+body eagerly through the same buffers, with noise drawn from the same
+generators or handed in (the tests hand in the JAX draws). Where it
+replays, the first dispatch runs the body eagerly: those are real steps,
+and they build the kernels and initialise cuBLAS, autograd, every kernel's
+shared-memory opt-in and every NCCL communicator of the step before
+anything is captured. The second dispatch captures the graph and replays
+it, and every later one replays it. A failed capture or replay raises;
+nothing falls back to eager steps.
 """
 
 from __future__ import annotations
@@ -50,6 +61,25 @@ from pytorch_scalablefhvae_tpu_torch.train.step import (
     noise_seed,
     step_body,
 )
+
+
+def replays_graph(device_type: str, backend: str | None) -> bool:
+    """Whether a K-step bundle on a ``device_type`` device, on a mesh of
+    ``backend`` (``None``: no mesh), replays a CUDA graph: on a GPU without
+    a mesh or under NCCL; with gloo or on the CPU it runs its steps
+    eagerly."""
+    return device_type == "cuda" and backend in (None, "nccl")
+
+
+def dispatch_line(k: int, device_type: str, backend: str | None) -> str:
+    """What the training loop says of its K-step dispatches."""
+    line = f"{k} steps per dispatch"
+    if replays_graph(device_type, backend):
+        return line + ", replayed as one CUDA graph" + (
+            "" if backend is None else " (NCCL all-reduces inside)")
+    if device_type == "cuda":
+        return line + ", run eagerly: gloo all-reduces pass through the host"
+    return line
 
 
 def kernel_entries() -> list:
@@ -111,12 +141,15 @@ class HostInputs:
     dim]`` feats (in the loader's transfer dtype, ``feats_dtype``) and ``[K,
     B]`` ``seq_idx`` (int32), ``nsegs`` and ``weight`` on ``device``, each
     filled by one copy per dispatch (the counterpart of
-    ``stack_prefetch``)."""
+    ``stack_prefetch``). With a ``mesh``, ``B`` is this rank's rows of each
+    ``batch_size``-row batch (``Mesh.local_rows``)."""
 
     def __init__(self, k: int, batch_size: int, seg_len: int, dim: int,
                  device: torch.device,
-                 feats_dtype: torch.dtype = torch.float32):
-        kb = (k, batch_size)
+                 feats_dtype: torch.dtype = torch.float32, mesh=None):
+        self.rows = (slice(0, batch_size) if mesh is None
+                     else mesh.local_rows(batch_size))
+        kb = (k, self.rows.stop - self.rows.start)
         self.k = k
         self.arrays = (
             torch.zeros(kb + (seg_len, dim), dtype=feats_dtype,
@@ -132,7 +165,7 @@ class HostInputs:
                                   ("feats", "seq_idx", "nsegs", "weight")):
             buf = staging.host()
             for i, b in enumerate(batches):
-                buf[i].copy_(torch.as_tensor(getattr(b, field)))
+                buf[i].copy_(torch.as_tensor(getattr(b, field)[self.rows]))
             staging.send()
 
     def views(self, i: int):
@@ -141,16 +174,20 @@ class HostInputs:
 
 class StepBundle:
     """K optimizer steps on ``state`` per call, from ``inputs.views(i)``
-    (see the module docstring). A call returns the K steps' metrics, each
-    stacked ``[K]``; after a replay they are the graph's static outputs,
-    which the next replay overwrites."""
+    (see the module docstring); with a ``mesh``, this rank's part of K mesh
+    steps, its state the rank's (``parallel.mesh.shard_model``). A call
+    returns the K steps' metrics, each stacked ``[K]``; after a replay they
+    are the graph's static outputs, which the next replay overwrites."""
 
     def __init__(self, state: TrainState, optimizer: Optimizer, alpha: float,
-                 k: int, inputs, device: torch.device):
+                 k: int, inputs, device: torch.device, mesh=None):
         self.state, self.optimizer, self.alpha, self.k = (state, optimizer,
                                                           alpha, k)
         self.inputs = inputs
         self.device = torch.device(device)
+        self.mesh = mesh
+        self.replays = replays_graph(self.device.type,
+                                     None if mesh is None else mesh.backend)
         self.bc = torch.zeros((k, 2), dtype=torch.float32, device=self.device)
         self._bc_staging = Staging(self.bc)
         self.generators = [torch.Generator(device=self.device)
@@ -163,17 +200,28 @@ class StepBundle:
     def body(self, noise=None) -> dict:
         """The K steps' device work, step ``i`` on ``inputs.views(i)`` with
         bias corrections ``bc[i]`` and noise from ``generators[i]`` (or
-        ``noise[i]``)."""
+        ``noise[i]``, this rank's rows on a mesh)."""
         steps = []
         for i in range(self.k):
             feats, seq_idx, nsegs, weight = self.inputs.views(i)
-            eps = (noise[i] if noise is not None else draw_noise(
-                self.state.model, self.generators[i], feats.shape[0],
-                self.device))
+            eps = noise[i] if noise is not None else self.draw(
+                i, feats.shape[0])
             steps.append(step_body(self.state, self.optimizer, feats, seq_idx,
-                                   nsegs, weight, self.alpha, eps,
+                                   nsegs, weight, self.alpha, eps, self.mesh,
                                    bc=self.bc[i]))
         return {key: torch.stack([m[key] for m in steps]) for key in steps[0]}
+
+    def draw(self, i: int, rows: int) -> dict:
+        """Step ``i``'s noise for ``rows`` rows from ``generators[i]``; on a
+        mesh the whole batch's draw, of which the rank keeps its rows, as
+        ``step.seeded_noise`` draws it."""
+        keep = slice(None)
+        if self.mesh is not None:
+            rows *= self.mesh.shape[0]
+            keep = self.mesh.local_rows(rows)
+        eps = draw_noise(self.state.model, self.generators[i], rows,
+                         self.device)
+        return {k: v[keep] for k, v in eps.items()}
 
     def capture(self, keep_graph: bool = False) -> None:
         """Capture :meth:`body` as this bundle's CUDA graph. Nothing runs:
@@ -181,14 +229,19 @@ class StepBundle:
         each counter's count during the capture is kept to be added at every
         replay. ``keep_graph`` keeps the captured graph beside its
         executable (``graph.raw_cuda_graph()``, to inspect its nodes)."""
-        if self.device.type != "cuda":
-            raise ValueError("a CUDA graph needs a CUDA device")
+        if not self.replays:
+            raise ValueError("a CUDA graph needs a CUDA device and, on a "
+                             "mesh, the NCCL backend")
         before = launch_counts()
         graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
         for g in self.generators:
             graph.register_generator_state(g)
+        # on a mesh the NCCL watchdog thread queries the events of earlier
+        # collectives while this thread captures: only this thread's calls
+        # must be capture-safe
+        mode = "global" if self.mesh is None else "thread_local"
         try:
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, capture_error_mode=mode):
                 outputs = self.body()
         finally:
             after = launch_counts()
@@ -200,19 +253,19 @@ class StepBundle:
 
     def __call__(self, noise=None) -> dict:
         """One dispatch: the K steps from ``state.step`` on the inputs
-        loaded for it (``noise``, a list of K noise dicts, on the CPU
-        only)."""
+        loaded for it (``noise``, a list of K noise dicts, only where the
+        bundle runs eagerly)."""
         st = self.state
         for i, g in enumerate(self.generators):
             g.manual_seed(noise_seed(st.seed, st.step + i))
         self._bc_staging.host().copy_(torch.from_numpy(
             self.optimizer.bias_corrections(st.count, self.k, self.device)))
         self._bc_staging.send()
-        if self.device.type == "cpu":
+        if not self.replays:
             out = self.body(noise)
         elif noise is not None:
-            raise ValueError("noise is handed in on the CPU only; on a GPU "
-                             "the graph draws it")
+            raise ValueError("noise is handed in only where the bundle runs "
+                             "eagerly; a replayed graph draws it")
         elif self.dispatches == 0:
             out = self.body()
         else:

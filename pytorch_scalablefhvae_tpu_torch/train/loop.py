@@ -10,9 +10,11 @@ batches gathered on the device, each loss checked one step late),
 store's chunks double-buffered through the device, each chunk's shuffled
 segments gathered there, the dispatches of every chunk counted as one
 epoch), all of which run ``--steps-per-dispatch K`` > 1 as K-step bundles
-(``train/graphs.py``: one CUDA graph replay of K steps, the last ``n % K``
-batches of an epoch or of a chunk as eager steps, each dispatch's losses
-checked one dispatch late, as the JAX loop's ``_record_dispatch`` does),
+(``train/graphs.py``: one CUDA graph replay of K steps, on a mesh under
+NCCL with its all-reduces inside, under gloo K eager steps a dispatch; the
+last ``n % K`` batches of an epoch or of a chunk as eager steps, each
+dispatch's losses checked one dispatch late, as the JAX loop's
+``_record_dispatch`` does),
 :func:`estimate_split_mu2` + :func:`evaluate_split` (the host dev pass
 against a MAP-estimated mu2 table), :func:`stage_split` +
 :func:`device_dev_pass` (the same pass over a staged dev split),
@@ -32,10 +34,11 @@ rank runs this same loop in step: it pads and shards the mu2 table, takes its
 rows of every batch on any tier (the host loader, the device tier or the
 streamed tier, in any transfer dtype; with ``--shard-device-store`` the
 staged store, the dev split's and the streamed chunks row-sharded over the
-model axis), and splits both dev passes over the data ranks when the dev
-batch size divides by ``d`` (else every rank runs them whole). All decisions (divergence, best epoch,
-early stopping) are taken from all-reduced values, so the ranks take them
-together; rank 0 alone prints, writes ``metrics.jsonl`` and the checkpoints.
+model axis) at any K, and splits both dev passes over the data ranks when
+the dev batch size divides by ``d`` (else every rank runs them whole). All
+decisions (divergence, best epoch, early stopping) are taken from
+all-reduced values, so the ranks take them together; rank 0 alone prints,
+writes ``metrics.jsonl`` and the checkpoints.
 
 A step checkpoint (``..._e<epoch>s<batches>``) holds the whole training
 state and the epoch's cursor; ``--continue-from`` on one re-enters that
@@ -52,8 +55,8 @@ buffer), or the host loader. With ``--epoch-plan device`` the staged
 tiers' epoch plans are derived on the device from the seed and the epoch
 (``data/device_store.py`` ``DeviceEpochPlanner``) instead of uploaded; the
 host loader and the streamed tier say they ignore it, as the JAX loop
-does. Hierarchical rounds on a mesh and K-step dispatch on a mesh are not
-ported yet (``ROADMAP.md``, item 10; ``train/driver.py`` refuses them).
+does. Hierarchical rounds on a mesh are not ported yet (``ROADMAP.md``,
+item 10; ``train/driver.py`` refuses them).
 
 ``--legacy`` runs the reference's step epochs on the host loader at batch 1
 (:class:`LegacyEpochs`; eager steps, K ignored). The observability flags:
@@ -107,7 +110,11 @@ from pytorch_scalablefhvae_tpu_torch.train.device_step import (
     device_map_pass_chunked,
     device_train_step,
 )
-from pytorch_scalablefhvae_tpu_torch.train.graphs import HostInputs, StepBundle
+from pytorch_scalablefhvae_tpu_torch.train.graphs import (
+    HostInputs,
+    StepBundle,
+    dispatch_line,
+)
 from pytorch_scalablefhvae_tpu_torch.train.metrics import (
     MetricHistory,
     MetricWriter,
@@ -384,7 +391,8 @@ def run_bundled_epoch(state: TrainState, optimizer: Optimizer,
     run as one dispatch; the last ``n % K`` batches run as eager steps. The
     feed stops at the batch that reaches ``--max-steps`` (the JAX loop's
     ``islice``), so no dispatch runs past it. Losses are read one dispatch
-    late (:class:`DispatchLosses`)."""
+    late (:class:`DispatchLosses`). On the bundle's mesh both take this
+    rank's rows of each batch."""
     losses = cursor.losses
     losses.start_clock()
     feed = loader.batches_from(cursor.start)
@@ -399,9 +407,11 @@ def run_bundled_epoch(state: TrainState, optimizer: Optimizer,
                 group = []
                 if not ok:
                     break
+    mesh = bundle.mesh
     for b in group if ok else ():
-        metrics = train_step(state, optimizer, *batch_tensors(b, device),
-                             alpha)
+        metrics = train_step(state, optimizer,
+                             *batch_tensors(b, device, mesh), alpha,
+                             mesh=mesh)
         if not cursor.push(metrics["loss"], [b.num_real]):
             break
     losses.finish()
@@ -908,22 +918,18 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
     k = 1 if legacy else config.train.steps_per_dispatch
     bundle = None
     if k > 1:
-        if mesh is not None:
-            raise NotImplementedError(
-                "--mesh with --steps-per-dispatch > 1 is not yet ported to "
-                "PyTorch (ROADMAP.md, item 10)")
         if tier == "host":
             inputs = HostInputs(
                 k, train_loader.batch_size, seg_len, dim, dev,
-                torch.bfloat16 if train_loader.bfloat16 else torch.float32)
+                torch.bfloat16 if train_loader.bfloat16 else torch.float32,
+                mesh)
         else:
             inputs = PlanInputs(source.data, train_loader.batch_size,
-                                seg_len)
-        bundle = StepBundle(state, optimizer, alpha, k, inputs, dev)
+                                seg_len, mesh)
+        bundle = StepBundle(state, optimizer, alpha, k, inputs, dev, mesh)
         if verbose:
-            print(f"{k} steps per dispatch"
-                  + (", replayed as one CUDA graph" if dev.type == "cuda"
-                     else ""))
+            print(dispatch_line(k, dev.type,
+                                None if mesh is None else mesh.backend))
 
     staged = tier in ("device", "round")
     device_plan = config.data.epoch_plan == "device" and staged

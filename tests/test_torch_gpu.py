@@ -1585,3 +1585,36 @@ def test_unequal_stacks_launch_no_lstm_kernel(cuda):
     finally:
         discriminative.discriminative_log_qy = saved
     assert rel_norm(got, want) <= 1e-4
+
+
+# ---------------------------------------------- a mesh's K-step bundle
+
+
+def test_nccl_mesh_bundle_replay_equals_eager_steps(cuda, tmp_path):
+    """A one-rank NCCL mesh (``parallel/launch.run_ranks``): a K = 4 bundle
+    replays one CUDA graph with the mesh's all-reduces inside and equals
+    the same steps run eagerly on the mesh, bit for bit; every dispatch
+    counts the eager one's launches, #7 forward and backward once a step
+    and the single-table #5 and #6 never (rank side:
+    ``tests/_torch_mesh_workers.py``)."""
+    import json
+
+    import _torch_mesh_workers as workers
+    from pytorch_scalablefhvae_tpu_torch.parallel import launch
+
+    k = 4
+    codes = launch.run_ranks(workers.nccl_bundle_replays, 1,
+                             (str(tmp_path), k), backend="nccl",
+                             device="cuda", timeout_s=120,
+                             join_timeout_s=600)
+    assert codes == [0]
+    r = json.loads((tmp_path / "nccl_bundle.json").read_text())
+    assert r["backend"] == "nccl" and r["replays"] and r["graph"]
+    assert r["losses"] == r["eager"] and r["equal"]
+    assert r["deltas"][0] == r["deltas"][1] == r["deltas"][2]
+    d = r["deltas"][0]
+    assert d["discriminative_log_qy_sharded"] == k
+    assert d["discriminative_log_qy_sharded_bwd"] == k
+    assert "discriminative_log_qy" not in d
+    assert "discriminative_log_qy_bwd" not in d
+    assert d["lstm2_tm_proj"] == 2 * k and d["lstm2_tm"] == k

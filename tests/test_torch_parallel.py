@@ -482,7 +482,6 @@ def test_jax_mesh_checkpoint_resumes_in_the_port(corpus, tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--mesh", "2,2", "--hierarchical"],
-    ["--mesh", "1,2", "--steps-per-dispatch", "4"],
 ], ids=lambda f: " ".join(f))
 def test_what_still_raises_on_a_mesh(corpus, tmp_path, flags):
     """Refused before any rank starts, naming ROADMAP.md."""

@@ -203,8 +203,9 @@ def test_divergence_exits_2(corpus, tmp_path, capsys):
 def test_unported_flag_raises(corpus, tmp_path, flags):
     """(``--mesh`` itself runs now: ``tests/test_torch_parallel.py``, and
     on every data tier, in every transfer dtype and with a store sharded
-    over it: ``tests/test_torch_mesh_tiers.py``; what still raises on a mesh
-    is hierarchical rounds and K-step dispatch.
+    over it: ``tests/test_torch_mesh_tiers.py``, at any
+    ``--steps-per-dispatch``: ``tests/test_torch_mesh_k.py``; what still
+    raises on a mesh is hierarchical rounds.
     ``--steps-per-dispatch``, ``--data-placement stream`` and
     ``--transfer-dtype`` on one device run: ``tests/test_torch_multi_step.py``,
     ``tests/test_torch_stream.py``; ``--ckpt-every-steps`` and
