@@ -143,8 +143,9 @@ prints no result line):
    resumed streamed run continuing the step count; bfloat16 and int8 on the
    device-resident tier, finite, their gaps from float32 logged. 4s-big,
    the CLI defaults over the default 4 GiB budget: a synthetic corpus of
-   10,000 training sequences of 1,000-1,900 frames (~4.6 GB in float32)
-   and 400 dev ones, packed once (``--pack-cache-dir``, kept for 4h); runs
+   9,300 training sequences of 1,000-1,900 frames (4.32 GB in float32,
+   just over the budget) and 400 dev ones, packed once
+   (``--pack-cache-dir``, kept for 4h and 5h); runs
    stopped by ``--max-steps`` 504 past their first chunk switch, with no
    placement flags (``auto`` streams ~5 chunks of 1 GiB), at K = 8, from
    the host loader at K = 8 and at ``--transfer-dtype bfloat16`` and K = 8
@@ -249,7 +250,9 @@ prints no result line):
    the run never stopped; per-rank link MB an epoch, ms/step and rank 0's
    waits at each chunk switch (``switch_waits()``); #7 launched once a
    step forward and backward on rank 0, #6 and #8 never, every LSTM launch
-   tensor-core;
+   tensor-core. The gloo runs of 5t, 5k (b) and 5h (a) share one launch
+   of the four ranks (``gloo_mesh_runs``), each run counted alone; the
+   script logs what each phase's runs took in it;
 5k. ``--mesh d,m --steps-per-dispatch 8`` on phase 4's corpus. (a) One
    rank of ``--mesh 1,1 --distributed --dist-backend nccl``: 10 warm
    dispatches of 8 eager mesh steps under torch.profiler (host wall against
@@ -269,10 +272,30 @@ prints no result line):
    three chunks of 24 MiB and one step more (a chunk whose batches do not
    fill its last dispatch), and a K = 8 run stopped at 13 steps and
    resumed to 29 against the run never stopped (loss sum to 1e-12);
-5n. (only when named: ``--only 5n``, on four cards) 5k (a) on a ``2,2``
-   NCCL mesh, a card a rank: the replayed graphs must hold NCCL kernels
-   (a one-rank communicator launches none), every rank's bundle state its
-   eager steps', the CLI epoch at K = 8 the K = 1 epoch's bits;
+5h. ``--mesh d,m --hierarchical``. (a) ``--mesh 2,2`` on the four gloo
+   ranks, 2,000-sequence rounds on phase 4's corpus, runs stopped at 29
+   steps: the device tier (views) K = 8 against K = 1, row-sharded against
+   replicated, a K = 8 run stopped at 13 and resumed (re-entering its
+   round) against the run never stopped, each bit for bit; the round tier
+   at a budget under which the replicated sub-pack lowers K and the
+   row-sharded one does not (the lines checked); the host loader within
+   ``TOL_HIER_EPOCH`` of the device tier; #7 once a step, #6 and #8 never.
+   (b) One rank of ``--mesh 1,1 --distributed --dist-backend nccl`` at the
+   CLI defaults (K = 5,000) on 4s-big's corpus (kept from 4s, else
+   written), a round's sub-pack staged: a round entered by ``Rounds`` and
+   its mesh bundle replayed, 10 warm dispatches under torch.profiler (#1-#4
+   and #7 counted against the wrappers, ``cudaGraphLaunch`` calls, idle
+   share); through the CLI K = 1 stopped at 200 steps against K = 8
+   stopped there, bit for bit, then the K = 8 run resumed through its
+   second round; every MAP init the rows pass (``device_map_pass_rows``,
+   never #8, as in the JAX loop) and every round's table the whole table's
+   rows on the rank with its moments zeroed;
+5n. (only when named: ``--only 5n``, on four cards) 5k (a) and 5h (b) on a
+   ``2,2`` NCCL mesh, a card a rank: the replayed graphs must hold NCCL
+   kernels (a one-rank communicator launches none), every rank's bundle
+   state its eager steps', the CLI epoch at K = 8 the K = 1 epoch's bits;
+   the hierarchical runs as in 5h (b), every rank holding its rows of each
+   round's table;
 4r. step checkpoints and mid-epoch resume at the CLI defaults on phase 4's
    corpus (runs after phase 5, whose epoch it reuses): runs stopped by
    ``--max-steps`` inside an epoch with ``--ckpt-every-steps 50`` (the
@@ -340,7 +363,9 @@ of the phase, each counted alone), phase 4m's simple_fhvae runs and served
 requests (``train_simple``: each counted alone), phase 4p's runs in this
 process (``train_plan``), the eval of phase 4b (``eval``), the mesh run's rank 0
 (``mesh``: the ``2,2`` epoch), rank 0 of phase 5t's mesh runs
-(``mesh_tiers``: all of them, counted from 0 before the first) and phase
+(``mesh_tiers``: all of them, each counted alone), phase 5k's NCCL epoch
+at K = 8 (``mesh_k8``), phase 5h (b)'s K = 8 runs, stopped and resumed
+(``mesh_hier``) and phase
 4r's stopped and resumed runs in
 this process (``train_resume``: every run of (a) to (d) and the NaN gate's;
 the mesh's ranks are processes of their own) and phase 4l's ``--legacy``
@@ -3479,7 +3504,8 @@ def phase_train_k8(workdir: Path, cfg, runs: dict) -> dict:
 
 STREAM_BUDGET = 96 << 20   # 4s-check: phase 4's 370 MB store streams in
                            # chunks of a quarter of it, 24 MiB (~16)
-BIG_SEQS = {"train": 10_000, "dev": 400}   # 4s-big's corpus
+BIG_SEQS = {"train": 9_300, "dev": 400}   # 4s-big's corpus: 4.320 GB of
+                                          # training rows, over 4 GiB
 BIG_FRAMES = (1000, 1901)  # frames a sequence: LibriSpeech's 10-19 s
                            # utterances at 100 frames a second
 BIG_CAP = 504              # 4s-big's CLI runs: --max-steps, 63 dispatches
@@ -3778,6 +3804,21 @@ def write_big_corpus(root: Path, seed: int = 1):
         f"{BIG_SEQS['dev']} dev sequences ({frames['dev']} frames), written "
         f"in {time.perf_counter() - t0:.1f} s")
     return cfg, nbytes
+
+
+def big_corpus(workdir: Path):
+    """4s-big's corpus and the config of a run on it with the packed store
+    cached beside it: phase 4s's when it kept it, else written here."""
+    from pytorch_scalablefhvae_tpu_torch.train.driver import split_manifests
+
+    root, pack = workdir / "big", workdir / "big_pack"
+    cfg = big_config(root)
+    if split_manifests(cfg, root)["train"]["len_pth"].exists():
+        log("4s-big's corpus reused")
+    else:
+        cfg, _ = write_big_corpus(root)
+    return root, cfg.replace(data=dataclasses.replace(
+        cfg.data, pack_cache_dir=str(pack)))
 
 
 def big_tier_profile(cfg, loader, tier: str, k: int) -> dict:
@@ -4108,20 +4149,13 @@ def phase_hier(workdir: Path, cfg) -> dict:
     from pytorch_scalablefhvae_tpu_torch.cli.main import main as cli
     from pytorch_scalablefhvae_tpu_torch.ops import window_gather
     from pytorch_scalablefhvae_tpu_torch.train import rounds
-    from pytorch_scalablefhvae_tpu_torch.train.driver import (
-        build_loaders,
-        split_manifests,
-    )
+    from pytorch_scalablefhvae_tpu_torch.train.driver import build_loaders
 
     log("== phase 4h: sfhvae train --hierarchical (K = 5,000 sequences a "
         "round) at the CLI defaults, a corpus over the 4 GiB budget")
     t_phase = time.perf_counter()
-    root, pack = workdir / "big", workdir / "big_pack"
-    bcfg = big_config(root)
-    if split_manifests(bcfg, root)["train"]["len_pth"].exists():
-        log("4h: phase 4s's corpus reused")
-    else:
-        bcfg, _ = write_big_corpus(root)
+    root, bcfg = big_corpus(workdir)
+    pack = Path(bcfg.data.pack_cache_dir)
     gather = window_gather.windowed_chunk_gather
     k8 = ["--steps-per-dispatch", str(K_DISPATCH)]
     counts: dict = {}
@@ -4291,8 +4325,7 @@ def phase_hier(workdir: Path, cfg) -> dict:
     finally:
         rounds.Rounds.map_init, rounds.replace_mu2_table = real_init, real_swap
 
-    loader, _ = build_loaders(bcfg.replace(data=dataclasses.replace(
-        bcfg.data, pack_cache_dir=str(pack))), root, True)
+    loader, _ = build_loaders(bcfg, root, True)
     for tier in ("round", "host"):
         p = hier_tier_profile(bcfg, loader, tier)
         log(f"4h {tier} tier, K = {K_DISPATCH}, 10 warm dispatches after a "
@@ -5265,12 +5298,13 @@ TIERS_CAP = 20             # 5t: steps of the auto run and the device pair
 TIERS_INT8_CAP = 40        # 5t: steps of the int8 pair (~4 chunks of ~33)
 
 
-def _mesh_runs_rank(workdir: str, runs_name: str = "tiers") -> int:
-    """One rank of a ``2,2`` gloo mesh (phases 5t and 5k): every run of
-    ``<runs_name>.json`` through the CLI in turn, then this rank's launches
-    over all of them (counted from 0 before the first), each run's wall
+def _mesh_runs_rank(workdir: str) -> int:
+    """One rank of a ``2,2`` gloo mesh, started once for the gloo runs of
+    phases 5t, 5k (b) and 5h (a) (:func:`gloo_mesh_runs`): every run of
+    ``gloo_runs.json`` through the CLI in turn, and for each run this rank's
+    launches (counted from 0 just before it and read just after), its wall
     seconds and the waits at each chunk switch of its streamed epochs
-    (``switch_waits()``), into ``<runs_name>_rank<r>.json``."""
+    (``switch_waits()``), into ``gloo_rank<r>.json``."""
     import torch.distributed as dist
 
     from pytorch_scalablefhvae_tpu_torch.cli.main import main as cli
@@ -5278,7 +5312,7 @@ def _mesh_runs_rank(workdir: str, runs_name: str = "tiers") -> int:
 
     work = Path(workdir)
     rank = dist.get_rank()
-    runs = json.loads((work / f"{runs_name}.json").read_text())
+    runs = json.loads((work / "gloo_runs.json").read_text())
     real, current, waits = loop.run_stream_epoch, [None], {}
 
     def spy(state, optimizer, source, *args, **kw):
@@ -5287,23 +5321,82 @@ def _mesh_runs_rank(workdir: str, runs_name: str = "tiers") -> int:
         finally:
             waits.setdefault(current[0], []).append(source.switch_waits())
 
-    out = {"texts": {}, "wall": {}}
+    out = {"texts": {}, "wall": {}, "launches": {}, "launches_tc": {}}
     loop.run_stream_epoch = spy
-    reset_counts(mesh_entries())
     try:
         for name, args in runs.items():
             current[0] = name
+            reset_counts(mesh_entries())
             t0 = time.perf_counter()
             out["texts"][name] = run_cli(cli, args + [
                 "--distributed", "--dist-backend", "gloo"])
             out["wall"][name] = time.perf_counter() - t0
+            out["launches"][name] = {e.__name__: e.launches
+                                     for e in mesh_entries()}
+            out["launches_tc"][name] = tensor_core_counts(mesh_entries())
     finally:
         loop.run_stream_epoch = real
-    out["launches"] = {e.__name__: e.launches for e in mesh_entries()}
-    out["launches_tc"] = tensor_core_counts(mesh_entries())
     out["waits"] = waits
-    (work / f"{runs_name}_rank{rank}.json").write_text(json.dumps(out))
+    (work / f"gloo_rank{rank}.json").write_text(json.dumps(out))
     return 0
+
+
+def sum_counts(per_run: dict) -> dict:
+    """Launch counts (entry name -> launches) added up over runs."""
+    total: dict = {}
+    for counts in per_run.values():
+        for entry, n in counts.items():
+            total[entry] = total.get(entry, 0) + n
+    return total
+
+
+def gloo_mesh_runs(workdir: Path, cfg, phases: list) -> dict:
+    """Four gloo ranks sharing the card (``--mesh 2,2``), started once for
+    the CLI runs of every mesh phase in ``phases`` (of 5t, 5k and 5h: the
+    runs of :func:`tiers_runs`, :func:`mesh_k_runs` and
+    :func:`hier_mesh_runs`, prepared first): each rank runs them all in
+    turn (:func:`_mesh_runs_rank`). Returns, per phase, its preparation's
+    context and what rank 0 saw of its runs (``texts``, ``wall``,
+    ``launches``, ``launches_tc`` and ``waits``, keyed by the run's
+    name)."""
+    from pytorch_scalablefhvae_tpu_torch.ops import _build
+    from pytorch_scalablefhvae_tpu_torch.parallel.launch import run_ranks
+
+    prepare = {"5t": tiers_runs, "5k": mesh_k_runs, "5h": hier_mesh_runs}
+    t0 = time.perf_counter()
+    prepared = {phase: prepare[phase](workdir, cfg) for phase in phases}
+    parts = {phase: runs for phase, (runs, _) in prepared.items()}
+    log(f"the gloo runs of phases {', '.join(phases)} prepared in "
+        f"{time.perf_counter() - t0:.1f} s")
+    work = workdir / "gloo"
+    work.mkdir()
+    runs = {f"{phase} {name}": argv for phase, named in parts.items()
+            for name, argv in named.items()}
+    (work / "gloo_runs.json").write_text(json.dumps(runs))
+    _build.build()  # once, here: the ranks would each run nvcc otherwise
+    world = MESH[0] * MESH[1]
+    t0 = time.perf_counter()
+    codes = run_ranks(_mesh_runs_rank, world, (str(work),), backend="gloo",
+                      device="cuda", timeout_s=120, join_timeout_s=900)
+    wall = time.perf_counter() - t0
+    if codes != [0] * world:
+        raise AssertionError(f"the gloo mesh's ranks exited with {codes}")
+    info = json.loads((work / "gloo_rank0.json").read_text())
+    out = {}
+    for phase, named in parts.items():
+        out[phase] = {key: {name: info[key][f"{phase} {name}"]
+                            for name in named
+                            if f"{phase} {name}" in info[key]}
+                      for key in ("texts", "wall", "launches", "launches_tc",
+                                  "waits")}
+    by_phase = {phase: round(sum(o["wall"].values()), 1)
+                for phase, o in out.items()}
+    log(f"the {world} gloo ranks ran {len(runs)} CLI runs of phases "
+        f"{', '.join(parts)} in one launch and exited with {codes} after "
+        f"{wall:.1f} s: the runs took {by_phase} s by phase, the ranks' "
+        f"start and exit {wall - sum(by_phase.values()):.1f} s; card "
+        f"{smi_name_power()}")
+    return {phase: (ctx, out[phase]) for phase, (_, ctx) in prepared.items()}
 
 
 def mid_epoch(exp: Path, stop: int) -> dict:
@@ -5315,26 +5408,11 @@ def mid_epoch(exp: Path, stop: int) -> dict:
         exp / f"fhvae_synthetic_np_fbank_e0s{stop}.npz")["mid_epoch"]
 
 
-def phase_mesh_tiers(workdir: Path, cfg) -> dict:
-    """Phase 5t: the data tiers of a ``2,2`` mesh (four gloo ranks sharing
-    the card, started once, each running every CLI run in turn) on phase
-    4's corpus at the CLI defaults: ``auto`` over ``TIERS_BUDGET`` streams
-    and with ``--shard-device-store`` stages the store row-sharded (the
-    lines rank 0 prints); sharded against replicated bit for bit on the
-    device tier and on the streamed tier in float32 (a whole epoch, dev
-    split staged) and int8 (chunks of ``STREAM_BUDGET // 4``); the sharded
-    streamed epoch against the single-device streamed epoch; that run
-    stopped by ``--max-steps`` inside a chunk and resumed, against the run
-    never stopped. Returns rank 0's launches over the phase's mesh runs
-    (``mesh_tiers``)."""
-    from pytorch_scalablefhvae_tpu_torch.cli.main import main as cli
-    from pytorch_scalablefhvae_tpu_torch.parallel.launch import run_ranks
+def tiers_runs(workdir: Path, cfg):
+    """Phase 5t's runs for :func:`gloo_mesh_runs` on phase 4's corpus
+    (its packed store cached for every rank) and what the checks need."""
     from pytorch_scalablefhvae_tpu_torch.train.driver import build_loaders
 
-    log(f"== phase 5t: sfhvae train --mesh {MESH[0]},{MESH[1]} "
-        f"--dist-backend gloo on the data tiers: auto over the budget, "
-        f"--shard-device-store, float32 and int8 streamed chunks")
-    t_phase = time.perf_counter()
     root, work = workdir / "data", workdir / "tiers"
     work.mkdir()
     pack = ["--pack-cache-dir", str(workdir / "tiers_pack")]
@@ -5380,10 +5458,35 @@ def phase_mesh_tiers(workdir: Path, cfg) -> dict:
                        str(run_dir(exp["stopped"], 1)
                            / f"fhvae_synthetic_np_fbank_e0s{stop}.npz"),
                        "--resume-override", "max_steps=0"]
-    (work / "tiers.json").write_text(json.dumps(runs))
+    return runs, {"exp": exp, "stop": stop, "pack": pack}
 
-    # the single-device streamed epoch (this process: the kernels build
-    # here, before the ranks start)
+
+def phase_mesh_tiers(workdir: Path, cfg, ctx: dict, info: dict) -> dict:
+    """Phase 5t: the data tiers of a ``2,2`` mesh (four gloo ranks sharing
+    the card; the runs of :func:`tiers_runs`, run by
+    :func:`gloo_mesh_runs`) on phase 4's corpus at the CLI defaults:
+    ``auto`` over ``TIERS_BUDGET`` streams and with
+    ``--shard-device-store`` stages the store row-sharded (the lines rank 0
+    prints); sharded against replicated bit for bit on the device tier and
+    on the streamed tier in float32 (a whole epoch, dev split staged) and
+    int8 (chunks of ``STREAM_BUDGET // 4``); the sharded streamed epoch
+    against the single-device streamed epoch; that run stopped by
+    ``--max-steps`` inside a chunk and resumed, against the run never
+    stopped. Returns rank 0's launches over the phase's mesh runs
+    (``mesh_tiers``)."""
+    from pytorch_scalablefhvae_tpu_torch.cli.main import main as cli
+
+    log(f"== phase 5t: sfhvae train --mesh {MESH[0]},{MESH[1]} "
+        f"--dist-backend gloo on the data tiers: auto over the budget, "
+        f"--shard-device-store, float32 and int8 streamed chunks (the runs "
+        f"in the shared gloo launch: {sum(info['wall'].values()):.1f} s)")
+    t_phase = time.perf_counter()
+    root, work = workdir / "data", workdir / "tiers"
+    exp, stop, pack = ctx["exp"], ctx["stop"], ctx["pack"]
+    chunk = ["--stream-chunk-bytes", str(STREAM_BUDGET // 4)]
+    stream = ["--data-placement", "stream", *chunk]
+
+    # the single-device streamed epoch
     one = work / "one"
     t0 = time.perf_counter()
     run_cli(cli, train_args(cfg, root, one, *pack, *stream, "--epochs", "1"))
@@ -5391,16 +5494,6 @@ def phase_mesh_tiers(workdir: Path, cfg) -> dict:
     log(f"5t: the single-device streamed epoch in "
         f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
-
-    t0 = time.perf_counter()
-    world = MESH[0] * MESH[1]
-    codes = run_ranks(_mesh_runs_rank, world, (str(work),), backend="gloo",
-                      device="cuda", timeout_s=120, join_timeout_s=600)
-    log(f"5t: the {world} ranks exited with {codes} after "
-        f"{time.perf_counter() - t0:.1f} s")
-    if codes != [0] * world:
-        raise AssertionError(f"the mesh's ranks exited with {codes}")
-    info = json.loads((work / "tiers_rank0.json").read_text())
     texts, wall = info["texts"], info["wall"]
 
     # auto over the budget: streamed, and staged whole row-sharded
@@ -5483,11 +5576,11 @@ def phase_mesh_tiers(workdir: Path, cfg) -> dict:
     # rank 0's launches: #7 once a step, forward and backward
     steps = (3 * TIERS_CAP + 2 * TIERS_INT8_CAP
              + 3 * int(rec["train_steps"]))
-    c = info["launches"]
+    c, tc = sum_counts(info["launches"]), sum_counts(info["launches_tc"])
     log(f"5t: rank 0's launches over the phase's mesh runs ({steps} steps, "
-        f"dev passes included): {c}; LSTM entries through the tensor-core "
-        f"form: {info['launches_tc']}")
-    check_tensor_core(c, info["launches_tc"], "phase 5t, rank 0")
+        f"dev passes included), each run counted from 0: {c}; LSTM entries "
+        f"through the tensor-core form: {tc}")
+    check_tensor_core(c, tc, "phase 5t, rank 0")
     if not (c["discriminative_log_qy_sharded"] == steps
             and c["discriminative_log_qy_sharded_bwd"] == steps
             and c["discriminative_log_qy_bwd"] == 0
@@ -5721,51 +5814,37 @@ def mesh_k_workdir(workdir: Path, cfg, name: str):
 def phase_mesh_k_cards(workdir: Path, cfg) -> dict:
     """Phase 5n (only when named, on four cards): :func:`nccl_mesh_k` on a
     ``2,2`` NCCL mesh, a card a rank, whose replayed graphs hold the NCCL
-    all-reduce kernels (a one-rank communicator launches none). Returns
-    rank 0's launches of the K = ``MESH_K`` epoch."""
+    all-reduce kernels (a one-rank communicator launches none); then phase
+    5h (b)'s hierarchical runs on the same mesh (:func:`nccl_mesh_hier`).
+    Returns rank 0's launches of the K = ``MESH_K`` runs of each
+    (``mesh_k8_cards``, ``mesh_hier_cards``)."""
     from pytorch_scalablefhvae_tpu_torch.train.driver import build_loaders
 
     n = torch.cuda.device_count()
     log(f"== phase 5n: sfhvae train --mesh {MESH[0]},{MESH[1]} "
-        f"--dist-backend nccl --steps-per-dispatch {MESH_K} on {n} cards")
+        f"--dist-backend nccl --steps-per-dispatch {MESH_K} on {n} cards, "
+        f"then with --hierarchical")
     if n < MESH[0] * MESH[1]:
         raise AssertionError(f"5n needs {MESH[0] * MESH[1]} cards, found {n}")
     t_phase = time.perf_counter()
     root, work, cached, _ = mesh_k_workdir(workdir, cfg, "mesh_k_cards")
     build_loaders(cached, root, True)  # the pack, before the ranks read it
     info = nccl_mesh_k(work, root, MESH, "5n")
+    torch.cuda.empty_cache()
+    big_root, bcfg = big_corpus(workdir)
+    build_loaders(bcfg, big_root, True)
+    hier = nccl_mesh_hier(workdir / "mesh_hier_cards", big_root, bcfg, MESH,
+                          "5n (hier)")
     log(f"phase 5n took {time.perf_counter() - t_phase:.1f} s; cards "
         f"{smi_name_power()}")
-    return info[f"launches_k{MESH_K}"]
+    return {"mesh_k8_cards": info[f"launches_k{MESH_K}"],
+            "mesh_hier_cards": hier[f"launches_k{MESH_K}"]}
 
 
-def phase_mesh_k(workdir: Path, cfg, single_epoch0: dict | None) -> dict:
-    """Phase 5k: ``train --mesh d,m --steps-per-dispatch MESH_K`` on phase
-    4's corpus. (a) One NCCL rank (``--mesh 1,1 --distributed``): where its
-    eager step's time goes; a mesh bundle replayed as one CUDA graph
-    against the same rank's eager steps (bits, ms/step, busy and idle
-    share, the graph launches, the NCCL kernels and #1-#4 and #7 the
-    profiler sees against the wrappers' counts); an epoch through the CLI
-    at K = 8 against K = 1, bit for bit, and K = 1 against one device.
-    (b) Four gloo ranks on the card (``--mesh 2,2``, started once), whose
-    bundles run eagerly: the device tier K = 8 against K = 1, row-sharded
-    against replicated at K = 8, streamed K = 8 against K = 1 over chunks
-    that split a dispatch window, and a K = 8 run stopped by
-    ``--max-steps`` and resumed against the run never stopped, each bit
-    for bit. Returns the NCCL K = 8 epoch's launches (``mesh_k8``)."""
-    from pytorch_scalablefhvae_tpu_torch.parallel.launch import run_ranks
-
-    log(f"== phase 5k: sfhvae train --mesh d,m --steps-per-dispatch "
-        f"{MESH_K}: one NCCL rank replays each dispatch as one CUDA graph; "
-        f"{MESH[0] * MESH[1]} gloo ranks on the card run theirs eagerly")
-    t_phase = time.perf_counter()
+def mesh_k_runs(workdir: Path, cfg):
+    """Phase 5k (b)'s runs for :func:`gloo_mesh_runs` (``--mesh 2,2`` at K
+    = ``MESH_K`` and 1 on phase 4's corpus) and what the checks need."""
     root, work, cached, pack = mesh_k_workdir(workdir, cfg, "mesh_k")
-
-    # (a) one NCCL rank
-    info = nccl_mesh_k(work, root, (1, 1), "5k (a)", single_epoch0)
-    torch.cuda.empty_cache()
-
-    # (b) four gloo ranks on the card
     batches = stream_chunk_batches(cached, root)[:MESH_K_CHUNKS]
     s_cap = sum(batches) + 1
     if all(n % MESH_K == 0 for n in batches):
@@ -5775,7 +5854,6 @@ def phase_mesh_k(workdir: Path, cfg, single_epoch0: dict | None) -> dict:
     device = ["--data-placement", "device"]
     kf = ("--steps-per-dispatch", str(MESH_K))
     flags = {
-        # first: each rank's first run pays its warm-up (cuBLAS, modules)
         "stopped": [*device, *kf, "--max-steps", str(MESH_K_STOP)],
         "device K1": [*device, "--max-steps", str(MESH_K_CAP)],
         "device K8": [*device, *kf, "--max-steps", str(MESH_K_CAP)],
@@ -5796,54 +5874,490 @@ def phase_mesh_k(workdir: Path, cfg, single_epoch0: dict | None) -> dict:
                        str(run_dir(exp["stopped"], 1)
                            / f"fhvae_synthetic_np_fbank_e0s{MESH_K_STOP}.npz"),
                        "--resume-override", f"max_steps={MESH_K_CAP}"]
-    (work / "mesh_k.json").write_text(json.dumps(runs))
-    t0 = time.perf_counter()
-    world = MESH[0] * MESH[1]
-    codes = run_ranks(_mesh_runs_rank, world, (str(work), "mesh_k"),
-                      backend="gloo", device="cuda", timeout_s=120,
-                      join_timeout_s=600)
-    log(f"5k (b): the {world} gloo ranks exited with {codes} after "
-        f"{time.perf_counter() - t0:.1f} s")
-    if codes != [0] * world:
-        raise AssertionError(f"5k (b): the mesh's ranks exited with {codes}")
-    texts = json.loads((work / "mesh_k_rank0.json").read_text())["texts"]
+    return runs, {"exp": exp, "batches": batches, "s_cap": s_cap,
+                  "root": root, "work": work}
+
+
+def same_mid_steps(tag: str, a: Path, b: Path, steps: int,
+                   loss_rtol: float = 0.0) -> dict:
+    """Two runs stopped at step ``steps`` of their first epoch (run
+    directories ``a``, ``b``): their step checkpoints bit for bit, their
+    loss sums to ``loss_rtol`` (0: equal) and their counts equal. Returns
+    ``a``'s cursor."""
+    stem = f"fhvae_synthetic_np_fbank_e0s{steps}.npz"
+    differ = differing_arrays(a / stem, b / stem)
+    ma, mb_ = mid_epoch(a, steps), mid_epoch(b, steps)
+    gap = abs(ma["loss_sum"] - mb_["loss_sum"]) / abs(mb_["loss_sum"])
+    log(f"{tag}, {steps} steps: loss sums {ma['loss_sum']!r} vs "
+        f"{mb_['loss_sum']!r} (relative gap {gap:.3e}, tol {loss_rtol:g}); "
+        f"checkpoint arrays differing {differ}; "
+        f"{1e3 * ma['elapsed_s'] / steps:.2f} vs "
+        f"{1e3 * mb_['elapsed_s'] / steps:.2f} ms/step (rank 0's host "
+        f"clock)")
+    if differ or not gap <= loss_rtol or ma["count_sum"] != mb_["count_sum"]:
+        raise AssertionError(f"{tag}: the runs differ")
+    return ma
+
+
+def phase_mesh_k(workdir: Path, cfg, single_epoch0: dict | None, ctx: dict,
+                 info: dict) -> dict:
+    """Phase 5k: ``train --mesh d,m --steps-per-dispatch MESH_K`` on phase
+    4's corpus. (a) One NCCL rank (``--mesh 1,1 --distributed``): where its
+    eager step's time goes; a mesh bundle replayed as one CUDA graph
+    against the same rank's eager steps (bits, ms/step, busy and idle
+    share, the graph launches, the NCCL kernels and #1-#4 and #7 the
+    profiler sees against the wrappers' counts); an epoch through the CLI
+    at K = 8 against K = 1, bit for bit, and K = 1 against one device.
+    (b) Four gloo ranks on the card (``--mesh 2,2``; the runs of
+    :func:`mesh_k_runs`, run by :func:`gloo_mesh_runs`), whose bundles run
+    eagerly: the device tier K = 8 against K = 1, row-sharded against
+    replicated at K = 8, streamed K = 8 against K = 1 over chunks that
+    split a dispatch window, and a K = 8 run stopped by ``--max-steps`` and
+    resumed against the run never stopped, each bit for bit. Returns the
+    NCCL K = 8 epoch's launches (``mesh_k8``)."""
+    log(f"== phase 5k: sfhvae train --mesh d,m --steps-per-dispatch "
+        f"{MESH_K}: one NCCL rank replays each dispatch as one CUDA graph; "
+        f"{MESH[0] * MESH[1]} gloo ranks on the card run theirs eagerly (in "
+        f"the shared gloo launch: {sum(info['wall'].values()):.1f} s)")
+    t_phase = time.perf_counter()
+    exp, root, work = ctx["exp"], ctx["root"], ctx["work"]
+
+    # (a) one NCCL rank
+    out = nccl_mesh_k(work, root, (1, 1), "5k (a)", single_epoch0)
+    torch.cuda.empty_cache()
+
+    # (b) four gloo ranks on the card
+    texts = info["texts"]
     eager_line = (f"{MESH_K} steps per dispatch, run eagerly: gloo "
                   f"all-reduces pass through the host")
-    if not all(eager_line in texts[n] for n in flags if "K8" in n):
+    if not all(eager_line in texts[n] for n in texts if "K8" in n):
         raise AssertionError(f"5k (b): the gloo runs did not say "
                              f"{eager_line!r}")
 
     def same_steps(name: str, a: str, b: str, steps: int,
                    loss_rtol: float = 0.0) -> None:
-        stem = f"fhvae_synthetic_np_fbank_e0s{steps}.npz"
-        differ = differing_arrays(run_dir(exp[a], 1) / stem,
-                                  run_dir(exp[b], 1) / stem)
-        ma, mb_ = (mid_epoch(run_dir(exp[n], 1), steps) for n in (a, b))
-        gap = abs(ma["loss_sum"] - mb_["loss_sum"]) / abs(mb_["loss_sum"])
-        log(f"5k (b) {name}, {steps} steps: loss sums {ma['loss_sum']!r} vs "
-            f"{mb_['loss_sum']!r} (relative gap {gap:.3e}, tol "
-            f"{loss_rtol:g}); checkpoint arrays differing {differ}; "
-            f"{1e3 * ma['elapsed_s'] / steps:.2f} vs "
-            f"{1e3 * mb_['elapsed_s'] / steps:.2f} ms/step (rank 0's host "
-            f"clock)")
-        if differ or not gap <= loss_rtol \
-                or ma["count_sum"] != mb_["count_sum"]:
-            raise AssertionError(f"5k (b) {name}: the runs differ")
+        same_mid_steps(f"5k (b) {name}", run_dir(exp[a], 1),
+                       run_dir(exp[b], 1), steps, loss_rtol)
 
     same_steps(f"device tier, K = {MESH_K} vs K = 1", "device K8",
                "device K1", MESH_K_CAP)
     same_steps(f"device tier at K = {MESH_K}, row-sharded vs replicated",
                "device sharded K8", "device K8", MESH_K_CAP)
-    log(f"5k (b) the streamed pair: epoch 0's first chunks take {batches} "
-        f"batches, the runs stop at step {s_cap}")
+    log(f"5k (b) the streamed pair: epoch 0's first chunks take "
+        f"{ctx['batches']} batches, the runs stop at step {ctx['s_cap']}")
     same_steps(f"streamed fp32, K = {MESH_K} vs K = 1", "stream K8",
-               "stream K1", s_cap)
+               "stream K1", ctx["s_cap"])
     same_steps(f"device tier K = {MESH_K}, stopped at {MESH_K_STOP} and "
                f"resumed vs never stopped", "stopped", "device K8",
                MESH_K_CAP, loss_rtol=1e-12)
     log(f"phase 5k took {time.perf_counter() - t_phase:.1f} s; card "
         f"{smi_name_power()}")
-    return info[f"launches_k{MESH_K}"]
+    return out[f"launches_k{MESH_K}"]
+
+
+# ------------------------------------------------------------- phase 5h
+
+HIER_MESH_CAP = 29    # 5h (a): --max-steps of the gloo runs: three
+                      # dispatches of 8, then 5 steps clamped to eager ones
+HIER_MESH_CUT = 13    # 5h (a): the stopped run, resumed to HIER_MESH_CAP
+HIER_MESH_STOP = 200  # 5h (b): the K = 1 run's cap and the K = 8 run's
+                      # stop, 25 dispatches into the first round
+
+
+def hier_mesh_runs(workdir: Path, cfg):
+    """Phase 5h (a)'s runs for :func:`gloo_mesh_runs`: ``--mesh 2,2
+    --hierarchical`` with ``HIER_SMALL_K``-sequence rounds on phase 4's
+    corpus (its packed store cached for every rank), each stopped at
+    ``HIER_MESH_CAP`` steps: the device tier (views) at K = 1 and K =
+    ``MESH_K``, row-sharded at K = ``MESH_K``, a K = ``MESH_K`` run stopped
+    at ``HIER_MESH_CUT`` and resumed; the round tier at a budget under
+    which the replicated sub-pack reduces the round size and the
+    row-sharded one does not; the host loader, its MAP init over every
+    window (``--map-init-chunk-skip 1``) as the rows pass takes them.
+    Returns them and what the checks need."""
+    from pytorch_scalablefhvae_tpu_torch.data.device_store import (
+        STORE_TAIL_SLACK,
+    )
+    from pytorch_scalablefhvae_tpu_torch.train.driver import build_loaders
+
+    root, work = workdir / "data", workdir / "mesh_hier"
+    work.mkdir()
+    pack = ["--pack-cache-dir", str(workdir / "tiers_pack")]
+    cached = cfg.replace(data=dataclasses.replace(cfg.data,
+                                                  pack_cache_dir=pack[1]))
+    store = build_loaders(cached, root, True)[0].dataset.store
+    nbytes = store.data.shape[0] * store.dim * 4
+    need = int(np.sort(store.lens)[-HIER_SMALL_K:].sum()) + STORE_TAIL_SLACK
+    # three quarters of the budget under the K longest sequences' rows, of
+    # twice the budget (row-sharded on a model axis of 2) over them, and
+    # twice the budget under the store, which auto then stages a round at
+    # a time in both
+    budget = need * store.dim * 4 * 2 // 3 * 11 // 10
+    if not (budget * 3 // 4 < need * store.dim * 4 <= 2 * budget * 3 // 4
+            and 2 * budget < nbytes):
+        raise AssertionError(f"5h (a): no budget splits the round sizes "
+                             f"({need} rows, a store of {nbytes} bytes)")
+    kf = ["--steps-per-dispatch", str(MESH_K)]
+    bud = ["--device-store-max-bytes", str(budget)]
+    cap = ["--max-steps", str(HIER_MESH_CAP)]
+    flags = {
+        "device K1": cap,
+        "device K8": [*kf, *cap],
+        "device sharded K8": ["--shard-device-store", *kf, *cap],
+        "stopped": [*kf, "--max-steps", str(HIER_MESH_CUT)],
+        "round": [*bud, *kf, *cap],
+        "round sharded": [*bud, "--shard-device-store", *kf, *cap],
+        # every window in the host loader's MAP init too, as the rows
+        # pass of the staged tiers takes them on a mesh (the host's default
+        # is every 8th chunk of 16)
+        "host": ["--data-placement", "host", "--map-init-chunk-skip", "1",
+                 *kf, *cap],
+    }
+    exp = {name: work / name.replace(" ", "_") for name in flags}
+    mesh = ["--mesh", f"{MESH[0]},{MESH[1]}", "--hierarchical",
+            "--num-hierarchical-sequences", str(HIER_SMALL_K)]
+    runs = {name: train_args(cfg, root, exp[name], *mesh, *pack, *f,
+                             "--epochs", "1")
+            for name, f in flags.items()}
+    runs["resumed"] = ["train", "--dataset", "synthetic", "--preprocessed",
+                       "--data-root", str(root), "--continue-from",
+                       str(run_dir(exp["stopped"], 1) / f"fhvae_synthetic_"
+                           f"np_fbank_e0s{HIER_MESH_CUT}.npz"),
+                       "--resume-override", f"max_steps={HIER_MESH_CAP}"]
+    return runs, {"exp": exp, "budget": budget, "need": need}
+
+
+def _mesh_hier_nccl_rank(workdir: str, data_root: str, shape: tuple) -> int:
+    """A rank of an NCCL mesh of ``shape`` (5h (b): one rank, ``1,1``; 5n:
+    ``2,2`` on four cards) on 4s-big's corpus at the CLI defaults (K =
+    ``HIER_K`` sequences a round, each round's sub-pack staged, the store
+    being over the 4 GiB budget). First a round entered by ``Rounds`` on
+    the mesh, and 12 dispatches of ``MESH_K`` steps of a mesh bundle on its
+    staged sub-pack, the last 10 under torch.profiler
+    (:func:`profiled_dispatches`); then through the CLI, two epochs a
+    round each: K = 1 stopped at ``HIER_MESH_STOP``, and K = ``MESH_K``
+    stopped there (its step checkpoint kept aside) and resumed through the
+    second round, those two counted from 0. Every MAP init is recorded
+    (pass, #8's launches) and every turnover's table checked against the
+    whole table the pass returned. Writes ``hier_rank<r>.json``."""
+    import shutil as sh
+
+    from pytorch_scalablefhvae_tpu_torch.cli.main import main as cli
+    from pytorch_scalablefhvae_tpu_torch.config import ExperimentConfig
+    from pytorch_scalablefhvae_tpu_torch.data.device_store import (
+        DeviceDataSource,
+    )
+    from pytorch_scalablefhvae_tpu_torch.ops import window_gather
+    from pytorch_scalablefhvae_tpu_torch.parallel import mesh as mesh_module
+    from pytorch_scalablefhvae_tpu_torch.train import rounds
+    from pytorch_scalablefhvae_tpu_torch.train.device_step import PlanInputs
+    from pytorch_scalablefhvae_tpu_torch.train.driver import build_loaders
+    from pytorch_scalablefhvae_tpu_torch.train.graphs import StepBundle
+    from pytorch_scalablefhvae_tpu_torch.train.step import (
+        create_train_state,
+        make_optimizer,
+    )
+
+    work, root = Path(workdir), Path(data_root)
+    cfg = ExperimentConfig.load(work / "config.json")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = mesh_module.make_mesh(shape, dev)
+    gather = window_gather.windowed_chunk_gather
+    inits, swaps, passes = [], [], []
+    real_init, real_swap = rounds.Rounds.map_init, rounds.replace_mu2_table
+    real_rows = rounds.device_map_pass_rows
+
+    def rows_pass(*args, **kw):
+        passes.append(real_rows(*args, **kw))
+        return passes[-1]
+
+    def map_init(self, state, ds):
+        n, t0 = gather.launches, time.perf_counter()
+        real_init(self, state, ds)
+        torch.cuda.synchronize()
+        inits.append({"tier": self.tier, "chunked": self.chunked,
+                      "rows_pass": bool(passes), "batches": self.map_batches,
+                      "gather": gather.launches - n,
+                      "s": time.perf_counter() - t0})
+        passes.clear()
+
+    def swap(state, table):
+        real_swap(state, table)
+        model = state.model
+        swaps.append(bool(
+            passes and table is passes[-1]
+            and table.shape[0] == model.num_seqs_padded
+            and torch.equal(model.mu2_table, mesh.table_shard(table))
+            and not state.mu["mu2_table"].any()
+            and not state.nu["mu2_table"].any()))
+
+    rounds.Rounds.map_init, rounds.replace_mu2_table = map_init, swap
+    rounds.device_map_pass_rows = rows_pass
+    out = {}
+    try:
+        loader, _ = build_loaders(cfg, root, True)
+        ds, B = loader.dataset, loader.batch_size
+        k, ceiling = rounds.round_ceiling("auto", ds.store, HIER_K, 4 << 30,
+                                          verbose=False, mesh=mesh)
+        source = DeviceDataSource(ds.store.subset([], materialize=True), dev,
+                                  pad_to_rows=ceiling, mesh=mesh)
+        state = create_train_state(mesh_module.shard_model(
+            seeded_model(cfg, k), mesh))
+        opt = make_optimizer(1e-3, 0.95, 0.999)
+        r = rounds.Rounds(cfg, loader, "round", source, k, dev, mesh=mesh)
+        sub = r.loader_for(0, state, resumed=False, verbose=False)
+        sub.set_epoch(0)
+        plan, arrays = source.stage_epoch(sub.dataset, sub._order(), B,
+                                          pad_rows=r.plan_rows)
+        inputs = PlanInputs(source.data, B, ds.seg_len, mesh)
+        inputs.load_plan(arrays, plan.n_real)
+        bundle = StepBundle(state, opt, 10.0, MESH_K, inputs, dev, mesh)
+
+        def replayed(d: int) -> torch.Tensor:
+            inputs.set_base(d * MESH_K * B)
+            return bundle()["loss"].clone()
+
+        out["replayed"] = profiled_dispatches(replayed, MESH_K)
+        out["replays"], out["backend"] = bundle.replays, mesh.backend
+        out["k"], out["turnover"] = k, r.turnovers[-1][1]
+        del r, sub, bundle, inputs, source, state, loader, arrays
+        torch.cuda.empty_cache()
+
+        args = json.loads((work / "train_args.json").read_text())
+        mesh_flags = ["--mesh", f"{shape[0]},{shape[1]}", "--distributed",
+                      "--dist-backend", "nccl", "--epochs", "2"]
+        stem = f"fhvae_synthetic_np_fbank_e0s{HIER_MESH_STOP}"
+        reset_counts(mesh_entries())
+        out["text_k1"] = run_cli(cli, args + [
+            "--exp-root", str(work / "k1"), *mesh_flags, "--max-steps",
+            str(HIER_MESH_STOP)])
+        out["launches_k1"] = {e.__name__: e.launches for e in mesh_entries()}
+        reset_counts(mesh_entries())
+        exp8 = work / f"k{MESH_K}"
+        out["text_k8"] = run_cli(cli, args + [
+            "--exp-root", str(exp8), *mesh_flags, "--steps-per-dispatch",
+            str(MESH_K), "--max-steps", str(HIER_MESH_STOP)])
+        if mesh.rank == 0:  # the resume deletes it once epoch 0 is done
+            for ext in (".npz", ".json"):
+                sh.copy(run_dir(exp8, 2) / f"{stem}{ext}",
+                        work / f"k{MESH_K}_{stem}{ext}")
+        out["text_resumed"] = run_cli(cli, [
+            "train", "--dataset", "synthetic", "--preprocessed",
+            "--data-root", str(root), "--continue-from",
+            str(run_dir(exp8, 2) / f"{stem}.npz"), "--resume-override",
+            "max_steps=0", "--distributed", "--dist-backend", "nccl"])
+        out[f"launches_k{MESH_K}"] = {e.__name__: e.launches
+                                      for e in mesh_entries()}
+        out[f"launches_tc_k{MESH_K}"] = tensor_core_counts(mesh_entries())
+    finally:
+        rounds.Rounds.map_init, rounds.replace_mu2_table = real_init, real_swap
+        rounds.device_map_pass_rows = real_rows
+    out["inits"], out["swaps"] = inits, swaps
+    (work / f"hier_rank{mesh.rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def nccl_mesh_hier(work: Path, root: Path, cfg, shape: tuple,
+                   tag: str) -> dict:
+    """The ranks of an NCCL mesh of ``shape``, a card each
+    (:func:`_mesh_hier_nccl_rank`), on 4s-big's corpus at ``root`` (``cfg``:
+    its run config), and what they saw: every MAP init the rows pass (never
+    #8) and every turnover's table the whole table's rows on every rank,
+    its moments zeroed; the round's bundle replayed, #1-#4 and #7 by the
+    profiler against the wrappers; the K = ``MESH_K`` run stopped at
+    ``HIER_MESH_STOP`` against K = 1 there, bit for bit, then its two
+    rounds; #7 once a step, #6 and #8 never. Returns rank 0's record."""
+    from pytorch_scalablefhvae_tpu_torch.parallel.launch import run_ranks
+
+    work.mkdir()
+    cfg.save(work / "config.json")
+    (work / "train_args.json").write_text(json.dumps([
+        "train", "--dataset", "synthetic", "--preprocessed", "--data-root",
+        str(root), "--mvn-path", cfg.data.mvn_path, "--pack-cache-dir",
+        cfg.data.pack_cache_dir, "--hierarchical"]))
+    world = shape[0] * shape[1]
+    t0 = time.perf_counter()
+    codes = run_ranks(_mesh_hier_nccl_rank, world,
+                      (str(work), str(root), shape), backend="nccl",
+                      device="cuda", timeout_s=120, join_timeout_s=900)
+    log(f"{tag}: the {world} NCCL ranks exited with {codes} after "
+        f"{time.perf_counter() - t0:.1f} s")
+    if codes != [0] * world:
+        raise AssertionError(f"{tag}: the NCCL ranks exited with {codes}")
+    ranks = [json.loads((work / f"hier_rank{r}.json").read_text())
+             for r in range(world)]
+    info = ranks[0]
+    bad = {r: (x["inits"], x["swaps"]) for r, x in enumerate(ranks)
+           if not (len(x["inits"]) == len(x["swaps"]) == 4
+                   and all(x["swaps"])
+                   and all(i["rows_pass"] and not i["chunked"]
+                           and i["gather"] == 0 for i in x["inits"]))}
+    log(f"{tag} MAP inits on rank 0 (the profiled round's, the K = 1 "
+        f"run's, two in the K = {MESH_K} runs): {info['inits']}; tables "
+        f"equal to the rows "
+        f"pass's whole table's rows with moments zeroed: {info['swaps']}; "
+        f"ranks that differ {list(bad)}")
+    if bad:
+        raise AssertionError(f"{tag}: a round's MAP init is not the rows "
+                             f"pass's, or a rank's table is not its rows of "
+                             f"the whole table: {bad}")
+    pr = info["replayed"]
+    rows_ = [(kernel, sum(c for n, c in pr["names"].items() if kernel in n),
+              sum(pr["counted"].get(n, 0) for n in names))
+             for kernel, names in MESH_TRACE_KERNELS.items()]
+    log(f"{tag} a {info['k']}-sequence round on the NCCL mesh {shape} "
+        f"(turnover {info['turnover']}), its bundle replayed, backend "
+        f"{info['backend']}: capture and first replay {pr['capture']:.3f} s; "
+        f"10 warm replays: host wall {pr['wall']:.3f} ms/step, device busy "
+        f"{pr['busy']:.3f} (idle share {pr['idle']:.3f}), "
+        f"{pr['launches']:.1f} kernels a step, {pr['graph_launches']} "
+        f"cudaGraphLaunch; kernel (profiler count vs the wrappers' "
+        f"launches): " + ", ".join(f"{n} {t} vs {w}" for n, t, w in rows_)
+        + f"; card {smi_name_power()}")
+    if not (info["replays"] and info["backend"] == "nccl"
+            and info["k"] == HIER_K and pr["graph_launches"] == 10
+            and all(t == w > 0 for _, t, w in rows_)):
+        raise AssertionError(f"{tag}: the round's mesh bundle did not replay "
+                             f"one graph a dispatch through the kernels")
+    said = (f"{MESH_K} steps per dispatch, replayed as one CUDA graph "
+            f"(NCCL all-reduces inside)")
+    turns = round_lines(info["text_k8"]) + round_lines(info["text_resumed"])
+    if said not in info["text_k8"] or [
+            (t["epoch"], t["k"], t["fresh"]) for t in turns] != [
+            (0, HIER_K, True), (0, HIER_K, False), (1, HIER_K, True)]:
+        raise AssertionError(f"{tag}: the K = {MESH_K} runs did not say "
+                             f"{said!r} or did not enter their rounds "
+                             f"{turns}")
+    stem = f"fhvae_synthetic_np_fbank_e0s{HIER_MESH_STOP}"
+    k1_dir = run_dir(work / "k1", 2)
+    aside = work / "aside"
+    aside.mkdir()
+    for ext in (".npz", ".json"):
+        shutil.copy(work / f"k{MESH_K}_{stem}{ext}", aside / f"{stem}{ext}")
+    m8 = same_mid_steps(f"{tag} the round-staged run, K = {MESH_K} replayed "
+                        f"vs K = 1", aside, k1_dir, HIER_MESH_STOP)
+    m1 = mid_epoch(k1_dir, HIER_MESH_STOP)
+    recs = metrics_of(work / f"k{MESH_K}", 2)
+    log(f"{tag} CLI, two {HIER_K}-sequence rounds on the NCCL mesh {shape} "
+        f"at K = {MESH_K}, stopped at {HIER_MESH_STOP} and resumed: " +
+        "; ".join(f"epoch {r['epoch']} {r['train_steps']} steps, "
+                  f"{1e3 * r['train_seconds'] / r['train_steps']:.3f} "
+                  f"ms/step, train loss {r['train_loss']!r}, dev LB "
+                  f"{r['val_lower_bound']!r}" for r in recs)
+        + f"; the first {HIER_MESH_STOP} steps "
+        f"{1e3 * m8['elapsed_s'] / HIER_MESH_STOP:.3f} ms/step at K = "
+        f"{MESH_K} against {1e3 * m1['elapsed_s'] / HIER_MESH_STOP:.3f} at "
+        f"K = 1; turnovers {[t['seconds'] for t in turns]}; rank 0's "
+        f"launches K = {MESH_K} {info[f'launches_k{MESH_K}']}, K = 1 "
+        f"{info['launches_k1']}; card {smi_name_power()}")
+    steps = int(recs[-1]["step"])
+    c = info[f"launches_k{MESH_K}"]
+    check_tensor_core(c, info[f"launches_tc_k{MESH_K}"], f"{tag}, K = "
+                      f"{MESH_K}")
+    if not (len(recs) == 2
+            and all(np.isfinite([r["train_loss"], r["val_lower_bound"]]).all()
+                    for r in recs)
+            and c["discriminative_log_qy_sharded"] == steps
+            and c["discriminative_log_qy_sharded_bwd"] == steps
+            and c["discriminative_log_qy_bwd"] == 0
+            and c["windowed_chunk_gather"] == 0
+            and min(c["lstm2_tm_proj"], c["lstm2_tm"],
+                    c["lstm2_tm_proj_bwd"], c["lstm2_tm_bwd"]) > 0):
+        raise AssertionError(f"{tag}: two finite epochs with kernel #7 once "
+                             f"a step forward and backward, #6 and #8 never, "
+                             f"#1-#4 launched: {c}")
+    return info
+
+
+def phase_mesh_hier(workdir: Path, cfg, ctx: dict, info: dict) -> dict:
+    """Phase 5h: ``train --mesh d,m --hierarchical``. (a) Four gloo ranks
+    on the card (``--mesh 2,2``; the runs of :func:`hier_mesh_runs`, run by
+    :func:`gloo_mesh_runs`), ``HIER_SMALL_K``-sequence rounds on phase 4's
+    corpus: the device tier at K = ``MESH_K`` against K = 1, row-sharded
+    against replicated, a run stopped inside the round and resumed against
+    the run never stopped, each bit for bit; the round tier, where the
+    replicated sub-pack reduces the round size and the row-sharded one
+    does not; the host loader, its MAP init over every window as the rows
+    pass's, within ``TOL_HIER_EPOCH`` of the device tier. (b) One NCCL rank (``--mesh 1,1 --distributed``) at the CLI
+    defaults on 4s-big's corpus (:func:`nccl_mesh_hier`). Returns (b)'s K =
+    ``MESH_K`` runs' launches (``mesh_hier``)."""
+    log(f"== phase 5h: sfhvae train --mesh d,m --hierarchical: "
+        f"{MESH[0] * MESH[1]} gloo ranks on the card with {HIER_SMALL_K}-"
+        f"sequence rounds (in the shared gloo launch: "
+        f"{sum(info['wall'].values()):.1f} s), then one NCCL rank at K = "
+        f"{HIER_K}")
+    t_phase = time.perf_counter()
+    exp, texts = ctx["exp"], info["texts"]
+
+    # (a) four gloo ranks
+    def same_steps(name, a, b, steps=HIER_MESH_CAP, loss_rtol=0.0):
+        return same_mid_steps(f"5h (a) {name}", run_dir(exp[a], 1),
+                              run_dir(exp[b], 1), steps, loss_rtol)
+
+    same_steps(f"device tier, K = {MESH_K} vs K = 1", "device K8",
+               "device K1")
+    same_steps(f"device tier at K = {MESH_K}, row-sharded vs replicated",
+               "device sharded K8", "device K8")
+    same_steps(f"device tier K = {MESH_K}, stopped at {HIER_MESH_CUT} and "
+               f"resumed vs never stopped", "stopped", "device K8",
+               loss_rtol=1e-12)
+    staged = "stage their subset device-resident"
+    reduced = f"Hierarchical round size reduced {HIER_SMALL_K} -> "
+    said = {name: [line for line in texts[name].splitlines()
+                   if "round" in line.lower()]
+            for name in ("device K8", "round", "round sharded", "host",
+                         "resumed")}
+    log(f"5h (a) at a budget of {ctx['budget']} bytes a device (the K "
+        f"longest sequences need {ctx['need']} rows), rank 0 said: {said}")
+    lines = {name: round_lines(texts[name]) for name in texts}
+    if not (reduced in texts["round"] and staged in texts["round"]
+            and reduced not in texts["round sharded"]
+            and staged in texts["round sharded"]
+            and [t["k"] for t in lines["round sharded"]] == [HIER_SMALL_K]
+            and [t["fresh"] for t in lines["resumed"]] == [False]
+            and all([t["k"] for t in lines[n]] == [HIER_SMALL_K]
+                    for n in ("device K1", "device K8", "host"))):
+        raise AssertionError("5h (a): the rounds were not staged and sized "
+                             "as the budget says, or the resume did not "
+                             "re-enter its round")
+    for name in ("round", "round sharded"):
+        m = mid_epoch(run_dir(exp[name], 1), HIER_MESH_CAP)
+        if not np.isfinite(m["loss_sum"]):
+            raise AssertionError(f"5h (a) {name}: the loss is not finite")
+    host, device = (mid_epoch(run_dir(exp[n], 1), HIER_MESH_CAP)
+                    for n in ("host", "device K8"))
+    gap = abs(host["loss_sum"] / device["loss_sum"] - 1)
+    log(f"5h (a) host loader vs device tier, {HIER_MESH_CAP} steps: loss "
+        f"sums {host['loss_sum']!r} vs {device['loss_sum']!r} (relative gap "
+        f"{gap:.3e}, tol {TOL_HIER_EPOCH:g}); "
+        f"{1e3 * host['elapsed_s'] / HIER_MESH_CAP:.2f} vs "
+        f"{1e3 * device['elapsed_s'] / HIER_MESH_CAP:.2f} ms/step; runs' "
+        f"wall seconds {{" + ", ".join(f"{n}: {w:.1f}" for n, w in
+                                       info["wall"].items()) + "}")
+    if not gap <= TOL_HIER_EPOCH:
+        raise AssertionError("5h (a): the host loader disagrees with the "
+                             "device tier")
+    for name, c in info["launches"].items():
+        steps = (HIER_MESH_CAP - HIER_MESH_CUT if name == "resumed"
+                 else HIER_MESH_CUT if name == "stopped" else HIER_MESH_CAP)
+        check_tensor_core(c, info["launches_tc"][name], f"5h (a) {name}")
+        if not (c["discriminative_log_qy_sharded"] == steps
+                and c["discriminative_log_qy_sharded_bwd"] == steps
+                and c["discriminative_log_qy_bwd"] == 0
+                and c["windowed_chunk_gather"] == 0
+                and c["lstm2_tm_proj"] > 0):
+            raise AssertionError(f"5h (a) {name}: #7 must be launched once "
+                                 f"a step forward and backward, #6 and #8 "
+                                 f"never: {c}")
+    torch.cuda.empty_cache()
+
+    # (b) one NCCL rank at the CLI defaults
+    root, bcfg = big_corpus(workdir)
+    out = nccl_mesh_hier(workdir / "mesh_hier_nccl", root, bcfg, (1, 1),
+                         "5h (b)")
+    log(f"phase 5h took {time.perf_counter() - t_phase:.1f} s; card "
+        f"{smi_name_power()}")
+    return out[f"launches_k{MESH_K}"]
 
 
 # -------------------------------------------------------------- phase 4r
@@ -6504,9 +7018,9 @@ def main(argv=None) -> int:
     parser.add_argument("--only", default=None,
                         help="comma-separated phases to run after phase 1 "
                              "(2, 2f, 2b, 2c, 2d, 2e, 3, 3b, 4, 4k, 4s, 4h, "
-                             "4m, 4p, 4b, 4q, 5, 5t, 5k, 4r, 4l; 5n, on four "
-                             "cards, only when named; 2 includes 2f, 4k, "
-                             "4b and 4r need 4); default all but 5n")
+                             "4m, 4p, 4b, 4q, 5, 5t, 5k, 5h, 4r, 4l; 5n, on "
+                             "four cards, only when named; 2 includes 2f, "
+                             "4k, 4b and 4r need 4); default all but 5n")
     only = parser.parse_args(argv).only
     only = None if only is None else set(only.split(","))
     if only is not None and "2" in only:
@@ -6554,7 +7068,7 @@ def main(argv=None) -> int:
                 write_corpus(workdir / "wav")
             by_path["preprocess"] = timed("3b", phase_preprocess, workdir)
         if any(on(p) for p in ("4", "4s", "4h", "4m", "4p", "5", "5t",
-                               "5k", "5n", "4l")):
+                               "5k", "5h", "5n", "4l")):
             cfg = timed("corpus", write_feature_corpus, workdir / "data")
             log(f"corpus written in {seconds['corpus']:.1f} s")
         epoch0 = None
@@ -6567,7 +7081,7 @@ def main(argv=None) -> int:
                 {**runs, "launches": by_path["train"]})
         if on("4s"):
             by_path["train_stream"] = timed("4s", phase_stream, workdir, cfg,
-                                            keep_big=on("4h"))
+                                            keep_big=on("4h") or on("5h"))
         if on("4h"):
             by_path["train_hier"] = timed("4h", phase_hier, workdir, cfg)
         if on("4m"):
@@ -6580,14 +7094,21 @@ def main(argv=None) -> int:
             timed("4q", phase_quality, workdir)
         if on("5"):
             by_path["mesh"] = timed("5", phase_mesh, workdir, cfg, epoch0)
+        # the gloo runs of 5t, 5k (b) and 5h (a): four ranks started once
+        gloo = [p for p in ("5t", "5k", "5h") if on(p)]
+        gloo = gloo and timed("5 gloo ranks", gloo_mesh_runs, workdir, cfg,
+                              gloo)
         if on("5t"):
-            by_path["mesh_tiers"] = timed("5t", phase_mesh_tiers, workdir, cfg)
+            by_path["mesh_tiers"] = timed("5t", phase_mesh_tiers, workdir,
+                                          cfg, *gloo["5t"])
         if on("5k"):
             by_path["mesh_k8"] = timed("5k", phase_mesh_k, workdir, cfg,
-                                       epoch0)
+                                       epoch0, *gloo["5k"])
+        if on("5h"):
+            by_path["mesh_hier"] = timed("5h", phase_mesh_hier, workdir, cfg,
+                                         *gloo["5h"])
         if on("5n"):
-            by_path["mesh_k8_cards"] = timed("5n", phase_mesh_k_cards,
-                                             workdir, cfg)
+            by_path.update(timed("5n", phase_mesh_k_cards, workdir, cfg))
         if on("4r"):
             by_path["train_resume"] = timed("4r", phase_resume, workdir, cfg)
         if on("4l"):

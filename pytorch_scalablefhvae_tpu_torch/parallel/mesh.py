@@ -126,6 +126,13 @@ class Mesh:
         """The rows of the padded mu2 table that this rank holds."""
         return model_shard(self, rows_padded, "mu2 table rows")
 
+    def table_shard(self, table):
+        """This rank's rows of a whole padded ``[rows_padded, z2]`` table (a
+        tensor or an array; JAX's ``device_put(table, NamedSharding(mesh,
+        P("model", None)))``): a hierarchical round's MAP table, a saved
+        table on a resume."""
+        return table[self.table_rows(table.shape[0])]
+
     def store_rows(self, rows_padded: int) -> slice:
         """The rows of a store or a streamed chunk row-sharded over the
         model axis (``--shard-device-store``) that this rank stages: the
@@ -223,8 +230,7 @@ def shard_model(model, mesh: Mesh):
     padded = torch.zeros((n_pad, table.shape[1]), dtype=table.dtype,
                          device=table.device)
     padded[:table.shape[0]] = table
-    model.mu2_table = torch.nn.Parameter(
-        padded[mesh.table_rows(n_pad)].clone())
+    model.mu2_table = torch.nn.Parameter(mesh.table_shard(padded).clone())
     model.num_seqs_padded = n_pad
     model.shard_mesh = mesh
     return model

@@ -15,8 +15,10 @@ index plan on the device, and build each batch there:
   device scalars (:func:`batch_views_at`);
 - :func:`device_eval_pass`: per-batch weighted metric sums over a split,
   stacked on the device;
-- :func:`device_map_pass` (array plan) and :func:`device_map_pass_chunked`
-  (the chunk layout, gathered by the ``windowed_chunk_gather`` kernel): a
+- :func:`device_map_pass` (array plan), :func:`device_map_pass_rows` (the
+  same plan derived on the device from per-sequence vectors, a
+  hierarchical round's MAP init) and :func:`device_map_pass_chunked` (the
+  chunk layout, gathered by the ``windowed_chunk_gather`` kernel): a
   split's MAP mu2 table, accumulated in fp32 on the device.
 
 The store is a tensor in the staging dtype (float32 or bfloat16: the
@@ -37,9 +39,10 @@ On a mesh of ranks a rank gathers only its rows of each planned batch
 (:func:`rank_views`), from the store replicated on every rank or, with
 ``--shard-device-store``, row-sharded over the model axis
 (:func:`gather_sharded`, one definition for the train step, the eval pass
-and the array-plan MAP pass); the eval sums and the MAP sums are added up
-over the data group. The chunked MAP pass does not run on a mesh (as in the
-JAX loop): the array-plan pass does.
+and the array-plan and rows MAP passes); the eval sums and the MAP sums are
+added up over the data group. The chunked MAP pass does not run on a mesh
+(as in the JAX loop): the array-plan pass does, and a hierarchical round's
+the rows pass.
 """
 
 from __future__ import annotations
@@ -263,6 +266,48 @@ def device_map_pass(model, store, seq_idx_all, starts_all, n_real: int, *,
 
     return _map_scan(model, batch_fn, n_batches, num_rows,
                      pz2_var / pmu2_var, store.device, mesh)
+
+
+def rows_plan(sel_starts, sel_nsegs, *, seg_shift: int, rows: int):
+    """The sequence-major window plan of ``rows`` rows derived on the device
+    from the sequences' first frames ``sel_starts [K]`` and window counts
+    ``sel_nsegs [K]`` (deterministic windowing): row ``r`` belongs to
+    sequence ``k = searchsorted(cumsum(nsegs), r, right)`` at window ``j =
+    r - cum[k-1]``, frame ``sel_starts[k] + j * seg_shift``. Rows at or past
+    ``n_real = sum(nsegs)`` are padding: sequence ``K - 1`` at frame 0, to
+    take weight 0. Returns ``(seq_idx [rows], starts [rows], n_real)``, the
+    last a 0-dim device tensor."""
+    dev = sel_starts.device
+    cum = torch.cumsum(sel_nsegs.to(torch.long), 0)
+    n_real = cum[-1]
+    r = torch.arange(rows, device=dev)
+    k = torch.searchsorted(cum, r, right=True).clamp(max=cum.shape[0] - 1)
+    prev = torch.where(k > 0, cum[(k - 1).clamp(min=0)], 0)
+    starts = sel_starts.to(torch.long)[k] + (r - prev) * seg_shift
+    return k, torch.where(r < n_real, starts, 0), n_real
+
+
+def device_map_pass_rows(model, store, sel_starts, sel_nsegs, *,
+                         seg_len: int, seg_shift: int, batch_size: int,
+                         n_batches: int, num_rows: int, pz2_var: float,
+                         pmu2_var: float = 1.0, mesh=None) -> torch.Tensor:
+    """A round's ``[num_rows, z2_dim]`` MAP mu2 table from per-sequence
+    vectors only (``make_device_map_pass_rows``): the upload is two ``[K]``
+    vectors, the window plan derives on the device (:func:`rows_plan`) and
+    runs through :func:`device_map_pass`, so on a ``mesh`` each rank
+    encodes its rows of every batch, gathered from the replicated store or
+    a ``RowShard``, and the sums are added up over the data group. Every
+    rank gets the whole table (padded rows exact zeros); the round keeps
+    its rows of it (``step.replace_mu2_table``), as JAX constrains it to
+    ``P("model", None)``. Index arithmetic and ``index_put_``, no kernel of
+    its own: the JAX package computes it outside Pallas too."""
+    seq_all, starts_all, n_real = rows_plan(
+        sel_starts, sel_nsegs, seg_shift=seg_shift,
+        rows=n_batches * batch_size)
+    return device_map_pass(model, store, seq_all, starts_all, n_real,
+                           seg_len=seg_len, batch_size=batch_size,
+                           n_batches=n_batches, num_rows=num_rows,
+                           pz2_var=pz2_var, pmu2_var=pmu2_var, mesh=mesh)
 
 
 MAP_SPB = 16  # windows per chunk of the chunked MAP passes

@@ -13,7 +13,7 @@ package's; ``split_manifests`` says where a preprocessed corpus's
 extracted first, the ``jax`` extractor's on the run's device.
 
 :func:`check_ported` refuses every setting whose code path is not yet
-ported, naming ``ROADMAP.md``: what is left of the mesh. The data tier (the device-resident store,
+ported, naming ``ROADMAP.md``: orbax checkpoints. The data tier (the device-resident store,
 the streamed tier or the host loader) is resolved by ``train/loop.py``,
 which also runs the mesh branch: on a mesh every rank calls
 :func:`train_from_config` with its own device (``cli/main.py`` starts the
@@ -40,27 +40,20 @@ from pytorch_scalablefhvae_tpu_torch.train.loop import TrainResult, run_training
 
 def check_ported(config: ExperimentConfig) -> None:
     """Raise ``NotImplementedError`` (naming ROADMAP.md) for a setting the
-    port does not run yet. ``--ckpt-every-steps`` and ``--max-steps`` are
+    port does not run yet: of ``train``'s settings only ``--ckpt-backend
+    orbax`` (item 10.3). ``--ckpt-every-steps`` and ``--max-steps`` are
     not in the table: they run on every tier, at any K and on a mesh
     (``train/loop.py`` :class:`EpochCursor`); the loop refuses them with
     ``--legacy`` by a ``ValueError``, as the JAX loop does. A mesh runs
     every data tier in every transfer dtype, with or without
     ``--shard-device-store`` (a no-op on one device, as in the JAX
-    package), at any ``--steps-per-dispatch``."""
-    t = config.train
-    on_mesh = tuple(t.mesh_shape) != (1, 1)
-    refused = {
-        "--mesh with --hierarchical": on_mesh and t.sample_hierarchical,
-        "--ckpt-backend orbax": t.ckpt_backend == "orbax",
-    }
-    for flag, hit in refused.items():
-        if hit:
-            where = ("ROADMAP.md, item 10" if flag.startswith("--mesh with")
-                     else "ROADMAP.md")
-            raise NotImplementedError(
-                f"{flag} is not yet ported to PyTorch ({where}); train with "
-                f"the JAX CLI, python -m pytorch_scalablefhvae_tpu.cli.main "
-                f"train")
+    package), at any ``--steps-per-dispatch``, and hierarchical rounds on
+    each of them (``train/rounds.py``)."""
+    if config.train.ckpt_backend == "orbax":
+        raise NotImplementedError(
+            "--ckpt-backend orbax is not yet ported to PyTorch (ROADMAP.md, "
+            "item 10.3); train with the JAX CLI, python -m "
+            "pytorch_scalablefhvae_tpu.cli.main train")
 
 
 def check_batch_split(config: ExperimentConfig) -> None:

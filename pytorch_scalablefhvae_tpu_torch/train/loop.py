@@ -48,15 +48,15 @@ and resumed run equals an uninterrupted one bit for bit, and the epoch
 checkpoint deletes the step checkpoints it supersedes.
 
 Hierarchical rounds (``--hierarchical``, ``train/rounds.py``) run on one
-device: each epoch trains on its round's loader through the runners above,
-on the device tier (a round's subset a view of the staged store), per-round
-staging of a store over the budget (:func:`run_device_epoch` on the round's
-buffer), or the host loader. With ``--epoch-plan device`` the staged
+device or on a mesh: each epoch trains on its round's loader through the
+runners above, on the device tier (a round's subset a view of the staged
+store), per-round staging of a store over the budget (:func:`run_device_epoch`
+on the round's buffer, row-sharded with ``--shard-device-store`` on a mesh),
+or the host loader, at any K. With ``--epoch-plan device`` the staged
 tiers' epoch plans are derived on the device from the seed and the epoch
-(``data/device_store.py`` ``DeviceEpochPlanner``) instead of uploaded; the
-host loader and the streamed tier say they ignore it, as the JAX loop
-does. Hierarchical rounds on a mesh are not ported yet (``ROADMAP.md``,
-item 10; ``train/driver.py`` refuses them).
+(``data/device_store.py`` ``DeviceEpochPlanner``; every rank of a mesh
+derives the same) instead of uploaded; the host loader and the streamed
+tier say they ignore it, as the JAX loop does.
 
 ``--legacy`` runs the reference's step epochs on the host loader at batch 1
 (:class:`LegacyEpochs`; eager steps, K ignored). The observability flags:
@@ -702,9 +702,11 @@ def stage_train_tier(config: ExperimentConfig, tier: str,
     ds, dtype = train_loader.dataset, config.data.transfer_dtype
     shard = config.data.shard_device_store
     if tier == "round":
-        # the ceiling's rows, empty: each round restages its sub-pack
+        # the ceiling's rows, empty: each round restages its sub-pack (on a
+        # mesh with --shard-device-store this rank's rows of it)
         source = DeviceDataSource(ds.store.subset([], materialize=True),
-                                  device, dtype, pad_to_rows=ceiling)
+                                  device, dtype, pad_to_rows=ceiling,
+                                  mesh=mesh, shard_store=shard)
         return source, ceiling * ds.store.dim * staging_itemsize(dtype)
     if tier == "device":
         source = DeviceDataSource(ds.store, device, dtype, mesh=mesh,
@@ -830,10 +832,6 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
 
     ds = train_loader.dataset
     hier = config.train.sample_hierarchical
-    if hier and mesh is not None:
-        raise NotImplementedError(
-            "--mesh with --hierarchical is not yet ported to PyTorch "
-            "(ROADMAP.md, item 10)")
     placement = config.data.data_placement
     legacy = config.train.legacy
     tier = resolve_tier(placement, ds.store,
@@ -851,7 +849,8 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
             num_seqs, ceiling = round_ceiling(
                 placement, ds.store, num_seqs,
                 config.data.device_store_max_bytes,
-                config.data.transfer_dtype, verbose)
+                config.data.transfer_dtype, verbose, mesh,
+                config.data.shard_device_store)
             if ceiling is not None:
                 tier = "round"
     source, dev_split = None, None
@@ -942,7 +941,7 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
               + ("chunk-streamed (plans are per-chunk, host-derived)"
                  if tier == "stream" else "host-resident"))
     rounds = Rounds(config, train_loader, tier, source, num_seqs, dev,
-                    device_plan) if hier else None
+                    device_plan, mesh) if hier else None
     planner = None if rounds is None else rounds.planner
     if device_plan and rounds is None:
         rows = len(ds) + (-len(ds)) % train_loader.batch_size

@@ -33,8 +33,19 @@ largest sequences' windows), so one captured graph serves every round
 per-sequence vectors, staged at every turnover and re-entry), and
 the MAP init is one chunked pass through kernel #8 (every
 ``--map-init-chunk-skip``-th chunk of 16 windows of each sequence), or the
-array-plan pass for int8 stores and random windows; on the host tier it is
-``estimate_split_mu2`` over the same chunks.
+rows pass (every window, its plan derived on the device from the round's
+two ``[K]`` vectors) for int8 stores and on a mesh, or the array-plan pass
+for random windows; on the host tier it is ``estimate_split_mu2`` over the
+chunks that the chunked pass takes.
+
+On a mesh (``--mesh d,m``) every rank runs the same rounds: the draw is
+keyed by ``(seed, e0)`` alone, so every rank draws the same keys; each
+stages the round's sub-pack (on the ``round`` tier with
+``--shard-device-store`` its rows of it, the budget counting m times); the
+MAP init runs on every rank, each encoding its rows of every batch, the
+sums added up over the data group, and every rank keeps its rows of the
+whole padded table (``step.replace_mu2_table``). Kernel #8 is not on this
+path, as in the JAX loop, whose chunked pass runs off a mesh only.
 """
 
 from __future__ import annotations
@@ -50,6 +61,7 @@ from pytorch_scalablefhvae_tpu_torch.data.device_store import (
     DeviceEpochPlanner,
     build_epoch_plan,
     staging_itemsize,
+    store_budget,
 )
 from pytorch_scalablefhvae_tpu_torch.data.loader import SegmentLoader
 from pytorch_scalablefhvae_tpu_torch.data.segments import (
@@ -61,6 +73,7 @@ from pytorch_scalablefhvae_tpu_torch.train.device_step import (
     MAP_SPB,
     device_map_pass,
     device_map_pass_chunked,
+    device_map_pass_rows,
 )
 from pytorch_scalablefhvae_tpu_torch.train.step import (
     TrainState,
@@ -72,8 +85,9 @@ MAP_BATCH_ROWS = 2048  # the MAP init's batch: the train batch times
 
 
 def round_ceiling(placement: str, store, k: int, max_bytes: int,
-                  store_dtype: str = "float32",
-                  verbose: bool = True) -> tuple[int, int | None]:
+                  store_dtype: str = "float32", verbose: bool = True,
+                  mesh=None, shard_store: bool = False
+                  ) -> tuple[int, int | None]:
     """Per-round staging of a hierarchical run whose store is over the
     budget: ``(K, ceiling)``, the effective round size and the row count of
     the buffer every round's sub-pack is staged into, or ``(k, None)`` when
@@ -82,13 +96,16 @@ def round_ceiling(placement: str, store, k: int, max_bytes: int,
     ``ValueError``).
 
     The sub-pack may take three quarters of ``max_bytes`` in
-    ``store_dtype``. K is the largest round size whose worst-case draw, the
-    K longest sequences, fits, since the table's rows are fixed for the run;
-    a K below ``k`` is announced whatever ``verbose`` is, as the JAX loop
-    announces it only under ``verbose``."""
+    ``store_dtype``, times the model axis of ``mesh`` when ``shard_store``
+    row-shards it over that axis (``store_budget``, JAX ``loop.py:316-321``).
+    K is the largest round size whose worst-case draw, the K longest
+    sequences, fits, since the table's rows are fixed for the run; a K below
+    ``k`` is announced whatever ``verbose`` is (on a mesh by rank 0 alone),
+    as the JAX loop announces it only under ``verbose``."""
     isz = staging_itemsize(store_dtype)
     k = min(k, store.num_seqs)
-    budget_rows = (max_bytes * 3 // 4) // max(store.dim * isz, 1)
+    budget = store_budget(max_bytes, mesh, shard_store)
+    budget_rows = (budget * 3 // 4) // max(store.dim * isz, 1)
     floor = int(np.max(store.lens)) + STORE_TAIL_SLACK
     if budget_rows < floor:
         if placement in ("device", "stream"):
@@ -104,7 +121,7 @@ def round_ceiling(placement: str, store, k: int, max_bytes: int,
     k_eff = int(np.searchsorted(np.cumsum(desc),
                                 budget_rows - STORE_TAIL_SLACK,
                                 side="right"))
-    if k_eff < k:
+    if k_eff < k and (mesh is None or mesh.rank == 0):
         print(f"Hierarchical round size reduced {k} -> {k_eff}: a round's "
               f"worst-case sub-pack must fit the device-store budget (raise "
               f"--device-store-max-bytes or use --transfer-dtype "
@@ -134,11 +151,15 @@ def round_loader(full: SegmentDataset, sub_store, batch_size: int, seed: int,
 
 
 def check_round_table(checkpoint_file, model, k: int) -> None:
-    """Refuse a hierarchical resume whose checkpoint's table has another row
-    count than this run's effective round size ``k`` (the JAX package
-    fails there with a shape error)."""
-    rows = ckpt.saved_table_rows(checkpoint_file, model)
-    if rows != k:
+    """Refuse a hierarchical resume whose checkpoint holds a round table of
+    another size than this run's effective round size ``k`` (the JAX
+    package fails there with a shape error): its ``num_seqs``, the K it
+    was saved with, whose table a mesh pads to a multiple of its model
+    axis; the table's rows where the sidecar lacks it."""
+    rows = ckpt.read_checkpoint_meta(checkpoint_file).get("num_seqs")
+    if rows is None:
+        rows = ckpt.saved_table_rows(checkpoint_file, model)
+    if int(rows) != k:
         raise ValueError(
             f"{checkpoint_file} holds a hierarchical round table of {rows} "
             f"rows, but this run's round size K is {k}. K is "
@@ -157,13 +178,16 @@ class Rounds:
     of a staged tier's epoch plans; ``planner``: with ``device_plan`` (a
     staged tier's ``--epoch-plan device``) the planner that derives them,
     its vectors staged at every round entered. ``turnovers``: per round
-    entered, ``(e0, seconds by stage, fresh)``."""
+    entered, ``(e0, seconds by stage, fresh)``. ``mesh``: this rank's mesh,
+    where the rounds run on every rank in step."""
 
     def __init__(self, config, loader: SegmentLoader, tier: str, source,
-                 k: int, device: torch.device, device_plan: bool = False):
+                 k: int, device: torch.device, device_plan: bool = False,
+                 mesh=None):
         ds = loader.dataset
         self.full, self.batch_size = ds, loader.batch_size
         self.tier, self.source, self.k, self.device = tier, source, k, device
+        self.mesh = mesh
         self.every = max(config.train.hierarchical_round_epochs, 1)
         self.seed = config.train.seed
         self.dtype = config.data.transfer_dtype
@@ -177,7 +201,7 @@ class Rounds:
             rows = int(top.sum())
             self.plan_rows = rows + (-rows) % B
         self.map_batch = B * max(1, MAP_BATCH_ROWS // B)
-        self.chunked = (tier != "host" and not ds.rand_seg
+        self.chunked = (tier != "host" and mesh is None and not ds.rand_seg
                         and self.dtype != "int8"
                         and self.map_batch % MAP_SPB == 0
                         and (MAP_SPB - 1) * ds.seg_shift + ds.seg_len
@@ -212,13 +236,15 @@ class Rounds:
         keys = round_keys(store.seq_keys, self.k, self.seed, e0)
         secs["draw"] = time.perf_counter() - t0
         if self.tier == "round":
+            # the ceiling is the buffer's whole row count, also where a
+            # mesh stages no slack and a rank holds its rows of it
             frames = int(sum(store.lens[store.seq2idx[k]] for k in keys))
-            if frames + STORE_TAIL_SLACK > self.source.rows.shape[0]:
+            held = self.source.total_rows - STORE_TAIL_SLACK
+            if frames > held:
                 raise RuntimeError(
                     f"round draw needs {frames} frames but the staging "
-                    f"ceiling holds "
-                    f"{self.source.rows.shape[0] - STORE_TAIL_SLACK}: the "
-                    f"ceiling must cover the K largest sequences")
+                    f"ceiling holds {held}: the ceiling must cover the K "
+                    f"largest sequences")
             t0 = time.perf_counter()
             sub = store.subset(keys, materialize=True)
             secs["materialise"] = time.perf_counter() - t0
@@ -256,10 +282,13 @@ class Rounds:
 
     def map_init(self, state: TrainState, ds: SegmentDataset) -> None:
         """The round's table, MAP-estimated from the current encoder's z2
-        means, zero-padded to the model's table rows, in place of the last
-        round's, with its moments reset."""
-        model = state.model
+        means, zero-padded to the model's padded table rows
+        (``num_seqs_padded``), in place of the last round's, with its
+        moments reset; on a mesh every rank estimates the whole table and
+        keeps its rows."""
+        model, mesh = state.model, self.mesh
         pz2_var = math.exp(model.pz2_logvar)
+        rows = model.num_seqs_padded
         if self.tier == "host":
             from pytorch_scalablefhvae_tpu_torch.train.loop import (
                 estimate_split_mu2,
@@ -270,27 +299,14 @@ class Rounds:
             est = SegmentLoader(ds, self.batch_size, shuffle=False, seed=0,
                                 transfer_dtype=self.dtype, indices=idx)
             est_table = estimate_split_mu2(model, est, self.k, pz2_var,
-                                           self.device)
-            table = torch.zeros((model.table_rows, est_table.shape[1]))
+                                           self.device, mesh=mesh)
+            table = torch.zeros((rows, est_table.shape[1]))
             table[:self.k] = torch.from_numpy(est_table)
             table = table.to(self.device)
-        elif self.chunked:
-            need = self.chunk_rows(ds.nsegs)
-            if need > self.map_batches * self.map_batch:
-                raise RuntimeError(
-                    f"round MAP plan needs {need} rows but the pass holds "
-                    f"{self.map_batches * self.map_batch}: the ceiling must "
-                    f"cover the K largest sequences")
-            starts, nsegs = (self.planner.meta[:2] if self.planner
-                             else self.source.stage_meta(ds, pad_seqs=self.k))
-            table = device_map_pass_chunked(
-                model, self.source.data, starts, nsegs, seg_len=ds.seg_len,
-                seg_shift=ds.seg_shift, batch_size=self.map_batch,
-                n_batches=self.map_batches, num_rows=model.table_rows,
-                pz2_var=pz2_var, spb=MAP_SPB, chunk_skip=self.skip)
-        else:
-            # every window, in sequence order: the plan is padded to the
-            # ceiling, and raises where the round needs more
+        elif ds.rand_seg:
+            # random windows are drawn on the host: every window, in
+            # sequence order, its plan padded to the ceiling (raises where
+            # the round needs more)
             plan = build_epoch_plan(
                 ds, np.arange(len(ds)), self.map_batch,
                 pad_rows=self.map_batches * self.map_batch)
@@ -299,6 +315,29 @@ class Rounds:
                 self.source.upload(plan.seq_idx, torch.long),
                 self.source.upload(plan.abs_starts, torch.long), plan.n_real,
                 seg_len=ds.seg_len, batch_size=self.map_batch,
-                n_batches=self.map_batches, num_rows=model.table_rows,
-                pz2_var=pz2_var)
+                n_batches=self.map_batches, num_rows=rows, pz2_var=pz2_var,
+                mesh=mesh)
+        else:
+            # the plan derives on the device from the round's two [K]
+            # vectors, so a round that needs more rows than the pass holds
+            # would lose windows silently: raise instead
+            need = (self.chunk_rows(ds.nsegs) if self.chunked
+                    else int(np.sum(ds.nsegs)))
+            if need > self.map_batches * self.map_batch:
+                raise RuntimeError(
+                    f"round MAP plan needs {need} rows but the pass holds "
+                    f"{self.map_batches * self.map_batch}: the ceiling must "
+                    f"cover the K largest sequences")
+            starts, nsegs = (self.planner.meta[:2] if self.planner
+                             else self.source.stage_meta(ds, pad_seqs=self.k))
+            kw = dict(seg_len=ds.seg_len, seg_shift=ds.seg_shift,
+                      batch_size=self.map_batch, n_batches=self.map_batches,
+                      num_rows=rows, pz2_var=pz2_var)
+            if self.chunked:
+                table = device_map_pass_chunked(
+                    model, self.source.data, starts, nsegs, spb=MAP_SPB,
+                    chunk_skip=self.skip, **kw)
+            else:
+                table = device_map_pass_rows(model, self.source.data, starts,
+                                             nsegs, mesh=mesh, **kw)
         replace_mu2_table(state, table)

@@ -78,12 +78,17 @@ def create_train_state(model: torch.nn.Module, seed: int = 0) -> TrainState:
 @torch.no_grad()
 def replace_mu2_table(state: TrainState, table: torch.Tensor) -> None:
     """A hierarchical round's turnover (the JAX loop's
-    ``_replace_mu2_table``): the new round's table into ``mu2_table`` and
-    its Adam ``mu`` and ``nu`` zeroed, matched by the parameter's name, not
-    by shape; the other moments, ``count`` and ``step`` stay. In place
-    (``copy_``, ``zero_``): a captured K-step graph keeps the addresses of
-    the parameters and the moments, so a tensor bound in their place would
-    never be read by its replays."""
+    ``_replace_mu2_table``): the new round's table, whole and padded to the
+    model's ``num_seqs_padded`` rows, into ``mu2_table`` (on a mesh this
+    rank's rows of it, ``Mesh.table_shard``) and its Adam ``mu`` and ``nu``
+    zeroed, matched by the parameter's name, not by shape; the other
+    moments, ``count`` and ``step`` stay. In place (``copy_``, ``zero_``):
+    a captured K-step graph keeps the addresses of the parameters and the
+    moments (under NCCL with its all-reduces inside), so a tensor bound in
+    their place would never be read by its replays."""
+    mesh = state.model.shard_mesh
+    if mesh is not None:
+        table = mesh.table_shard(table)
     for name, p in state.model.named_parameters():
         if name.rsplit(".", 1)[-1] == "mu2_table":
             p.copy_(table)

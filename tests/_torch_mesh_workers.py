@@ -322,3 +322,134 @@ def raise_in_rank_one():
         raise RuntimeError("this rank fails")
     dist.all_reduce(torch.zeros(1))
     return 0
+
+
+def hier_rounds(inp, out_dir, shape, dims, runs_json):
+    """A hierarchical round's pieces on the mesh, in turn (rank side of
+    ``tests/test_torch_mesh_hier.py``): (a) ``device_map_pass_rows`` over a
+    subset view of a store staged replicated and row-sharded; (b) the
+    JAX run's epoch-0 checkpoint resumed through the CLI, JAX's noise handed
+    to every step, each turnover's whole table kept; (c) every other CLI run
+    of ``runs_json`` (``{"turnover": argv, "runs": {name: argv}}``), the
+    epoch plans derived by ``DeviceEpochPlanner`` during the run named
+    ``"plan"`` kept. Saves the tables, the turnover's tables and the plans
+    into ``rank<r>.npz``."""
+    import json
+
+    from pytorch_scalablefhvae_tpu_torch.cli.main import main
+    from pytorch_scalablefhvae_tpu_torch.data.device_store import (
+        DeviceDataSource,
+        DeviceEpochPlanner,
+    )
+    from pytorch_scalablefhvae_tpu_torch.data.segments import SegmentDataset
+    from pytorch_scalablefhvae_tpu_torch.train import rounds
+    from pytorch_scalablefhvae_tpu_torch.train.device_step import (
+        device_map_pass_rows,
+    )
+
+    mesh = pmesh.make_mesh(shape, CPU)
+    with np.load(inp) as z:
+        arrays = {k: z[k] for k in z.files}
+    seg_len, seg_shift, bs, n_batches, num_rows = (
+        int(arrays[k]) for k in ("seg_len", "seg_shift", "batch", "n_batches",
+                                 "num_rows"))
+    store = _feature_store(arrays)
+    sub = store.subset([store.seq_keys[i] for i in arrays["sub_idx"]])
+    ds = SegmentDataset(sub, seg_len=seg_len, seg_shift=seg_shift)
+    model = FHVAE(lstm_mm_dtype="float32", **dims)
+    model.load_state_dict({k[6:]: torch.from_numpy(v) for k, v in
+                           arrays.items() if k.startswith("param.")})
+    out = {}
+    for shard in (False, True):
+        src = DeviceDataSource(store, CPU, mesh=mesh, shard_store=shard)
+        starts, nsegs = src.stage_meta(ds)
+        out[f"map/{shard}"] = device_map_pass_rows(
+            model, src.data, starts, nsegs, seg_len=seg_len,
+            seg_shift=seg_shift, batch_size=bs, n_batches=n_batches,
+            num_rows=num_rows, pz2_var=float(np.exp(model.pz2_logvar)),
+            mesh=mesh)
+
+    todo = json.loads(Path(runs_json).read_text())
+    gloo = ["--distributed", "--dist-backend", "gloo"]
+    tables = []
+
+    def jax_noise(state, rows, device, mesh):
+        take = mesh.local_rows(rows * mesh.shape[0])
+        return {k: torch.from_numpy(arrays[f"eps_{k}{state.step}"][take])
+                for k in ("z2", "z1")}
+
+    def swap(state, table):
+        tables.append(table.clone())
+        real_swap(state, table)
+
+    real_noise, real_swap = tstep.step_noise, rounds.replace_mu2_table
+    tstep.step_noise, rounds.replace_mu2_table = jax_noise, swap
+    try:
+        code = main(todo["turnover"] + gloo)
+    finally:
+        tstep.step_noise, rounds.replace_mu2_table = real_noise, real_swap
+    if code:
+        return code
+    out["turnover_tables"] = torch.stack(tables)
+
+    plans = []
+
+    def plan(self, epoch, n_real, batch_size):
+        got = real_plan(self, epoch, n_real, batch_size)
+        plans.append(torch.stack(got[1][:2]))
+        return got
+
+    real_plan = DeviceEpochPlanner.plan
+    for name, argv in todo["runs"].items():
+        DeviceEpochPlanner.plan = plan if name == "plan" else real_plan
+        try:
+            code = main(argv + gloo)
+        finally:
+            DeviceEpochPlanner.plan = real_plan
+        if code:
+            return code
+    out["plans"] = torch.stack(plans)
+    _save(out_dir, **out)
+    return 0
+
+
+def map_pass_rows_card(inp, out_dir, dims):
+    """``device_map_pass_rows`` on a one-rank NCCL mesh on the card, over a
+    subset view of a store held as a ``RowShard`` (on one rank the shard is
+    the whole store, so every window goes through ``gather_sharded`` and
+    the model group's all-reduce); the LSTM kernels' launches counted.
+    Saves the table and the launches of the forward entries."""
+    from pytorch_scalablefhvae_tpu_torch.data.device_store import RowShard
+    from pytorch_scalablefhvae_tpu_torch.data.segments import SegmentDataset
+    from pytorch_scalablefhvae_tpu_torch.ops import lstm_cuda
+    from pytorch_scalablefhvae_tpu_torch.train.device_step import (
+        device_map_pass_rows,
+    )
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = pmesh.make_mesh((1, 1), dev)
+    with np.load(inp) as z:
+        arrays = {k: z[k] for k in z.files}
+    store = _feature_store(arrays)
+    sub = store.subset([store.seq_keys[i] for i in arrays["sub_idx"]])
+    ds = SegmentDataset(sub, seg_len=int(arrays["seg_len"]),
+                        seg_shift=int(arrays["seg_shift"]))
+    model = FHVAE(lstm_mm_dtype="float32", **dims)
+    model.load_state_dict({k[6:]: torch.from_numpy(v) for k, v in
+                           arrays.items() if k.startswith("param.")})
+    model.to(dev)
+    rows = torch.from_numpy(store.data).to(dev)
+    shard = RowShard(rows, 0, rows.shape[0], rows.shape[0], mesh)
+    before = lstm_cuda.lstm2_tm_proj.launches
+    table = device_map_pass_rows(
+        model, shard,
+        torch.from_numpy(np.asarray(sub.seq_starts, np.int64)).to(dev),
+        torch.from_numpy(np.asarray(ds.nsegs, np.int64)).to(dev),
+        seg_len=ds.seg_len, seg_shift=ds.seg_shift,
+        batch_size=int(arrays["batch"]), n_batches=int(arrays["n_batches"]),
+        num_rows=int(arrays["num_rows"]),
+        pz2_var=float(np.exp(model.pz2_logvar)), mesh=mesh)
+    _save(out_dir, table=table.cpu(),
+          launches=lstm_cuda.lstm2_tm_proj.launches - before)
+    return 0
+

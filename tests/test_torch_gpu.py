@@ -1618,3 +1618,65 @@ def test_nccl_mesh_bundle_replay_equals_eager_steps(cuda, tmp_path):
     assert "discriminative_log_qy" not in d
     assert "discriminative_log_qy_bwd" not in d
     assert d["lstm2_tm_proj"] == 2 * k and d["lstm2_tm"] == k
+
+
+# -------------------------------------- a hierarchical round's MAP init
+
+
+def test_map_pass_rows_on_a_one_rank_mesh_equals_cpu(cuda, tmp_path):
+    """``device_map_pass_rows`` (a hierarchical round's MAP init on a mesh)
+    on a one-rank NCCL mesh, its store a ``RowShard`` gathered through
+    ``gather_sharded``, the z2 encoder through the LSTM kernels: the same
+    table as its run on the CPU (no mesh, plain versions) within 1e-4 of
+    its largest entry, the padded row exactly 0 (rank side:
+    ``tests/_torch_mesh_workers.py``)."""
+    import _torch_mesh_workers as workers
+    from pytorch_scalablefhvae_tpu_torch.data.device_store import (
+        DeviceDataSource,
+    )
+    from pytorch_scalablefhvae_tpu_torch.data.feature_store import (
+        FeatureStore,
+    )
+    from pytorch_scalablefhvae_tpu_torch.data.segments import SegmentDataset
+    from pytorch_scalablefhvae_tpu_torch.models.fhvae import FHVAE
+    from pytorch_scalablefhvae_tpu_torch.parallel import launch
+    from pytorch_scalablefhvae_tpu_torch.train.device_step import (
+        device_map_pass_rows,
+    )
+
+    rng = np.random.default_rng(5)
+    lens = rng.integers(40, 120, 24)
+    data = rng.standard_normal((int(lens.sum()), 80)).astype(np.float32)
+    bounds = np.cumsum([0, *lens])
+    store = FeatureStore.from_arrays({
+        f"s{i}": data[lo:hi]
+        for i, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:]))})
+    sub_idx = [20, 3, 11, 7, 15]
+    sub = store.subset([store.seq_keys[i] for i in sub_idx])
+    ds = SegmentDataset(sub, seg_len=20, seg_shift=8)
+    dims = dict(input_size=20 * 80, num_seqs=len(sub_idx), feat_dim=80)
+    model = FHVAE(lstm_mm_dtype="float32",
+                  generator=torch.Generator().manual_seed(5), **dims)
+    batch, num_rows = 64, len(sub_idx) + 1
+    n_batches = -(-len(ds) // batch) + 1
+    src = DeviceDataSource(store, torch.device("cpu"))
+    starts, nsegs = src.stage_meta(ds)
+    want = device_map_pass_rows(
+        model, src.data, starts, nsegs, seg_len=20, seg_shift=8,
+        batch_size=batch, n_batches=n_batches, num_rows=num_rows,
+        pz2_var=float(np.exp(model.pz2_logvar))).numpy()
+    np.savez(tmp_path / "in.npz", store_data=data, store_lens=lens,
+             sub_idx=np.array(sub_idx), seg_len=20, seg_shift=8,
+             batch=batch, n_batches=n_batches, num_rows=num_rows,
+             **{f"param.{k}": v.detach().numpy()
+                for k, v in model.state_dict().items()})
+    codes = launch.run_ranks(workers.map_pass_rows_card, 1,
+                             (str(tmp_path / "in.npz"), str(tmp_path), dims),
+                             backend="nccl", device="cuda", timeout_s=120,
+                             join_timeout_s=600)
+    assert codes == [0]
+    with np.load(tmp_path / "rank0.npz") as z:
+        got, launches = z["table"], int(z["launches"])
+    assert launches == n_batches
+    assert got.shape == want.shape and (got[len(sub_idx):] == 0).all()
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()

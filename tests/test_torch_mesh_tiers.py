@@ -262,19 +262,23 @@ def test_row_sharded_chunks_fill_a_ranks_rows(corpus, dtype):
 
 @pytest.mark.parametrize("placement", ["auto", "device", "stream", "host"])
 def test_a_mesh_takes_every_tier_dtype_and_sharding(placement):
-    """``check_ported`` refuses two settings on a mesh, neither of
-    them a data tier's, at K = 1 or 8 (``tests/test_torch_mesh_k.py``)."""
+    """``check_ported`` refuses one setting on a mesh, not a data tier's,
+    at K = 1 or 8 (``tests/test_torch_mesh_k.py``) and with hierarchical
+    rounds (``tests/test_torch_mesh_hier.py``): orbax checkpoints."""
     for dtype in DTYPES:
         for shard in (False, True):
             for shape in ((2, 2), (1, 1)):
                 for k in (1, 8):
-                    check_ported(ExperimentConfig(
-                        data=DataConfig(data_placement=placement,
-                                        transfer_dtype=dtype,
-                                        shard_device_store=shard),
-                        train=TrainConfig(mesh_shape=shape,
-                                          steps_per_dispatch=k)))
-    for train in (dict(sample_hierarchical=True), dict(ckpt_backend="orbax")):
+                    for hier in (False, True):
+                        check_ported(ExperimentConfig(
+                            data=DataConfig(data_placement=placement,
+                                            transfer_dtype=dtype,
+                                            shard_device_store=shard),
+                            train=TrainConfig(mesh_shape=shape,
+                                              steps_per_dispatch=k,
+                                              sample_hierarchical=hier)))
+    for train in (dict(sample_hierarchical=True, ckpt_backend="orbax"),
+                  dict(ckpt_backend="orbax")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             check_ported(ExperimentConfig(
                 data=DataConfig(data_placement=placement),

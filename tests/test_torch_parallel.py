@@ -481,10 +481,11 @@ def test_jax_mesh_checkpoint_resumes_in_the_port(corpus, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mesh", "2,2", "--hierarchical"],
+    ["--mesh", "2,2", "--ckpt-backend", "orbax"],
 ], ids=lambda f: " ".join(f))
 def test_what_still_raises_on_a_mesh(corpus, tmp_path, flags):
-    """Refused before any rank starts, naming ROADMAP.md."""
+    """Refused before any rank starts, naming ROADMAP.md (hierarchical
+    rounds run on a mesh: ``tests/test_torch_mesh_hier.py``)."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         main(train_args(corpus, tmp_path, *flags))
 

@@ -7,7 +7,7 @@ checkpoints, the best-model copy and finite dev metrics are written; a run
 resumed after one epoch equals an uninterrupted one bit for bit; the dev
 pass matches the JAX package's on the same parameters and loader; a JAX
 ``TrainState`` checkpoint resumes in the port; divergence exits 2; every
-setting not yet ported (what is left of the mesh) raises; and the port's own ``preprocess`` / ``extract``
+setting not yet ported (orbax checkpoints) raises; and the port's own ``preprocess`` / ``extract``
 with ``--extractor jax`` write what the JAX package's ``prepare_jax`` writes.
 """
 
@@ -197,15 +197,16 @@ def test_divergence_exits_2(corpus, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mesh", "2,1", "--hierarchical"],
+    ["--mesh", "2,1", "--ckpt-backend", "orbax"],
     ["--ckpt-backend", "orbax"], ["--lstm-pallas", "never"],
 ], ids=lambda f: " ".join(f))
 def test_unported_flag_raises(corpus, tmp_path, flags):
     """(``--mesh`` itself runs now: ``tests/test_torch_parallel.py``, and
     on every data tier, in every transfer dtype and with a store sharded
     over it: ``tests/test_torch_mesh_tiers.py``, at any
-    ``--steps-per-dispatch``: ``tests/test_torch_mesh_k.py``; what still
-    raises on a mesh is hierarchical rounds.
+    ``--steps-per-dispatch``: ``tests/test_torch_mesh_k.py``, with
+    ``--hierarchical``: ``tests/test_torch_mesh_hier.py``; what still
+    raises, on a mesh as on one device, is ``--ckpt-backend orbax``.
     ``--steps-per-dispatch``, ``--data-placement stream`` and
     ``--transfer-dtype`` on one device run: ``tests/test_torch_multi_step.py``,
     ``tests/test_torch_stream.py``; ``--ckpt-every-steps`` and
