@@ -161,16 +161,17 @@ prints no result line):
    each round's sub-pack into one buffer of the K longest sequences' rows
    (2.684 GB): (a) K = 8, two rounds, which must say so, each round's table
    the MAP pass's (kernel #8, chunk skip 8, 79 batches of 2,048) with its
-   Adam moments zeroed; (b) the same at K = 1, bit for bit in every
-   checkpoint tensor and record (a table or store bound anew under the
-   captured graph would show here); (c) the host loader at K = 8, whose
-   first table is within ``TOL_HIER_TABLE`` of (a)'s and each epoch's train
-   loss and dev bound within ``TOL_HIER_EPOCH``; (d) two-epoch rounds
-   stopped by ``--max-steps`` in the round's second epoch and resumed, bit
-   for bit against the run never stopped, with #8 launched as often (no
-   second MAP init); (e) bfloat16 staging, #8 on bf16 rows; (f) phase 4's
-   corpus with 2,000-sequence rounds on the device tier (views of the
-   staged store), K = 8 against K = 1 bit for bit; then 10 warm K = 8
+   Adam moments zeroed (K = 8 against K = 1 of a staged round, where a
+   table or store bound anew under the captured graph would show, is 5h
+   (b)'s check on an NCCL rank, and (e)'s on views); (b) the host loader at
+   K = 8, whose first table is within ``TOL_HIER_TABLE`` of (a)'s and each
+   epoch's train loss and dev bound within ``TOL_HIER_EPOCH``; (c)
+   two-epoch rounds stopped by ``--max-steps`` in the round's second epoch
+   and resumed, bit for bit against the run never stopped, with #8
+   launched as often (no second MAP init); (d) bfloat16 staging, #8 on
+   bf16 rows; (e) phase 4's corpus with 2,000-sequence rounds on the
+   device tier (views of the staged store), K = 8 against K = 1 bit for
+   bit; then 10 warm K = 8
    dispatches of the round-staged and host tiers after a turnover
    (torch.profiler: host wall, busy, idle share) and each turnover's
    stages (draw, sub-pack materialised, staged, MAP init) timed. Every LSTM
@@ -250,9 +251,9 @@ prints no result line):
    the run never stopped; per-rank link MB an epoch, ms/step and rank 0's
    waits at each chunk switch (``switch_waits()``); #7 launched once a
    step forward and backward on rank 0, #6 and #8 never, every LSTM launch
-   tensor-core. The gloo runs of 5t, 5k (b) and 5h (a) share one launch
-   of the four ranks (``gloo_mesh_runs``), each run counted alone; the
-   script logs what each phase's runs took in it;
+   tensor-core. The gloo runs of 5t, 5k (b), 5h (a) and 4o (d) share one
+   launch of the four ranks (``gloo_mesh_runs``), each run counted alone;
+   the script logs what each phase's runs took in it;
 5k. ``--mesh d,m --steps-per-dispatch 8`` on phase 4's corpus. (a) One
    rank of ``--mesh 1,1 --distributed --dist-backend nccl``: 10 warm
    dispatches of 8 eager mesh steps under torch.profiler (host wall against
@@ -289,15 +290,20 @@ prints no result line):
    stopped there, bit for bit, then the K = 8 run resumed through its
    second round; every MAP init the rows pass (``device_map_pass_rows``,
    never #8, as in the JAX loop) and every round's table the whole table's
-   rows on the rank with its moments zeroed;
+   rows on the rank with its moments zeroed. 5k (a) and 5h (b) run in one
+   process, started once (``nccl_mesh_runs``);
 5n. (only when named: ``--only 5n``, on four cards) 5k (a) and 5h (b) on a
-   ``2,2`` NCCL mesh, a card a rank: the replayed graphs must hold NCCL
-   kernels (a one-rank communicator launches none), every rank's bundle
-   state its eager steps', the CLI epoch at K = 8 the K = 1 epoch's bits;
-   the hierarchical runs as in 5h (b), every rank holding its rows of each
-   round's table;
+   ``2,2`` NCCL mesh, a card a rank, in one launch: the replayed graphs
+   must hold NCCL kernels (a one-rank communicator launches none), every
+   rank's bundle state its eager steps', the CLI epoch at K = 8 the K = 1
+   epoch's bits; the hierarchical runs as in 5h (b), every rank holding its
+   rows of each round's table; (e) ``--ckpt-backend orbax`` at K = 8
+   stopped at step 50 and resumed through the epoch, its checkpoint and
+   records equal to the K = 8 npz epoch's bit for bit, each rank's DCP file
+   holding its own rows, and each rank's blocking ms per save of both
+   backends (the npz one with its NCCL gather of the table);
 4r. step checkpoints and mid-epoch resume at the CLI defaults on phase 4's
-   corpus (runs after phase 5, whose epoch it reuses): runs stopped by
+   corpus: runs stopped by
    ``--max-steps`` inside an epoch with ``--ckpt-every-steps 50`` (the
    stopped step must be the cap exactly, no checkpoint of that epoch
    written), resumed from their last step checkpoint with
@@ -310,12 +316,30 @@ prints no result line):
    at K = 1 and 8, cap 70, against phase 4's host-loader epoch; (d) the
    streamed tier (fp32, 96 MiB, K = 8) with the cursor inside a chunk,
    whose resume must stage only the chunks not wholly behind it, against
-   4s-check's K = 8 epoch; the NaN gate (lr 1e18: exit 2, no checkpoint);
-   (e) ``--mesh 2,2 --dist-backend gloo`` against phase 5's epoch (or, if
-   they differ, held within the gap of two uninterrupted mesh epochs).
-   Without phases 4s or 5 it runs their reference epochs itself. Logged:
+   4s-check's K = 8 epoch; the NaN gate (lr 1e18: exit 2, no checkpoint).
+   A mesh stopped and resumed is 5k (b)'s and 4o (d)'s check, in the
+   shared gloo launch. Without phase 4s it runs its reference epoch
+   itself. Logged:
    the wall time of each step-checkpoint save beside the card's name and
    power limit;
+4o. ``--ckpt-backend orbax`` (``train/orbax_backend.py``: saves staged to
+   the host and written on a thread through ``torch.distributed.checkpoint``)
+   at the CLI defaults on the device tier at K = 8 on phase 4's corpus,
+   after phase 4r: (a), (b) two epochs stopped by ``--max-steps 183`` with
+   ``--ckpt-every-steps 50`` and resumed from the last step directory, every
+   tensor of both epoch checkpoints and the records equal to phase 4's npz
+   run bit for bit (``train_loss`` to 1e-12), no step directory left; (c)
+   ``eval`` from the run's best pointer against ``eval`` of phase 4's npz
+   checkpoint of that epoch, the dev bound and ``log_qy`` bit for bit; the
+   host-clock ms the loop blocked on each save (the staging) and each flush's
+   wait, then 4 saves of phase 4's epoch-1 state by each backend in turns
+   (npz: the whole save; orbax: the staging; then its flush) and the MB each
+   wrote; (d) in the shared launch of the four gloo ranks, ``--mesh 2,2`` at
+   K = 8 stopped at 13 and resumed to 29 against the npz run to 29, bit for
+   bit, each row shard of the table and its moments in the file of a rank
+   of that shard (no gather), the directory loaded on one device equal to
+   the npz run's whole tensors; #1-#6 launched (#7 on the mesh), every
+   LSTM launch tensor-core;
 4l. every single-device train flag, on phase 4's corpus with its dev split
    cut to its first 32 sequences (a legacy dev pass runs a forward per
    segment at batch 1), run last: first, ``plain_stack`` must not have
@@ -342,8 +366,8 @@ prints no result line):
    not called.
 
 ``python3 chip_smoke.py --only 2e,5`` runs the environment phase and the
-phases named (while working on one; ``2`` includes ``2f``, ``4k``, ``4b``
-and ``4r`` include ``4``); with no arguments all run.
+phases named (while working on one; ``2`` includes ``2f``, ``4k``, ``4b``,
+``4r`` and ``4o`` include ``4``); with no arguments all run.
 
 The bf16 tolerances sit between the kernels' error and the gap between the
 plain versions in fp32 and in bf16 operand mode, which each run measures: a
@@ -370,6 +394,7 @@ at K = 8 (``mesh_k8``), phase 5h (b)'s K = 8 runs, stopped and resumed
 this process (``train_resume``: every run of (a) to (d) and the NaN gate's;
 the mesh's ranks are processes of their own) and phase 4l's ``--legacy``
 runs (``train_legacy``: its two CLI runs of (a), each counted alone),
+phase 4o's stopped and resumed orbax run (``train_orbax``),
 each set to 0 just before its path and read just after. ``ms``
 and ``plain_ms`` are the bf16-operand times of an LSTM entry's heaviest form,
 and for ``windowed_chunk_gather``, ``fused_logmel_frames`` and the two
@@ -3187,7 +3212,8 @@ def bundle_case(cfg, root: Path, tier: str, k: int):
     return bundle, dispatch
 
 
-def profiled_dispatches(dispatch, k: int) -> dict:
+def profiled_dispatches(dispatch, k: int, trace: dict | None = None,
+                        tries: int = 3) -> dict:
     """``dispatch(d)`` (dispatch ``d`` of ``k`` steps issued, its losses on
     the card returned) as the epoch runners drive it, the losses read one
     dispatch late: the first dispatch (eager) and the second (a bundle's
@@ -3197,7 +3223,11 @@ def profiled_dispatches(dispatch, k: int) -> dict:
     10 dispatches the kernels by name (``names``), the ``cudaGraphLaunch``
     calls, the kernel wrappers' counts (``counted``: entry name -> launches)
     and the host calls of most self time (``host``: name, ms a step, calls a
-    step)."""
+    step). With ``trace`` (kernel name -> the entries that launch it), a
+    window in which the profiler's count of a kernel is not the wrappers'
+    (the profiler loses events, see :func:`device_events`) is logged and
+    the next 10 dispatches profiled instead, up to ``tries`` windows; the
+    caller's check reads the last. ``dispatches``: how many ran."""
     from torch.profiler import ProfilerActivity, profile
 
     from pytorch_scalablefhvae_tpu_torch.train.graphs import launch_counts
@@ -3208,26 +3238,39 @@ def profiled_dispatches(dispatch, k: int) -> dict:
     t0 = time.perf_counter()
     dispatch(1).tolist()
     capture = time.perf_counter() - t0
-    before = launch_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pending = None
-        for d in range(2, 12):
-            loss = dispatch(d)
-            if pending is not None:
-                pending.tolist()
-            pending = loss
-        pending.tolist()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / (10 * k)
-    after = launch_counts()
-    averages = prof.key_averages()
-    events = [e for e in averages
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.device_time_total > 0]
-    kernels = [e for e in events
-               if not e.key.startswith(("Memcpy", "Memset"))]
+    for window in range(tries):
+        before = launch_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            pending = None
+            for d in range(2 + 10 * window, 12 + 10 * window):
+                loss = dispatch(d)
+                if pending is not None:
+                    pending.tolist()
+                pending = loss
+            pending.tolist()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / (10 * k)
+        after = launch_counts()
+        averages = prof.key_averages()
+        events = [e for e in averages
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.device_time_total > 0]
+        kernels = [e for e in events
+                   if not e.key.startswith(("Memcpy", "Memset"))]
+        counted = {entry.__name__: after[(entry, c)] - n
+                   for (entry, c), n in before.items()
+                   if c == "launches" and after[(entry, c)] != n}
+        missed = [(kernel, sum(e.count for e in kernels if kernel in e.key),
+                   sum(counted.get(n, 0) for n in names))
+                  for kernel, names in (trace or {}).items()]
+        missed = [m for m in missed if m[1] != m[2]]
+        if not missed:
+            break
+        log(f"  torch.profiler's kernel counts over 10 dispatches are not "
+            f"the wrappers' (kernel, profiler, wrappers): {missed}; "
+            f"profiling the next 10")
     busy = sum(e.device_time_total for e in events) / 1e3 / (10 * k)
     host = sorted((e for e in averages
                    if e.device_type == torch.autograd.DeviceType.CPU),
@@ -3242,12 +3285,11 @@ def profiled_dispatches(dispatch, k: int) -> dict:
             "names": {e.key: e.count for e in kernels},
             "graph_launches": sum(e.count for e in averages
                                   if e.key == "cudaGraphLaunch"),
-            "counted": {entry.__name__: after[(entry, c)] - n
-                        for (entry, c), n in before.items()
-                        if c == "launches" and after[(entry, c)] != n},
+            "counted": counted,
             "host": [(e.key, e.self_cpu_time_total / 1e3 / (10 * k),
                       e.count / (10 * k)) for e in host],
-            "host_by_kind": host_by_kind(averages, 10 * k)}
+            "host_by_kind": host_by_kind(averages, 10 * k),
+            "dispatches": 12 + 10 * window}
 
 
 def host_by_kind(averages, steps: int) -> dict:
@@ -4048,13 +4090,13 @@ def equal_runs(name: str, a: Path, b: Path, epochs: list,
 
 
 HIER_K = 5000           # --num-hierarchical-sequences, the CLI default
-HIER_SMALL_K = 2000     # 4h (f): rounds on phase 4's corpus
-TOL_HIER_TABLE = 1e-6   # 4h (c): the first round's MAP table, round-staged
+HIER_SMALL_K = 2000     # 4h (e): rounds on phase 4's corpus
+TOL_HIER_TABLE = 1e-6   # 4h (b): the first round's MAP table, round-staged
                         # (fp32 sums on the card) against the host loader's
                         # (fp64 sums), max error over max |table|: the z2
                         # means are the same bits, the sums' order differs;
                         # measured 1.89e-7 (TOL_DEV_LB's 1e-5 before it)
-TOL_HIER_EPOCH = 5e-4   # 4h (c): each epoch's train loss and dev bound,
+TOL_HIER_EPOCH = 5e-4   # 4h (b): each epoch's train loss and dev bound,
                         # relative: two tables 1.9e-7 apart grow through
                         # 877 steps a round to 1.5e-4-1.9e-4, measured
                         # (TOL_MESH_EPOCH's 1e-3 before it)
@@ -4137,11 +4179,12 @@ def phase_hier(workdir: Path, cfg) -> dict:
     """Phase 4h: ``train --hierarchical`` at the CLI defaults (K = 5,000) on
     4s-big's corpus, over the 4 GiB budget, so ``auto`` stages each round's
     sub-pack (reused when phase 4s left it, else written): (a) K = 8, two
-    rounds; (b) the same at K = 1, bit for bit; (c) the host loader at K =
-    8, within ``TOL_HIER_TABLE`` and ``TOL_HIER_EPOCH``; (d) two-epoch
+    rounds (K = 8 against K = 1 of a staged round is 5h (b)'s check, on a
+    mesh rank, and (e)'s here); (b) the host loader at K =
+    8, within ``TOL_HIER_TABLE`` and ``TOL_HIER_EPOCH``; (c) two-epoch
     rounds, a run stopped by ``--max-steps`` in the round's second epoch
-    and resumed, bit for bit, without a second MAP init; (e) bfloat16
-    staging; (f) phase 4's corpus with 2,000-sequence rounds on the device
+    and resumed, bit for bit, without a second MAP init; (d) bfloat16
+    staging; (e) phase 4's corpus with 2,000-sequence rounds on the device
     tier (views), K = 8 against K = 1. Each round's table is checked to be
     the MAP pass's with its moments zeroed, and each staged MAP init to be
     kernel #8's chunk-skip pass. Returns the launches of the phase's runs
@@ -4233,93 +4276,87 @@ def phase_hier(workdir: Path, cfg) -> dict:
         log(f"4h (a) turnovers, seconds by stage: "
             f"{[t['seconds'] for t in turn]}; card {smi_name_power()}")
 
-        # (b) the same at K = 1: bit for bit
-        exp_b = workdir / "hier_b"
-        hier_run("(b) round-staged, K = 1", exp_b)
-        equal_runs("4h (b) K = 1 vs (a) K = 8", run_dir(exp_b, 2),
-                   run_dir(exp_a, 2), [0, 1])
-
-        # (c) the host loader, K = 8
+        # (b) the host loader, K = 8
         exp_c = workdir / "hier_c"
         out, recs_c, made_c, swaps_c = hier_run(
-            "(c) host loader, K = 8", exp_c, "--data-placement", "host", *k8)
+            "(b) host loader, K = 8", exp_c, "--data-placement", "host", *k8)
         if "device-resident" in out or [i["tier"] for i in made_c] != \
                 ["host", "host"]:
-            raise AssertionError("4h (c): the host-loader run staged data")
+            raise AssertionError("4h (b): the host-loader run staged data")
         ref = swaps_a[0][1]
         table_err = float(np.abs(swaps_c[0][1] - ref).max()
                           / np.abs(ref).max())
         gaps = [max(abs(c[k] / a[k] - 1) for k in ("train_loss",
                                                    "val_lower_bound"))
                 for a, c in zip(recs_a, recs_c)]
-        log(f"4h (c) host loader vs (a) round-staged: first round's MAP "
+        log(f"4h (b) host loader vs (a) round-staged: first round's MAP "
             f"table, max error over max |table| {table_err:.3e} (tol "
             f"{TOL_HIER_TABLE:g}); per epoch, the larger relative gap of "
             f"train loss and dev LB {[f'{g:.3e}' for g in gaps]} (tol "
             f"{TOL_HIER_EPOCH:g})")
         if not (table_err <= TOL_HIER_TABLE
                 and max(gaps) <= TOL_HIER_EPOCH):
-            raise AssertionError("4h (c): the host loader's hierarchical "
+            raise AssertionError("4h (b): the host loader's hierarchical "
                                  "run disagrees with the round-staged one")
 
-        # (d) two-epoch rounds: stopped in the round's second epoch and
+        # (c) two-epoch rounds: stopped in the round's second epoch and
         # resumed, against the run never stopped
         two = [*k8, "--hierarchical-round-epochs", "2"]
         exp_d = workdir / "hier_d"
-        _, recs_d, _, _ = hier_run("(d) two-epoch rounds, K = 8", exp_d, *two)
+        _, recs_d, _, _ = hier_run("(c) two-epoch rounds, K = 8", exp_d, *two)
         whole = gather.launches
         cap = int(recs_d[0]["train_steps"]) + 2 * RESUME_EVERY + 3
         args = train_args(bcfg, root, workdir / "hier_d_cut", "--hierarchical",
                           "--pack-cache-dir", str(pack), *two, "--epochs",
                           "2")
         n_init = len(inits)
-        out, mid = counted_run(counts, "4h (d) stopped and resumed",
+        out, mid = counted_run(counts, "4h (c) stopped and resumed",
                                lambda: kill_and_resume(
-                                   cli, "4h (d)", root, args,
+                                   cli, "4h (c)", root, args,
                                    run_dir(workdir / "hier_d_cut", 2), cap))
         cut = gather.launches
         re_entered = [t for t in round_lines(out) if not t["fresh"]]
-        log(f"4h (d): the cursor at epoch {mid['epoch']}, batch "
+        log(f"4h (c): the cursor at epoch {mid['epoch']}, batch "
             f"{mid['batches_done']}; the resume re-entered {re_entered}; #8 "
             f"launches, stopped and resumed {cut} vs the run never stopped "
             f"{whole}; MAP inits of the two {inits[n_init:]}")
         if mid["epoch"] != 1 or len(re_entered) != 1 or cut != whole \
                 or len(inits) - n_init != 1:
-            raise AssertionError("4h (d): the resume did not re-enter the "
+            raise AssertionError("4h (c): the resume did not re-enter the "
                                  "round with its restored table")
-        check_resumed("4h (d)", run_dir(workdir / "hier_d_cut", 2),
+        check_resumed("4h (c)", run_dir(workdir / "hier_d_cut", 2),
                       run_dir(exp_d, 2), [0, 1])
 
-        # (e) bfloat16 staging
+        # (d) bfloat16 staging
         out, recs_e, made_e, _ = hier_run(
-            "(e) round-staged bfloat16, K = 8", workdir / "hier_e",
+            "(d) round-staged bfloat16, K = 8", workdir / "hier_e",
             "--data-placement", "stream", "--transfer-dtype", "bfloat16",
             *k8, epochs=1)
-        staged_inits("(e)", made_e, 1, bf16=True)
-        log(f"4h (e) bfloat16 vs (a)'s epoch 0 in float32: train loss "
+        staged_inits("(d)", made_e, 1, bf16=True)
+        log(f"4h (d) bfloat16 vs (a)'s epoch 0 in float32: train loss "
             f"{recs_e[0]['train_loss']!r} vs {recs_a[0]['train_loss']!r} "
             f"(relative gap "
             f"{abs(recs_e[0]['train_loss'] / recs_a[0]['train_loss'] - 1):.3e}"
             f"), dev LB {recs_e[0]['val_lower_bound']!r} vs "
             f"{recs_a[0]['val_lower_bound']!r}")
         if "stage their subset device-resident" not in out:
-            raise AssertionError("4h (e): the bfloat16 run did not stage "
+            raise AssertionError("4h (d): the bfloat16 run did not stage "
                                  "its rounds")
 
-        # (f) phase 4's corpus, 2,000-sequence rounds on the device tier
+        # (e) phase 4's corpus, 2,000-sequence rounds on the device tier
         small = ["--num-hierarchical-sequences", str(HIER_SMALL_K)]
         for k in (K_DISPATCH, 1):
             out, _, made_f, _ = hier_run(
-                f"(f) device tier, {HIER_SMALL_K} a round, K = {k}",
+                f"(e) device tier, {HIER_SMALL_K} a round, K = {k}",
                 workdir / f"hier_f{k}", *small, "--steps-per-dispatch",
                 str(k), epochs=1, data=workdir / "data", run_cfg=cfg,
                 cache=())
             if "Training data device-resident" not in out or [
                     (i["tier"], i["launches"] > 0) for i in made_f] != [
                     ("device", True)]:
-                raise AssertionError("4h (f): the rounds did not run on the "
+                raise AssertionError("4h (e): the rounds did not run on the "
                                      "device tier through #8")
-        equal_runs(f"4h (f) K = {K_DISPATCH} vs K = 1",
+        equal_runs(f"4h (e) K = {K_DISPATCH} vs K = 1",
                    run_dir(workdir / f"hier_f{K_DISPATCH}", 1),
                    run_dir(workdir / "hier_f1", 1), [0])
     finally:
@@ -5303,8 +5340,9 @@ def _mesh_runs_rank(workdir: str) -> int:
     phases 5t, 5k (b) and 5h (a) (:func:`gloo_mesh_runs`): every run of
     ``gloo_runs.json`` through the CLI in turn, and for each run this rank's
     launches (counted from 0 just before it and read just after), its wall
-    seconds and the waits at each chunk switch of its streamed epochs
-    (``switch_waits()``), into ``gloo_rank<r>.json``."""
+    seconds, the waits at each chunk switch of its streamed epochs
+    (``switch_waits()``) and the seconds each checkpoint save and flush
+    held the loop, into ``gloo_rank<r>.json``."""
     import torch.distributed as dist
 
     from pytorch_scalablefhvae_tpu_torch.cli.main import main as cli
@@ -5321,15 +5359,17 @@ def _mesh_runs_rank(workdir: str) -> int:
         finally:
             waits.setdefault(current[0], []).append(source.switch_waits())
 
-    out = {"texts": {}, "wall": {}, "launches": {}, "launches_tc": {}}
+    out = {"texts": {}, "wall": {}, "launches": {}, "launches_tc": {},
+           "saves": {}}
     loop.run_stream_epoch = spy
     try:
         for name, args in runs.items():
             current[0] = name
             reset_counts(mesh_entries())
             t0 = time.perf_counter()
-            out["texts"][name] = run_cli(cli, args + [
-                "--distributed", "--dist-backend", "gloo"])
+            with timed_saves(out["saves"].setdefault(name, [])):
+                out["texts"][name] = run_cli(cli, args + [
+                    "--distributed", "--dist-backend", "gloo"])
             out["wall"][name] = time.perf_counter() - t0
             out["launches"][name] = {e.__name__: e.launches
                                      for e in mesh_entries()}
@@ -5362,7 +5402,8 @@ def gloo_mesh_runs(workdir: Path, cfg, phases: list) -> dict:
     from pytorch_scalablefhvae_tpu_torch.ops import _build
     from pytorch_scalablefhvae_tpu_torch.parallel.launch import run_ranks
 
-    prepare = {"5t": tiers_runs, "5k": mesh_k_runs, "5h": hier_mesh_runs}
+    prepare = {"5t": tiers_runs, "5k": mesh_k_runs, "5h": hier_mesh_runs,
+               "4o": orbax_mesh_runs}
     t0 = time.perf_counter()
     prepared = {phase: prepare[phase](workdir, cfg) for phase in phases}
     parts = {phase: runs for phase, (runs, _) in prepared.items()}
@@ -5388,7 +5429,7 @@ def gloo_mesh_runs(workdir: Path, cfg, phases: list) -> dict:
                             for name in named
                             if f"{phase} {name}" in info[key]}
                       for key in ("texts", "wall", "launches", "launches_tc",
-                                  "waits")}
+                                  "waits", "saves")}
     by_phase = {phase: round(sum(o["wall"].values()), 1)
                 for phase, o in out.items()}
     log(f"the {world} gloo ranks ran {len(runs)} CLI runs of phases "
@@ -5664,8 +5705,12 @@ def _mesh_k_nccl_rank(workdir: str, data_root: str, shape: tuple) -> int:
         return bundle()["loss"].clone()
 
     out = {"eager": profiled_dispatches(eager, k),
-           "replayed": profiled_dispatches(replayed, k),
+           "replayed": profiled_dispatches(replayed, k, MESH_TRACE_KERNELS),
            "replays": bundle.replays, "backend": mesh.backend}
+    for d in range(out["eager"]["dispatches"],
+                   out["replayed"]["dispatches"]):
+        eager(d)  # as many steps as the bundle took
+    torch.cuda.synchronize()
     a, b = states
     out["differ"] = [n for n in a.params()
                      if not (torch.equal(a.params()[n], b.params()[n])
@@ -5689,29 +5734,74 @@ def _mesh_k_nccl_rank(workdir: str, data_root: str, shape: tuple) -> int:
     return 0
 
 
-def nccl_mesh_k(work: Path, root: Path, shape: tuple, tag: str,
-                single_epoch0: dict | None = None) -> dict:
-    """The ranks of an NCCL mesh of ``shape``, a card each
-    (:func:`_mesh_k_nccl_rank`), and what rank 0 saw: the eager step's host
-    wall against device busy and its host time by kind; the replayed
-    bundle's ms/step, busy and idle share, ``cudaGraphLaunch`` calls, the
-    NCCL kernels among the replayed kernels and #1-#4 and #7 by the
-    profiler against the wrappers; every rank's bundle state equal to its
-    eager steps'; the CLI epoch at K = ``MESH_K`` against K = 1, bit for
-    bit, #7 once a step forward and backward; K = 1 against the run
-    without a mesh where it is given. Returns rank 0's record."""
+def _nccl_rank(jobs: str, shape: tuple) -> int:
+    """A rank of an NCCL mesh of ``shape``, started once for every job of
+    the JSON file ``jobs`` (``[kind, workdir, data_root]``: ``"k"``,
+    :func:`_mesh_k_nccl_rank`; ``"hier"``, :func:`_mesh_hier_nccl_rank`;
+    ``"orbax"``, :func:`_mesh_orbax_nccl_rank`), run in turn."""
+    run = {"k": _mesh_k_nccl_rank, "hier": _mesh_hier_nccl_rank,
+           "orbax": _mesh_orbax_nccl_rank}
+    for kind, work, root in json.loads(Path(jobs).read_text()):
+        code = run[kind](work, root, shape)
+        torch.cuda.empty_cache()
+        if code:
+            return code
+    return 0
+
+
+def nccl_mesh_runs(workdir: Path, cfg, kinds: list, shape: tuple,
+                   tag: str) -> dict:
+    """The ranks of an NCCL mesh of ``shape``, a card each, started once
+    for the jobs ``kinds`` (of ``"k"``: 5k (a) on phase 4's corpus,
+    ``"hier"``: 5h (b) on 4s-big's, ``"orbax"``: 5n (e) on phase 4's);
+    returns each job's work directory by kind, for
+    :func:`check_nccl_k`, :func:`check_nccl_hier` and
+    :func:`check_nccl_orbax`."""
     from pytorch_scalablefhvae_tpu_torch.parallel.launch import run_ranks
+    from pytorch_scalablefhvae_tpu_torch.train.driver import build_loaders
 
     world = shape[0] * shape[1]
+    cards = "cards" if world > 1 else "nccl"
+    jobs, works = [], {}
+    if {"k", "orbax"} & set(kinds):
+        root, work, cached, _ = mesh_k_workdir(workdir, cfg, f"mesh_k_{cards}")
+        build_loaders(cached, root, True)  # the pack, before the ranks
+        works.update({k: work for k in ("k", "orbax") if k in kinds})
+        jobs += [[k, str(work), str(root)] for k in ("k", "orbax")
+                 if k in kinds]
+    if "hier" in kinds:
+        big_root, bcfg = big_corpus(workdir)
+        build_loaders(bcfg, big_root, True)
+        works["hier"] = workdir / f"mesh_hier_{cards}"
+        prepare_nccl_hier(works["hier"], big_root, bcfg)
+        jobs.insert(1 if "k" in kinds else 0,
+                    ["hier", str(works["hier"]), str(big_root)])
+    (workdir / f"nccl_jobs_{cards}.json").write_text(json.dumps(jobs))
     t0 = time.perf_counter()
-    codes = run_ranks(_mesh_k_nccl_rank, world, (str(work), str(root),
-                                                 shape),
+    codes = run_ranks(_nccl_rank, world,
+                      (str(workdir / f"nccl_jobs_{cards}.json"), shape),
                       backend="nccl", device="cuda", timeout_s=120,
-                      join_timeout_s=600)
-    log(f"{tag}: the {world} NCCL ranks exited with {codes} after "
-        f"{time.perf_counter() - t0:.1f} s")
+                      join_timeout_s=900)
+    log(f"{tag}: the {world} NCCL ranks ran {[j[0] for j in jobs]} in one "
+        f"launch and exited with {codes} after "
+        f"{time.perf_counter() - t0:.1f} s; card {smi_name_power()}")
     if codes != [0] * world:
         raise AssertionError(f"{tag}: the NCCL ranks exited with {codes}")
+    return works
+
+
+def check_nccl_k(work: Path, shape: tuple, tag: str,
+                 single_epoch0: dict | None = None) -> dict:
+    """What rank 0 of :func:`_mesh_k_nccl_rank`'s NCCL mesh of ``shape``
+    saw: the eager step's host wall against device busy and its host time
+    by kind; the replayed bundle's ms/step, busy and idle share,
+    ``cudaGraphLaunch`` calls, the NCCL kernels among the replayed kernels
+    and #1-#4 and #7 by the profiler against the wrappers; every rank's
+    bundle state equal to its eager steps'; the CLI epoch at K =
+    ``MESH_K`` against K = 1, bit for bit, #7 once a step forward and
+    backward; K = 1 against the run without a mesh where it is given.
+    Returns rank 0's record."""
+    world = shape[0] * shape[1]
     ranks = [json.loads((work / f"nccl_k_rank{r}.json").read_text())
              for r in range(world)]
     info = ranks[0]
@@ -5812,14 +5902,15 @@ def mesh_k_workdir(workdir: Path, cfg, name: str):
 
 
 def phase_mesh_k_cards(workdir: Path, cfg) -> dict:
-    """Phase 5n (only when named, on four cards): :func:`nccl_mesh_k` on a
-    ``2,2`` NCCL mesh, a card a rank, whose replayed graphs hold the NCCL
+    """Phase 5n (only when named, on four cards), one launch of a ``2,2``
+    NCCL mesh, a card a rank (:func:`nccl_mesh_runs`): 5k (a)'s checks
+    (:func:`check_nccl_k`), whose replayed graphs must hold the NCCL
     all-reduce kernels (a one-rank communicator launches none); then phase
-    5h (b)'s hierarchical runs on the same mesh (:func:`nccl_mesh_hier`).
-    Returns rank 0's launches of the K = ``MESH_K`` runs of each
-    (``mesh_k8_cards``, ``mesh_hier_cards``)."""
-    from pytorch_scalablefhvae_tpu_torch.train.driver import build_loaders
-
+    5h (b)'s hierarchical runs on the same mesh (:func:`check_nccl_hier`);
+    then (e), ``--ckpt-backend orbax`` stopped and resumed
+    (:func:`check_nccl_orbax`). Returns rank 0's launches of the K =
+    ``MESH_K`` runs of each (``mesh_k8_cards``, ``mesh_hier_cards``,
+    ``mesh_orbax_cards``)."""
     n = torch.cuda.device_count()
     log(f"== phase 5n: sfhvae train --mesh {MESH[0]},{MESH[1]} "
         f"--dist-backend nccl --steps-per-dispatch {MESH_K} on {n} cards, "
@@ -5827,18 +5918,15 @@ def phase_mesh_k_cards(workdir: Path, cfg) -> dict:
     if n < MESH[0] * MESH[1]:
         raise AssertionError(f"5n needs {MESH[0] * MESH[1]} cards, found {n}")
     t_phase = time.perf_counter()
-    root, work, cached, _ = mesh_k_workdir(workdir, cfg, "mesh_k_cards")
-    build_loaders(cached, root, True)  # the pack, before the ranks read it
-    info = nccl_mesh_k(work, root, MESH, "5n")
-    torch.cuda.empty_cache()
-    big_root, bcfg = big_corpus(workdir)
-    build_loaders(bcfg, big_root, True)
-    hier = nccl_mesh_hier(workdir / "mesh_hier_cards", big_root, bcfg, MESH,
-                          "5n (hier)")
+    works = nccl_mesh_runs(workdir, cfg, ["k", "hier", "orbax"], MESH, "5n")
+    info = check_nccl_k(works["k"], MESH, "5n")
+    hier = check_nccl_hier(works["hier"], MESH, "5n (hier)")
+    orbax = check_nccl_orbax(works["orbax"], MESH, "5n (e)")
     log(f"phase 5n took {time.perf_counter() - t_phase:.1f} s; cards "
         f"{smi_name_power()}")
     return {"mesh_k8_cards": info[f"launches_k{MESH_K}"],
-            "mesh_hier_cards": hier[f"launches_k{MESH_K}"]}
+            "mesh_hier_cards": hier[f"launches_k{MESH_K}"],
+            "mesh_orbax_cards": orbax}
 
 
 def mesh_k_runs(workdir: Path, cfg):
@@ -5900,14 +5988,16 @@ def same_mid_steps(tag: str, a: Path, b: Path, steps: int,
 
 
 def phase_mesh_k(workdir: Path, cfg, single_epoch0: dict | None, ctx: dict,
-                 info: dict) -> dict:
+                 info: dict, nccl: dict) -> dict:
     """Phase 5k: ``train --mesh d,m --steps-per-dispatch MESH_K`` on phase
     4's corpus. (a) One NCCL rank (``--mesh 1,1 --distributed``): where its
     eager step's time goes; a mesh bundle replayed as one CUDA graph
     against the same rank's eager steps (bits, ms/step, busy and idle
     share, the graph launches, the NCCL kernels and #1-#4 and #7 the
     profiler sees against the wrappers' counts); an epoch through the CLI
-    at K = 8 against K = 1, bit for bit, and K = 1 against one device.
+    at K = 8 against K = 1, bit for bit, and K = 1 against one device
+    (:func:`check_nccl_k`; the rank is started once for this and 5h (b),
+    :func:`nccl_mesh_runs`).
     (b) Four gloo ranks on the card (``--mesh 2,2``; the runs of
     :func:`mesh_k_runs`, run by :func:`gloo_mesh_runs`), whose bundles run
     eagerly: the device tier K = 8 against K = 1, row-sharded against
@@ -5922,9 +6012,8 @@ def phase_mesh_k(workdir: Path, cfg, single_epoch0: dict | None, ctx: dict,
     t_phase = time.perf_counter()
     exp, root, work = ctx["exp"], ctx["root"], ctx["work"]
 
-    # (a) one NCCL rank
-    out = nccl_mesh_k(work, root, (1, 1), "5k (a)", single_epoch0)
-    torch.cuda.empty_cache()
+    # (a) one NCCL rank (in the shared NCCL launch)
+    out = check_nccl_k(nccl["k"], (1, 1), "5k (a)", single_epoch0)
 
     # (b) four gloo ranks on the card
     texts = info["texts"]
@@ -6117,7 +6206,8 @@ def _mesh_hier_nccl_rank(workdir: str, data_root: str, shape: tuple) -> int:
             inputs.set_base(d * MESH_K * B)
             return bundle()["loss"].clone()
 
-        out["replayed"] = profiled_dispatches(replayed, MESH_K)
+        out["replayed"] = profiled_dispatches(replayed, MESH_K,
+                                              MESH_TRACE_KERNELS)
         out["replays"], out["backend"] = bundle.replays, mesh.backend
         out["k"], out["turnover"] = k, r.turnovers[-1][1]
         del r, sub, bundle, inputs, source, state, loader, arrays
@@ -6157,33 +6247,26 @@ def _mesh_hier_nccl_rank(workdir: str, data_root: str, shape: tuple) -> int:
     return 0
 
 
-def nccl_mesh_hier(work: Path, root: Path, cfg, shape: tuple,
-                   tag: str) -> dict:
-    """The ranks of an NCCL mesh of ``shape``, a card each
-    (:func:`_mesh_hier_nccl_rank`), on 4s-big's corpus at ``root`` (``cfg``:
-    its run config), and what they saw: every MAP init the rows pass (never
-    #8) and every turnover's table the whole table's rows on every rank,
-    its moments zeroed; the round's bundle replayed, #1-#4 and #7 by the
-    profiler against the wrappers; the K = ``MESH_K`` run stopped at
-    ``HIER_MESH_STOP`` against K = 1 there, bit for bit, then its two
-    rounds; #7 once a step, #6 and #8 never. Returns rank 0's record."""
-    from pytorch_scalablefhvae_tpu_torch.parallel.launch import run_ranks
-
+def prepare_nccl_hier(work: Path, root: Path, cfg) -> None:
+    """:func:`_mesh_hier_nccl_rank`'s work directory: 4s-big's corpus at
+    ``root``, ``cfg`` its run config."""
     work.mkdir()
     cfg.save(work / "config.json")
     (work / "train_args.json").write_text(json.dumps([
         "train", "--dataset", "synthetic", "--preprocessed", "--data-root",
         str(root), "--mvn-path", cfg.data.mvn_path, "--pack-cache-dir",
         cfg.data.pack_cache_dir, "--hierarchical"]))
+
+
+def check_nccl_hier(work: Path, shape: tuple, tag: str) -> dict:
+    """What the ranks of :func:`_mesh_hier_nccl_rank`'s NCCL mesh of
+    ``shape`` saw: every MAP init the rows pass (never #8) and every
+    turnover's table the whole table's rows on every rank, its moments
+    zeroed; the round's bundle replayed, #1-#4 and #7 by the profiler
+    against the wrappers; the K = ``MESH_K`` run stopped at
+    ``HIER_MESH_STOP`` against K = 1 there, bit for bit, then its two
+    rounds; #7 once a step, #6 and #8 never. Returns rank 0's record."""
     world = shape[0] * shape[1]
-    t0 = time.perf_counter()
-    codes = run_ranks(_mesh_hier_nccl_rank, world,
-                      (str(work), str(root), shape), backend="nccl",
-                      device="cuda", timeout_s=120, join_timeout_s=900)
-    log(f"{tag}: the {world} NCCL ranks exited with {codes} after "
-        f"{time.perf_counter() - t0:.1f} s")
-    if codes != [0] * world:
-        raise AssertionError(f"{tag}: the NCCL ranks exited with {codes}")
     ranks = [json.loads((work / f"hier_rank{r}.json").read_text())
              for r in range(world)]
     info = ranks[0]
@@ -6269,7 +6352,8 @@ def nccl_mesh_hier(work: Path, root: Path, cfg, shape: tuple,
     return info
 
 
-def phase_mesh_hier(workdir: Path, cfg, ctx: dict, info: dict) -> dict:
+def phase_mesh_hier(workdir: Path, cfg, ctx: dict, info: dict,
+                    nccl: dict) -> dict:
     """Phase 5h: ``train --mesh d,m --hierarchical``. (a) Four gloo ranks
     on the card (``--mesh 2,2``; the runs of :func:`hier_mesh_runs`, run by
     :func:`gloo_mesh_runs`), ``HIER_SMALL_K``-sequence rounds on phase 4's
@@ -6279,8 +6363,9 @@ def phase_mesh_hier(workdir: Path, cfg, ctx: dict, info: dict) -> dict:
     replicated sub-pack reduces the round size and the row-sharded one
     does not; the host loader, its MAP init over every window as the rows
     pass's, within ``TOL_HIER_EPOCH`` of the device tier. (b) One NCCL rank (``--mesh 1,1 --distributed``) at the CLI
-    defaults on 4s-big's corpus (:func:`nccl_mesh_hier`). Returns (b)'s K =
-    ``MESH_K`` runs' launches (``mesh_hier``)."""
+    defaults on 4s-big's corpus (:func:`check_nccl_hier`; the rank is
+    started once for 5k (a) and this, :func:`nccl_mesh_runs`). Returns
+    (b)'s K = ``MESH_K`` runs' launches (``mesh_hier``)."""
     log(f"== phase 5h: sfhvae train --mesh d,m --hierarchical: "
         f"{MESH[0] * MESH[1]} gloo ranks on the card with {HIER_SMALL_K}-"
         f"sequence rounds (in the shared gloo launch: "
@@ -6351,10 +6436,8 @@ def phase_mesh_hier(workdir: Path, cfg, ctx: dict, info: dict) -> dict:
                                  f"never: {c}")
     torch.cuda.empty_cache()
 
-    # (b) one NCCL rank at the CLI defaults
-    root, bcfg = big_corpus(workdir)
-    out = nccl_mesh_hier(workdir / "mesh_hier_nccl", root, bcfg, (1, 1),
-                         "5h (b)")
+    # (b) one NCCL rank at the CLI defaults (in the shared NCCL launch)
+    out = check_nccl_hier(nccl["hier"], (1, 1), "5h (b)")
     log(f"phase 5h took {time.perf_counter() - t_phase:.1f} s; card "
         f"{smi_name_power()}")
     return out[f"launches_k{MESH_K}"]
@@ -6366,22 +6449,37 @@ RESUME_EVERY = 50    # phase 4r's --ckpt-every-steps
 RESUME_CAP = 183     # (a), (b): 133 + 50, epoch 1 at batch 50; at K = 8 off
                      # a dispatch boundary, so the last dispatches clamp
 HOST_CAP = 70        # (c): epoch 0 at batch 70
-MESH_CAP = 80        # (e): epoch 0 at batch 80
+
+
+def checkpoint_arrays(path: Path) -> dict:
+    """Every array of a checkpoint: an ``.npz`` file, or an ``.orbax``
+    directory of ``torch.distributed.checkpoint`` read whole on the host."""
+    if path.suffix == ".npz":
+        with np.load(path) as z:
+            return {k: z[k] for k in z.files}
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.checkpoint import FileSystemReader
+
+    md = FileSystemReader(str(path)).read_metadata().state_dict_metadata
+    out = {k: torch.empty(tuple(v.size), dtype=v.properties.dtype)
+           for k, v in md.items()}
+    dcp.load(out, storage_reader=FileSystemReader(str(path)), no_dist=True)
+    return {k: v.numpy() for k, v in out.items()}
 
 
 def differing_arrays(a: Path, b: Path) -> list:
-    """The names of the arrays in which two checkpoints differ."""
-    with np.load(a) as x, np.load(b) as y:
-        return [k for k in sorted(set(x.files) | set(y.files))
-                if k not in x.files or k not in y.files
-                or not np.array_equal(x[k], y[k])]
+    """The names of the arrays in which two checkpoints differ (either
+    backend; the Adam count and the step by value)."""
+    x, y = checkpoint_arrays(a), checkpoint_arrays(b)
+    return [k for k in sorted(set(x) | set(y))
+            if k not in x or k not in y or not np.array_equal(x[k], y[k])]
 
 
-def step_checkpoints(exp: Path) -> list[Path]:
-    """The step checkpoints (``..._e<E>s<B>.npz``) in ``exp``, in
+def step_checkpoints(exp: Path, ext: str = "npz") -> list[Path]:
+    """The step checkpoints (``..._e<E>s<B>.<ext>``) in ``exp``, in
     ``(E, B)`` order."""
-    found = [(tuple(map(int, m.groups())), p) for p in exp.glob("*.npz")
-             if (m := re.search(r"_e(\d+)s(\d+)\.npz$", p.name))]
+    found = [(tuple(map(int, m.groups())), p) for p in exp.glob(f"*.{ext}")
+             if (m := re.search(rf"_e(\d+)s(\d+)\.{ext}$", p.name))]
     return [p for _, p in sorted(found)]
 
 
@@ -6399,33 +6497,35 @@ def record_gap(got: dict, want: dict) -> list:
 
 
 def kill_and_resume(cli, name: str, root: Path, args: list, exp: Path,
-                    cap: int, resume_flags: tuple = (),
-                    at_cap: bool = False,
-                    stem: str = "fhvae_synthetic_np_fbank"
-                    ) -> tuple[str, dict]:
+                    cap: int, at_cap: bool = False,
+                    stem: str = "fhvae_synthetic_np_fbank",
+                    ext: str = "npz") -> tuple[str, dict]:
     """``args`` with ``--ckpt-every-steps RESUME_EVERY --max-steps cap``,
     then resumed from its last step checkpoint with ``max_steps=0``. The
     stopped run must have saved step ``cap`` exactly and no checkpoint of
     its last epoch; the resumed one must leave no step checkpoint. With
     ``at_cap``, first a resume with the saved cap, which must train nothing
-    and change no file. Returns the resumed run's output and the step
+    and change no file. ``ext`` is the checkpoints' (``orbax``: the
+    ``--ckpt-backend orbax`` directories, whose step is read from the
+    checkpoint itself). Returns the resumed run's output and the step
     checkpoint's ``mid_epoch``."""
     from pytorch_scalablefhvae_tpu_torch.train import checkpoint as ckpt
 
     resume = ["train", "--dataset", "synthetic", "--preprocessed",
-              "--data-root", str(root), *resume_flags, "--continue-from"]
+              "--data-root", str(root), "--continue-from"]
     run_cli(cli, args + ["--ckpt-every-steps", str(RESUME_EVERY),
                          "--max-steps", str(cap)])
-    last = step_checkpoints(exp)[-1]
+    last = step_checkpoints(exp, ext)[-1]
     meta = ckpt.read_checkpoint_meta(last)
     mid = meta["mid_epoch"]
-    ended = exp / f"{stem}_e{mid['epoch']}.npz"
-    log(f"{name}: stopped at step {meta['step']} (cap {cap}), epoch "
+    step = int(checkpoint_arrays(last)["step"])
+    ended = exp / f"{stem}_e{mid['epoch']}.{ext}"
+    log(f"{name}: stopped at step {step} (cap {cap}), epoch "
         f"{mid['epoch']} batch {mid['batches_done']}; step checkpoints "
-        f"{[p.name for p in step_checkpoints(exp)]}")
-    if meta["step"] != cap or ended.exists():
+        f"{[p.name for p in step_checkpoints(exp, ext)]}")
+    if step != cap or ended.exists():
         raise AssertionError(f"{name}: the stopped run saved step "
-                             f"{meta['step']} or its epoch checkpoint")
+                             f"{step} or its epoch checkpoint")
     if at_cap:
         before = {p.name: p.read_bytes() for p in exp.iterdir()}
         out = run_cli(cli, resume + [str(last)])
@@ -6438,12 +6538,10 @@ def kill_and_resume(cli, name: str, root: Path, args: list, exp: Path,
             raise AssertionError(f"{name}: a resume at the cap trained")
     out = run_cli(cli, resume + [str(last), "--resume-override",
                                  "max_steps=0"])
-    # (a mesh's ranks print from their own processes, past this capture)
-    if "--mesh" not in args and \
-            f"mid-epoch at batch {mid['batches_done']}" not in out:
+    if f"mid-epoch at batch {mid['batches_done']}" not in out:
         raise AssertionError(f"{name}: the resume did not re-enter epoch "
                              f"{mid['epoch']} at its cursor")
-    left = [p.name for p in step_checkpoints(exp)]
+    left = [p.name for p in step_checkpoints(exp, ext)]
     if left or list(exp.glob("*_e*s[0-9]*.json")):
         raise AssertionError(f"{name}: step checkpoints outlived the epoch "
                              f"checkpoint: {left}")
@@ -6451,13 +6549,15 @@ def kill_and_resume(cli, name: str, root: Path, args: list, exp: Path,
 
 
 def check_resumed(name: str, exp: Path, ref: Path, epochs: list,
-                  stem: str = "fhvae_synthetic_np_fbank") -> None:
-    """The resumed run's checkpoint of the last epoch and its records of
-    ``epochs`` against the uninterrupted run's (``ref``): every tensor and
-    the dev metrics bit for bit, ``train_loss`` to 1e-12."""
+                  stem: str = "fhvae_synthetic_np_fbank",
+                  ext: str = "npz") -> None:
+    """The resumed run's checkpoint of the last epoch (``.<ext>``) and its
+    records of ``epochs`` against the uninterrupted run's (``ref``, npz):
+    every tensor and the dev metrics bit for bit, ``train_loss`` to
+    1e-12."""
     last = max(epochs)
     ckpt_name = f"{stem}_e{last}.npz"
-    differ = differing_arrays(exp / ckpt_name, ref / ckpt_name)
+    differ = differing_arrays(exp / f"{stem}_e{last}.{ext}", ref / ckpt_name)
     got = {r["epoch"]: r for r in metrics_in(exp)}
     want = {r["epoch"]: r for r in metrics_in(ref)}
     gaps = {e: record_gap(got[e], want[e]) for e in epochs}
@@ -6497,9 +6597,8 @@ def stream_chunk_batches(cfg, root: Path) -> list[int]:
 def phase_resume(workdir: Path, cfg) -> dict:
     """Phase 4r: runs killed at ``--max-steps`` in the middle of an epoch
     and resumed from their step checkpoints, each against the run that was
-    never killed, on every tier, K and a mesh; the NaN gate and a resume
-    at the cap. Returns the launches of the phase's runs in this process
-    (``train_resume``; the mesh's ranks are other processes)."""
+    never killed, on every tier and K; the NaN gate and a resume at the
+    cap. Returns the launches of the phase's runs (``train_resume``)."""
     from pytorch_scalablefhvae_tpu_torch.cli.main import main as cli
     from pytorch_scalablefhvae_tpu_torch.train import loop
 
@@ -6584,44 +6683,6 @@ def phase_resume(workdir: Path, cfg) -> dict:
         if rc != 2 or written:
             raise AssertionError("a diverged run exited 0 or saved a "
                                  "checkpoint")
-
-        # (e): --mesh 2,2 on gloo, four ranks on the card, against phase 5's
-        # epoch (run here without 5); if it differs, against the gap between
-        # two uninterrupted runs
-        mesh = ["--mesh", f"{MESH[0]},{MESH[1]}", "--dist-backend", "gloo",
-                "--epochs", "1"]
-        ref = run_dir(workdir / "experiments_mesh", 1)
-        if not (ref / "fhvae_synthetic_np_fbank_e0.npz").exists():
-            ref = run_dir(workdir / "resume_mesh_ref", 1)
-            run_cli(cli, train_args(cfg, root, workdir / "resume_mesh_ref",
-                                    *mesh))
-        tag = f"(e) --mesh {MESH[0]},{MESH[1]} --dist-backend gloo"
-        exp = run_dir(workdir / "resume_mesh", 1)
-        kill_and_resume(cli, tag, root, train_args(
-            cfg, root, workdir / "resume_mesh", *mesh), exp, MESH_CAP,
-            ("--dist-backend", "gloo"))
-        name = "fhvae_synthetic_np_fbank_e0.npz"
-        if differing_arrays(exp / name, ref / name):
-            again = run_dir(workdir / "resume_mesh_again", 1)
-            run_cli(cli, train_args(cfg, root, workdir / "resume_mesh_again",
-                                    *mesh))
-            got, want, twin = (metrics_in(d)[0] for d in (exp, ref, again))
-            log(f"{tag}: the resumed epoch differs from the uninterrupted "
-                f"one in {differing_arrays(exp / name, ref / name)[:4]}; two "
-                f"uninterrupted epochs differ in "
-                f"{differing_arrays(again / name, ref / name)[:4]}; train "
-                f"loss {got['train_loss']!r} / {want['train_loss']!r} / "
-                f"{twin['train_loss']!r}, dev LB {got['val_lower_bound']!r} "
-                f"/ {want['val_lower_bound']!r} / "
-                f"{twin['val_lower_bound']!r}")
-            for key in ("train_loss", "val_lower_bound", "val_log_qy"):
-                if abs(got[key] - want[key]) > abs(twin[key] - want[key]):
-                    raise AssertionError(
-                        f"{tag}: {key} of the resumed epoch is further from "
-                        f"the uninterrupted run than a second uninterrupted "
-                        f"run")
-        else:
-            check_resumed(tag, exp, ref, [0])
     finally:
         loop.save_state = real_save
     launches = {e.__name__: e.launches for e in entries}
@@ -6639,6 +6700,374 @@ def phase_resume(workdir: Path, cfg) -> dict:
             raise AssertionError(f"{name} was not launched by phase 4r")
 
     log(f"phase 4r took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# -------------------------------------------------------------- phase 4o
+
+ORBAX_SAVES = 4        # 4o, 5n (e): saves of one state by each backend, in
+                       # turns (npz, orbax, orbax, npz, ...)
+ORBAX_MESH_STOP = 50   # 5n (e): the NCCL orbax run's stop in its epoch
+
+
+def dir_bytes(path: Path) -> int:
+    """The bytes of a checkpoint file or of every file of a directory."""
+    if path.is_file():
+        return path.stat().st_size
+    return sum(p.stat().st_size for p in path.rglob("*") if p.is_file())
+
+
+@contextmanager
+def timed_saves(record: list):
+    """``train/loop.py``'s ``save_state`` and ``wait_for_saves`` timed on
+    the host clock while inside: ``[kind, seconds, step checkpoint]``
+    appended to ``record`` (kind ``"save"``: what the save blocked the
+    loop; ``"flush"``: the wait for the async writes)."""
+    from pytorch_scalablefhvae_tpu_torch.train import loop
+
+    real_save, real_wait = loop.save_state, loop.wait_for_saves
+
+    def save(*args, cursor=None, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real_save(*args, cursor=cursor, **kw)
+        finally:
+            record.append(["save", time.perf_counter() - t0,
+                           cursor is not None])
+
+    def wait():
+        t0 = time.perf_counter()
+        try:
+            real_wait()
+        finally:
+            record.append(["flush", time.perf_counter() - t0, False])
+
+    loop.save_state, loop.wait_for_saves = save, wait
+    try:
+        yield record
+    finally:
+        loop.save_state, loop.wait_for_saves = real_save, real_wait
+
+
+def save_timings(state, config, exp_dir: Path) -> dict:
+    """``ORBAX_SAVES`` step-checkpoint saves of ``state`` through
+    ``train/loop.py`` ``save_state`` by each backend, in turns, after the
+    card is idle: the host-clock seconds each blocks its caller (npz: the
+    whole save, on a mesh with its gather of the table; orbax: the
+    staging), then for orbax the wait of the flush right after it, and the
+    MB each wrote. On a mesh every rank calls it."""
+    from pytorch_scalablefhvae_tpu_torch.train import loop
+    from pytorch_scalablefhvae_tpu_torch.train.metrics import MetricHistory
+
+    out = {"npz": [], "orbax": [], "flush": [], "mb": {}}
+    for i in range(ORBAX_SAVES):
+        for backend in (("npz", "orbax") if i % 2 == 0 else ("orbax", "npz")):
+            run_cfg = config.replace(train=dataclasses.replace(
+                config.train, ckpt_backend=backend))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = loop.save_state(exp_dir, state, run_cfg, 0, 0, 0.0,
+                                   MetricHistory(), {},
+                                   cursor={"epoch": 0, "batches_done": i + 1})
+            out[backend].append(time.perf_counter() - t0)
+            if backend == "orbax":
+                t0 = time.perf_counter()
+                loop.wait_for_saves()
+                out["flush"].append(time.perf_counter() - t0)
+            if path.exists():  # on a mesh rank 0's files
+                out["mb"][backend] = dir_bytes(path) / 1e6
+    return out
+
+
+def timed_line(record: list) -> str:
+    """A :func:`timed_saves` record as one line: each save (``step`` for a
+    step checkpoint, ``epoch`` else) and flush, in ms."""
+    return ", ".join(
+        f"{'flush' if kind == 'flush' else 'step' if mid else 'epoch'} "
+        f"{1e3 * t:.2f}" for kind, t, mid in record)
+
+
+def saves_line(t: dict) -> str:
+    def ms(xs):
+        return (f"median {1e3 * float(np.median(xs)):.2f} ms "
+                f"({1e3 * min(xs):.2f}-{1e3 * max(xs):.2f})")
+
+    return (f"{ORBAX_SAVES} saves each, the caller blocked: npz "
+            f"{ms(t['npz'])} for {t['mb'].get('npz', float('nan')):.2f} MB, "
+            f"orbax {ms(t['orbax'])} (staging) for "
+            f"{t['mb'].get('orbax', float('nan')):.2f} MB, then its write "
+            f"waited for by the flush {ms(t['flush'])}")
+
+
+def dcp_row_shards(path: Path) -> dict:
+    """The row shards of the mu2 table and its moments in an orbax
+    directory: name -> sorted ``(first row, rank whose file holds it)``."""
+    from torch.distributed.checkpoint import FileSystemReader
+
+    found: dict = {}
+    md = FileSystemReader(str(path)).read_metadata()
+    for idx, info in md.storage_data.items():
+        if idx.fqn.endswith("mu2_table"):
+            rank = int(info.relative_path.split("_")[2])  # __<rank>_0.distcp
+            found.setdefault(idx.fqn, []).append((int(idx.offset[0]), rank))
+    return {k: sorted(v) for k, v in found.items()}
+
+
+def check_row_shards(tag: str, path: Path, rows: int, m: int) -> None:
+    """Each of the ``m`` row shards of the ``rows``-row table and of its
+    moments written once, by a rank of that shard's model index."""
+    shards = dcp_row_shards(path)
+    per = rows // m
+    log(f"{tag}: the table's and its moments' row shards in {path.name} "
+        f"(first row, the rank whose file holds it): {shards}")
+    want = {"mu2_table", "adam_mu.mu2_table", "adam_nu.mu2_table"}
+    if set(shards) != want or not all(
+            [r for r, _ in v] == [j * per for j in range(m)]
+            and all(rank % m == r // per for r, rank in v)
+            for v in shards.values()):
+        raise AssertionError(f"{tag}: a rank wrote rows other than its own, "
+                             f"or a shard is missing or written twice")
+
+
+def orbax_mesh_runs(workdir: Path, cfg):
+    """Phase 4o (d)'s runs for :func:`gloo_mesh_runs`: ``--mesh 2,2`` on
+    the device tier at K = ``MESH_K``, the npz backend stopped at
+    ``MESH_K_CAP`` and ``--ckpt-backend orbax`` stopped at ``MESH_K_STOP``
+    and resumed to ``MESH_K_CAP``."""
+    from pytorch_scalablefhvae_tpu_torch.train.driver import build_loaders
+
+    root, work, cached, pack = mesh_k_workdir(workdir, cfg, "orbax_mesh")
+    build_loaders(cached, root, True)  # the pack, before the ranks read it
+    exp = {"npz": work / "npz", "orbax": work / "orbax"}
+    flags = ["--mesh", f"{MESH[0]},{MESH[1]}", *pack, "--data-placement",
+             "device", "--steps-per-dispatch", str(MESH_K), "--epochs", "1"]
+    runs = {
+        "npz": train_args(cfg, root, exp["npz"], *flags, "--max-steps",
+                          str(MESH_K_CAP)),
+        "orbax stopped": train_args(cfg, root, exp["orbax"], *flags,
+                                    "--ckpt-backend", "orbax", "--max-steps",
+                                    str(MESH_K_STOP)),
+        "orbax resumed": [
+            "train", "--dataset", "synthetic", "--preprocessed",
+            "--data-root", str(root), "--continue-from",
+            str(run_dir(exp["orbax"], 1)
+                / f"fhvae_synthetic_np_fbank_e0s{MESH_K_STOP}.orbax"),
+            "--resume-override", f"max_steps={MESH_K_CAP}"],
+    }
+    return runs, {"exp": exp}
+
+
+def _mesh_orbax_nccl_rank(workdir: str, data_root: str, shape: tuple) -> int:
+    """A rank of 5n (e)'s NCCL mesh of ``shape``, after
+    :func:`_mesh_k_nccl_rank` in the same launch: ``--ckpt-backend orbax``
+    at K = ``MESH_K`` for an epoch, stopped at ``ORBAX_MESH_STOP`` and
+    resumed to its end; then :func:`save_timings` of the resumed state on
+    the mesh. Writes ``orbax_rank<r>.json``."""
+    from pytorch_scalablefhvae_tpu_torch.cli.main import main as cli
+    from pytorch_scalablefhvae_tpu_torch.config import ExperimentConfig
+    from pytorch_scalablefhvae_tpu_torch.parallel import mesh as mesh_module
+    from pytorch_scalablefhvae_tpu_torch.train import checkpoint as ckpt
+    from pytorch_scalablefhvae_tpu_torch.train.step import create_train_state
+
+    work, root = Path(workdir), Path(data_root)
+    args = json.loads((work / "train_args.json").read_text())
+    exp = run_dir(work / "orbax", 1)
+    reset_counts(mesh_entries())
+    out = {}
+    with timed_saves([]) as out["record"]:
+        out["text"] = run_cli(cli, args + [
+            "--exp-root", str(work / "orbax"), "--mesh",
+            f"{shape[0]},{shape[1]}", "--distributed", "--dist-backend",
+            "nccl", "--epochs", "1", "--steps-per-dispatch", str(MESH_K),
+            "--ckpt-backend", "orbax", "--max-steps", str(ORBAX_MESH_STOP)])
+        out["text"] += run_cli(cli, [
+            "train", "--dataset", "synthetic", "--preprocessed",
+            "--data-root", str(root), "--continue-from",
+            str(exp / f"fhvae_synthetic_np_fbank_e0s{ORBAX_MESH_STOP}.orbax"),
+            "--resume-override", "max_steps=0", "--distributed",
+            "--dist-backend", "nccl"])
+    out["launches"] = {e.__name__: e.launches for e in mesh_entries()}
+    out["launches_tc"] = tensor_core_counts(mesh_entries())
+    cfg = ExperimentConfig.load(exp / "config.json")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = mesh_module.make_mesh(shape, dev)
+    state = create_train_state(mesh_module.shard_model(seeded_model(cfg),
+                                                       mesh))
+    ckpt.load_train_state(exp / "fhvae_synthetic_np_fbank_e0.orbax", state)
+    out["saves"] = save_timings(state, cfg, work / "orbax_saves")
+    (work / f"orbax_rank{mesh.rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def check_nccl_orbax(work: Path, shape: tuple, tag: str) -> dict:
+    """5n (e): the NCCL orbax run stopped and resumed against the K =
+    ``MESH_K`` npz epoch of :func:`_mesh_k_nccl_rank` (every tensor and
+    record bit for bit, ``train_loss`` to 1e-12), each rank's file holding
+    its own rows, no step directory left; each rank's save timings.
+    Returns rank 0's launches."""
+    world = shape[0] * shape[1]
+    ranks = [json.loads((work / f"orbax_rank{r}.json").read_text())
+             for r in range(world)]
+    exp, ref = run_dir(work / "orbax", 1), run_dir(work / f"nccl_k{MESH_K}", 1)
+    check_resumed(f"{tag} orbax stopped at {ORBAX_MESH_STOP} and resumed vs "
+                  f"the npz epoch", exp, ref, [0], ext="orbax")
+    rows = checkpoint_arrays(ref / "fhvae_synthetic_np_fbank_e0.npz")[
+        "mu2_table"].shape[0]
+    check_row_shards(tag, exp / "fhvae_synthetic_np_fbank_e0.orbax", rows,
+                     shape[1])
+    if step_checkpoints(exp, "orbax"):
+        raise AssertionError(f"{tag}: a step directory outlived the epoch")
+    for r, x in enumerate(ranks):
+        log(f"{tag} rank {r}: the runs' saves and flushes (ms) "
+            f"{timed_line(x['record'])}; the resumed state on the NCCL mesh "
+            f"{shape}, {saves_line(x['saves'])}; card {smi_name_power()}")
+    c = ranks[0]["launches"]
+    check_tensor_core(c, ranks[0]["launches_tc"], tag)
+    if not (c["discriminative_log_qy_sharded"] > 0
+            and c["discriminative_log_qy_bwd"] == 0
+            and c["windowed_chunk_gather"] == 0):
+        raise AssertionError(f"{tag}: #7 must be launched, #6 and #8 never: "
+                             f"{c}")
+    return c
+
+
+def phase_orbax(workdir: Path, cfg, ctx: dict | None = None,
+                info: dict | None = None) -> dict:
+    """Phase 4o: ``train --ckpt-backend orbax`` (``train/orbax_backend.py``:
+    async saves on ``torch.distributed.checkpoint``) at the CLI defaults
+    on the device tier at K = ``K_DISPATCH`` on phase 4's corpus. (a), (b)
+    a two-epoch run stopped by ``--max-steps RESUME_CAP`` with
+    ``--ckpt-every-steps RESUME_EVERY`` and resumed from its last step
+    directory: every tensor of each epoch checkpoint equal to phase 4's npz
+    run's (the run never stopped) and its records to phase 4's, no step
+    directory left; (c) ``eval`` from its best pointer against ``eval`` of
+    phase 4's npz checkpoint of the same epoch, the dev bound bit for bit;
+    the host-clock ms the loop blocked per save and the flush waits, and
+    :func:`save_timings` of both backends on one state; (d) in the shared
+    gloo launch (:func:`orbax_mesh_runs`), ``--mesh 2,2`` stopped at
+    ``MESH_K_STOP`` and resumed against the npz run to ``MESH_K_CAP``, bit
+    for bit, each rank's file holding its own rows, the step directory
+    loaded on one device equal to the npz run's whole table. Returns the
+    launches of (a)/(b)'s runs (``train_orbax``)."""
+    from pytorch_scalablefhvae_tpu_torch.cli.main import main as cli
+    from pytorch_scalablefhvae_tpu_torch.config import ExperimentConfig
+    from pytorch_scalablefhvae_tpu_torch.train import checkpoint as ckpt
+    from pytorch_scalablefhvae_tpu_torch.train.step import create_train_state
+
+    log(f"== phase 4o: sfhvae train --ckpt-backend orbax (async saves "
+        f"through torch.distributed.checkpoint) at K = {K_DISPATCH}, "
+        f"stopped and resumed; eval from its best pointer; a 2,2 mesh")
+    t_phase = time.perf_counter()
+    root, stem = workdir / "data", "fhvae_synthetic_np_fbank"
+    ref = run_dir(workdir / "experiments", 2)
+    entries = train_entries()
+    reset_counts(entries)
+    exp = run_dir(workdir / "orbax_k8", 2)
+    with timed_saves([]) as record:
+        kill_and_resume(cli, "4o (b)", root, train_args(
+            cfg, root, workdir / "orbax_k8", "--epochs", "2",
+            "--steps-per-dispatch", str(K_DISPATCH), "--ckpt-backend",
+            "orbax"), exp, RESUME_CAP, ext="orbax")
+    launches = {e.__name__: e.launches for e in entries}
+    tc = tensor_core_counts(entries)
+    log(f"launches during phase 4o's runs, counted from 0: {launches}; of "
+        f"the LSTM entries', through the tensor-core form: {tc}")
+    check_tensor_core(launches, tc, "phase 4o")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched by phase 4o")
+    differ = {e: differing_arrays(exp / f"{stem}_e{e}.orbax",
+                                  ref / f"{stem}_e{e}.npz") for e in (0, 1)}
+    log(f"4o (a) orbax against phase 4's npz run, arrays differing by epoch "
+        f"checkpoint: {differ}")
+    if any(differ.values()):
+        raise AssertionError("4o (a): the orbax checkpoints differ from the "
+                             "npz backend's")
+    check_resumed(f"4o (b) stopped at {RESUME_CAP} and resumed", exp, ref,
+                  [0, 1], ext="orbax")
+    log(f"4o the loop blocked on each orbax save (the staging) and flush, "
+        f"ms: {timed_line(record)}; "
+        f"{dir_bytes(exp / f'{stem}_e1.orbax') / 1e6:.2f} MB a checkpoint; "
+        f"card {smi_name_power()}")
+
+    # (c) eval from the best pointer
+    best = ckpt.find_best_checkpoint(exp)
+    epoch = ckpt.read_checkpoint_meta(best)["epoch"]
+    evals = {}
+    for tag, d, extra in (("orbax", exp, []),
+                          ("npz", ref, ["--step", str(epoch)])):
+        out_dir = workdir / f"orbax_eval_{tag}"
+        run_cli(cli, ["eval", str(d), "--set-name", "dev", "--data-root",
+                      str(root), "--output-dir", str(out_dir), *extra])
+        evals[tag] = json.loads((out_dir / "metrics.json").read_text())
+    log(f"4o (c) eval from the orbax best pointer ({best.name}) against "
+        f"phase 4's npz checkpoint of epoch {epoch}: dev LB "
+        f"{evals['orbax']['lower_bound']!r} vs "
+        f"{evals['npz']['lower_bound']!r}, log_qy "
+        f"{evals['orbax']['log_qy']!r} vs {evals['npz']['log_qy']!r}")
+    if best.suffix != ".orbax" or any(
+            evals["orbax"][k] != evals["npz"][k]
+            for k in ("lower_bound", "log_qy")):
+        raise AssertionError("4o (c): the eval from the orbax pointer "
+                             "differs from the npz checkpoint's")
+    state = create_train_state(seeded_model(cfg))
+    ckpt.load_train_state(ref / f"{stem}_e1.npz", state)
+    t = save_timings(state, ExperimentConfig.load(ref / "config.json"),
+                     workdir / "orbax_saves")
+    log(f"4o one device, phase 4's epoch-1 state: {saves_line(t)}; card "
+        f"{smi_name_power()}")
+    del state
+    torch.cuda.empty_cache()
+
+    # (d) the 2,2 gloo mesh
+    if ctx is not None:
+        npz_dir = run_dir(ctx["exp"]["npz"], 1)
+        orb_dir = run_dir(ctx["exp"]["orbax"], 1)
+        name = f"{stem}_e0s{MESH_K_CAP}"
+        differ = differing_arrays(orb_dir / f"{name}.orbax",
+                                  npz_dir / f"{name}.npz")
+        mo, mn = (ckpt.read_checkpoint_meta(d / f"{name}.json")["mid_epoch"]
+                  for d in (orb_dir, npz_dir))
+        gap = abs(mo["loss_sum"] / mn["loss_sum"] - 1)
+        log(f"4o (d) --mesh {MESH[0]},{MESH[1]} gloo, orbax stopped at "
+            f"{MESH_K_STOP} and resumed against npz, {MESH_K_CAP} steps: "
+            f"arrays differing {differ}; loss sums {mo['loss_sum']!r} vs "
+            f"{mn['loss_sum']!r} (relative gap {gap:.3e}, tol 1e-12); "
+            f"runs' wall seconds {info['wall']}; rank 0's saves and flushes "
+            f"by run (ms): " + "; ".join(f"{n}: {timed_line(v)}" for n, v
+                                         in info["saves"].items()))
+        if differ or not gap <= 1e-12 or mo["count_sum"] != mn["count_sum"]:
+            raise AssertionError("4o (d): the orbax mesh run differs from "
+                                 "the npz one")
+        whole = checkpoint_arrays(npz_dir / f"{name}.npz")
+        rows = whole["mu2_table"].shape[0]
+        for path in (orb_dir / f"{stem}_e0s{MESH_K_STOP}.orbax",
+                     orb_dir / f"{name}.orbax"):
+            check_row_shards("4o (d)", path, rows, MESH[1])
+        state = create_train_state(seeded_model(cfg))
+        ckpt.load_train_state(orb_dir / f"{name}.orbax", state)
+        got = {**state.model.state_dict(),
+               **{f"adam_mu.{k}": v for k, v in state.mu.items()},
+               **{f"adam_nu.{k}": v for k, v in state.nu.items()}}
+        off = [k for k, v in got.items() if not np.array_equal(
+            v.cpu().numpy(), whole[k][:N_TABLE] if k.endswith("mu2_table")
+            else whole[k])]
+        log(f"4o (d) the mesh's step directory loaded on one device: "
+            f"{rows} saved table rows fitted to {N_TABLE}; tensors differing "
+            f"from the npz run's whole ones: {off}")
+        if off:
+            raise AssertionError("4o (d): the mesh checkpoint does not load "
+                                 "on one device to the npz run's tensors")
+        for name, c in info["launches"].items():
+            check_tensor_core(c, info["launches_tc"][name], f"4o (d) {name}")
+            if not (c["discriminative_log_qy_sharded"] > 0
+                    and c["discriminative_log_qy_bwd"] == 0
+                    and c["windowed_chunk_gather"] == 0):
+                raise AssertionError(f"4o (d) {name}: #7 must be launched, "
+                                     f"#6 and #8 never: {c}")
+        del state
+        torch.cuda.empty_cache()
+    log(f"phase 4o took {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -7018,14 +7447,15 @@ def main(argv=None) -> int:
     parser.add_argument("--only", default=None,
                         help="comma-separated phases to run after phase 1 "
                              "(2, 2f, 2b, 2c, 2d, 2e, 3, 3b, 4, 4k, 4s, 4h, "
-                             "4m, 4p, 4b, 4q, 5, 5t, 5k, 5h, 4r, 4l; 5n, on "
-                             "four cards, only when named; 2 includes 2f, "
-                             "4k, 4b and 4r need 4); default all but 5n")
+                             "4m, 4p, 4b, 4q, 5, 5t, 5k, 5h, 4r, 4o, 4l; 5n, "
+                             "on four cards, only when named; 2 includes "
+                             "2f, 4k, 4b, 4r and 4o need 4); default all but "
+                             "5n")
     only = parser.parse_args(argv).only
     only = None if only is None else set(only.split(","))
     if only is not None and "2" in only:
         only.add("2f")
-    if only is not None and {"4b", "4k", "4r"} & only:
+    if only is not None and {"4b", "4k", "4r", "4o"} & only:
         only.add("4")
 
     def on(phase: str) -> bool:
@@ -7068,7 +7498,7 @@ def main(argv=None) -> int:
                 write_corpus(workdir / "wav")
             by_path["preprocess"] = timed("3b", phase_preprocess, workdir)
         if any(on(p) for p in ("4", "4s", "4h", "4m", "4p", "5", "5t",
-                               "5k", "5h", "5n", "4l")):
+                               "5k", "5h", "5n", "4o", "4l")):
             cfg = timed("corpus", write_feature_corpus, workdir / "data")
             log(f"corpus written in {seconds['corpus']:.1f} s")
         epoch0 = None
@@ -7094,23 +7524,30 @@ def main(argv=None) -> int:
             timed("4q", phase_quality, workdir)
         if on("5"):
             by_path["mesh"] = timed("5", phase_mesh, workdir, cfg, epoch0)
-        # the gloo runs of 5t, 5k (b) and 5h (a): four ranks started once
-        gloo = [p for p in ("5t", "5k", "5h") if on(p)]
+        # the gloo runs of 5t, 5k (b), 5h (a) and 4o (d): four ranks
+        # started once; the NCCL rank of 5k (a) and 5h (b): started once
+        gloo = [p for p in ("5t", "5k", "5h", "4o") if on(p)]
         gloo = gloo and timed("5 gloo ranks", gloo_mesh_runs, workdir, cfg,
                               gloo)
+        nccl = [k for p, k in (("5k", "k"), ("5h", "hier")) if on(p)]
+        nccl = nccl and timed("5 nccl rank", nccl_mesh_runs, workdir, cfg,
+                              nccl, (1, 1), "5k (a), 5h (b)")
         if on("5t"):
             by_path["mesh_tiers"] = timed("5t", phase_mesh_tiers, workdir,
                                           cfg, *gloo["5t"])
         if on("5k"):
             by_path["mesh_k8"] = timed("5k", phase_mesh_k, workdir, cfg,
-                                       epoch0, *gloo["5k"])
+                                       epoch0, *gloo["5k"], nccl)
         if on("5h"):
             by_path["mesh_hier"] = timed("5h", phase_mesh_hier, workdir, cfg,
-                                         *gloo["5h"])
+                                         *gloo["5h"], nccl)
         if on("5n"):
             by_path.update(timed("5n", phase_mesh_k_cards, workdir, cfg))
         if on("4r"):
             by_path["train_resume"] = timed("4r", phase_resume, workdir, cfg)
+        if on("4o"):
+            by_path["train_orbax"] = timed("4o", phase_orbax, workdir, cfg,
+                                           *gloo["4o"])
         if on("4l"):
             by_path["train_legacy"] = timed("4l", phase_legacy, workdir, cfg)
     finally:

@@ -13,8 +13,8 @@
 package's copy of ``cli/args.py``); ``--device`` is ``cuda`` (the default)
 or ``cpu`` everywhere, and cuda fails where no GPU is present. Of the feature
 extractors only ``--extractor jax`` (batched on the CUDA device) uses the
-device; the host extractors ignore it. ``train`` raises for the settings
-whose code paths are not yet ported (``train/driver.py`` ``check_ported``).
+device; the host extractors ignore it. ``train`` runs every setting of the
+JAX CLI's, ``--ckpt-backend orbax`` (``train/orbax_backend.py``) included.
 ``encode``, ``serve``, ``eval`` and ``probe`` take the JAX CLI's flags
 plus ``--device``; ``probe`` runs ``eval`` first when the split has no
 ``latents.npz`` yet.

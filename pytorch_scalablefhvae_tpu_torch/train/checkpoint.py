@@ -19,14 +19,20 @@ and no ``best_model_`` copy, and :func:`cleanup_mid_epoch` deletes it once
 its epoch's checkpoint is committed) but with named arrays, one per
 ``state_dict`` key, plus ``adam_mu.<name>``, ``adam_nu.<name>``,
 ``adam_count`` and ``step`` when it saves a training state, and
-``"format": "torch_named"`` in the sidecar. Orbax checkpoint directories are
-not yet ported.
+``"format": "torch_named"`` in the sidecar. ``--ckpt-backend orbax`` saves
+asynchronously into ``.orbax`` directories of ``torch.distributed.checkpoint``
+(``train/orbax_backend.py``); :func:`load_params`, :func:`load_train_state`
+and :func:`saved_table_rows` take either, as the JAX package's loads do, and
+:func:`find_best_checkpoint` resolves the orbax backend's
+``best_model_pointer.json``, falling back to the best committed epoch when
+the pointer's save never committed.
 
 A mesh run (``parallel/mesh.py``) saves from rank 0 the whole mu2 table and
 its moments, padded to the run's model axis and gathered over the model
-group; a load fits the rows to the loading run's padding and keeps the
-rank's shard, so a checkpoint moves between mesh shapes and to one device,
-and a JAX mesh run's checkpoint loads the same way.
+group (the orbax backend writes each rank's rows instead); a load fits the
+rows to the loading run's padding and keeps the rank's shard, so a
+checkpoint moves between mesh shapes and to one device, and a JAX mesh
+run's checkpoint loads the same way.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ import json
 import os
 import re
 import shutil
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -135,13 +142,16 @@ def _fit_table(arr: np.ndarray, model) -> np.ndarray:
 
 
 def load_params(checkpoint_file, model: torch.nn.Module) -> dict:
-    """Load a JAX or port ``.npz`` checkpoint's parameters into ``model``
-    (in place, on the model's device); returns the sidecar meta."""
+    """Load a JAX or port ``.npz`` checkpoint's, or an ``.orbax``
+    directory's, parameters into ``model`` (in place, on the model's
+    device); returns the sidecar meta."""
     checkpoint_file = Path(checkpoint_file)
     if checkpoint_file.suffix == ".orbax":
-        raise NotImplementedError(
-            f"{checkpoint_file}: orbax checkpoints are not yet ported "
-            f"(ROADMAP.md); save the run with --ckpt-backend npz")
+        from pytorch_scalablefhvae_tpu_torch.train.orbax_backend import (
+            load_params_orbax,
+        )
+
+        return load_params_orbax(checkpoint_file, model)
     meta = read_checkpoint_meta(checkpoint_file)
     target = model.state_dict()
     with np.load(checkpoint_file) as z:
@@ -173,8 +183,18 @@ def load_params(checkpoint_file, model: torch.nn.Module) -> dict:
 
 def saved_table_rows(checkpoint_file, model: torch.nn.Module) -> int:
     """The row count of the mu2 table a port or JAX ``.npz`` holds
-    (``model`` names the JAX checkpoint's leaves)."""
+    (``model`` names the JAX checkpoint's leaves), or an ``.orbax``
+    directory (its DCP metadata; the sidecar's ``table_rows`` or
+    ``num_seqs`` where that cannot be read)."""
     meta = read_checkpoint_meta(checkpoint_file)
+    if Path(checkpoint_file).suffix == ".orbax":
+        from pytorch_scalablefhvae_tpu_torch.train.orbax_backend import (
+            saved_mu2_rows,
+        )
+
+        rows = saved_mu2_rows(checkpoint_file)
+        return int(rows if rows is not None
+                   else meta.get("table_rows", meta.get("num_seqs")))
     name = next(n for n in model.state_dict() if n.endswith("mu2_table"))
     if meta.get("format") != PORT_FORMAT:
         name = f"leaf_{jax_leaf_names(model.state_dict()).index(name)}"
@@ -239,7 +259,8 @@ def check_same_corpus(meta: dict, expected_num_seqs: int | None,
 def load_train_state(checkpoint_file, state, finetune: bool = False,
                      expected_num_seqs: int | None = None,
                      expected_fingerprint: str | None = None) -> dict:
-    """Restore a training state (in place) from a port or JAX ``.npz``.
+    """Restore a training state (in place) from a port or JAX ``.npz``, or
+    from an ``.orbax`` directory (``orbax_backend.load_checkpoint_orbax``).
 
     The parameters always load. Unless ``finetune``, the Adam moments, count
     and step load too and ``meta["start_epoch"]`` is the saved epoch + 1;
@@ -248,6 +269,13 @@ def load_train_state(checkpoint_file, state, finetune: bool = False,
     corpus raises (:func:`check_same_corpus`). Returns the sidecar meta.
     """
     checkpoint_file = Path(checkpoint_file)
+    if checkpoint_file.suffix == ".orbax":
+        from pytorch_scalablefhvae_tpu_torch.train.orbax_backend import (
+            load_checkpoint_orbax,
+        )
+
+        return load_checkpoint_orbax(checkpoint_file, state, finetune,
+                                     expected_num_seqs, expected_fingerprint)
     meta = load_params(checkpoint_file, state.model)
     if finetune:
         return dict(meta, start_epoch=0, values={}, best_val_lb=-np.inf,
@@ -380,27 +408,51 @@ def _one_run(exp_dir: Path, matches: list[Path], what: str) -> None:
 
 def find_best_checkpoint(exp_dir) -> Path:
     """The ``best_model_*.npz`` of the experiment's one run (highest epoch
-    number when several)."""
+    number when several), else the ``.orbax`` directory that
+    ``best_model_pointer.json`` names. A pointer whose save never committed
+    falls back, with a warning, to the epoch that the newest committed
+    epoch checkpoint of the same run records as best (else that newest
+    one), as the JAX package's does."""
     exp_dir = Path(exp_dir)
     matches = sorted(exp_dir.glob("best_model_*.npz"), key=_epoch_of)
     if matches:
         _one_run(exp_dir, matches, "best-model")
         return matches[-1]
-    if (exp_dir / "best_model_pointer.json").exists():
-        raise NotImplementedError(
-            f"{exp_dir} holds orbax checkpoints, which are not yet ported "
-            f"(ROADMAP.md)")
+    pointer = exp_dir / "best_model_pointer.json"
+    if pointer.exists():
+        target = Path(json.loads(pointer.read_text())["path"])
+        if target.exists():
+            return target
+        run_prefix = target.name.rsplit("_e", 1)[0]
+        committed = sorted((p for p in exp_dir.glob(f"{run_prefix}_e*.orbax")
+                            if _epoch_of(p) >= 0), key=_epoch_of)
+        if committed:
+            pick = committed[-1]
+            try:
+                best = int(read_checkpoint_meta(pick).get("best_epoch", -1))
+            except (OSError, ValueError):
+                best = -1
+            pick = {_epoch_of(p): p for p in committed}.get(best, pick)
+            warnings.warn(
+                f"best_model_pointer.json points at {target} which never "
+                f"committed (interrupted async save); falling back to the "
+                f"best committed checkpoint {pick}")
+            return pick
     raise FileNotFoundError(f"No best-model checkpoint under {exp_dir}")
 
 
 def find_epoch_checkpoint(exp_dir, step: int) -> Path:
     """The ``step``-th epoch checkpoint in epoch-number order (negative
-    indices count from the end)."""
+    indices count from the end): the ``.npz`` files, else the ``.orbax``
+    directories; never a ``best_model_`` copy or a step checkpoint."""
     exp_dir = Path(exp_dir)
-    matches = sorted(
-        (p for p in exp_dir.glob("*_e*.npz")
-         if not p.name.startswith("best_model_") and _epoch_of(p) >= 0),
-        key=_epoch_of)
+
+    def epochs(pattern):
+        return sorted((p for p in exp_dir.glob(pattern)
+                       if not p.name.startswith("best_model_")
+                       and _epoch_of(p) >= 0), key=_epoch_of)
+
+    matches = epochs("*_e*.npz") or epochs("*_e*.orbax")
     if not matches:
         raise FileNotFoundError(f"No epoch checkpoints under {exp_dir}")
     _one_run(exp_dir, matches, "epoch")

@@ -12,10 +12,10 @@ package's; ``split_manifests`` says where a preprocessed corpus's
 ``feats.scp`` / ``len.scp`` live. Without ``--preprocessed`` the features are
 extracted first, the ``jax`` extractor's on the run's device.
 
-:func:`check_ported` refuses every setting whose code path is not yet
-ported, naming ``ROADMAP.md``: orbax checkpoints. The data tier (the device-resident store,
-the streamed tier or the host loader) is resolved by ``train/loop.py``,
-which also runs the mesh branch: on a mesh every rank calls
+Every ``train`` setting of the JAX package runs, ``--ckpt-backend orbax``
+included (``train/orbax_backend.py``). The data tier (the device-resident
+store, the streamed tier or the host loader) is resolved by
+``train/loop.py``, which also runs the mesh branch: on a mesh every rank calls
 :func:`train_from_config` with its own device (``cli/main.py`` starts the
 ranks).
 """
@@ -36,24 +36,6 @@ from pytorch_scalablefhvae_tpu_torch.features.pipeline import (
 )
 from pytorch_scalablefhvae_tpu_torch.config import ExperimentConfig
 from pytorch_scalablefhvae_tpu_torch.train.loop import TrainResult, run_training
-
-
-def check_ported(config: ExperimentConfig) -> None:
-    """Raise ``NotImplementedError`` (naming ROADMAP.md) for a setting the
-    port does not run yet: of ``train``'s settings only ``--ckpt-backend
-    orbax`` (item 10.3). ``--ckpt-every-steps`` and ``--max-steps`` are
-    not in the table: they run on every tier, at any K and on a mesh
-    (``train/loop.py`` :class:`EpochCursor`); the loop refuses them with
-    ``--legacy`` by a ``ValueError``, as the JAX loop does. A mesh runs
-    every data tier in every transfer dtype, with or without
-    ``--shard-device-store`` (a no-op on one device, as in the JAX
-    package), at any ``--steps-per-dispatch``, and hierarchical rounds on
-    each of them (``train/rounds.py``)."""
-    if config.train.ckpt_backend == "orbax":
-        raise NotImplementedError(
-            "--ckpt-backend orbax is not yet ported to PyTorch (ROADMAP.md, "
-            "item 10.3); train with the JAX CLI, python -m "
-            "pytorch_scalablefhvae_tpu.cli.main train")
 
 
 def check_batch_split(config: ExperimentConfig) -> None:
@@ -113,7 +95,8 @@ def resolve_run_config(config: ExperimentConfig,
                        verbose: bool = True) -> ExperimentConfig:
     """The config the run trains with: on a resume the saved ``config.json``
     beside the checkpoint, changed only by ``resume_overrides`` (a resume on
-    another mesh: ``mesh_shape=1,2``); checked by :func:`check_ported`."""
+    another mesh: ``mesh_shape=1,2``); checked by
+    :func:`check_batch_split`."""
     if continue_from is not None:
         saved = Path(continue_from).parent / "config.json"
         if saved.exists():
@@ -129,7 +112,6 @@ def resolve_run_config(config: ExperimentConfig,
         raise ValueError(
             "--resume-override only applies when resuming (--continue-from); "
             "set the flag directly for a fresh run")
-    check_ported(config)
     check_batch_split(config)
     return config
 
@@ -170,7 +152,8 @@ def train_from_config(config: ExperimentConfig, data_root: str | Path = ".",
             # a finetune is a new experiment: never write into a directory
             # that already holds checkpoints
             base, n = exp_dir, 0
-            while exp_dir.exists() and any(exp_dir.glob("*_e*.npz")):
+            while exp_dir.exists() and (any(exp_dir.glob("*_e*.npz"))
+                                        or any(exp_dir.glob("*_e*.orbax"))):
                 n += 1
                 suffix = "_finetune" if n == 1 else f"_finetune{n}"
                 exp_dir = base.with_name(base.name + suffix)

@@ -38,7 +38,9 @@ model axis) at any K, and splits both dev passes over the data ranks when
 the dev batch size divides by ``d`` (else every rank runs them whole). All
 decisions (divergence, best epoch, early stopping) are taken from
 all-reduced values, so the ranks take them together; rank 0 alone prints,
-writes ``metrics.jsonl`` and the checkpoints.
+writes ``metrics.jsonl`` and the checkpoints (with ``--ckpt-backend orbax``
+every rank writes its rows of the table and its moments, rank 0 the rest
+and the sidecar: ``train/orbax_backend.py``).
 
 A step checkpoint (``..._e<epoch>s<batches>``) holds the whole training
 state and the epoch's cursor; ``--continue-from`` on one re-enters that
@@ -118,6 +120,10 @@ from pytorch_scalablefhvae_tpu_torch.train.graphs import (
 from pytorch_scalablefhvae_tpu_torch.train.metrics import (
     MetricHistory,
     MetricWriter,
+)
+from pytorch_scalablefhvae_tpu_torch.train.orbax_backend import (
+    save_checkpoint_orbax,
+    wait_for_saves,
 )
 from pytorch_scalablefhvae_tpu_torch.train.plots import write_curves_svg
 from pytorch_scalablefhvae_tpu_torch.train.rounds import (
@@ -782,23 +788,37 @@ def save_state(exp_dir: Path, state: TrainState, config: ExperimentConfig,
                history: MetricHistory, extra_meta: dict,
                summary_vals: dict | None = None,
                cursor: dict | None = None) -> Path:
-    """The one checkpoint writer of both cadences (the JAX loop's
-    ``save_state_checkpoint``), so that a field cannot go missing from
-    one of them: the epoch checkpoint (full training state, its
-    ``summary_vals``, and a ``best_model_`` copy when this epoch is the
-    best), or with a ``cursor`` (``mid_epoch``: the epoch, ``batches_done``
-    and the partials) the step checkpoint ``..._e<epoch>s<batches_done>``."""
+    """The one checkpoint writer of both cadences and both backends (the JAX
+    loop's ``save_state_checkpoint``), so that a field cannot go missing
+    from one of them: the epoch checkpoint (full training state, its
+    ``summary_vals``, and a ``best_model_`` copy, or with ``--ckpt-backend
+    orbax`` the best pointer, when this epoch is the best), or with a
+    ``cursor`` (``mid_epoch``: the epoch, ``batches_done`` and the
+    partials) the step checkpoint ``..._e<epoch>s<batches_done>``. The
+    orbax backend returns once the state is staged
+    (``train/orbax_backend.py``)."""
     model = state.model
     extra = dict(extra_meta)
     if cursor is not None:
         extra["mid_epoch"] = cursor
+    suffix = "" if cursor is None else f"s{cursor['batches_done']}"
+    if config.train.ckpt_backend == "orbax":
+        meta = {"model_type": model.model_type,
+                "model_params": list(model.model_params()),
+                "best_epoch": best_epoch, "best_val_lb": float(best_val_lb),
+                "values": history.to_json_dict(), **extra}
+        if summary_vals is not None:
+            meta["summary_vals"] = summary_vals
+        return save_checkpoint_orbax(
+            exp_dir, state, model_type=model.model_type,
+            run_info=config.base_string(), epoch=epoch, meta=meta,
+            suffix=suffix)
     return ckpt.save_checkpoint(
         exp_dir, model, model_type=model.model_type,
         model_params=model.model_params(), run_info=config.base_string(),
         epoch=epoch, best_epoch=best_epoch, best_val_lb=float(best_val_lb),
         values=history.to_json_dict(), extra_meta=extra,
-        train_state=state, summary_vals=summary_vals,
-        suffix="" if cursor is None else f"s{cursor['batches_done']}")
+        train_state=state, summary_vals=summary_vals, suffix=suffix)
 
 
 def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
@@ -1025,6 +1045,7 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
             if first:
                 print("Training diverged")
                 writer.close()
+            wait_for_saves()
             result.diverged, result.last_epoch = True, epoch
             return result
         if verbose and tier == "stream" and cursor.start:
@@ -1086,7 +1107,8 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
             # the epoch checkpoint supersedes this run's step checkpoints
             # of this epoch and before, a --max-steps stop's included when
             # this run has no cadence flag; on a mesh, once every rank is
-            # past its save
+            # past its save and has flushed its async ones
+            wait_for_saves()
             if mesh is not None:
                 dist.barrier()
             if first:
@@ -1100,6 +1122,7 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
             break
     if first:
         writer.close()
+    wait_for_saves()
     if verbose:
         print("Training complete!")
     return result

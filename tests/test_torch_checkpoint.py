@@ -101,8 +101,20 @@ def test_port_save_load_round_trip(tmp_path):
 
 
 def test_orbax_and_shape_mismatch_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ckpt.load_params(tmp_path / "fhvae_t_e0.orbax", port_model())
+    """An orbax directory that the JAX package wrote is refused, naming
+    ROADMAP.md (reading one needs the orbax package; the port's own
+    ``--ckpt-backend orbax`` directories load: ``tests/test_torch_orbax.py``);
+    a shape mismatch raises naming the parameter."""
+    from pytorch_scalablefhvae_tpu.train import orbax_backend as jax_orbax
+
+    jm, state = jax_state()
+    written = jax_orbax.save_checkpoint_orbax(
+        tmp_path / "jax", state, model_type="fhvae", run_info="t", epoch=0,
+        meta={"best_epoch": 0, "best_val_lb": -1.0, "values": {},
+              "model_params": list(jm.model_params())})
+    jax_orbax.wait_for_saves()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ckpt.load_params(written, port_model())
     src = port_model()
     path = ckpt.save_checkpoint(
         tmp_path, src, model_type="fhvae", model_params=src.model_params(),

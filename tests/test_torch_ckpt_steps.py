@@ -16,7 +16,10 @@ stopped run's step is ``max_steps`` exactly; no step checkpoint outlives
 the next epoch checkpoint; a non-finite loss before a save exits 2 and
 writes nothing; a resume at the cap trains nothing; ``--finetune`` ignores
 the cursor; a step checkpoint written by the JAX package's
-``save_checkpoint`` resumes at its cursor; and ``--mesh 2,1`` on gloo.
+``save_checkpoint`` resumes at its cursor; ``--mesh 2,1`` on gloo; and
+``--ckpt-backend orbax`` on the device tier at K = 3 and in two-epoch
+hierarchical rounds (JAX ``tests/test_ckpt_steps.py``'s orbax cases),
+stopped and resumed to the npz run's bits.
 Tiny widths (H 16, batch 32) on 36 synthetic utterances: 7 steps an epoch.
 """
 
@@ -28,6 +31,8 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch.distributed.checkpoint as dcp
+from torch.distributed.checkpoint import FileSystemReader
 
 from pytorch_scalablefhvae_tpu.config import DataConfig, ExperimentConfig
 from pytorch_scalablefhvae_tpu.features.pipeline import preprocess_data
@@ -78,13 +83,22 @@ def metrics(d):
             (d / "metrics.jsonl").read_text().splitlines()]
 
 
-def step_checkpoints(d) -> list[Path]:
+def step_checkpoints(d, ext: str = "npz") -> list[Path]:
     """The step checkpoints of ``d``, in (epoch, batch) order."""
     def cursor(p):
         e, b = p.stem.rsplit("_e", 1)[1].split("s")
         return int(e), int(b)
 
-    return sorted(d.glob("*_e*s*.npz"), key=cursor)
+    return sorted(d.glob(f"*_e*s*.{ext}"), key=cursor)
+
+
+def orbax_arrays(path: Path) -> dict[str, np.ndarray]:
+    """Every tensor of an ``--ckpt-backend orbax`` directory, read whole."""
+    md = FileSystemReader(str(path)).read_metadata().state_dict_metadata
+    out = {k: torch.empty(tuple(v.size), dtype=v.properties.dtype)
+           for k, v in md.items()}
+    dcp.load(out, storage_reader=FileSystemReader(str(path)), no_dist=True)
+    return {k: v.numpy() for k, v in out.items()}
 
 
 def assert_same_checkpoint(a: Path, b: Path):
@@ -99,6 +113,10 @@ def assert_same_run(got: Path, want: Path):
     """Killed and resumed against uninterrupted: the last epoch checkpoint
     bit for bit, the dev metrics equal, ``train_loss`` to 1e-12."""
     assert_same_checkpoint(got / f"{STEM}_e1.npz", want / f"{STEM}_e1.npz")
+    assert_same_metrics(got, want)
+
+
+def assert_same_metrics(got: Path, want: Path):
     g, w = metrics(got), metrics(want)
     assert [r["epoch"] for r in g] == [r["epoch"] for r in w] == [0, 1]
     for a, b in zip(g, w):
@@ -421,3 +439,53 @@ def test_mesh_killed_and_resumed(corpus, tmp_path, monkeypatch):
         np.testing.assert_allclose(got[1][k], want[1][k], rtol=2e-4,
                                    err_msg=k)
     assert step_checkpoints(one) == []
+
+
+ORBAX_CASES = {
+    # name: (flags, ckpt_every, max_steps; None: epoch 0's steps + 1)
+    "device K=3": (["--data-placement", "device", "--steps-per-dispatch",
+                    "3"], 2, 9),
+    # the kill lands in the round's second epoch: the resume rebuilds the
+    # round's draw and keeps the restored table
+    "hierarchical two-epoch rounds": (
+        ["--hierarchical", "--num-hierarchical-sequences", "6",
+         "--hierarchical-round-epochs", "2", "--training-batch-size", "8"],
+        2, None),
+}
+
+
+@pytest.mark.parametrize("case", list(ORBAX_CASES))
+def test_orbax_killed_and_resumed_equals_the_npz_run(corpus, tmp_path,
+                                                     capsys, case):
+    """``--ckpt-backend orbax`` stopped by ``--max-steps`` and resumed from
+    its last step directory: every tensor of its epoch-1 checkpoint equals
+    the npz backend's uninterrupted run's bit for bit, and its metrics as
+    :func:`assert_same_run` holds them; no step directory or sidecar is
+    left."""
+    flags, every, max_steps = ORBAX_CASES[case]
+    assert main(train_args(corpus, tmp_path / "npz", *flags)) == 0
+    full = run_dir(tmp_path / "npz")
+    n0 = int(metrics(full)[0]["train_steps"])
+    if max_steps is None:
+        max_steps = n0 + 1
+    assert main(train_args(corpus, tmp_path / "orbax", *flags,
+                           "--ckpt-backend", "orbax", "--ckpt-every-steps",
+                           str(every), "--max-steps", str(max_steps))) == 0
+    d = run_dir(tmp_path / "orbax")
+    last = step_checkpoints(d, "orbax")[-1]
+    assert last.name == f"{STEM}_e1s{max_steps - n0}.orbax"
+    stopped = orbax_arrays(last)
+    assert int(stopped["step"]) == int(stopped["adam_count"]) == max_steps
+    assert not (d / f"{STEM}_e1.orbax").exists()
+    pointer = json.loads((d / "best_model_pointer.json").read_text())
+    assert Path(pointer["path"]).name == f"{STEM}_e0.orbax"  # an epoch's
+    capsys.readouterr()
+    assert resume(corpus, last) == 0
+    assert f"mid-epoch at batch {max_steps - n0}" in capsys.readouterr().out
+    got = orbax_arrays(d / f"{STEM}_e1.orbax")
+    with np.load(full / f"{STEM}_e1.npz") as z:
+        assert set(got) == set(z.files)
+        for k in z.files:
+            np.testing.assert_array_equal(got[k], z[k], err_msg=k)
+    assert_same_metrics(d, full)
+    assert step_checkpoints(d, "orbax") == step_checkpoints(d, "json") == []

@@ -28,7 +28,11 @@ and each step's noise is JAX's draw.
 - (d) a K = 3 mesh run stopped by ``--max-steps`` mid-epoch and resumed,
   against the run never stopped (``train_loss`` to 1e-12, all else bit for
   bit);
-- (e) the replay-or-eager rule, by device type and backend.
+- (e) the replay-or-eager rule, by device type and backend;
+- (f) ``--ckpt-backend orbax`` on ``(2, 2)`` (the device tier at K = 3,
+  stopped and resumed): every rank's DCP file holds only its own rows of
+  the mu2 table and its moments, the checkpoint equals the npz run's bit
+  for bit, and it loads on ``(1, 2)`` and on one device.
 """
 
 import dataclasses
@@ -74,6 +78,7 @@ MESH = ["--mesh", "2,2", "--dist-backend", "gloo", "--dist-timeout", "60"]
 TRAIN_BATCH = 16      # (c): 10 batches an epoch, 3 bundles and 1 eager step
 CHUNK = 350_000       # (c): two chunks of 7 and 4 batches (11 an epoch): a
                       # dispatch window across the switch runs eagerly
+ORBAX_STOP = 13       # (f): epoch 1, batch 3, inside a bundle of 3
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -365,7 +370,8 @@ def cli_runs(corpus, tmp_path_factory):
     """Two-epoch ``--mesh 2,2`` runs at K = 1 and K = 3 on each tier, and
     the streamed K = 3 run stopped by ``--max-steps`` one batch into epoch
     1's second chunk (where the cap clamps a bundle to one eager step),
-    then resumed: four gloo ranks started once, each
+    then resumed, and (f)'s orbax run on the device tier, stopped and
+    resumed: four gloo ranks started once, each
     running every run through the CLI in turn. Returns the run directories
     by name and the stop step."""
     root = tmp_path_factory.mktemp("cli")
@@ -385,12 +391,23 @@ def cli_runs(corpus, tmp_path_factory):
     runs["stopped"] = train_args(corpus, dirs["stopped"], "--mesh", "2,2",
                                  *TIERS["stream"], "--steps-per-dispatch",
                                  "3", "--max-steps", str(stop))
-    runs["resumed"] = ["train", "--dataset", "synthetic", "--preprocessed",
-                       "--data-root", str(corpus), "--device", "cpu",
-                       "--continue-from",
-                       str(run_dir(dirs["stopped"])
-                           / f"{STEM}_e1s{stop - n0}.npz"),
-                       "--resume-override", "max_steps=0"]
+
+    def resume(last):
+        return ["train", "--dataset", "synthetic", "--preprocessed",
+                "--data-root", str(corpus), "--device", "cpu",
+                "--continue-from", str(last), "--resume-override",
+                "max_steps=0"]
+
+    runs["resumed"] = resume(run_dir(dirs["stopped"])
+                             / f"{STEM}_e1s{stop - n0}.npz")
+    # (f): orbax at K = 3, stopped at epoch 1, batch 3
+    dirs["orbax"] = root / "orbax"
+    runs["orbax stopped"] = train_args(
+        corpus, dirs["orbax"], "--mesh", "2,2", *TIERS["device"],
+        "--steps-per-dispatch", "3", "--ckpt-backend", "orbax",
+        "--ckpt-every-steps", "4", "--max-steps", str(ORBAX_STOP))
+    runs["orbax resumed"] = resume(run_dir(dirs["orbax"])
+                                   / f"{STEM}_e1s{ORBAX_STOP - 10}.orbax")
     (root / "runs.json").write_text(json.dumps(runs))
     codes = launch.run_ranks(workers.cli_runs, 4, (str(root / "runs.json"),),
                              backend="gloo", device="cpu", timeout_s=60,
@@ -435,3 +452,74 @@ def test_cli_mesh_says_its_dispatches(corpus, tmp_path, capfd):
     assert out.count("3 steps per dispatch\n") == 1, out
     recs = metrics(tmp_path / RUN / "fhvae_e1_p10_a10.0")
     assert recs[0]["train_steps"] == 10 and np.isfinite(recs[0]["train_loss"])
+
+
+def test_orbax_mesh_save_writes_each_ranks_rows_and_loads_anywhere(cli_runs):
+    """(f) The ``(2, 2)`` orbax run stopped at step 13 and resumed: its
+    epoch-1 directory holds the npz run's tensors bit for bit (whose save
+    gathered the whole table on rank 0), each row shard of the mu2 table
+    and its moments in the DCP file of a rank of that shard's model index;
+    it loads on ``(1, 2)`` (each rank its rows) and on one device (the
+    padding sliced off); no step directory is left."""
+    from torch.distributed.checkpoint import FileSystemReader
+
+    from pytorch_scalablefhvae_tpu_torch.models.base import build_model
+    from pytorch_scalablefhvae_tpu_torch.parallel.mesh import Mesh, shard_model
+    from test_torch_ckpt_steps import orbax_arrays
+
+    runs, _ = cli_runs
+    d, want = runs["orbax"], runs["device K1"]
+    e1 = d / f"{STEM}_e1.orbax"
+    assert not list(d.glob(f"{STEM}_e*s*.orbax"))
+    g, w = metrics(d), metrics(want)
+    for a, b in zip(g, w):
+        for k in ("train_steps", "step", "val_loss", "val_lower_bound",
+                  "val_log_qy"):
+            assert a[k] == b[k], (a["epoch"], k)
+        np.testing.assert_allclose(a["train_loss"], b["train_loss"],
+                                   rtol=1e-12, atol=0)
+    with np.load(want / f"{STEM}_e1.npz") as z:
+        npz = {k: z[k] for k in z.files}
+    got = orbax_arrays(e1)
+    assert set(got) == set(npz)
+    for k, v in npz.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+
+    per = npz["mu2_table"].shape[0] // 2
+    shards = {}
+    for idx, info in FileSystemReader(str(e1)).read_metadata() \
+            .storage_data.items():
+        if idx.fqn.endswith("mu2_table"):
+            rank = int(info.relative_path.split("_")[2])  # __<rank>_0.distcp
+            assert idx.offset[0] == (rank % 2) * per, (idx, info)
+            shards.setdefault(idx.fqn, []).append(int(idx.offset[0]))
+    assert {k: sorted(v) for k, v in shards.items()} == {
+        k: [0, per] for k in ("mu2_table", "adam_mu.mu2_table",
+                              "adam_nu.mu2_table")}
+
+    meta = ckpt.read_checkpoint_meta(e1)
+    config = ExperimentConfig.load(d / "config.json")
+
+    def loaded(mesh):
+        model = build_model("fhvae", meta["model_params"][0], config.model,
+                            meta["num_seqs"], feat_dim=meta["feat_dim"])
+        if mesh is not None:
+            model = shard_model(model, mesh)
+        state = create_train_state(model)
+        ckpt.load_train_state(e1, state)
+        return {**{k: v.detach().numpy() for k, v in
+                   model.state_dict().items()},
+                **{"adam_mu." + k: v.numpy() for k, v in state.mu.items()},
+                **{"adam_nu." + k: v.numpy() for k, v in state.nu.items()}}
+
+    for j in (0, 1):
+        got = loaded(Mesh((1, 2), j, None, None, CPU))
+        for k, v in got.items():
+            whole = npz[k]
+            if k.endswith("mu2_table"):
+                whole = whole[j * per:(j + 1) * per]
+            np.testing.assert_array_equal(v, whole, err_msg=(j, k))
+    for k, v in loaded(None).items():
+        whole = npz[k][:meta["num_seqs"]] if k.endswith("mu2_table") \
+            else npz[k]
+        np.testing.assert_array_equal(v, whole, err_msg=k)

@@ -49,7 +49,7 @@ from pytorch_scalablefhvae_tpu_torch.data.stream_store import (
 )
 from pytorch_scalablefhvae_tpu_torch.parallel import launch
 from pytorch_scalablefhvae_tpu_torch.parallel import mesh as pmesh
-from pytorch_scalablefhvae_tpu_torch.train.driver import check_ported
+from pytorch_scalablefhvae_tpu_torch.train.driver import resolve_run_config
 from test_torch_parallel import WIDTHS, FakeMesh, assert_same_run
 
 CPU = torch.device("cpu")
@@ -262,27 +262,30 @@ def test_row_sharded_chunks_fill_a_ranks_rows(corpus, dtype):
 
 @pytest.mark.parametrize("placement", ["auto", "device", "stream", "host"])
 def test_a_mesh_takes_every_tier_dtype_and_sharding(placement):
-    """``check_ported`` refuses one setting on a mesh, not a data tier's,
-    at K = 1 or 8 (``tests/test_torch_mesh_k.py``) and with hierarchical
-    rounds (``tests/test_torch_mesh_hier.py``): orbax checkpoints."""
+    """A mesh takes every setting, not only a data tier's: at K = 1 or 8
+    (``tests/test_torch_mesh_k.py``), with hierarchical rounds
+    (``tests/test_torch_mesh_hier.py``) and with orbax checkpoints, which
+    ``check_ported`` refused until ``train/orbax_backend.py`` (and with it
+    ``check_ported`` itself) came: the run's config passes
+    ``resolve_run_config`` unchanged."""
     for dtype in DTYPES:
         for shard in (False, True):
             for shape in ((2, 2), (1, 1)):
                 for k in (1, 8):
                     for hier in (False, True):
-                        check_ported(ExperimentConfig(
+                        cfg = ExperimentConfig(
                             data=DataConfig(data_placement=placement,
                                             transfer_dtype=dtype,
                                             shard_device_store=shard),
                             train=TrainConfig(mesh_shape=shape,
                                               steps_per_dispatch=k,
-                                              sample_hierarchical=hier)))
+                                              sample_hierarchical=hier))
+                        assert resolve_run_config(cfg, verbose=False) == cfg
     for train in (dict(sample_hierarchical=True, ckpt_backend="orbax"),
                   dict(ckpt_backend="orbax")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            check_ported(ExperimentConfig(
-                data=DataConfig(data_placement=placement),
-                train=TrainConfig(mesh_shape=(2, 2), **train)))
+        cfg = ExperimentConfig(data=DataConfig(data_placement=placement),
+                               train=TrainConfig(mesh_shape=(2, 2), **train))
+        assert resolve_run_config(cfg, verbose=False) == cfg
 
 
 # ----------------------------------------------------------- (e) the tier

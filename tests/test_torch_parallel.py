@@ -483,11 +483,24 @@ def test_jax_mesh_checkpoint_resumes_in_the_port(corpus, tmp_path):
 @pytest.mark.parametrize("flags", [
     ["--mesh", "2,2", "--ckpt-backend", "orbax"],
 ], ids=lambda f: " ".join(f))
-def test_what_still_raises_on_a_mesh(corpus, tmp_path, flags):
-    """Refused before any rank starts, naming ROADMAP.md (hierarchical
-    rounds run on a mesh: ``tests/test_torch_mesh_hier.py``)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        main(train_args(corpus, tmp_path, *flags))
+def test_what_still_raises_on_a_mesh(corpus, tmp_path, monkeypatch, flags):
+    """Nothing is refused on a mesh any more: ``--ckpt-backend orbax``, the
+    last setting that was, trains on the ranks the CLI starts itself, each
+    rank writing its rows of the table (``tests/test_torch_mesh_k.py``
+    checks the files), and its checkpoint loads on one device with the
+    padding sliced off (hierarchical rounds run on a mesh too:
+    ``tests/test_torch_mesh_hier.py``)."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    assert main(train_args(corpus, tmp_path, *flags, "--epochs", "1")) == 0
+    d = tmp_path / RUN / "fhvae_e1_p10_a10.0"
+    path = ckpt.find_best_checkpoint(d)
+    meta = ckpt.read_checkpoint_meta(path)
+    assert path.name == f"fhvae_{RUN}_e0.orbax" and meta["table_rows"] % 2 == 0
+    model = FHVAE(**{**DIMS, "input_size": meta["model_params"][0],
+                     "num_seqs": meta["num_seqs"],
+                     "feat_dim": meta["feat_dim"]})
+    ckpt.load_params(path, model)
+    assert model.mu2_table.shape[0] == meta["num_seqs"]
 
 
 def test_mesh_over_the_budget_needs_host_placement(corpus, tmp_path, capfd,

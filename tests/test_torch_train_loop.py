@@ -200,25 +200,40 @@ def test_divergence_exits_2(corpus, tmp_path, capsys):
     ["--mesh", "2,1", "--ckpt-backend", "orbax"],
     ["--ckpt-backend", "orbax"], ["--lstm-pallas", "never"],
 ], ids=lambda f: " ".join(f))
-def test_unported_flag_raises(corpus, tmp_path, flags):
-    """(``--mesh`` itself runs now: ``tests/test_torch_parallel.py``, and
-    on every data tier, in every transfer dtype and with a store sharded
-    over it: ``tests/test_torch_mesh_tiers.py``, at any
-    ``--steps-per-dispatch``: ``tests/test_torch_mesh_k.py``, with
-    ``--hierarchical``: ``tests/test_torch_mesh_hier.py``; what still
-    raises, on a mesh as on one device, is ``--ckpt-backend orbax``.
-    ``--steps-per-dispatch``, ``--data-placement stream`` and
-    ``--transfer-dtype`` on one device run: ``tests/test_torch_multi_step.py``,
-    ``tests/test_torch_stream.py``; ``--ckpt-every-steps`` and
-    ``--max-steps`` everywhere: ``tests/test_torch_ckpt_steps.py``;
-    ``--hierarchical`` on one device: ``tests/test_torch_hier.py``;
-    ``--model-type simple_fhvae``: ``tests/test_torch_simple_fhvae.py``;
-    ``--epoch-plan device``: ``tests/test_torch_epoch_plan.py``;
-    ``--legacy``: ``tests/test_torch_legacy.py``; ``--profile-dir``,
-    ``--tensorboard``, ``--log-params`` and ``--visdom``:
-    ``tests/test_torch_observability.py``.)"""
-    with pytest.raises(NotImplementedError):
-        main(train_args(corpus, tmp_path, *flags))
+def test_unported_flag_raises(corpus, tmp_path, monkeypatch, flags):
+    """What the port refuses: ``--lstm-pallas never`` (by design: the port
+    runs its kernels on cuda and their plain versions on the CPU). The
+    orbax cases were refused until ``train/orbax_backend.py``; they now
+    train, on one device and on a gloo mesh, into ``.orbax`` directories
+    with the best pointer (``tests/test_torch_orbax.py`` holds the backend
+    to the JAX package's). Every other flag runs: ``--mesh``
+    (``tests/test_torch_parallel.py``) on every data tier, in every
+    transfer dtype and with a store sharded over it
+    (``tests/test_torch_mesh_tiers.py``), at any ``--steps-per-dispatch``
+    (``tests/test_torch_mesh_k.py``), with ``--hierarchical``
+    (``tests/test_torch_mesh_hier.py``); ``--steps-per-dispatch``,
+    ``--data-placement stream`` and ``--transfer-dtype`` on one device:
+    ``tests/test_torch_multi_step.py``, ``tests/test_torch_stream.py``;
+    ``--ckpt-every-steps`` and ``--max-steps`` everywhere:
+    ``tests/test_torch_ckpt_steps.py``; ``--hierarchical`` on one device:
+    ``tests/test_torch_hier.py``; ``--model-type simple_fhvae``:
+    ``tests/test_torch_simple_fhvae.py``; ``--epoch-plan device``:
+    ``tests/test_torch_epoch_plan.py``; ``--legacy``:
+    ``tests/test_torch_legacy.py``; ``--profile-dir``, ``--tensorboard``,
+    ``--log-params`` and ``--visdom``:
+    ``tests/test_torch_observability.py``."""
+    if "--lstm-pallas" in flags:
+        with pytest.raises(NotImplementedError):
+            main(train_args(corpus, tmp_path, *flags))
+        return
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    assert main(train_args(corpus, tmp_path, *flags, "--epochs", "1",
+                           "--dist-backend", "gloo")) == 0
+    d = exp_dir(tmp_path, 1)
+    assert ckpt.find_best_checkpoint(d) == \
+        (d / f"fhvae_{RUN}_e0.orbax").resolve()
+    assert ckpt.read_checkpoint_meta(d / f"fhvae_{RUN}_e0.orbax")[
+        "backend"] == "orbax"
 
 
 @pytest.mark.parametrize("mm,h,d,form", [
