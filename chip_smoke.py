@@ -4116,6 +4116,22 @@ def round_lines(out: str) -> list[dict]:
     return rounds
 
 
+def traced_turnover(rounds, state) -> tuple:
+    """Round 0's loader from ``rounds`` (a fresh turnover), and its seconds
+    by stage from its spans, as the loop prints them (``draw``: the draw
+    and the loader)."""
+    from pytorch_scalablefhvae_tpu_torch.train import trace
+
+    trace.take()
+    with trace.recording():
+        sub = rounds.loader_for(0, state, resumed=False, verbose=False)
+    spans = trace.summary(trace.take()[0])
+    stages = {name[len("turnover."):]: v[1] for name, v in spans.items()
+              if name.startswith("turnover.") and name != "turnover.planner"}
+    stages["draw"] += stages.pop("loader")
+    return sub, stages
+
+
 def hier_tier_profile(cfg, loader, tier: str) -> dict:
     """10 warm dispatches of K = 8 steps of a hierarchical round at the CLI
     defaults under torch.profiler (:func:`profiled_dispatches`), after the
@@ -4149,7 +4165,7 @@ def hier_tier_profile(cfg, loader, tier: str) -> dict:
     state = create_train_state(seeded_model(cfg, k))
     opt = make_optimizer(1e-3, 0.95, 0.999)
     rounds = Rounds(cfg, loader, tier, source, k, dev)
-    sub = rounds.loader_for(0, state, resumed=False, verbose=False)
+    sub, turnover = traced_turnover(rounds, state)
     sub.set_epoch(0)
     if tier == "host":
         inputs = HostInputs(k8, B_TRAIN, ds.seg_len, D, dev)
@@ -4169,7 +4185,7 @@ def hier_tier_profile(cfg, loader, tier: str) -> dict:
         return bundle()["loss"].clone()
 
     out = profiled_dispatches(dispatch, k8)
-    out["turnover"] = rounds.turnovers[-1][1]
+    out["turnover"] = turnover
     if tier == "host":
         batches.close()
     return out
@@ -6194,7 +6210,7 @@ def _mesh_hier_nccl_rank(workdir: str, data_root: str, shape: tuple) -> int:
             seeded_model(cfg, k), mesh))
         opt = make_optimizer(1e-3, 0.95, 0.999)
         r = rounds.Rounds(cfg, loader, "round", source, k, dev, mesh=mesh)
-        sub = r.loader_for(0, state, resumed=False, verbose=False)
+        sub, turnover = traced_turnover(r, state)
         sub.set_epoch(0)
         plan, arrays = source.stage_epoch(sub.dataset, sub._order(), B,
                                           pad_rows=r.plan_rows)
@@ -6209,7 +6225,7 @@ def _mesh_hier_nccl_rank(workdir: str, data_root: str, shape: tuple) -> int:
         out["replayed"] = profiled_dispatches(replayed, MESH_K,
                                               MESH_TRACE_KERNELS)
         out["replays"], out["backend"] = bundle.replays, mesh.backend
-        out["k"], out["turnover"] = k, r.turnovers[-1][1]
+        out["k"], out["turnover"] = k, turnover
         del r, sub, bundle, inputs, source, state, loader, arrays
         torch.cuda.empty_cache()
 

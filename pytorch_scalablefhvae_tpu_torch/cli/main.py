@@ -116,7 +116,7 @@ def _train(args, device: str) -> int:
         exp_root=args.exp_root, is_preprocessed=args.is_preprocessed,
         continue_from=args.continue_from, finetune=args.finetune,
         fbank_conf=args.fbank_conf, resume_overrides=_resume_overrides(args),
-        device=device)
+        device=device, trace_spans=args.trace_spans)
     return 2 if result.diverged else 0
 
 
@@ -305,6 +305,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dist-timeout", type=float, default=600.0,
                    help="Seconds a rank waits in a collective before the "
                         "run fails")
+    p.add_argument("--trace-spans", action="store_true",
+                   help="Record the training loop's spans and counters "
+                        "(turnover stages, steps, dispatch load and launch, "
+                        "loss reads, dev pass, save) and add their sums to "
+                        "each epoch's metrics.jsonl record as 'spans' and "
+                        "'counters'; under a profiler each span is also an "
+                        "'sfhvae.<name>' range")
     p.set_defaults(fn=_cmd_train)
 
     p = sub.add_parser(

@@ -42,6 +42,7 @@ import torch
 
 from pytorch_scalablefhvae_tpu_torch.data.quantize import quantize_columns
 from pytorch_scalablefhvae_tpu_torch.data.segments import SegmentDataset
+from pytorch_scalablefhvae_tpu_torch.train import trace
 
 # zero rows appended to the staged pack: the chunked window gather
 # (ops/window_gather.py) reads whole ``(spb-1)*shift + seg_len`` regions
@@ -373,6 +374,9 @@ class DeviceDataSource:
         else:
             copy_rows(buf, data[lo:hi])
         buf[hi - lo:].zero_()
+        if trace.ON:
+            trace.count("staged_bytes",
+                        (hi - lo) * buf.shape[1] * buf.element_size())
 
     def upload(self, arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device,

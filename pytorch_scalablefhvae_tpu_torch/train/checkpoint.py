@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from pytorch_scalablefhvae_tpu_torch.parallel.mesh import whole_tensors
+from pytorch_scalablefhvae_tpu_torch.train import trace
 
 _SCHEMA_VERSION = 1
 PORT_FORMAT = "torch_named"
@@ -334,38 +335,45 @@ def save_checkpoint(checkpoint_dir, model: torch.nn.Module, *, model_type: str,
             tensors[_MU + n] = train_state.mu[n]
             tensors[_NU + n] = train_state.nu[n]
     mesh = getattr(model, "shard_mesh", None)
-    if mesh is not None:
-        tensors = whole_tensors(mesh, tensors)
-        if mesh.rank != 0:
-            return npz_path
-    checkpoint_dir.mkdir(parents=True, exist_ok=True)
-    arrays = {k: v.detach().cpu().numpy() for k, v in tensors.items()}
+    with trace.span("save.to_host"):
+        if mesh is not None:
+            tensors = whole_tensors(mesh, tensors)
+            if mesh.rank != 0:
+                return npz_path
+        arrays = {k: v.detach().cpu().numpy() for k, v in tensors.items()}
     if train_state is not None:
         arrays[_COUNT] = np.int32(train_state.count)
         arrays[_STEP] = np.int32(train_state.step)
-    tmp = checkpoint_dir / f".{f_str}.npz.{os.getpid()}.tmp"
-    try:
-        with open(tmp, "wb") as fh:
-            np.savez(fh, **arrays)
-        os.replace(tmp, npz_path)
-    finally:
-        tmp.unlink(missing_ok=True)
-    meta = {
-        "schema_version": _SCHEMA_VERSION, "format": PORT_FORMAT,
-        "model_type": model_type, "model_params": list(model_params),
-        "epoch": epoch, "best_epoch": best_epoch,
-        "best_val_lb": float(best_val_lb), "values": values,
-        "summary_vals": summary_vals or {}, "num_leaves": len(arrays),
-        **({} if train_state is None else {"step": train_state.step,
-                                           "seed": train_state.seed}),
-        **(extra_meta or {}),
-    }
-    meta_tmp = checkpoint_dir / f".{f_str}.json.{os.getpid()}.tmp"
-    meta_tmp.write_text(json.dumps(meta, indent=2))
-    os.replace(meta_tmp, meta_path)
+    if trace.ON:
+        trace.count("ckpt_bytes", sum(a.nbytes for a in arrays.values()))
+    with trace.span("save.write"):
+        checkpoint_dir.mkdir(parents=True, exist_ok=True)
+        tmp = checkpoint_dir / f".{f_str}.npz.{os.getpid()}.tmp"
+        try:
+            with open(tmp, "wb") as fh:
+                np.savez(fh, **arrays)
+            os.replace(tmp, npz_path)
+        finally:
+            tmp.unlink(missing_ok=True)
+        meta = {
+            "schema_version": _SCHEMA_VERSION, "format": PORT_FORMAT,
+            "model_type": model_type, "model_params": list(model_params),
+            "epoch": epoch, "best_epoch": best_epoch,
+            "best_val_lb": float(best_val_lb), "values": values,
+            "summary_vals": summary_vals or {}, "num_leaves": len(arrays),
+            **({} if train_state is None else {"step": train_state.step,
+                                               "seed": train_state.seed}),
+            **(extra_meta or {}),
+        }
+        meta_tmp = checkpoint_dir / f".{f_str}.json.{os.getpid()}.tmp"
+        meta_tmp.write_text(json.dumps(meta, indent=2))
+        os.replace(meta_tmp, meta_path)
     if best_epoch == epoch and not suffix:
-        shutil.copyfile(npz_path, checkpoint_dir / f"best_model_{f_str}.npz")
-        shutil.copyfile(meta_path, checkpoint_dir / f"best_model_{f_str}.json")
+        with trace.span("save.best_copy"):
+            shutil.copyfile(npz_path,
+                            checkpoint_dir / f"best_model_{f_str}.npz")
+            shutil.copyfile(meta_path,
+                            checkpoint_dir / f"best_model_{f_str}.json")
     return npz_path
 
 

@@ -124,7 +124,8 @@ def train_from_config(config: ExperimentConfig, data_root: str | Path = ".",
                       fbank_conf: str | Path = "./misc/fbank.conf",
                       verbose: bool = True,
                       resume_overrides: dict | None = None,
-                      device: str = "cuda") -> TrainResult:
+                      device: str = "cuda",
+                      trace_spans: bool = False) -> TrainResult:
     in_group = dist.is_initialized()
     verbose = verbose and (not in_group or dist.get_rank() == 0)
     config = resolve_run_config(config, continue_from, resume_overrides,
@@ -168,4 +169,5 @@ def train_from_config(config: ExperimentConfig, data_root: str | Path = ".",
                                              device=device)
     return run_training(config, train_loader, dev_loader, exp_dir,
                         continue_from=continue_from, finetune=finetune,
-                        device=device, verbose=verbose)
+                        device=device, verbose=verbose,
+                        trace_spans=trace_spans)

@@ -48,12 +48,18 @@ shared-memory opt-in and every NCCL communicator of the step before
 anything is captured. The second dispatch captures the graph and replays
 it, and every later one replays it. A failed capture or replay raises;
 nothing falls back to eager steps.
+
+Each dispatch, the bundle's or an eager step's, runs in a
+``dispatch.launch`` span (:func:`launch_span`) and each capture in a
+``capture`` span, counted as ``dispatches``, ``graph_replays``,
+``eager_steps`` and ``captures`` (``train/trace.py``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from pytorch_scalablefhvae_tpu_torch.train import trace
 from pytorch_scalablefhvae_tpu_torch.train.step import (
     Optimizer,
     TrainState,
@@ -96,6 +102,18 @@ def kernel_entries() -> list:
 
 
 _COUNTERS = ("launches", "launches_tc", "launches_bf16")
+_REPLAY, _EAGER = {"replay": True}, {"replay": False}
+
+
+def launch_span(replay: bool, steps: int = 1):
+    """The ``dispatch.launch`` span of one dispatch: a graph replay, or
+    ``steps`` steps run eagerly; counted in ``dispatches`` and in
+    ``graph_replays`` or ``eager_steps``."""
+    if trace.ON:
+        trace.count("dispatches")
+        trace.count("graph_replays" if replay else "eager_steps",
+                    1 if replay else steps)
+    return trace.span("dispatch.launch", _REPLAY if replay else _EAGER)
 
 
 def launch_counts() -> dict:
@@ -232,24 +250,27 @@ class StepBundle:
         if not self.replays:
             raise ValueError("a CUDA graph needs a CUDA device and, on a "
                              "mesh, the NCCL backend")
-        before = launch_counts()
-        graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
-        for g in self.generators:
-            graph.register_generator_state(g)
-        # on a mesh the NCCL watchdog thread queries the events of earlier
-        # collectives while this thread captures: only this thread's calls
-        # must be capture-safe
-        mode = "global" if self.mesh is None else "thread_local"
-        try:
-            with torch.cuda.graph(graph, capture_error_mode=mode):
-                outputs = self.body()
-        finally:
-            after = launch_counts()
-            for (entry, counter), n in before.items():
-                setattr(entry, counter, n)
-        self.launch_deltas = {key: after[key] - n for key, n in before.items()
-                              if after[key] != n}
-        self.graph, self.outputs = graph, outputs
+        trace.count("captures")
+        with trace.span("capture"):
+            before = launch_counts()
+            graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
+            for g in self.generators:
+                graph.register_generator_state(g)
+            # on a mesh the NCCL watchdog thread queries the events of
+            # earlier collectives while this thread captures: only this
+            # thread's calls must be capture-safe
+            mode = "global" if self.mesh is None else "thread_local"
+            try:
+                with torch.cuda.graph(graph, capture_error_mode=mode):
+                    outputs = self.body()
+            finally:
+                after = launch_counts()
+                for (entry, counter), n in before.items():
+                    setattr(entry, counter, n)
+            self.launch_deltas = {key: after[key] - n
+                                  for key, n in before.items()
+                                  if after[key] != n}
+            self.graph, self.outputs = graph, outputs
 
     def __call__(self, noise=None) -> dict:
         """One dispatch: the K steps from ``state.step`` on the inputs
@@ -261,20 +282,20 @@ class StepBundle:
         self._bc_staging.host().copy_(torch.from_numpy(
             self.optimizer.bias_corrections(st.count, self.k, self.device)))
         self._bc_staging.send()
-        if not self.replays:
-            out = self.body(noise)
-        elif noise is not None:
+        if self.replays and noise is not None:
             raise ValueError("noise is handed in only where the bundle runs "
                              "eagerly; a replayed graph draws it")
-        elif self.dispatches == 0:
-            out = self.body()
-        else:
-            if self.graph is None:
-                self.capture()
-            self.graph.replay()
-            for (entry, counter), n in self.launch_deltas.items():
-                setattr(entry, counter, getattr(entry, counter) + n)
-            out = self.outputs
+        replay = self.replays and self.dispatches > 0
+        with launch_span(replay, self.k):
+            if not replay:
+                out = self.body(noise)
+            else:
+                if self.graph is None:
+                    self.capture()
+                self.graph.replay()
+                for (entry, counter), n in self.launch_deltas.items():
+                    setattr(entry, counter, getattr(entry, counter) + n)
+                out = self.outputs
         self.dispatches += 1
         st.count += self.k
         st.step += self.k

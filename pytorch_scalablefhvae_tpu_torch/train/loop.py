@@ -64,8 +64,10 @@ tier say they ignore it, as the JAX loop does.
 (:class:`LegacyEpochs`; eager steps, K ignored). The observability flags:
 ``--tensorboard`` (with ``--log-params`` a histogram of every parameter and
 of its gradient from :func:`make_grad_step` on the epoch's first batch),
-``--visdom`` (``curves.svg``, ``train/plots.py``) and ``--profile-dir``
-(:func:`epoch_profile`: one epoch's training under ``torch.profiler``).
+``--visdom`` (``curves.svg``, ``train/plots.py``), ``--profile-dir``
+(:func:`epoch_profile`: one epoch's training under ``torch.profiler``) and
+``--trace-spans`` (the spans and counters of ``train/trace.py`` at the
+loop's layer boundaries, summed into each epoch's record).
 """
 
 from __future__ import annotations
@@ -104,6 +106,7 @@ from pytorch_scalablefhvae_tpu_torch.parallel.mesh import (
     whole_tensors,
 )
 from pytorch_scalablefhvae_tpu_torch.train import checkpoint as ckpt
+from pytorch_scalablefhvae_tpu_torch.train import trace
 from pytorch_scalablefhvae_tpu_torch.train.device_step import (
     MAP_SPB,
     PlanInputs,
@@ -116,6 +119,7 @@ from pytorch_scalablefhvae_tpu_torch.train.graphs import (
     HostInputs,
     StepBundle,
     dispatch_line,
+    launch_span,
 )
 from pytorch_scalablefhvae_tpu_torch.train.metrics import (
     MetricHistory,
@@ -215,7 +219,8 @@ class DispatchLosses:
             return True
         losses, rows = self._pending
         self._pending = None
-        vals = losses.reshape(-1).tolist()
+        with trace.span("loss_read"):
+            vals = losses.reshape(-1).tolist()
         self.values += vals
         self.rows += rows
         return all(math.isfinite(v) for v in vals)
@@ -372,9 +377,11 @@ def run_epoch(state: TrainState, optimizer: Optimizer, loader: SegmentLoader,
     losses.start_clock()
     with contextlib.closing(loader.batches_from(cursor.start)) as batches:
         for i, b in enumerate(batches):
-            metrics = train_step(state, optimizer,
-                                 *batch_tensors(b, device, mesh), alpha,
-                                 mesh=mesh)
+            with trace.span("dispatch.load"):
+                tensors = batch_tensors(b, device, mesh)
+            with launch_span(False):
+                metrics = train_step(state, optimizer, *tensors, alpha,
+                                     mesh=mesh)
             losses.push(metrics["loss"], [b.num_real])
             if not losses.finish():
                 break
@@ -407,7 +414,8 @@ def run_bundled_epoch(state: TrainState, optimizer: Optimizer,
         for b in itertools.islice(feed, cursor.room(len(loader))):
             group.append(b)
             if len(group) == bundle.k:
-                bundle.inputs.load(group)
+                with trace.span("dispatch.load"):
+                    bundle.inputs.load(group)
                 ok = cursor.push(bundle()["loss"].clone(),
                                  [g.num_real for g in group])
                 group = []
@@ -415,9 +423,11 @@ def run_bundled_epoch(state: TrainState, optimizer: Optimizer,
                     break
     mesh = bundle.mesh
     for b in group if ok else ():
-        metrics = train_step(state, optimizer,
-                             *batch_tensors(b, device, mesh), alpha,
-                             mesh=mesh)
+        with trace.span("dispatch.load"):
+            tensors = batch_tensors(b, device, mesh)
+        with launch_span(False):
+            metrics = train_step(state, optimizer, *tensors, alpha,
+                                 mesh=mesh)
         if not cursor.push(metrics["loss"], [b.num_real]):
             break
     losses.finish()
@@ -439,16 +449,20 @@ def run_plan(state: TrainState, optimizer: Optimizer, store, arrays,
     B = plan.batch_size
     counts = plan.batch_real_counts()
     if bundle is not None:
-        bundle.inputs.load_plan(arrays, plan.n_real)
+        with trace.span("steps.plan"):
+            bundle.inputs.load_plan(arrays, plan.n_real)
     b = start_batch
     while b < plan.n_batches:
         if bundle is not None and cursor.room(plan.n_batches - b) >= bundle.k:
-            bundle.inputs.set_base(b * B)
+            with trace.span("dispatch.load"):
+                bundle.inputs.set_base(b * B)
             loss, n = bundle()["loss"].clone(), bundle.k
         else:
-            loss, n = device_train_step(
-                state, optimizer, store, arrays, b * B, plan.n_real, alpha,
-                batch_size=B, seg_len=seg_len, mesh=mesh)["loss"], 1
+            with launch_span(False):
+                loss, n = device_train_step(
+                    state, optimizer, store, arrays, b * B, plan.n_real,
+                    alpha, batch_size=B, seg_len=seg_len,
+                    mesh=mesh)["loss"], 1
         if not cursor.push(loss, counts[b:b + n]):
             return False
         b += n
@@ -483,11 +497,12 @@ def run_device_epoch(state: TrainState, optimizer: Optimizer,
     loader.set_epoch(epoch)
     cursor = cursor or EpochCursor(state)
     ds, B = loader.dataset, loader.batch_size
-    if planner is not None:
-        plan, arrays = planner.plan(epoch, len(ds), B)
-    else:
-        plan, arrays = source.stage_epoch(ds, loader._order(), B,
-                                          pad_rows=plan_rows)
+    with trace.span("steps.plan"):
+        if planner is not None:
+            plan, arrays = planner.plan(epoch, len(ds), B)
+        else:
+            plan, arrays = source.stage_epoch(ds, loader._order(), B,
+                                              pad_rows=plan_rows)
     cursor.losses.start_clock()
     run_plan(state, optimizer, source.data, arrays, plan, cursor.start, alpha,
              cursor, bundle, ds.seg_len, mesh)
@@ -614,10 +629,14 @@ def dev_pass(model, loader: SegmentLoader, alpha: float,
     learned table, so they are scored against their MAP estimates. With a
     ``mesh`` both passes split their batches over the data ranks."""
     pz2_var = float(math.exp(model.pz2_logvar))
-    table = estimate_split_mu2(model, loader, loader.dataset.num_seqs,
-                               pz2_var, device, mesh=mesh)
-    return evaluate_split(model, loader, alpha, device,
-                          table=torch.from_numpy(table).to(device), mesh=mesh)
+    with trace.span("dev_pass"):
+        with trace.span("dev_pass.map"):
+            table = estimate_split_mu2(model, loader, loader.dataset.num_seqs,
+                                       pz2_var, device, mesh=mesh)
+        with trace.span("dev_pass.score"):
+            return evaluate_split(model, loader, alpha, device,
+                                  table=torch.from_numpy(table).to(device),
+                                  mesh=mesh)
 
 
 @dataclass
@@ -666,23 +685,30 @@ def device_dev_pass(model, split: DeviceSplit, alpha: float,
     ds, B = split.loader.dataset, split.loader.batch_size
     store, plan = split.source.data, split.plan
     pz2_var = float(math.exp(model.pz2_logvar))
-    if split.chunked is not None:
-        starts, nsegs, n_batches = split.chunked
-        table = device_map_pass_chunked(
-            model, store, starts, nsegs, seg_len=ds.seg_len,
-            seg_shift=ds.seg_shift, batch_size=B, n_batches=n_batches,
-            num_rows=ds.num_seqs, pz2_var=pz2_var, spb=MAP_SPB)
-    else:
-        table = device_map_pass(
-            model, store, split.arrays[0], split.arrays[1], plan.n_real,
-            seg_len=ds.seg_len, batch_size=B, n_batches=plan.n_batches,
-            num_rows=ds.num_seqs, pz2_var=pz2_var, mesh=mesh)
-    stacked = device_eval_pass(model, store, split.arrays, plan.n_real, alpha,
-                               table, batch_size=B, seg_len=ds.seg_len,
-                               n_batches=plan.n_batches, mesh=mesh)
-    keys = list(stacked)
-    mat = torch.stack([stacked[k] for k in keys]).double().cpu()
-    return split_means((keys, row) for row in mat.T.tolist())
+    with trace.span("dev_pass"):
+        with trace.span("dev_pass.map"):
+            if split.chunked is not None:
+                starts, nsegs, n_batches = split.chunked
+                table = device_map_pass_chunked(
+                    model, store, starts, nsegs, seg_len=ds.seg_len,
+                    seg_shift=ds.seg_shift, batch_size=B,
+                    n_batches=n_batches, num_rows=ds.num_seqs,
+                    pz2_var=pz2_var, spb=MAP_SPB)
+            else:
+                table = device_map_pass(
+                    model, store, split.arrays[0], split.arrays[1],
+                    plan.n_real, seg_len=ds.seg_len, batch_size=B,
+                    n_batches=plan.n_batches, num_rows=ds.num_seqs,
+                    pz2_var=pz2_var, mesh=mesh)
+        with trace.span("dev_pass.score"):
+            stacked = device_eval_pass(model, store, split.arrays,
+                                       plan.n_real, alpha, table,
+                                       batch_size=B, seg_len=ds.seg_len,
+                                       n_batches=plan.n_batches, mesh=mesh)
+        keys = list(stacked)
+        with trace.span("dev_pass.fetch"):
+            mat = torch.stack([stacked[k] for k in keys]).double().cpu()
+        return split_means((keys, row) for row in mat.T.tolist())
 
 
 def staged_mb(store, store_dtype: str, rows: int | None = None) -> float:
@@ -802,30 +828,34 @@ def save_state(exp_dir: Path, state: TrainState, config: ExperimentConfig,
     if cursor is not None:
         extra["mid_epoch"] = cursor
     suffix = "" if cursor is None else f"s{cursor['batches_done']}"
-    if config.train.ckpt_backend == "orbax":
-        meta = {"model_type": model.model_type,
-                "model_params": list(model.model_params()),
-                "best_epoch": best_epoch, "best_val_lb": float(best_val_lb),
-                "values": history.to_json_dict(), **extra}
-        if summary_vals is not None:
-            meta["summary_vals"] = summary_vals
-        return save_checkpoint_orbax(
-            exp_dir, state, model_type=model.model_type,
-            run_info=config.base_string(), epoch=epoch, meta=meta,
-            suffix=suffix)
-    return ckpt.save_checkpoint(
-        exp_dir, model, model_type=model.model_type,
-        model_params=model.model_params(), run_info=config.base_string(),
-        epoch=epoch, best_epoch=best_epoch, best_val_lb=float(best_val_lb),
-        values=history.to_json_dict(), extra_meta=extra,
-        train_state=state, summary_vals=summary_vals, suffix=suffix)
+    with trace.span("save"):
+        if config.train.ckpt_backend == "orbax":
+            meta = {"model_type": model.model_type,
+                    "model_params": list(model.model_params()),
+                    "best_epoch": best_epoch,
+                    "best_val_lb": float(best_val_lb),
+                    "values": history.to_json_dict(), **extra}
+            if summary_vals is not None:
+                meta["summary_vals"] = summary_vals
+            return save_checkpoint_orbax(
+                exp_dir, state, model_type=model.model_type,
+                run_info=config.base_string(), epoch=epoch, meta=meta,
+                suffix=suffix)
+        return ckpt.save_checkpoint(
+            exp_dir, model, model_type=model.model_type,
+            model_params=model.model_params(),
+            run_info=config.base_string(), epoch=epoch,
+            best_epoch=best_epoch, best_val_lb=float(best_val_lb),
+            values=history.to_json_dict(), extra_meta=extra,
+            train_state=state, summary_vals=summary_vals, suffix=suffix)
 
 
 def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
                  dev_loader: SegmentLoader, exp_dir: str | Path,
                  continue_from: str | Path | None = None,
                  finetune: bool = False, device: str = "cuda",
-                 verbose: bool = True) -> TrainResult:
+                 verbose: bool = True,
+                 trace_spans: bool = False) -> TrainResult:
     """Train from scratch or resume: epochs of training, a dev pass and a
     checkpoint each, early stopping by patience. A non-finite training loss
     stops the run with ``diverged`` set, before that epoch is saved. The
@@ -834,7 +864,12 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
     also per-round staging (``train/rounds.py``). A mesh run
     (``config.train.mesh_shape`` other than ``(1, 1)``, or an initialised
     ``torch.distributed``) is one call of this on every rank, each with its
-    own ``device``."""
+    own ``device``.
+
+    ``trace_spans`` (``--trace-spans``) records the loop's spans and
+    counters (``train/trace.py``), as the ``--profile-dir`` epoch does, and
+    adds their ``spans`` and ``counters`` to each epoch's record in
+    ``metrics.jsonl``."""
     exp_dir = Path(exp_dir)
     dev = resolve_device(device)
     mesh = None
@@ -997,123 +1032,140 @@ def run_training(config: ExperimentConfig, train_loader: SegmentLoader,
         if first:
             writer.close()
         return result
+    trace.take()  # another run's spans are none of this run's epochs
     for epoch in range(start_epoch, config.train.epochs):
-        on_cursor = mid is not None and epoch == int(mid["epoch"])
-        loader = train_loader if rounds is None else rounds.loader_for(
-            epoch, state, on_cursor, verbose)
+        trace.set_epoch(epoch)
+        # the epoch: its turnover, steps, dev pass and save, with the
+        # loop's own work between them; its record is written after it
+        with trace.recording(trace_spans or epoch == profile_at), \
+                trace.span("epoch"):
+            on_cursor = mid is not None and epoch == int(mid["epoch"])
+            loader = train_loader if rounds is None else rounds.loader_for(
+                epoch, state, on_cursor, verbose)
 
-        def save_mid(batches_done, partials, epoch=epoch):
-            save_state(exp_dir, state, config, epoch, best_epoch,
-                       best_val_lb, history, extra,
-                       cursor={"epoch": epoch, "batches_done": batches_done,
-                               **partials})
+            def save_mid(batches_done, partials, epoch=epoch):
+                save_state(exp_dir, state, config, epoch, best_epoch,
+                           best_val_lb, history, extra,
+                           cursor={"epoch": epoch,
+                                   "batches_done": batches_done, **partials})
 
-        cursor = EpochCursor(state, mid if on_cursor else None, every,
-                             max_steps, save_mid)
-        # the trace's stem: the run, the epoch and, on a mesh, the rank
-        profiling = (epoch_profile(
-            t.profile_dir, f"{config.run_id()}_e{epoch}"
-            + ("" if mesh is None else f"_rank{mesh.rank}"), dev, verbose)
-            if epoch == profile_at else contextlib.nullcontext())
-        with profiling:
-            try:
-                if tier in ("device", "round"):
-                    stats = run_device_epoch(
-                        state, optimizer, source, loader, alpha, dev, epoch,
-                        mesh, bundle, cursor,
-                        None if rounds is None else rounds.plan_rows, planner)
-                elif tier == "stream":
-                    stats = run_stream_epoch(state, optimizer, source,
-                                             train_loader, alpha, dev, epoch,
-                                             bundle, cursor, mesh)
-                else:
-                    stats = run_epoch(state, optimizer, loader, alpha, dev,
-                                      epoch, mesh, bundle, cursor,
-                                      legacy_epochs)
-            except StopRun as stop:
-                if stop.diverged:  # the save gate read a non-finite loss
-                    stats = cursor.losses.stats()
-                else:
-                    if verbose:
-                        print(f"Reached --max-steps {max_steps} at epoch "
-                              f"{epoch}, batch {cursor.done} (step "
-                              f"{state.step}); mid-epoch checkpoint saved")
-                    result = TrainResult(state, best_epoch, best_val_lb,
-                                         epoch, history)
-                    break
-        if stats.diverged:
-            if first:
-                print("Training diverged")
-                writer.close()
-            wait_for_saves()
-            result.diverged, result.last_epoch = True, epoch
-            return result
-        if verbose and tier == "stream" and cursor.start:
-            print(f"Resumed epoch {epoch} at batch {cursor.start}: staged "
-                  f"{len(source.switch_waits())} of {len(source.chunks)} "
-                  f"chunks")
-        if mesh is not None and not replicas_equal(mesh, [
-                p for n, p in state.params().items() if not is_sharded(n, p)]):
-            raise RuntimeError(
-                f"epoch {epoch}: the replicated parameters differ between "
-                f"the ranks of the mesh")
-        if verbose:
-            print(f"====> Epoch {epoch}: train loss {stats.train_loss:.4f}, "
-                  f"{stats.steps} steps in {stats.seconds:.2f} s "
-                  f"({stats.segments_per_sec:.1f} segments/s)")
-        val = (device_dev_pass(model, dev_split, alpha, dev_mesh) if dev_split
-               is not None else dev_pass(model, dev_loader, alpha, dev,
-                                         dev_mesh))
-        if verbose:
-            print(f"====> Validation set loss: {val['loss']:.4f}  "
-                  f"LB: {val['lower_bound']:.4f}")
-        history.record(epoch, stats.train_loss, val["loss"],
-                       val["lower_bound"], val["log_qy"])
-        scalars = {
-            "train_loss": stats.train_loss,
-            "train_segments_per_sec": stats.segments_per_sec,
-            "train_steps": stats.steps,
-            "train_seconds": stats.seconds,
-            "step": state.step,
-            "val_loss": val["loss"],
-            "val_lower_bound": val["lower_bound"],
-            "val_log_qy": val["log_qy"],
-            "val_log_px_z": val.get("log_px_z", float("nan")),
-            "val_neg_kld_z1": val.get("neg_kld_z1", float("nan")),
-            "val_neg_kld_z2": val.get("neg_kld_z2", float("nan")),
-            "val_log_pmu2": val.get("log_pmu2", float("nan")),
-        }
-        grads = params = None
-        if grad_step is not None:
-            with contextlib.closing(loader.batches_from(0)) as batches:
-                b = next(batches)
-            feats, *rest = batch_tensors(b, dev, mesh)
-            grads = grad_step(state, feats, *rest, snapshot_noise(
-                state, epoch, feats.shape[0], dev, mesh))
-            params = state.params()
-            if mesh is not None:
-                grads = whole_tensors(mesh, grads)
-                params = whole_tensors(mesh, params)
-        if first:
-            writer.write_epoch(epoch, scalars, params=params, grads=grads)
-            if t.plot_curves:
+            cursor = EpochCursor(state, mid if on_cursor else None, every,
+                                 max_steps, save_mid)
+            # the trace's stem: the run, the epoch and, on a mesh, the rank
+            profiling = (epoch_profile(
+                t.profile_dir, f"{config.run_id()}_e{epoch}"
+                + ("" if mesh is None else f"_rank{mesh.rank}"), dev,
+                verbose) if epoch == profile_at else contextlib.nullcontext())
+            with profiling, trace.span("steps"):
+                try:
+                    if tier in ("device", "round"):
+                        stats = run_device_epoch(
+                            state, optimizer, source, loader, alpha, dev,
+                            epoch, mesh, bundle, cursor,
+                            None if rounds is None else rounds.plan_rows,
+                            planner)
+                    elif tier == "stream":
+                        stats = run_stream_epoch(
+                            state, optimizer, source, train_loader, alpha,
+                            dev, epoch, bundle, cursor, mesh)
+                    else:
+                        stats = run_epoch(state, optimizer, loader, alpha,
+                                          dev, epoch, mesh, bundle, cursor,
+                                          legacy_epochs)
+                except StopRun as stop:
+                    if stop.diverged:  # the save gate read a non-finite loss
+                        stats = cursor.losses.stats()
+                    else:
+                        if verbose:
+                            print(f"Reached --max-steps {max_steps} at epoch "
+                                  f"{epoch}, batch {cursor.done} (step "
+                                  f"{state.step}); mid-epoch checkpoint "
+                                  f"saved")
+                        result = TrainResult(state, best_epoch, best_val_lb,
+                                             epoch, history)
+                        break
+            if stats.diverged:
+                if first:
+                    print("Training diverged")
+                    writer.close()
+                wait_for_saves()
+                result.diverged, result.last_epoch = True, epoch
+                return result
+            if verbose and tier == "stream" and cursor.start:
+                print(f"Resumed epoch {epoch} at batch {cursor.start}: "
+                      f"staged {len(source.switch_waits())} of "
+                      f"{len(source.chunks)} chunks")
+            if mesh is not None and not replicas_equal(mesh, [
+                    p for n, p in state.params().items()
+                    if not is_sharded(n, p)]):
+                raise RuntimeError(
+                    f"epoch {epoch}: the replicated parameters differ "
+                    f"between the ranks of the mesh")
+            if verbose:
+                print(f"====> Epoch {epoch}: train loss "
+                      f"{stats.train_loss:.4f}, {stats.steps} steps in "
+                      f"{stats.seconds:.2f} s "
+                      f"({stats.segments_per_sec:.1f} segments/s)")
+            val = (device_dev_pass(model, dev_split, alpha, dev_mesh)
+                   if dev_split is not None
+                   else dev_pass(model, dev_loader, alpha, dev, dev_mesh))
+            if verbose:
+                print(f"====> Validation set loss: {val['loss']:.4f}  "
+                      f"LB: {val['lower_bound']:.4f}")
+            history.record(epoch, stats.train_loss, val["loss"],
+                           val["lower_bound"], val["log_qy"])
+            scalars = {
+                "train_loss": stats.train_loss,
+                "train_segments_per_sec": stats.segments_per_sec,
+                "train_steps": stats.steps,
+                "train_seconds": stats.seconds,
+                "step": state.step,
+                "val_loss": val["loss"],
+                "val_lower_bound": val["lower_bound"],
+                "val_log_qy": val["log_qy"],
+                "val_log_px_z": val.get("log_px_z", float("nan")),
+                "val_neg_kld_z1": val.get("neg_kld_z1", float("nan")),
+                "val_neg_kld_z2": val.get("neg_kld_z2", float("nan")),
+                "val_log_pmu2": val.get("log_pmu2", float("nan")),
+            }
+            grads = params = None
+            if grad_step is not None:
+                with contextlib.closing(loader.batches_from(0)) as batches:
+                    b = next(batches)
+                feats, *rest = batch_tensors(b, dev, mesh)
+                grads = grad_step(state, feats, *rest, snapshot_noise(
+                    state, epoch, feats.shape[0], dev, mesh))
+                params = state.params()
+                if mesh is not None:
+                    grads = whole_tensors(mesh, grads)
+                    params = whole_tensors(mesh, params)
+            if first and t.plot_curves:
                 write_curves_svg(history, exp_dir / "curves.svg",
                                  config.run_id())
-        if check_best(val["lower_bound"], best_val_lb):
-            best_epoch, best_val_lb = epoch, val["lower_bound"]
-        save_state(exp_dir, state, config, epoch, best_epoch, best_val_lb,
-                   history, extra, {k: float(v) for k, v in scalars.items()})
-        if every or max_steps or mid is not None:
-            # the epoch checkpoint supersedes this run's step checkpoints
-            # of this epoch and before, a --max-steps stop's included when
-            # this run has no cadence flag; on a mesh, once every rank is
-            # past its save and has flushed its async ones
-            wait_for_saves()
-            if mesh is not None:
-                dist.barrier()
-            if first:
-                ckpt.cleanup_mid_epoch(exp_dir, model.model_type,
-                                       config.base_string(), epoch)
+            if check_best(val["lower_bound"], best_val_lb):
+                best_epoch, best_val_lb = epoch, val["lower_bound"]
+            save_state(exp_dir, state, config, epoch, best_epoch,
+                       best_val_lb, history, extra,
+                       {k: float(v) for k, v in scalars.items()})
+            if every or max_steps or mid is not None:
+                # the epoch checkpoint supersedes this run's step
+                # checkpoints of this epoch and before, a --max-steps
+                # stop's included when this run has no cadence flag; on a
+                # mesh, once every rank is past its save and has flushed
+                # its async ones
+                wait_for_saves()
+                if mesh is not None:
+                    dist.barrier()
+                if first:
+                    ckpt.cleanup_mid_epoch(exp_dir, model.model_type,
+                                           config.base_string(), epoch)
+        # each rank's spans; rank 0 writes its own with the record
+        records, counters = trace.take()
+        if first:
+            if trace_spans:
+                scalars.update(spans=trace.summary(records),
+                               counters=counters)
+            writer.write_epoch(epoch, scalars, params=params, grads=grads)
         result = TrainResult(state, best_epoch, best_val_lb, epoch, history)
         if check_terminate(epoch, best_epoch, config.train.patience,
                            config.train.epochs):

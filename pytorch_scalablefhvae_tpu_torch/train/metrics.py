@@ -51,9 +51,10 @@ class MetricHistory:
                 for k, d in self.values.items()}
 
 
-# keys of the port's JSONL records for its step cadence, which the JAX
+# keys of the port's JSONL records for its step cadence and, with
+# --trace-spans, its spans and counters (``train/trace.py``), which the JAX
 # writer's records (and so its TensorBoard series) do not have
-JSONL_ONLY = ("train_steps", "train_seconds", "step")
+JSONL_ONLY = ("train_steps", "train_seconds", "step", "spans", "counters")
 
 
 def histogram_tag(name: str, prefix: str = "") -> str:
@@ -92,11 +93,14 @@ class MetricWriter:
                     params: Mapping | None = None,
                     grads: Mapping | None = None) -> None:
         """The epoch's record; ``params`` and ``grads`` (name -> tensor, the
-        table whole on a mesh) go to histograms under ``--log-params``."""
+        table whole on a mesh) go to histograms under ``--log-params``. A
+        mapping among ``scalars`` (``spans``, ``counters``) goes to the
+        record as it is."""
         rec = {"epoch": epoch, "run_id": self.run_id}
         # non-finite values serialize as null: json.dumps' default NaN
         # token is invalid JSON for strict consumers (jq, JSON.parse)
-        rec.update({k: (float(v) if math.isfinite(float(v)) else None)
+        rec.update({k: v if isinstance(v, Mapping) else
+                    float(v) if math.isfinite(float(v)) else None
                     for k, v in scalars.items()})
         with open(self.jsonl_path, "a") as f:
             f.write(json.dumps(rec) + "\n")

@@ -67,6 +67,7 @@ import torch
 import torch.distributed as dist
 
 from pytorch_scalablefhvae_tpu_torch.parallel.mesh import is_sharded
+from pytorch_scalablefhvae_tpu_torch.train import trace
 from pytorch_scalablefhvae_tpu_torch.train.checkpoint import (
     _COUNT,
     _MU,
@@ -217,18 +218,25 @@ def save_checkpoint_orbax(checkpoint_dir, state, *, model_type: str,
     group, device_mesh = (None, None) if mesh is None else _mesh_groups(mesh)
     if first:
         checkpoint_dir.mkdir(parents=True, exist_ok=True)
-    staged = _stage(state, device_mesh)
+    with trace.span("save.to_host"):
+        staged = _stage(state, device_mesh)
+    if trace.ON:
+        trace.count("ckpt_bytes", sum(
+            (t.to_local() if hasattr(t, "to_local") else t).nbytes
+            for t in staged.values()))
 
     dcp = _dcp()
+    parent = trace.current()  # the save that the write on the thread is of
 
     def write():
-        if first:  # a stale save's files; the other ranks write later
-            shutil.rmtree(tmp, ignore_errors=True)
-        dcp.save(staged, storage_writer=dcp.FileSystemWriter(tmp),
-                 process_group=group, no_dist=mesh is None)
-        if first:  # every rank's files and .metadata are in: commit
-            shutil.rmtree(path, ignore_errors=True)
-            os.replace(tmp, path)
+        with trace.span("save.write", parent=parent):
+            if first:  # a stale save's files; the other ranks write later
+                shutil.rmtree(tmp, ignore_errors=True)
+            dcp.save(staged, storage_writer=dcp.FileSystemWriter(tmp),
+                     process_group=group, no_dist=mesh is None)
+            if first:  # every rank's files and .metadata are in: commit
+                shutil.rmtree(path, ignore_errors=True)
+                os.replace(tmp, path)
 
     _saver().submit(write)
     if not first:

@@ -51,7 +51,6 @@ path, as in the JAX loop, whose chunked pass runs off a mesh only.
 from __future__ import annotations
 
 import math
-import time
 
 import numpy as np
 import torch
@@ -69,6 +68,7 @@ from pytorch_scalablefhvae_tpu_torch.data.segments import (
     chunk_skip_indices,
 )
 from pytorch_scalablefhvae_tpu_torch.train import checkpoint as ckpt
+from pytorch_scalablefhvae_tpu_torch.train import trace
 from pytorch_scalablefhvae_tpu_torch.train.device_step import (
     MAP_SPB,
     device_map_pass,
@@ -177,8 +177,7 @@ class Rounds:
     turning the round over at its boundary. ``plan_rows``: the fixed length
     of a staged tier's epoch plans; ``planner``: with ``device_plan`` (a
     staged tier's ``--epoch-plan device``) the planner that derives them,
-    its vectors staged at every round entered. ``turnovers``: per round
-    entered, ``(e0, seconds by stage, fresh)``. ``mesh``: this rank's mesh,
+    its vectors staged at every round entered. ``mesh``: this rank's mesh,
     where the rounds run on every rank in step."""
 
     def __init__(self, config, loader: SegmentLoader, tier: str, source,
@@ -193,7 +192,6 @@ class Rounds:
         self.dtype = config.data.transfer_dtype
         self.skip = max(config.train.map_init_chunk_skip, 1)
         self.current: SegmentLoader | None = None
-        self.turnovers: list = []
         B = loader.batch_size
         top = np.sort(np.asarray(ds.nsegs, np.int64))[-k:]
         self.plan_rows = None
@@ -231,43 +229,47 @@ class Rounds:
             return self.current
         e0 = epoch - epoch % self.every
         fresh = boundary and not resumed
-        store, secs = self.full.store, {}
-        t0 = time.perf_counter()
-        keys = round_keys(store.seq_keys, self.k, self.seed, e0)
-        secs["draw"] = time.perf_counter() - t0
-        if self.tier == "round":
-            # the ceiling is the buffer's whole row count, also where a
-            # mesh stages no slack and a rank holds its rows of it
-            frames = int(sum(store.lens[store.seq2idx[k]] for k in keys))
-            held = self.source.total_rows - STORE_TAIL_SLACK
-            if frames > held:
-                raise RuntimeError(
-                    f"round draw needs {frames} frames but the staging "
-                    f"ceiling holds {held}: the ceiling must cover the K "
-                    f"largest sequences")
-            t0 = time.perf_counter()
-            sub = store.subset(keys, materialize=True)
-            secs["materialise"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            self.source.restage(sub)
-            self._sync()
-            secs["stage"] = time.perf_counter() - t0
-        else:
-            sub = store.subset(keys)
-        t0 = time.perf_counter()
-        self.current = round_loader(self.full, sub, self.batch_size,
-                                    self.seed, e0, self.dtype)
-        secs["draw"] += time.perf_counter() - t0
-        if self.planner is not None:
-            # the round's planner vectors, also on a re-entry that keeps
-            # the restored table: every epoch's plan derives from them
-            self.planner.stage(self.current.dataset, pad_seqs=self.k)
-        if fresh:
-            t0 = time.perf_counter()
-            self.map_init(state, self.current.dataset)
-            self._sync()
-            secs["map_init"] = time.perf_counter() - t0
-        self.turnovers.append((e0, secs, fresh))
+        store = self.full.store
+        # the printed seconds are the timed stage spans': draw the draw
+        # and the loader, stage the restage and its sync
+        with trace.span("turnover"):
+            with trace.span("turnover.draw", timed=True) as draw:
+                keys = round_keys(store.seq_keys, self.k, self.seed, e0)
+            secs = {"draw": draw.seconds}
+            if self.tier == "round":
+                # the ceiling is the buffer's whole row count, also where a
+                # mesh stages no slack and a rank holds its rows of it
+                frames = int(sum(store.lens[store.seq2idx[k]] for k in keys))
+                held = self.source.total_rows - STORE_TAIL_SLACK
+                if frames > held:
+                    raise RuntimeError(
+                        f"round draw needs {frames} frames but the staging "
+                        f"ceiling holds {held}: the ceiling must cover the "
+                        f"K largest sequences")
+                with trace.span("turnover.materialise", timed=True) as done:
+                    sub = store.subset(keys, materialize=True)
+                secs["materialise"] = done.seconds
+                with trace.span("turnover.stage", timed=True) as done:
+                    self.source.restage(sub)
+                    self._sync()
+                secs["stage"] = done.seconds
+            else:
+                sub = store.subset(keys)
+            with trace.span("turnover.loader", timed=True) as done:
+                self.current = round_loader(self.full, sub, self.batch_size,
+                                            self.seed, e0, self.dtype)
+            secs["draw"] += done.seconds
+            if self.planner is not None:
+                # the round's planner vectors, also on a re-entry that
+                # keeps the restored table: every epoch's plan derives
+                # from them
+                with trace.span("turnover.planner"):
+                    self.planner.stage(self.current.dataset, pad_seqs=self.k)
+            if fresh:
+                with trace.span("turnover.map_init", timed=True) as done:
+                    self.map_init(state, self.current.dataset)
+                    self._sync()
+                secs["map_init"] = done.seconds
         if verbose:
             print(f"Round at epoch {e0} ({self.k} sequences, "
                   f"{self.every} epoch{'s' if self.every > 1 else ''}"

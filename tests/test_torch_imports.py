@@ -57,6 +57,7 @@ PORT_MODULES = [
     "pytorch_scalablefhvae_tpu_torch.train.driver",
     "pytorch_scalablefhvae_tpu_torch.train.metrics",
     "pytorch_scalablefhvae_tpu_torch.train.orbax_backend",
+    "pytorch_scalablefhvae_tpu_torch.train.trace",
     "pytorch_scalablefhvae_tpu_torch.train.plots",
     "pytorch_scalablefhvae_tpu_torch.ops.lstm_cuda",
     "pytorch_scalablefhvae_tpu_torch.ops.discriminative",

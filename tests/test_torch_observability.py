@@ -233,7 +233,8 @@ def test_tensorboard_missing_falls_back_to_jsonl(tmp_path, monkeypatch,
 def test_visdom_curves_and_profile_trace(corpus, tmp_path, capsys):
     """``--visdom`` writes ``curves.svg`` after every epoch; ``--profile-dir``
     traces the training of epoch ``min(--profile-epoch, epochs - 1)`` alone
-    into a Chrome trace that parses and holds the epoch's steps."""
+    into a Chrome trace that parses and holds the epoch's steps, with the
+    loop's ``sfhvae.*`` spans around them (``train/trace.py``)."""
     args = ["train", "--dataset", "synthetic", "--preprocessed",
             "--data-root", str(corpus), "--mvn-path",
             str(corpus / "mvn.json"), "--training-batch-size", "32",
@@ -252,6 +253,8 @@ def test_visdom_curves_and_profile_trace(corpus, tmp_path, capsys):
     trace = json.loads(traces[0].read_text())
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any("aten::" in n for n in names)
+    assert {"sfhvae.steps", "sfhvae.dispatch.launch", "sfhvae.loss_read"} \
+        <= names
 
 
 def test_grad_step_matches_jax(corpus, jax_init):
