@@ -78,6 +78,18 @@ prints no result line):
    100,000-row store and on a store of TIMIT-train size, whose last chunks
    run into the staged slack: a copy, so equal bit for bit, and two
    launches equal;
+2g. ``stage_gather`` at a hierarchical round's shape: 5,000 of 9,300
+   sequences of 1,000-1,900 frames (D 80; a 4.32 GB float32 store in host
+   memory, page-locked and mapped once, its registration timed), into a
+   buffer of the K longest sequences' rows, in float32 and bfloat16: equal
+   bit for bit to the host sub-pack restaged (``subset(materialize=True)``
+   and ``copy_rows``, the path it replaces, timed beside it), to the copy
+   engine's form (a ``copy_`` a sequence from the registered store, in
+   bfloat16 into a float32 buffer cast on the card after; timed beside it
+   as the library form, with the host's time to issue it) and between two
+   launches, one launch counted a call; its time against the host link's
+   peak (PCIe generation and width from nvidia-smi: the bound) and against
+   one pinned ``copy_`` of the round's float32 bytes;
 2d. ``fused_logmel_frames`` against its plain version at the serving batch's
    shape (32 utterances of 205 frames), a ragged N, one frame, silent frames
    (at the default floor and at one below them) and a 40-band bank; a
@@ -104,9 +116,7 @@ prints no result line):
    against the same steps through the plain versions on the card, and the
    device-resident tier's first three steps against the host loader's (equal
    bit for bit), and the staged dev pass against itself (bit for bit) and
-   the host's; time a step's forward, backward and optimizer (CUDA events)
-   and its kernels (torch.profiler), and each tier's data path beside the
-   other; then run the port's ``train`` CLI at its defaults (fhvae, batch
+   the host's; then run the port's ``train`` CLI at its defaults (fhvae, batch
    1024, bf16 LSTM operands, ``--data-placement auto``, which stages the
    store and the dev split on the card) for 2 epochs and resume it for a
    third, checking that the data was device-resident, that the loss is
@@ -119,12 +129,8 @@ prints no result line):
    epoch 0 and whose dev bound must agree with it;
 4k. ``train --steps-per-dispatch 8``, each dispatch one CUDA graph replay
    of 8 whole train steps (``train/graphs.py``): Adam's bias corrections as
-   device fp32 scalars divide as the host floats did, bit for bit; on each
-   tier the eager first dispatch, the capture, and 10 warm replays under
-   torch.profiler, which must see the LSTM kernels inside them (host wall,
-   device busy and kernels per step, idle share); the nodes of one captured
-   step by type and kernel from the graph's DOT dump, beside the kernels
-   the profiler sees a replay; then phase 4's runs through the CLI at K = 8
+   device fp32 scalars divide as the host floats did, bit for bit; then
+   phase 4's runs through the CLI at K = 8
    (2 epochs + 1 resumed on the device tier, 1 on the host loader: 133
    steps an epoch, 16 dispatches and 5 eager steps), whose every epoch's
    train loss, step count and dev metrics, and the epoch-2 checkpoint,
@@ -145,14 +151,10 @@ prints no result line):
    the CLI defaults over the default 4 GiB budget: a synthetic corpus of
    9,300 training sequences of 1,000-1,900 frames (4.32 GB in float32,
    just over the budget) and 400 dev ones, packed once
-   (``--pack-cache-dir``, kept for 4h and 5h); runs
-   stopped by ``--max-steps`` 504 past their first chunk switch, with no
-   placement flags (``auto`` streams ~5 chunks of 1 GiB), at K = 8, from
-   the host loader at K = 8 and at ``--transfer-dtype bfloat16`` and K = 8
-   (staged whole): ms/step, segments/s and link bytes an epoch of each
-   (the stopped epochs' partials), the idle share of 10 warm
-   dispatches of each tier (torch.profiler), and the host's and the
-   compute stream's waits at each chunk switch of a K = 8 epoch. Every LSTM
+   (``--pack-cache-dir``, kept for 4h and 5h); two runs at K = 8 stopped
+   by ``--max-steps`` 504 past their first chunk switch, with no placement
+   flags (``auto`` must stream ~5 chunks of 1 GiB) and at
+   ``--transfer-dtype bfloat16`` (staged whole), each finite. Every LSTM
    launch of the phase's train runs took the tensor-core form, and each of
    the seven train entries was launched;
 4h. hierarchical rounds, ``train --hierarchical`` (``train/rounds.py``) at
@@ -171,18 +173,15 @@ prints no result line):
    launched as often (no second MAP init); (d) bfloat16 staging, #8 on
    bf16 rows; (e) phase 4's corpus with 2,000-sequence rounds on the
    device tier (views of the staged store), K = 8 against K = 1 bit for
-   bit; then 10 warm K = 8
-   dispatches of the round-staged and host tiers after a turnover
-   (torch.profiler: host wall, busy, idle share) and each turnover's
-   stages (draw, sub-pack materialised, staged, MAP init) timed. Every LSTM
+   bit. Each round of (a), (c) and (d) is one ``stage_gather`` launch from
+   the memory-mapped pack held as a page-locked copy in memory. Every LSTM
    launch is tensor-core, and the seven train entries are launched;
 4m. ``--model-type simple_fhvae``, the reference's own model, at the CLI
    defaults (input 20 x 80, H 128, z 16, batch 256) on phase 4's corpus:
    (a) the first three steps through #5/#6 against the plain versions
-   (``TOL_TRAIN_LOSS``, ``TOL_TRAIN_UPDATE``), then 10 warm dispatches of
-   the device tier at K = 1 and K = 8 (torch.profiler: host wall, busy,
-   idle share); (b) two epochs at K = 1 and at K = 8, bit for bit (the
-   MLPs' cuBLAS products inside the captured graph); then at K = 8, since
+   (``TOL_TRAIN_LOSS``, ``TOL_TRAIN_UPDATE``); (b) two epochs at K = 1
+   and at K = 8, bit for bit (the MLPs' cuBLAS products inside the
+   captured graph); then at K = 8, since
    an eager step is host-bound: (c) one host-loader epoch, its train loss
    and dev bound within ``TOL_DEV_LB`` of the device tier's; (d) a run
    stopped by ``--max-steps`` at epoch 1, batch 50 and resumed, equal to
@@ -280,7 +279,8 @@ prints no result line):
    round) against the run never stopped, each bit for bit; the round tier
    at a budget under which the replicated sub-pack lowers K and the
    row-sharded one does not (the lines checked); the host loader within
-   ``TOL_HIER_EPOCH`` of the device tier; #7 once a step, #6 and #8 never.
+   ``TOL_HIER_EPOCH`` of the device tier; #7 once a step, #6 and #8 never;
+   each round of the round tier one ``stage_gather`` launch on rank 0.
    (b) One rank of ``--mesh 1,1 --distributed --dist-backend nccl`` at the
    CLI defaults (K = 5,000) on 4s-big's corpus (kept from 4s, else
    written), a round's sub-pack staged: a round entered by ``Rounds`` and
@@ -290,7 +290,9 @@ prints no result line):
    stopped there, bit for bit, then the K = 8 run resumed through its
    second round; every MAP init the rows pass (``device_map_pass_rows``,
    never #8, as in the JAX loop) and every round's table the whole table's
-   rows on the rank with its moments zeroed. 5k (a) and 5h (b) run in one
+   rows on the rank with its moments zeroed, and each round the K = 8
+   runs enter one ``stage_gather`` launch from the pack held as a
+   page-locked copy in memory. 5k (a) and 5h (b) run in one
    process, started once (``nccl_mesh_runs``);
 5n. (only when named: ``--only 5n``, on four cards) 5k (a) and 5h (b) on a
    ``2,2`` NCCL mesh, a card a rank, in one launch: the replayed graphs
@@ -405,11 +407,13 @@ and ``by_shape``, every shape they were timed at;
 numbers); ``bound_ms`` is the least time the card could
 take for the same inputs (their bytes once over 3.35 TB/s, or the products'
 operations over 989 TFLOP/s for bf16 operands and 67 TFLOP/s for fp32,
-whichever is larger; ``bound_by`` says which); ``library_ms`` times the one
-PyTorch call that computes the same function where there is one (a row
+whichever is larger; ``bound_by`` says which; for ``stage_gather`` the
+round's float32 bytes over the host link's peak); ``library_ms`` times the
+one PyTorch call that computes the same function where there is one (a row
 gather for ``windowed_chunk_gather``; ``torch.nn.LSTM`` for the four LSTM
 entries, in ``library_dtype`` on ``library_route``, with
-``library_fp32_ms`` and every form's in ``library_by_form``), else null.
+``library_fp32_ms`` and every form's in ``library_by_form``; for
+``stage_gather`` the copy engine's ``copy_`` a sequence), else null.
 The four LSTM entries and the four discriminative entries also carry ``passes_ms`` (device time per
 kernel of a call); the LSTM entries ``chain_floor_ms``
 (the chain of dependent steps without its global traffic), the two forward
@@ -505,6 +509,10 @@ SOURCES = {
         "pytorch_scalablefhvae_tpu_torch/csrc/fbank_logmel.cu",
         "pytorch_scalablefhvae_tpu/ops/fbank_pallas.py:152"),
 }
+SOURCES["stage_gather"] = (
+    "pytorch_scalablefhvae_tpu_torch/csrc/stage_gather.cu",
+    "none: the JAX loop materialises each round on the host "
+    "(pytorch_scalablefhvae_tpu/train/loop.py)")
 SOURCES["discriminative_log_qy_sharded"] = (
     SOURCES["discriminative_log_qy"][0],
     "pytorch_scalablefhvae_tpu/ops/discriminative.py:288")
@@ -1779,6 +1787,179 @@ def gather_bf16(store32, starts) -> dict:
             "library_ms": library_ms, "form": "C=128, bf16 rows"}
 
 
+ROUND_SEQS, ROUND_STORE_SEQS = 5000, 9300  # 2g: the benchmark's rounds
+ROUND_FRAMES = (1000, 1900)
+
+
+def events_ms(fn, iters: int) -> float:
+    """Milliseconds a call of ``fn`` by CUDA events over ``iters`` calls
+    back to back, after one."""
+    fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+PCIE_GT_S = {1: 2.5, 2: 5.0, 3: 8.0, 4: 16.0, 5: 32.0}  # per lane
+
+
+def link_peak() -> tuple[float, str]:
+    """The host link's peak bytes a second one way, from the PCIe
+    generation and width nvidia-smi reports as the link's most (128b/130b
+    coding from generation 3, 8b/10b before), and how it was read; the
+    H100 SXM data sheet's Gen5 x16 where nvidia-smi does not say."""
+    try:
+        gen, width = (int(v) for v in subprocess.run(
+            ["nvidia-smi", "--query-gpu=pcie.link.gen.max,"
+             "pcie.link.width.max", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=30,
+            check=True).stdout.splitlines()[0].split(","))
+        said = "nvidia-smi"
+    except (OSError, ValueError, IndexError, subprocess.SubprocessError):
+        gen, width, said = 5, 16, "the data sheet (nvidia-smi gave none)"
+    coding = 128 / 130 if gen >= 3 else 0.8
+    return (PCIE_GT_S[gen] * 1e9 * width * coding / 8,
+            f"PCIe Gen{gen} x{width}, from {said}")
+
+
+def phase_stage_gather() -> dict:
+    """``stage_gather`` at a round's shape against the path it replaces,
+    the copy engine and the link's peak (the module docstring's 2g)."""
+    from pytorch_scalablefhvae_tpu_torch.data.device_store import (
+        GATHER_PIECE_ROWS,
+        STORE_TAIL_SLACK,
+        RoundLayout,
+        copy_rows,
+        gather_runs,
+    )
+    from pytorch_scalablefhvae_tpu_torch.data.feature_store import (
+        FeatureStore,
+    )
+    from pytorch_scalablefhvae_tpu_torch.ops import stage_gather
+    from pytorch_scalablefhvae_tpu_torch.train.rounds import round_keys
+
+    log(f"== phase 2g: stage_gather at a round's shape ({ROUND_SEQS} of "
+        f"{ROUND_STORE_SEQS} sequences of {ROUND_FRAMES[0]}-"
+        f"{ROUND_FRAMES[1]} frames, D {D})")
+    rng = np.random.default_rng(0)
+    lens = rng.integers(ROUND_FRAMES[0], ROUND_FRAMES[1] + 1,
+                        ROUND_STORE_SEQS)
+    data = np.empty((int(lens.sum()), D), np.float32)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for lo in range(0, data.shape[0], 1 << 21):
+        hi = min(lo + (1 << 21), data.shape[0])
+        torch.from_numpy(data[lo:hi]).copy_(
+            torch.randn((hi - lo, D), generator=gen, device="cuda"))
+    offsets = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    store = FeatureStore.from_arrays({
+        f"s{i:05d}": data[o:o + n] for i, (o, n) in enumerate(zip(offsets,
+                                                                  lens))})
+    del data
+    keys = round_keys(store.seq_keys, ROUND_SEQS, 3, 0)
+    layout = RoundLayout(store, keys)
+    ceiling = int(np.sort(lens)[-ROUND_SEQS:].sum()) + STORE_TAIL_SLACK
+    t0 = time.perf_counter()
+    host = stage_gather.host_store(store.data, torch.device("cuda"))
+    register_s = time.perf_counter() - t0
+    runs = torch.from_numpy(gather_runs(layout, piece=GATHER_PIECE_ROWS))
+    runs = runs.cuda()
+    # the copy engine's form: a copy_ a run (a sequence, adjacent ones
+    # merged) from the registered store, bfloat16 cast on the card after
+    seqs = gather_runs(layout).tolist()
+    nbytes = layout.rows * D * 4
+    peak, link = link_peak()
+    peak_ms = 1e3 * nbytes / peak
+    pinned = torch.empty((layout.rows, D), pin_memory=True)
+    fn = stage_gather.stage_gather
+    out: dict = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        buf = torch.empty((ceiling, D), dtype=dtype, device="cuda")
+        rows32 = buf if dtype == torch.float32 else torch.empty(
+            (layout.rows, D), device="cuda")
+
+        def kernel():
+            fn(host, runs, buf)
+
+        def engine():
+            for src, dst, n in seqs:
+                rows32[dst:dst + n].copy_(host.rows[src:src + n],
+                                          non_blocking=True)
+            if rows32 is not buf:
+                buf[:layout.rows].copy_(rows32)
+
+        before = fn.launches
+        kernel()
+        got = buf[:layout.rows].clone()
+        kernel()
+        torch.cuda.synchronize()
+        counted = fn.launches - before
+        again = torch.equal(buf[:layout.rows], got)
+        buf.zero_()
+        t0 = time.perf_counter()
+        engine()
+        issue_ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        engine_same = torch.equal(buf[:layout.rows], got)
+        # the path it replaces: the host sub-pack, then its pageable copy
+        old = torch.zeros_like(buf)
+        host_s = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            sub = store.subset(keys, materialize=True)
+            copy_rows(old, sub.data)
+            torch.cuda.synchronize()
+            host_s.append(time.perf_counter() - t0)
+            del sub
+        same = torch.equal(got.view(torch.int16),
+                           old[:layout.rows].view(torch.int16))
+        if not (same and again and engine_same and counted == 2):
+            raise AssertionError(
+                f"stage_gather [{dtype}] differs from the host sub-pack "
+                f"restaged ({same}), between launches ({again}) or from the "
+                f"copy engine's copies ({engine_same}), or counted "
+                f"{counted} of 2 launches")
+        ms = events_ms(kernel, 5)
+        engine_ms = events_ms(engine, 5)
+        flat = buf.view(-1)[:layout.rows * D]
+        pinned_ms = events_ms(lambda: flat.copy_(pinned.view(-1),
+                                                 non_blocking=True), 5) \
+            if dtype == torch.float32 else out["float32"]["pinned_copy_ms"]
+        old_ms = 1e3 * min(host_s)
+        out[str(dtype).split(".")[1]] = {
+            "ms": ms, "bound_ms": peak_ms, "library_ms": engine_ms,
+            "library_issue_ms": issue_ms, "pinned_copy_ms": pinned_ms,
+            "plain_ms": old_ms}
+        log(f"stage_gather [{dtype}]: equal to the host sub-pack restaged "
+            f"and to the copy engine's copies bit for bit, and between two "
+            f"launches; {len(runs)} runs, {layout.rows} rows, "
+            f"{nbytes / 1e9:.3f} GB read: kernel {ms:.2f} ms "
+            f"({nbytes / ms / 1e6:.1f} GB/s read, {100 * peak_ms / ms:.1f}% "
+            f"of the link's peak, {100 * pinned_ms / ms:.1f}% of the pinned "
+            f"copy_); the link's peak {peak / 1e9:.2f} GB/s ({link}), "
+            f"{peak_ms:.2f} ms; the copy engine, a copy_ a run of {len(seqs)}"
+            f"{', then a cast on the card' if rows32 is not buf else ''}, "
+            f"{engine_ms:.2f} ms ({100 * peak_ms / engine_ms:.1f}% of the "
+            f"peak; the host issued its copies in {issue_ms:.1f} ms); one "
+            f"pinned float32 copy_ of the same bytes {pinned_ms:.2f} ms "
+            f"({nbytes / pinned_ms / 1e6:.1f} GB/s); host sub-pack + restage "
+            f"{[round(1e3 * t, 1) for t in host_s]} ms; registration of the "
+            f"{store.data.nbytes / 1e9:.2f} GB store {register_s:.3f} s; "
+            f"card {smi_name_power()}")
+        del buf, old, got, rows32
+        torch.cuda.empty_cache()
+    f32 = out["float32"]
+    return {"stage_gather": {
+        "max_abs_err": 0.0, "ms": f32["ms"], "plain_ms": f32["plain_ms"],
+        "bound_ms": peak_ms, "bound_by": f"host link peak ({link})",
+        "library_ms": f32["library_ms"], "register_s": register_s,
+        "form": f"{ROUND_SEQS} sequences, {nbytes / 1e9:.2f} GB",
+        "by_dtype": out}}
+
+
 def voiced_frames(n: int, noise_db: float, seed: int = 4) -> torch.Tensor:
     """``n`` frames of a voiced sound as the served utterances hold it: a
     harmonic source (15 harmonics of an f0 of 85-255 Hz under a spectral
@@ -2752,70 +2933,6 @@ def staged_epoch0(cfg, root: Path):
     return loader, source, plan, arrays
 
 
-def step_breakdown(cfg, root: Path) -> None:
-    """Device time of 10 warm train steps, split into forward (to the loss),
-    backward and optimizer by CUDA events, and the kernels' share by
-    torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from pytorch_scalablefhvae_tpu_torch.models.base import loss_from_outputs
-    from pytorch_scalablefhvae_tpu_torch.train.step import (
-        create_train_state,
-        make_optimizer,
-        step_noise,
-    )
-
-    dev = torch.device("cuda")
-    batches, model = first_batches_and_model(cfg, root, 13)
-    state = create_train_state(model)
-    opt = make_optimizer(1e-3, 0.95, 0.999)
-    stages = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
-
-    def one_step(batch, timed):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        ev[0].record()
-        out = model.apply(*batch[:3], sample=True,
-                          noise=step_noise(state, B_TRAIN, dev))
-        loss, _ = loss_from_outputs(out, batch[3], 10.0)
-        ev[1].record()
-        names = list(state.params())
-        grads = torch.autograd.grad(loss, list(state.params().values()))
-        ev[2].record()
-        opt.update(state, dict(zip(names, grads)))
-        state.step += 1
-        ev[3].record()
-        if timed:
-            ev[3].synchronize()
-            for i, k in enumerate(stages):
-                stages[k] += ev[i].elapsed_time(ev[i + 1])
-
-    for b in batches[:3]:
-        one_step(b, False)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for b in batches[3:]:
-            one_step(b, True)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / 10
-    total = sum(stages.values()) / 10
-    log("step breakdown, 10 warm steps at batch 1024 (CUDA events, ms/step): "
-        + ", ".join(f"{k} {v / 10:.3f}" for k, v in stages.items())
-        + f"; events total {total:.3f}, host wall {wall:.3f}")
-    rows = [(e.key, e.device_time_total / 1e3 / 10, e.count // 10)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
-    busy = sum(r[1] for r in rows)
-    log(f"profiler: device busy {busy:.3f} ms of {wall:.3f} ms per "
-        f"step (idle share {1 - busy / wall:.3f}), {sum(r[2] for r in rows)} "
-        f"launches per step; by kernel (ms/step, launches/step):")
-    for key, ms, n in rows[:14]:
-        log(f"  {ms:8.3f} {n:4d}  {key[:90]}")
-
-
 def compare_first_steps(cfg, root: Path) -> None:
     """Three train steps from one initial state and the same noise, through
     the kernels and through the plain versions (whose autograd Functions run
@@ -2933,90 +3050,6 @@ def check_dev_pass(cfg, root: Path) -> None:
     torch.cuda.empty_cache()
 
 
-def tier_breakdown(cfg, root: Path) -> None:
-    """Each tier's data path and step, as the epoch runners drive them: the
-    host loader's pinned copy and a loss sync every step, against the
-    on-card gather and a loss check one step late. 10 warm steps each:
-    CUDA events per stage, host wall, and the device's busy and idle share
-    by torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from pytorch_scalablefhvae_tpu_torch.models.base import loss_from_outputs
-    from pytorch_scalablefhvae_tpu_torch.train.device_step import batch_views
-    from pytorch_scalablefhvae_tpu_torch.train.loop import batch_tensors
-    from pytorch_scalablefhvae_tpu_torch.train.step import (
-        create_train_state,
-        make_optimizer,
-        step_noise,
-    )
-
-    dev = torch.device("cuda")
-    loader, source, plan, arrays = staged_epoch0(cfg, root)
-    model = seeded_model(cfg)
-    for tier in ("host", "device"):
-        state = create_train_state(copy.deepcopy(model))
-        opt = make_optimizer(1e-3, 0.95, 0.999)
-        batches = iter(loader)
-
-        def one_step(i):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-            ev[0].record()
-            if tier == "host":
-                feats, seq, nsegs, w = batch_tensors(next(batches), dev)
-            else:
-                feats, seq, nsegs, w = batch_views(
-                    source.data, *arrays, i * B_TRAIN, plan.n_real,
-                    batch_size=B_TRAIN, seg_len=cfg.data.seg_len)
-            ev[1].record()
-            out = state.model.apply(feats, seq, nsegs, sample=True,
-                                    noise=step_noise(state, B_TRAIN, dev))
-            loss, _ = loss_from_outputs(out, w, 10.0)
-            ev[2].record()
-            names = list(state.params())
-            grads = torch.autograd.grad(loss, list(state.params().values()))
-            ev[3].record()
-            opt.update(state, dict(zip(names, grads)))
-            state.step += 1
-            ev[4].record()
-            return loss.detach(), ev
-
-        for i in range(3):
-            float(one_step(i)[0])
-        torch.cuda.synchronize()
-        events, pending = [], None
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for i in range(3, 13):
-                loss, ev = one_step(i)
-                events.append(ev)
-                if tier == "host":
-                    float(loss)
-                else:
-                    if pending is not None:
-                        float(pending)
-                    pending = loss
-            if pending is not None:
-                float(pending)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / 10
-        batches.close()
-        stages = {k: sum(ev[j].elapsed_time(ev[j + 1]) for ev in events) / 10
-                  for j, k in enumerate(("data", "forward", "backward",
-                                         "optimizer"))}
-        busy = sum(e.device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA) \
-            / 1e3 / 10
-        log(f"{tier} tier, 10 warm steps at batch 1024 with its data path "
-            f"(CUDA events, ms/step): "
-            + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
-            + f"; host wall {wall:.3f}; profiler: device busy {busy:.3f} ms "
-            f"(idle share {1 - busy / wall:.3f}); {B_TRAIN / wall * 1e3:.1f} "
-            f"segments/s")
-    del source, arrays
-    torch.cuda.empty_cache()
-
-
 class _Tee(io.TextIOBase):
     """Write to every stream given (a run's stdout, kept and shown)."""
 
@@ -3055,8 +3088,6 @@ def phase_train(workdir: Path, cfg) -> tuple[dict, dict]:
     compare_first_steps(cfg, root)
     compare_tiers_first_steps(cfg, root)
     check_dev_pass(cfg, root)
-    step_breakdown(cfg, root)
-    tier_breakdown(cfg, root)
 
     exp_root = workdir / "experiments"
     args = ["train", "--dataset", "synthetic", "--preprocessed",
@@ -3175,43 +3206,6 @@ def check_bias_division(model) -> bool:
     return not differ
 
 
-def bundle_case(cfg, root: Path, tier: str, k: int):
-    """A train state at the seeded model, a K-step bundle over ``tier``'s
-    inputs, and ``dispatch(d)``, which loads dispatch ``d``'s batches of
-    epoch 0 and runs it, returning its losses (cloned)."""
-    from pytorch_scalablefhvae_tpu_torch.train.device_step import PlanInputs
-    from pytorch_scalablefhvae_tpu_torch.train.graphs import (
-        HostInputs,
-        StepBundle,
-    )
-    from pytorch_scalablefhvae_tpu_torch.train.step import (
-        create_train_state,
-        make_optimizer,
-    )
-
-    dev = torch.device("cuda")
-    loader, source, plan, arrays = staged_epoch0(cfg, root)
-    rows = loader.batch_size
-    state = create_train_state(seeded_model(cfg))
-    if tier == "host":
-        inputs = HostInputs(k, rows, cfg.data.seg_len, D, dev)
-        batches = iter(loader)
-    else:
-        inputs = PlanInputs(source.data, rows, cfg.data.seg_len)
-        inputs.load_plan(arrays, plan.n_real)
-    bundle = StepBundle(state, make_optimizer(1e-3, 0.95, 0.999), 10.0, k,
-                        inputs, dev)
-
-    def dispatch(d: int) -> torch.Tensor:
-        if tier == "host":
-            inputs.load([next(batches) for _ in range(k)])
-        else:
-            inputs.set_base(d * k * rows)
-        return bundle()["loss"].clone()
-
-    return bundle, dispatch
-
-
 def profiled_dispatches(dispatch, k: int, trace: dict | None = None,
                         tries: int = 3) -> dict:
     """``dispatch(d)`` (dispatch ``d`` of ``k`` steps issued, its losses on
@@ -3322,132 +3316,6 @@ def host_by_kind(averages, steps: int) -> dict:
     return kinds
 
 
-def bundle_breakdown(cfg, root: Path) -> dict:
-    """Each tier's K-step dispatch as the epoch runners drive it
-    (:func:`profiled_dispatches`); the profiler must see the LSTM kernels
-    inside the replays."""
-    k, out = K_DISPATCH, {}
-    for tier in ("host", "device"):
-        bundle, dispatch = bundle_case(cfg, root, tier, k)
-        p = profiled_dispatches(dispatch, k)
-        wall, busy, chains = p["wall"], p["busy"], p["chains"]
-        launches = p["launches"]
-        log(f"{tier} tier, K = {k}: eager first dispatch {p['eager']:.3f} "
-            f"ms/step (host wall), capture and first replay "
-            f"{p['capture']:.3f} s; 10 warm replays ({10 * k} steps at batch "
-            f"{B_TRAIN}): host wall {wall:.3f} ms/step, profiler: device busy "
-            f"{busy:.3f} ms/step (copies {p['copies']:.3f}), idle share "
-            f"{p['idle']:.3f}, {launches:.1f} kernels a step; lstm2_fwd_chain "
-            f"seen {chains} times of {3 * 10 * k}; "
-            f"{B_TRAIN / wall * 1e3:.1f} segments/s; card {smi_name_power()}")
-        if chains == 0:
-            raise AssertionError("torch.profiler saw no LSTM kernel inside "
-                                 "the graph replays")
-        if tier == "host":
-            from pytorch_scalablefhvae_tpu_torch.train.driver import (
-                build_loaders,
-            )
-
-            loader = build_loaders(cfg, root, True)[0]
-            loader.set_epoch(0)
-            idx = list(loader._batches_indices())[:k]
-            t0 = time.perf_counter()
-            group = [loader._assemble(i) for i in idx]
-            assemble = (time.perf_counter() - t0) * 1e3 / k
-            t0 = time.perf_counter()
-            bundle.inputs.load(group)
-            stack = (time.perf_counter() - t0) * 1e3 / k
-            torch.cuda.synchronize()
-            log(f"host tier's host work, host clock: a loader batch "
-                f"assembled in {assemble:.3f} ms (one thread), stacked into "
-                f"the pinned buffers and its copy issued in {stack:.3f} ms "
-                f"a step")
-        out[tier] = {"wall": wall, "busy": busy, "launches": launches}
-        del bundle, dispatch
-        torch.cuda.empty_cache()
-    return out
-
-
-GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
-                    4: "graph", 5: "empty", 6: "wait_event",
-                    7: "event_record", 10: "mem_alloc", 11: "mem_free"}
-
-
-def demangled(names: list) -> list:
-    """C++ names of ``names`` by c++filt where the machine has it."""
-    tool = shutil.which("c++filt") or shutil.which("cu++filt")
-    if tool is None:
-        return names
-    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
-                         text=True).stdout.splitlines()
-    return out if len(out) == len(names) else names
-
-
-def graph_nodes(cfg, root: Path, workdir: Path) -> None:
-    """The nodes of one captured train step (a K = 1 bundle on the device
-    tier), by type from libcuda (``cuGraphGetNodes``,
-    ``cuGraphNodeGetType`` on ``CUDAGraph.raw_cuda_graph()``) and by kernel
-    from its DOT dump (``cuGraphDebugDotPrint``), beside the kernels
-    torch.profiler sees in 10 replays of it. (``CUDAGraph.debug_dump`` under
-    ``enable_debug_mode()`` writes no file on torch 2.11: the graph is gone
-    after its capture.)"""
-    import ctypes
-
-    from torch.profiler import ProfilerActivity, profile
-
-    bundle, dispatch = bundle_case(cfg, root, "device", 1)
-    dispatch(0).tolist()
-    bundle.inputs.set_base(B_TRAIN)
-    bundle.capture(keep_graph=True)
-    bundle.graph.replay()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            bundle.graph.replay()
-        torch.cuda.synchronize()
-    seen = sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.key.startswith(("Memcpy", "Memset"))) / 10
-    cu = ctypes.CDLL("libcuda.so.1")
-
-    def check(code: int, what: str) -> None:
-        if code != 0:
-            raise RuntimeError(f"{what} returned CUresult {code}")
-
-    graph = ctypes.c_void_p(bundle.graph.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    check(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
-    nodes = (ctypes.c_void_p * n.value)()
-    check(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)), "cuGraphGetNodes")
-    types: dict = {}
-    for node in nodes:
-        t = ctypes.c_int(-1)
-        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)),
-              "cuGraphNodeGetType")
-        kind = GRAPH_NODE_TYPES.get(t.value, f"type {t.value}")
-        types[kind] = types.get(kind, 0) + 1
-    path = workdir / "step_graph.dot"
-    check(cu.cuGraphDebugDotPrint(graph, str(path).encode(), ctypes.c_uint(1)),
-          "cuGraphDebugDotPrint")
-    found = re.findall(r"\{KERNEL\s*\|\s*\{ID \|[^|]*\|\s*([^\s\\]+)",
-                       path.read_text())
-    names: dict = {}
-    for name in demangled(found):
-        names[name[:110]] = names.get(name[:110], 0) + 1
-    kernels = types.get("kernel", 0)
-    log(f"one captured train step (K = 1, device tier, batch {B_TRAIN}): "
-        f"{n.value} graph nodes by type {types}; {kernels} kernel nodes "
-        f"({len(found)} named in the DOT dump) against {seen:.1f} kernels a "
-        f"replay by torch.profiler; kernel nodes by name (count, name):")
-    for name, count in sorted(names.items(), key=lambda kv: -kv[1]):
-        log(f"  {count:4d}  {name}")
-    if kernels <= 0 or len(found) != kernels:
-        raise AssertionError(f"the step's graph: {types}, {len(found)} "
-                             f"kernel names in its dump")
-    del bundle, dispatch
-    torch.cuda.empty_cache()
-
-
 def phase_train_k8(workdir: Path, cfg, runs: dict) -> dict:
     """Phase 4k: ``train --steps-per-dispatch 8`` through the CLI on both
     tiers, equal bit for bit to phase 4's runs (``runs``); returns the
@@ -3459,8 +3327,6 @@ def phase_train_k8(workdir: Path, cfg, runs: dict) -> dict:
         f"card, each dispatch one CUDA graph replay of {K_DISPATCH} steps")
     root = workdir / "data"
     division_ok = check_bias_division(seeded_model(cfg))
-    bundle_breakdown(cfg, root)
-    graph_nodes(cfg, root, workdir)
 
     k8 = ["--steps-per-dispatch", str(K_DISPATCH)]
     args = ["train", "--dataset", "synthetic", "--preprocessed",
@@ -3576,13 +3442,17 @@ def counted_run(counts: dict, name: str, run):
     alone: the train entries' counts set to 0 just before it
     (:func:`reset_counts`) and read just after, and added to ``counts``
     (``launches``, ``tensor_core``: entry name -> launches; ``bf16``: #8's
-    on bfloat16 rows; ``runs``: the names of the runs counted). Returns
-    what ``run`` returns."""
-    from pytorch_scalablefhvae_tpu_torch.ops import window_gather
+    on bfloat16 rows; ``stage_gather``: the round staging gather's launches
+    by run; ``runs``: the names of the runs counted). Returns what ``run``
+    returns."""
+    from pytorch_scalablefhvae_tpu_torch.ops import stage_gather, window_gather
 
     entries = train_entries()
     reset_counts(entries)
+    stage_gather.stage_gather.launches = 0
     out = run()
+    counts.setdefault("stage_gather", {})[name] = \
+        stage_gather.stage_gather.launches
     for key, read in (("launches", {e.__name__: e.launches
                                     for e in entries}),
                       ("tensor_core", tensor_core_counts(entries))):
@@ -3863,188 +3733,59 @@ def big_corpus(workdir: Path):
         cfg.data, pack_cache_dir=str(pack)))
 
 
-def big_tier_profile(cfg, loader, tier: str, k: int) -> dict:
-    """10 warm dispatches of ``tier`` on the big corpus under torch.profiler
-    (:func:`profiled_dispatches`), at the CLI defaults: ``stream`` (chunk 0
-    of epoch 0, at K = 1 and K = 8, then a whole K = 8 epoch for the wait
-    at each chunk switch), ``host`` (the loader's batches), ``bf16`` (the
-    store staged whole in bfloat16); ``loader`` is the big corpus's
-    training loader."""
-    from pytorch_scalablefhvae_tpu_torch.data.device_store import (
-        DeviceDataSource,
-    )
-    from pytorch_scalablefhvae_tpu_torch.data.stream_store import (
-        StreamingDeviceSource,
-    )
-    from pytorch_scalablefhvae_tpu_torch.train import loop
-    from pytorch_scalablefhvae_tpu_torch.train.device_step import (
-        PlanInputs,
-        device_train_step,
-    )
-    from pytorch_scalablefhvae_tpu_torch.train.graphs import (
-        HostInputs,
-        StepBundle,
-    )
-    from pytorch_scalablefhvae_tpu_torch.train.step import (
-        create_train_state,
-        make_optimizer,
-    )
-
-    dev = torch.device("cuda")
-    dtype = "bfloat16" if tier == "bf16" else "float32"
-    ds = loader.dataset
-    state = create_train_state(seeded_model(cfg, ds.num_seqs))
-    opt = make_optimizer(1e-3, 0.95, 0.999)
-    loader.set_epoch(0)
-    chunks, out = None, {}
-    if tier == "host":
-        inputs = HostInputs(k, B_TRAIN, ds.seg_len, D, dev)
-        batches = iter(loader)
-    elif tier == "stream":
-        source = StreamingDeviceSource(ds, (4 << 30) // 4, B_TRAIN, dev)
-        chunks = source.epoch_batches(loop.stream_seed(loader, 0))
-        chunk = next(chunks)
-        store, arrays, n_real = source.data, chunk.arrays, chunk.plan.n_real
-        out["chunks"] = len(source.chunks)
-        out["link_bytes"] = source.host_bytes_per_epoch()
-    else:
-        source = DeviceDataSource(ds.store, dev, dtype)
-        plan, arrays = source.stage_epoch(ds, loader._order(), B_TRAIN)
-        store, n_real = source.data, plan.n_real
-    if tier != "host":
-        inputs = PlanInputs(store, B_TRAIN, ds.seg_len)
-        inputs.load_plan(arrays, n_real)
-    bundle = StepBundle(state, opt, 10.0, k, inputs, dev) if k > 1 else None
-
-    def dispatch(d: int) -> torch.Tensor:
-        if k == 1:
-            return device_train_step(state, opt, store, arrays, d * B_TRAIN,
-                                     n_real, 10.0, batch_size=B_TRAIN,
-                                     seg_len=ds.seg_len)["loss"]
-        if tier == "host":
-            inputs.load([next(batches) for _ in range(k)])
-        else:
-            inputs.set_base(d * k * B_TRAIN)
-        return bundle()["loss"].clone()
-
-    out.update(profiled_dispatches(dispatch, k))
-    if chunks is not None:
-        chunks.close()
-        if k > 1:
-            # a whole epoch through the captured bundle: the waits at each
-            # chunk switch
-            stats = loop.run_stream_epoch(state, opt, source, loader, 10.0,
-                                          dev, 0, bundle)
-            out["epoch_ms"] = 1e3 * stats.seconds / stats.steps
-            out["waits"] = source.switch_waits()
-    return out
-
-
-def stream_big(workdir: Path, counts: dict, keep: bool = False) -> dict:
+def stream_big(workdir: Path, counts: dict, keep: bool = False) -> None:
     """4s-big: the CLI defaults over the default budget on a corpus whose
     fp32 store is over it. Each run stopped by ``--max-steps BIG_CAP``, past
-    its first chunk switch (the figures are the stopped epoch's partials):
-    no placement flags (``auto`` streams ~5 chunks of 1 GiB), the same at K
-    = 8, the host loader at K = 8 (what the port did before it could
-    stream), and ``--transfer-dtype bfloat16`` at K = 8 (the store fits at
-    2 bytes, and is staged whole); ms/step, segments/s and link bytes an
-    epoch of each, and the idle share of 10 warm dispatches (torch.profiler)
-    of each tier. The store is packed once (``--pack-cache-dir``, shared
-    with phase 4h) and memory-mapped by every later load. The two streamed
-    runs' launches go into ``counts`` (:func:`counted_run`); the host
-    loader's and the whole bfloat16 store's are not counted. ``keep``: leave
-    the corpus and its pack for phase 4h."""
+    its first chunk switch, at K = 8: no placement flags (``auto`` streams
+    ~5 chunks of 1 GiB), and ``--transfer-dtype bfloat16`` (the store fits
+    at 2 bytes, and is staged whole); each must say so and train a finite
+    loss. The store is packed once (``--pack-cache-dir``, shared with phase
+    4h) and memory-mapped by every later load. The streamed run's launches
+    go into ``counts`` (:func:`counted_run`); the whole bfloat16 store's are
+    not counted. ``keep``: leave the corpus and its pack for phase 4h."""
     from pytorch_scalablefhvae_tpu_torch.cli.main import main as cli
     from pytorch_scalablefhvae_tpu_torch.train import checkpoint as ckpt
-    from pytorch_scalablefhvae_tpu_torch.train.driver import build_loaders
 
     root, pack = workdir / "big", workdir / "big_pack"
     cfg, nbytes = write_big_corpus(root)
     if nbytes <= 4 << 30:
         raise AssertionError(f"the big corpus ({nbytes} bytes) is not over "
                              f"the default budget")
-    cfg = cfg.replace(data=dataclasses.replace(cfg.data,
-                                               pack_cache_dir=str(pack)))
-    t0 = time.perf_counter()
-    loader, _ = build_loaders(cfg, root, True)
-    epoch_steps = len(loader)
-    log(f"4s-big: the training store packed and loaded in "
-        f"{time.perf_counter() - t0:.1f} s; {epoch_steps} steps an epoch")
     k8 = ["--steps-per-dispatch", str(K_DISPATCH)]
-    runs = {"stream, K = 1": [], "stream, K = 8": k8,
-            "host loader, K = 8": ["--data-placement", "host", *k8],
+    runs = {"stream, K = 8": k8,
             "bfloat16, K = 8": ["--transfer-dtype", "bfloat16", *k8]}
-    want = {"stream, K = 1": "streaming it", "stream, K = 8": "streaming it",
-            "host loader, K = 8": None,
+    want = {"stream, K = 8": "streaming it",
             "bfloat16, K = 8": "staging it whole"}
-    seg_bytes = 20 * D * 4
-    out = {}
     for i, (name, flags) in enumerate(runs.items()):
         exp_root = workdir / f"big_{i}"
-        t0 = time.perf_counter()
         args = train_args(cfg, root, exp_root, "--pack-cache-dir", str(pack),
                           *flags, "--epochs", "1", "--max-steps",
                           str(BIG_CAP))
-        if want[name] == "streaming it":
+        if name.startswith("stream"):
             text = counted_run(counts, f"4s-big {name}",
                                lambda: run_cli(cli, args))
         else:
             text = run_cli(cli, args)
-        wall = time.perf_counter() - t0
-        if want[name] is not None and want[name] not in text:
+        if want[name] not in text:
             raise AssertionError(f"4s-big {name}: auto did not log "
                                  f"{want[name]!r}")
         m = re.search(r"streams through the device \((\d+) chunks of "
-                      r"([\d.]+) MB in float32, double-buffered; ([\d.]+) MB "
-                      r"over the link", text)
+                      r"([\d.]+) MB in float32", text)
         mid = ckpt.read_checkpoint_meta(
             step_checkpoints(run_dir(exp_root, 1))[-1])["mid_epoch"]
-        steps, secs = int(mid["batches_done"]), mid["elapsed_s"]
-        ms, loss = 1e3 * secs / steps, mid["loss_sum"] / mid["count_sum"]
-        sps = mid["count_sum"] / secs
-        if m is not None:
-            link = f"{m[3]} MB ({m[1]} chunks of {m[2]} MB)"
-        elif name.startswith("host"):
-            link = (f"{epoch_steps * B_TRAIN * seg_bytes / 1e6:.0f} MB "
-                    f"(every window's frames)")
-        else:
-            link = f"{nbytes / 2e6:.0f} MB once a run (the staged store)"
-        log(f"4s-big {name}: {steps} steps of {epoch_steps} "
-            f"(--max-steps), {ms:.3f} ms/step, {sps:.1f} segments/s, link "
-            f"{link} an epoch; train loss {loss:.4f} over those steps; "
-            f"{wall:.1f} s with loading; card {smi_name_power()}")
+        steps, loss = int(mid["batches_done"]), \
+            mid["loss_sum"] / mid["count_sum"]
+        log(f"4s-big {name}: {steps} steps (--max-steps), "
+            + (f"{m[1]} chunks of {m[2]} MB, " if m else "")
+            + f"train loss {loss:.4f} over those steps")
         if steps != BIG_CAP or not np.isfinite(loss):
             raise AssertionError(f"4s-big {name}: {steps} steps, or the loss "
                                  f"is not finite")
-        out[name] = {"ms_per_step": ms, "steps": steps,
-                     "segments_per_s": sps}
-        if name == "stream, K = 1" and not (m and 4 <= int(m[1]) <= 6):
+        if name.startswith("stream") and not (m and 4 <= int(m[1]) <= 6):
             raise AssertionError("4s-big: auto did not stream about 5 chunks")
-    for tier, k in (("stream", 1), ("stream", K_DISPATCH),
-                    ("host", K_DISPATCH), ("bf16", K_DISPATCH)):
-        p = big_tier_profile(cfg, loader, tier, k)
-        waits = p.get("waits", [])
-        log(f"4s-big {tier} tier, K = {k}, 10 warm dispatches: host wall "
-            f"{p['wall']:.3f} ms/step, device busy {p['busy']:.3f} (copies "
-            f"{p['copies']:.3f}), idle share {p['idle']:.3f}, "
-            f"{p['launches']:.1f} kernels a step"
-            + (f"; a whole epoch through the captured bundle "
-               f"{p['epoch_ms']:.3f} ms/step; at the {len(waits)} chunk "
-               f"switches the host waited for the filler "
-               f"{[round(h * 1e3, 3) for h, _ in waits]} ms and the compute "
-               f"stream for the slot's copy "
-               f"{[round(ms, 3) for _, ms in waits]} ms" if waits else "")
-            + f"; card {smi_name_power()}")
-        if p["chains"] == 0:
-            raise AssertionError(f"torch.profiler saw no LSTM kernel in the "
-                                 f"{tier} tier's dispatches")
-        out[f"{tier} K={k}"] = p
-        torch.cuda.empty_cache()
-    del loader
     if not keep:
         shutil.rmtree(root, ignore_errors=True)
         shutil.rmtree(pack, ignore_errors=True)
-    return out
 
 
 def phase_stream(workdir: Path, cfg, keep_big: bool = False) -> dict:
@@ -4130,65 +3871,6 @@ def traced_turnover(rounds, state) -> tuple:
               if name.startswith("turnover.") and name != "turnover.planner"}
     stages["draw"] += stages.pop("loader")
     return sub, stages
-
-
-def hier_tier_profile(cfg, loader, tier: str) -> dict:
-    """10 warm dispatches of K = 8 steps of a hierarchical round at the CLI
-    defaults under torch.profiler (:func:`profiled_dispatches`), after the
-    round's turnover: ``round`` (the round's sub-pack staged at its
-    ceiling, the plan padded to the run's length) or ``host`` (the round's
-    loader batches); ``loader`` is the big corpus's training loader."""
-    from pytorch_scalablefhvae_tpu_torch.data.device_store import (
-        DeviceDataSource,
-    )
-    from pytorch_scalablefhvae_tpu_torch.train.device_step import PlanInputs
-    from pytorch_scalablefhvae_tpu_torch.train.graphs import (
-        HostInputs,
-        StepBundle,
-    )
-    from pytorch_scalablefhvae_tpu_torch.train.rounds import (
-        Rounds,
-        round_ceiling,
-    )
-    from pytorch_scalablefhvae_tpu_torch.train.step import (
-        create_train_state,
-        make_optimizer,
-    )
-
-    dev = torch.device("cuda")
-    ds, k8 = loader.dataset, K_DISPATCH
-    k, ceiling = round_ceiling("auto", ds.store, HIER_K, 4 << 30,
-                               verbose=False)
-    source = (DeviceDataSource(ds.store.subset([], materialize=True), dev,
-                               pad_to_rows=ceiling)
-              if tier == "round" else None)
-    state = create_train_state(seeded_model(cfg, k))
-    opt = make_optimizer(1e-3, 0.95, 0.999)
-    rounds = Rounds(cfg, loader, tier, source, k, dev)
-    sub, turnover = traced_turnover(rounds, state)
-    sub.set_epoch(0)
-    if tier == "host":
-        inputs = HostInputs(k8, B_TRAIN, ds.seg_len, D, dev)
-        batches = iter(sub)
-    else:
-        plan, arrays = source.stage_epoch(sub.dataset, sub._order(), B_TRAIN,
-                                          pad_rows=rounds.plan_rows)
-        inputs = PlanInputs(source.data, B_TRAIN, ds.seg_len)
-        inputs.load_plan(arrays, plan.n_real)
-    bundle = StepBundle(state, opt, 10.0, k8, inputs, dev)
-
-    def dispatch(d: int) -> torch.Tensor:
-        if tier == "host":
-            inputs.load([next(batches) for _ in range(k8)])
-        else:
-            inputs.set_base(d * k8 * B_TRAIN)
-        return bundle()["loss"].clone()
-
-    out = profiled_dispatches(dispatch, k8)
-    out["turnover"] = turnover
-    if tier == "host":
-        batches.close()
-    return out
 
 
 def phase_hier(workdir: Path, cfg) -> dict:
@@ -4378,20 +4060,6 @@ def phase_hier(workdir: Path, cfg) -> dict:
     finally:
         rounds.Rounds.map_init, rounds.replace_mu2_table = real_init, real_swap
 
-    loader, _ = build_loaders(bcfg, root, True)
-    for tier in ("round", "host"):
-        p = hier_tier_profile(bcfg, loader, tier)
-        log(f"4h {tier} tier, K = {K_DISPATCH}, 10 warm dispatches after a "
-            f"turnover ({', '.join(f'{k} {v:.3f} s' for k, v in p['turnover'].items())}): "
-            f"host wall {p['wall']:.3f} ms/step, device busy "
-            f"{p['busy']:.3f} (copies {p['copies']:.3f}), idle share "
-            f"{p['idle']:.3f}, {B_TRAIN / p['wall'] * 1e3:.1f} segments/s, "
-            f"{p['launches']:.1f} kernels a step; card {smi_name_power()}")
-        if p["chains"] == 0:
-            raise AssertionError(f"torch.profiler saw no LSTM kernel in the "
-                                 f"{tier} tier's dispatches")
-        torch.cuda.empty_cache()
-    del loader
     launches = counts["launches"]
     log(f"launches during the phase's {len(counts['runs'])} runs "
         f"({', '.join(counts['runs'])}), each counted from 0: {launches}; of "
@@ -4401,8 +4069,22 @@ def phase_hier(workdir: Path, cfg) -> dict:
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched by phase 4h")
+    # a launch a round entered on the round tier: (a) two rounds, (c) one
+    # (of two epochs), its stopped run one and the resume one more (it
+    # re-enters the round: staged again), (d) one; none on the host loader
+    # or the device tier's views
+    staged = counts["stage_gather"]
+    log(f"4h stage_gather launches by run: {staged}")
+    want = {"4h (a) round-staged, K = 8": 2, "4h (b) host loader, K = 8": 0,
+            "4h (c) two-epoch rounds, K = 8": 1,
+            "4h (c) stopped and resumed": 2,
+            "4h (d) round-staged bfloat16, K = 8": 1}
+    if any(staged[name] != n for name, n in want.items()) or any(
+            n for name, n in staged.items() if "(e)" in name):
+        raise AssertionError(f"4h: the rounds were not staged by one "
+                             f"stage_gather launch each: {staged}")
     log(f"phase 4h took {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return {**launches, "stage_gather": sum(staged.values())}
 
 
 # -------------------------------------------------------------- phase 4m
@@ -4420,31 +4102,6 @@ def simple_config(cfg):
     return cfg.replace(model=ModelConfig(model_type=SIMPLE),
                        data=dataclasses.replace(
                            cfg.data, training_batch_size=SIMPLE_B))
-
-
-def simple_profile(cfg, root: Path, k: int) -> dict:
-    """:func:`profiled_dispatches` of the device tier at ``k`` steps a
-    dispatch: eager steps at K = 1, the CUDA graph's replays above."""
-    if k > 1:
-        return profiled_dispatches(bundle_case(cfg, root, "device", k)[1], k)
-    from pytorch_scalablefhvae_tpu_torch.train.device_step import (
-        device_train_step,
-    )
-    from pytorch_scalablefhvae_tpu_torch.train.step import (
-        create_train_state,
-        make_optimizer,
-    )
-
-    loader, source, plan, arrays = staged_epoch0(cfg, root)
-    state = create_train_state(seeded_model(cfg))
-    opt = make_optimizer(1e-3, 0.95, 0.999)
-
-    def dispatch(d: int) -> torch.Tensor:
-        return device_train_step(
-            state, opt, source.data, arrays, d * SIMPLE_B, plan.n_real, 10.0,
-            batch_size=SIMPLE_B, seg_len=cfg.data.seg_len)["loss"]
-
-    return profiled_dispatches(dispatch, 1)
 
 
 def write_reference_tar(path: Path, seed: int = 0) -> dict:
@@ -4502,16 +4159,6 @@ def phase_simple(workdir: Path, cfg) -> dict:
 
     # (a) the first steps through #5/#6 against the plain versions
     compare_first_steps(scfg, root)
-    for k in (1, K_DISPATCH):
-        p = simple_profile(scfg, root, k)
-        log(f"4m device tier, K = {k}, 10 warm dispatches: host wall "
-            f"{p['wall']:.3f} ms/step, device busy {p['busy']:.3f} ms/step, "
-            f"idle share {p['idle']:.3f}, {p['launches']:.1f} kernels a "
-            f"step, {SIMPLE_B / p['wall'] * 1e3:.1f} segments/s; first "
-            f"dispatch {p['eager']:.3f} ms/step"
-            + (f", capture {p['capture']:.3f} s" if k > 1 else "")
-            + f"; card {smi_name_power()}")
-        torch.cuda.empty_cache()
 
     # (b) two epochs at K = 1 and at K = 8
     runs = {}
@@ -5362,6 +5009,7 @@ def _mesh_runs_rank(workdir: str) -> int:
     import torch.distributed as dist
 
     from pytorch_scalablefhvae_tpu_torch.cli.main import main as cli
+    from pytorch_scalablefhvae_tpu_torch.ops import stage_gather
     from pytorch_scalablefhvae_tpu_torch.train import loop
 
     work = Path(workdir)
@@ -5376,12 +5024,14 @@ def _mesh_runs_rank(workdir: str) -> int:
             waits.setdefault(current[0], []).append(source.switch_waits())
 
     out = {"texts": {}, "wall": {}, "launches": {}, "launches_tc": {},
-           "saves": {}}
+           "saves": {}, "stage_gathers": {}}
+    gather = stage_gather.stage_gather
     loop.run_stream_epoch = spy
     try:
         for name, args in runs.items():
             current[0] = name
             reset_counts(mesh_entries())
+            gather.launches = 0
             t0 = time.perf_counter()
             with timed_saves(out["saves"].setdefault(name, [])):
                 out["texts"][name] = run_cli(cli, args + [
@@ -5390,6 +5040,7 @@ def _mesh_runs_rank(workdir: str) -> int:
             out["launches"][name] = {e.__name__: e.launches
                                      for e in mesh_entries()}
             out["launches_tc"][name] = tensor_core_counts(mesh_entries())
+            out["stage_gathers"][name] = gather.launches
     finally:
         loop.run_stream_epoch = real
     out["waits"] = waits
@@ -5445,7 +5096,7 @@ def gloo_mesh_runs(workdir: Path, cfg, phases: list) -> dict:
                             for name in named
                             if f"{phase} {name}" in info[key]}
                       for key in ("texts", "wall", "launches", "launches_tc",
-                                  "waits", "saves")}
+                                  "waits", "saves", "stage_gathers")}
     by_phase = {phase: round(sum(o["wall"].values()), 1)
                 for phase, o in out.items()}
     log(f"the {world} gloo ranks ran {len(runs)} CLI runs of phases "
@@ -6152,7 +5803,7 @@ def _mesh_hier_nccl_rank(workdir: str, data_root: str, shape: tuple) -> int:
     from pytorch_scalablefhvae_tpu_torch.data.device_store import (
         DeviceDataSource,
     )
-    from pytorch_scalablefhvae_tpu_torch.ops import window_gather
+    from pytorch_scalablefhvae_tpu_torch.ops import stage_gather, window_gather
     from pytorch_scalablefhvae_tpu_torch.parallel import mesh as mesh_module
     from pytorch_scalablefhvae_tpu_torch.train import rounds
     from pytorch_scalablefhvae_tpu_torch.train.device_step import PlanInputs
@@ -6239,6 +5890,7 @@ def _mesh_hier_nccl_rank(workdir: str, data_root: str, shape: tuple) -> int:
             str(HIER_MESH_STOP)])
         out["launches_k1"] = {e.__name__: e.launches for e in mesh_entries()}
         reset_counts(mesh_entries())
+        stage_gather.stage_gather.launches = 0
         exp8 = work / f"k{MESH_K}"
         out["text_k8"] = run_cli(cli, args + [
             "--exp-root", str(exp8), *mesh_flags, "--steps-per-dispatch",
@@ -6255,6 +5907,8 @@ def _mesh_hier_nccl_rank(workdir: str, data_root: str, shape: tuple) -> int:
         out[f"launches_k{MESH_K}"] = {e.__name__: e.launches
                                       for e in mesh_entries()}
         out[f"launches_tc_k{MESH_K}"] = tensor_core_counts(mesh_entries())
+        out[f"launches_k{MESH_K}"]["stage_gather"] = \
+            stage_gather.stage_gather.launches
     finally:
         rounds.Rounds.map_init, rounds.replace_mu2_table = real_init, real_swap
         rounds.device_map_pass_rows = real_rows
@@ -6349,7 +6003,7 @@ def check_nccl_hier(work: Path, shape: tuple, tag: str) -> dict:
         f"K = 1; turnovers {[t['seconds'] for t in turns]}; rank 0's "
         f"launches K = {MESH_K} {info[f'launches_k{MESH_K}']}, K = 1 "
         f"{info['launches_k1']}; card {smi_name_power()}")
-    steps = int(recs[-1]["step"])
+    steps, n_rounds = int(recs[-1]["step"]), len(turns)
     c = info[f"launches_k{MESH_K}"]
     check_tensor_core(c, info[f"launches_tc_k{MESH_K}"], f"{tag}, K = "
                       f"{MESH_K}")
@@ -6361,10 +6015,12 @@ def check_nccl_hier(work: Path, shape: tuple, tag: str) -> dict:
             and c["discriminative_log_qy_bwd"] == 0
             and c["windowed_chunk_gather"] == 0
             and min(c["lstm2_tm_proj"], c["lstm2_tm"],
-                    c["lstm2_tm_proj_bwd"], c["lstm2_tm_bwd"]) > 0):
+                    c["lstm2_tm_proj_bwd"], c["lstm2_tm_bwd"]) > 0
+            and c["stage_gather"] == n_rounds):
         raise AssertionError(f"{tag}: two finite epochs with kernel #7 once "
                              f"a step forward and backward, #6 and #8 never, "
-                             f"#1-#4 launched: {c}")
+                             f"#1-#4 launched, and a stage_gather launch a "
+                             f"round entered ({n_rounds}): {c}")
     return info
 
 
@@ -6377,7 +6033,9 @@ def phase_mesh_hier(workdir: Path, cfg, ctx: dict, info: dict,
     against replicated, a run stopped inside the round and resumed against
     the run never stopped, each bit for bit; the round tier, where the
     replicated sub-pack reduces the round size and the row-sharded one
-    does not; the host loader, its MAP init over every window as the rows
+    does not, each round one ``stage_gather`` launch from the pack held as
+    a page-locked copy in memory; the host loader, its MAP init over every
+    window as the rows
     pass's, within ``TOL_HIER_EPOCH`` of the device tier. (b) One NCCL rank (``--mesh 1,1 --distributed``) at the CLI
     defaults on 4s-big's corpus (:func:`check_nccl_hier`; the rank is
     started once for 5k (a) and this, :func:`nccl_mesh_runs`). Returns
@@ -6450,6 +6108,14 @@ def phase_mesh_hier(workdir: Path, cfg, ctx: dict, info: dict,
             raise AssertionError(f"5h (a) {name}: #7 must be launched once "
                                  f"a step forward and backward, #6 and #8 "
                                  f"never: {c}")
+    # the round tier's one round staged on rank 0, replicated and
+    # row-sharded, by one gather; the views and the host loader stage
+    # none
+    staged = info["stage_gathers"]
+    log(f"5h (a) rank 0's stage_gather launches by run: {staged}")
+    if staged != {n: int(n in ("round", "round sharded")) for n in staged}:
+        raise AssertionError(f"5h (a): the round tier's rounds were not "
+                             f"staged by one stage_gather launch: {staged}")
     torch.cuda.empty_cache()
 
     # (b) one NCCL rank at the CLI defaults (in the shared NCCL launch)
@@ -7462,7 +7128,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", default=None,
                         help="comma-separated phases to run after phase 1 "
-                             "(2, 2f, 2b, 2c, 2d, 2e, 3, 3b, 4, 4k, 4s, 4h, "
+                             "(2, 2f, 2b, 2c, 2g, 2d, 2e, 3, 3b, 4, 4k, 4s, "
+                             "4h, "
                              "4m, 4p, 4b, 4q, 5, 5t, 5k, 5h, 4r, 4o, 4l; 5n, "
                              "on four cards, only when named; 2 includes "
                              "2f, 4k, 4b, 4r and 4o need 4); default all but "
@@ -7498,7 +7165,8 @@ def main(argv=None) -> int:
     results: dict = {}
     for phase, fn in (("2", phase_kernels), ("2f", phase_disc_forward),
                       ("2b", phase_backward),
-                      ("2c", phase_gather), ("2d", phase_logmel),
+                      ("2c", phase_gather), ("2g", phase_stage_gather),
+                      ("2d", phase_logmel),
                       ("2e", phase_sharded)):
         if on(phase):
             results.update(timed(phase, fn))

@@ -14,7 +14,11 @@ The host-side pieces are this package's own numpy copies of the JAX
 package's: ``EpochPlan``, ``build_epoch_plan``, ``STORE_TAIL_SLACK``,
 ``staging_itemsize`` and ``resolve_data_placement``. A hierarchical round
 on a store over the budget stages its sub-pack into a buffer of a fixed
-row ceiling (``DeviceDataSource(pad_to_rows=)``, ``restage``).
+row ceiling (``DeviceDataSource(pad_to_rows=)``): a round held as a
+layout (:class:`RoundLayout`) by one launch of ``ops/stage_gather.py`` from
+the host store, page-locked and mapped once (``hold_host``,
+``restage_runs``), or, for int8 staging, a sub-pack materialised on the
+host (``restage``).
 ``--epoch-plan device`` derives each epoch's plan on the device from the
 per-sequence vectors and a seeded generator (:func:`make_device_epoch_plan`,
 :class:`DeviceEpochPlanner`) instead of uploading it.
@@ -42,6 +46,7 @@ import torch
 
 from pytorch_scalablefhvae_tpu_torch.data.quantize import quantize_columns
 from pytorch_scalablefhvae_tpu_torch.data.segments import SegmentDataset
+from pytorch_scalablefhvae_tpu_torch.ops import stage_gather
 from pytorch_scalablefhvae_tpu_torch.train import trace
 
 # zero rows appended to the staged pack: the chunked window gather
@@ -53,6 +58,13 @@ from pytorch_scalablefhvae_tpu_torch.train import trace
 # shift 8 up to seg_len 136; ``chunk_layout`` raises when a configuration
 # would exceed it.
 STORE_TAIL_SLACK = 256
+
+# the longest run of the kernel's runs table (:func:`gather_runs` on a
+# GPU): longer ones are cut, so that its blocks, one a run, are many and
+# even; at a round of 5,000 LibriSpeech-sized sequences 64 rows read
+# fastest of 64-2,048 (87.5 ms against 93.7 at 128 and 96.2 at 256 on an
+# H100)
+GATHER_PIECE_ROWS = 64
 
 
 def staging_itemsize(store_dtype: str) -> int:
@@ -287,6 +299,70 @@ def copy_rows(dst: torch.Tensor, data: np.ndarray,
         dst[lo:lo + blk.shape[0]].copy_(host_rows(blk, dst.dtype))
 
 
+class RoundLayout:
+    """A hierarchical round's sub-pack as a layout alone, for a round whose
+    rows are gathered from the host store straight into the staged buffer:
+    the keys in draw order, their lengths, each sequence's first row in
+    the sub-pack (``seq_starts``, local: the cumulative sum of the lengths)
+    and in the host store (``src_starts``). It has no rows on the host:
+    reading ``data`` raises."""
+
+    def __init__(self, store, keys):
+        idx = np.asarray([store.seq2idx[k] for k in keys], dtype=np.int64)
+        self.seq_keys = list(keys)
+        self.seq2idx = {k: i for i, k in enumerate(self.seq_keys)}
+        self.lens = store.lens[idx]
+        self.dim = store.dim
+        self.src_starts = np.asarray(store.seq_starts, np.int64)[idx]
+        self.seq_starts = np.zeros(len(idx), dtype=np.int64)
+        np.cumsum(self.lens[:-1], out=self.seq_starts[1:])
+        self.rows = int(self.lens.sum())
+        self.mvn_params = store.mvn_params
+
+    @property
+    def num_seqs(self) -> int:
+        return len(self.seq_keys)
+
+    @property
+    def data(self):
+        raise RuntimeError(
+            "a round gathered on the device has no rows on the host: they "
+            "live in the staged buffer (DeviceDataSource.restage_runs)")
+
+
+def gather_runs(layout: RoundLayout, lo: int = 0, hi: int | None = None,
+                piece: int | None = None) -> np.ndarray:
+    """``[R, 3]`` int64 runs ``(src, dst, n)`` that copy ``layout``'s rows
+    ``[lo, hi)`` of its sub-pack from the host store into a buffer that
+    holds those rows from row 0 (a mesh rank's window of a row-sharded
+    buffer), in draw order: a sequence a run, sequences adjacent in the
+    store merged, each cut into pieces of at most ``piece`` rows where
+    ``piece`` is given."""
+    hi = layout.rows if hi is None else hi
+    dst = layout.seq_starts
+    a = np.clip(dst, lo, hi)
+    b = np.clip(dst + layout.lens, lo, hi)
+    keep = b > a
+    src = (layout.src_starts + a - dst)[keep]
+    dst, n = (a - lo)[keep], (b - a)[keep]
+    if not len(n):
+        return np.zeros((0, 3), np.int64)
+    # the kept runs are contiguous in the buffer; merge those that are in
+    # the store too
+    first = np.ones(len(n), bool)
+    first[1:] = src[1:] != src[:-1] + n[:-1]
+    heads = np.flatnonzero(first)
+    src, dst, n = src[heads], dst[heads], np.add.reduceat(n, heads)
+    if piece is None:
+        return np.stack([src, dst, n], axis=1)
+    pieces = -(-n // piece)
+    run = np.repeat(np.arange(len(n)), pieces)
+    off = (np.arange(int(pieces.sum()))
+           - np.repeat(np.cumsum(pieces) - pieces, pieces)) * piece
+    return np.stack([src[run] + off, dst[run] + off,
+                     np.minimum(n[run] - off, piece)], axis=1)
+
+
 class DeviceDataSource:
     """The packed store on ``device`` in ``store_dtype`` (``"float32"``,
     ``"bfloat16"`` or ``"int8"``), plus per-epoch plan uploads. ``data`` is
@@ -336,6 +412,7 @@ class DeviceDataSource:
         if self.shard_store:
             self.data = RowShard(self.data, self.window.start, buf.shape[0],
                                  total, mesh)
+        self.host = None  # the host store rounds are gathered from
         self.restage(store)
 
     @property
@@ -359,13 +436,8 @@ class DeviceDataSource:
         issued with; raises when the store and the tail slack do not
         fit."""
         data = store.data
-        rows, buf = data.shape[0], self.rows
-        if rows + self.slack > self.total_rows:
-            raise ValueError(
-                f"a store of {rows} rows (and {self.slack} of slack) "
-                f"does not fit the staged buffer's {self.total_rows}")
-        lo = self.window.start
-        hi = max(min(self.window.stop, rows), lo)
+        lo, hi = self._held(data.shape[0])
+        buf = self.rows
         if self.store_dtype == "int8":
             q, scale, offset = quantize_columns(data)
             buf[:hi - lo].copy_(torch.from_numpy(q[lo:hi]))
@@ -373,10 +445,64 @@ class DeviceDataSource:
             self.staged.offset.copy_(torch.from_numpy(offset))
         else:
             copy_rows(buf, data[lo:hi])
-        buf[hi - lo:].zero_()
+        self._zero_after(hi - lo)
+
+    def _held(self, rows: int) -> tuple[int, int]:
+        """The rows ``[lo, hi)`` of a store of ``rows`` rows that this
+        rank's buffer holds, from its row 0; raises when the store and the
+        tail slack do not fit."""
+        if rows + self.slack > self.total_rows:
+            raise ValueError(
+                f"a store of {rows} rows (and {self.slack} of slack) "
+                f"does not fit the staged buffer's {self.total_rows}")
+        lo = self.window.start
+        return lo, max(min(self.window.stop, rows), lo)
+
+    def _zero_after(self, held: int) -> None:
+        """Zero the buffer past its ``held`` staged rows; count them."""
+        buf = self.rows
+        buf[held:].zero_()
         if trace.ON:
             trace.count("staged_bytes",
-                        (hi - lo) * buf.shape[1] * buf.element_size())
+                        held * buf.shape[1] * buf.element_size())
+
+    def hold_host(self, data: np.ndarray) -> None:
+        """Hold ``data``, the packed host store whose rounds
+        :meth:`restage_runs` gathers into the buffer
+        (``ops/stage_gather.py`` ``host_store``: on a GPU page-locked and
+        mapped, once per array); raises where it cannot be held."""
+        try:
+            self.host = stage_gather.host_store(data, self.device)
+        except stage_gather.NotMapped as e:
+            raise RuntimeError(
+                f"hierarchical rounds on the round tier gather each round "
+                f"from the page-locked host store, which cannot be held: "
+                f"{e}; --data-placement host trains from the host loader "
+                f"instead") from e
+
+    def upload_runs(self, layout: RoundLayout) -> torch.Tensor:
+        """``layout``'s runs table (:func:`gather_runs`) within this rank's
+        window, on the device; on a GPU cut into the kernel's pieces."""
+        piece = GATHER_PIECE_ROWS if self.device.type == "cuda" else None
+        runs = gather_runs(layout, *self._held(layout.rows), piece)
+        # the kernel reads and writes where the runs say: hold them inside
+        # the host store and the buffer
+        ends = runs[:, :2] + runs[:, 2:]
+        if len(runs) and (ends[:, 0].max() > self.host.rows.shape[0]
+                          or ends[:, 1].max() > self.rows.shape[0]):
+            raise ValueError(f"the round's runs reach past the host store "
+                             f"or the staged buffer: {ends.max(axis=0)}")
+        return self.upload(runs, torch.long)
+
+    def restage_runs(self, layout: RoundLayout, runs: torch.Tensor) -> None:
+        """:meth:`restage` of a round held as a layout: its rows (of this
+        rank's window) gathered from the held host store by ``runs``
+        (:meth:`upload_runs`) in one launch of ``stage_gather``, zeros
+        after them, on the current stream; raises when the rows and the
+        tail slack do not fit."""
+        lo, hi = self._held(layout.rows)
+        stage_gather.stage_gather(self.host, runs, self.rows)
+        self._zero_after(hi - lo)
 
     def upload(self, arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device,

@@ -60,6 +60,9 @@ _SIGNATURES = {
                         + [ctypes.c_float, _P]),
     "sfhvae_window_gather_max_smem": (_I, []),
     "sfhvae_window_gather": (_I, [_P, _P, _P, _L] + [_I] * 6 + [_P]),
+    "sfhvae_host_register": (_I, [_P, _L, _I, ctypes.POINTER(_P)]),
+    "sfhvae_host_unregister": (_I, [_P]),
+    "sfhvae_stage_gather": (_I, [_P, _P, _I, _P, _I, _I, _I, _P]),
     "sfhvae_fbank_logmel_smem": (_L, [_I] * 4),
     "sfhvae_fbank_logmel_max_smem": (_I, []),
     "sfhvae_fbank_logmel_threads": (_I, [_I, _I]),

@@ -18,13 +18,19 @@ A hierarchical run takes one of three tiers, as the JAX loop gives it:
   subset is a view of it (absolute frame offsets);
 - ``round``: the store is over the budget (``auto``, ``stream``, or an
   explicit ``device``), but a round's worst-case sub-pack fits three
-  quarters of it (:func:`round_ceiling`): each round materialises its
-  sub-pack on the host and stages it into ONE buffer of a fixed row ceiling
-  (``DeviceDataSource.restage``), in the compute stream's order, so a
-  captured K-step graph keeps reading the same address and no step issued
-  before a turnover reads the next round's rows. The dev split is budgeted
-  against one ceiling (the JAX loop counts two, for the buffer it drops
-  while a dispatch still reads it);
+  quarters of it (:func:`round_ceiling`): each round's sub-pack is staged
+  into ONE buffer of a fixed row ceiling, in the compute stream's order, so
+  a captured K-step graph keeps reading the same address and no step issued
+  before a turnover reads the next round's rows. The source holds the host
+  store (``DeviceDataSource.hold_host``: page-locked and mapped on a GPU),
+  each round is a layout (``RoundLayout``), and one launch of
+  ``ops/stage_gather.py`` reads its rows from the host store into the
+  buffer (``restage_runs``); int8 staging, whose columns are quantized over
+  the whole sub-pack, materialises the round's sub-pack on the host and
+  copies it (``restage``). The counters ``stage_gathers`` and
+  ``stage_fallbacks`` count the turnovers of each. The dev split is
+  budgeted against one ceiling (the JAX loop counts two, for the buffer it
+  drops while a dispatch still reads it);
 - ``host``: the host loader.
 
 On the two staged tiers every round's plan is padded to one length (the K
@@ -58,6 +64,7 @@ import torch
 from pytorch_scalablefhvae_tpu_torch.data.device_store import (
     STORE_TAIL_SLACK,
     DeviceEpochPlanner,
+    RoundLayout,
     build_epoch_plan,
     staging_itemsize,
     store_budget,
@@ -191,6 +198,11 @@ class Rounds:
         self.seed = config.train.seed
         self.dtype = config.data.transfer_dtype
         self.skip = max(config.train.map_init_chunk_skip, 1)
+        # int8 quantizes each round over its whole sub-pack, on the host;
+        # every other staging dtype gathers the round from the held store
+        self.quantized = tier == "round" and source.store_dtype == "int8"
+        if tier == "round" and not self.quantized:
+            source.hold_host(ds.store.data)
         self.current: SegmentLoader | None = None
         B = loader.batch_size
         top = np.sort(np.asarray(ds.nsegs, np.int64))[-k:]
@@ -231,7 +243,8 @@ class Rounds:
         fresh = boundary and not resumed
         store = self.full.store
         # the printed seconds are the timed stage spans': draw the draw
-        # and the loader, stage the restage and its sync
+        # and the loader, materialise the host's part (the layout and its
+        # runs table, or the host sub-pack), stage the copy and its sync
         with trace.span("turnover"):
             with trace.span("turnover.draw", timed=True) as draw:
                 keys = round_keys(store.seq_keys, self.k, self.seed, e0)
@@ -246,13 +259,9 @@ class Rounds:
                         f"round draw needs {frames} frames but the staging "
                         f"ceiling holds {held}: the ceiling must cover the "
                         f"K largest sequences")
-                with trace.span("turnover.materialise", timed=True) as done:
-                    sub = store.subset(keys, materialize=True)
-                secs["materialise"] = done.seconds
-                with trace.span("turnover.stage", timed=True) as done:
-                    self.source.restage(sub)
-                    self._sync()
-                secs["stage"] = done.seconds
+                stage = self.stage_quantized if self.quantized else \
+                    self.stage_gathered
+                sub = stage(store, keys, secs)
             else:
                 sub = store.subset(keys)
             with trace.span("turnover.loader", timed=True) as done:
@@ -277,6 +286,39 @@ class Rounds:
                   f"): " + ", ".join(f"{name} {s:.3f} s"
                                      for name, s in secs.items()))
         return self.current
+
+    def stage_gathered(self, store, keys, secs: dict) -> RoundLayout:
+        """The round of ``keys`` as a layout, its rows gathered from the
+        held host store into the staged buffer by one launch; the host's
+        part (the layout, its runs table and their upload) and the
+        gather's seconds into ``secs``."""
+        with trace.span("turnover.materialise", timed=True) as done:
+            sub = RoundLayout(store, keys)
+            runs = self.source.upload_runs(sub)
+        secs["materialise"] = done.seconds
+        with trace.span("turnover.stage", timed=True) as done:
+            self.source.restage_runs(sub, runs)
+            self._sync()
+        secs["stage"] = done.seconds
+        trace.count("stage_gathers")
+        trace.count("stage_fallbacks", 0)
+        return sub
+
+    def stage_quantized(self, store, keys, secs: dict):
+        """int8 staging: the round of ``keys`` materialised on the host,
+        where its columns are quantized over the whole sub-pack, and
+        copied into the staged buffer; the seconds of each into
+        ``secs``."""
+        with trace.span("turnover.materialise", timed=True) as done:
+            sub = store.subset(keys, materialize=True)
+        secs["materialise"] = done.seconds
+        with trace.span("turnover.stage", timed=True) as done:
+            self.source.restage(sub)
+            self._sync()
+        secs["stage"] = done.seconds
+        trace.count("stage_gathers", 0)
+        trace.count("stage_fallbacks")
+        return sub
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

@@ -59,7 +59,7 @@ def test_sources_compile_together_then_link_once(fake):
     assert [s.name for s in srcs] == [
         "discriminative_bwd.cu", "discriminative_fwd.cu", "fbank_logmel.cu",
         "lstm2_bwd.cu", "lstm2_bwd_fma.cu", "lstm2_fwd.cu",
-        "lstm2_fwd_fma.cu", "window_gather.cu"]
+        "lstm2_fwd_fma.cu", "stage_gather.cu", "window_gather.cu"]
     runs = calls(fake)
     compiles = [r for r in runs if "-c" in r["args"]]
     links = [r for r in runs if "-shared" in r["args"]]

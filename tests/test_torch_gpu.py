@@ -642,6 +642,56 @@ def test_window_gather_matches_plain(cuda, d, offset):
     assert not got[-spb:, 1:].any()
 
 
+# a copy: the kernel must equal its plain version bit for bit (bfloat16
+# rounded as torch rounds on the CPU). D 80 takes the 16-byte loads, D 6
+# the 4-byte ones; the store in memory, or memory-mapped read-only as a
+# pack cache is (held as a page-locked copy in memory)
+@pytest.mark.parametrize("d,mapped", [(80, False), (6, False), (80, True)],
+                         ids=["16-byte loads", "4-byte loads", "memmap"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stage_gather_matches_plain(cuda, d, mapped, dtype, tmp_path):
+    from pytorch_scalablefhvae_tpu_torch.data.device_store import (
+        GATHER_PIECE_ROWS,
+        RoundLayout,
+        gather_runs,
+    )
+    from pytorch_scalablefhvae_tpu_torch.data.feature_store import (
+        FeatureStore,
+    )
+    from pytorch_scalablefhvae_tpu_torch.ops import stage_gather
+
+    rng = np.random.default_rng(8)
+    store = FeatureStore.from_arrays({
+        f"s{i}": (rng.standard_normal((n, d)) * 3).astype(np.float32)
+        for i, n in enumerate(rng.integers(100, 1300, 61))})
+    if mapped:
+        path = tmp_path / "pack.bin"
+        store.data.tofile(path)
+        store.data = np.memmap(path, np.float32, "r",
+                               shape=store.data.shape)
+    host = stage_gather.host_store(store.data, cuda)
+    assert host.ptr and stage_gather.host_store(store.data, cuda).ptr \
+        == host.ptr
+    assert (host.rows.data_ptr() == store.data.ctypes.data) != mapped
+    layout = RoundLayout(store, list(rng.choice(store.seq_keys, 37,
+                                                replace=False)))
+    fn = stage_gather.stage_gather
+    # the whole round, then a window of it; an odd number of runs each, the
+    # rows no run names left as they were
+    for lo, hi in ((0, layout.rows), (1001, layout.rows - 777)):
+        runs = gather_runs(layout, lo, hi, GATHER_PIECE_ROWS)
+        runs = torch.from_numpy(runs[:len(runs) - 1 + len(runs) % 2])
+        got = torch.full((hi - lo + 5, d), 5.0, dtype=dtype, device=cuda)
+        want = got.cpu()
+        before = fn.launches
+        fn(host, runs.to(cuda), got)
+        stage_gather.stage_gather_reference(host, runs, want)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1 and len(runs) % 2 == 1
+        assert torch.equal(got.cpu().view(torch.int16),
+                           want.view(torch.int16))
+
+
 def test_chunked_map_pass_through_the_kernel(cuda):
     """The dev MAP pass on the card: through the gather kernel and through
     the plain gather, equal; two passes give the same bits."""

@@ -472,9 +472,12 @@ def test_turnover_is_in_place(corpus):
         assert (model.mu2_table.data_ptr(), state.mu["mu2_table"].data_ptr(),
                 state.nu["mu2_table"].data_ptr(),
                 source.data.data_ptr()) == ptrs
-        rows = sub.dataset.store.data.shape[0]
-        np.testing.assert_array_equal(source.data[:rows].numpy(),
-                                      sub.dataset.store.data)
+        # the round is gathered from the held store: its rows are the
+        # sub-pack's of its keys
+        want = ds.store.subset(sub.dataset.store.seq_keys,
+                               materialize=True).data
+        rows = want.shape[0]
+        np.testing.assert_array_equal(source.data[:rows].numpy(), want)
         assert not source.data[rows:].any()
     assert not torch.equal(tables[0], tables[1])
     for n, (mu, nu) in before.items():

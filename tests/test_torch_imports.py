@@ -61,6 +61,7 @@ PORT_MODULES = [
     "pytorch_scalablefhvae_tpu_torch.train.plots",
     "pytorch_scalablefhvae_tpu_torch.ops.lstm_cuda",
     "pytorch_scalablefhvae_tpu_torch.ops.discriminative",
+    "pytorch_scalablefhvae_tpu_torch.ops.stage_gather",
     "pytorch_scalablefhvae_tpu_torch.ops.window_gather",
     "pytorch_scalablefhvae_tpu_torch.ops.fbank_cuda",
     "pytorch_scalablefhvae_tpu_torch.parallel.mesh",

@@ -9,10 +9,12 @@ another thread names its parent. Then the loop: a hierarchical run of
 round-staged rounds at K = 2 over two epochs (36 synthetic utterances of 6
 speakers, K = 6 sequences a round, tiny widths, the plain kernel versions)
 with the flag on and off. On, each epoch's ``metrics.jsonl`` record holds
-the sums of every span the CPU path reaches and the counters, and the
-printed ``Round at epoch`` stage seconds are the timed stage spans'; on and
-off give the same losses and final weights bit for bit; off, the records
-have no ``spans`` and the sites make only the turnover's timed spans.
+the sums of every span the CPU path reaches and the counters (each round
+gathered from the held host store: ``stage_gathers`` 1 an epoch,
+``stage_fallbacks`` 0), and the printed ``Round at epoch`` stage seconds
+are the timed stage spans'; on and off give the same losses and final
+weights bit for bit; off, the records have no ``spans`` and the sites make
+only the turnover's timed spans.
 """
 
 import contextlib
@@ -50,7 +52,8 @@ CPU_SPANS = {"epoch", "turnover", "turnover.draw", "turnover.loader",
              "dispatch.launch[replay=false]", "loss_read", "dev_pass",
              "dev_pass.map", "dev_pass.score", "dev_pass.fetch", "save",
              "save.to_host", "save.write"}
-CPU_COUNTERS = {"dispatches", "eager_steps", "ckpt_bytes", "staged_bytes"}
+CPU_COUNTERS = {"dispatches", "eager_steps", "ckpt_bytes", "staged_bytes",
+                "stage_gathers", "stage_fallbacks"}
 TIMED = {"turnover.draw", "turnover.loader", "turnover.materialise",
          "turnover.stage", "turnover.map_init"}
 ROUND = re.compile(r"Round at epoch (\d+) \([^)]*\): (.*)")
@@ -258,6 +261,9 @@ def test_records_hold_every_span_and_counter(traced):
             assert r["counters"]["ckpt_bytes"] == sum(z[k].nbytes
                                                       for k in z.files)
         assert r["counters"]["staged_bytes"] > 0
+        # each epoch's round gathered from the held host store
+        assert r["counters"]["stage_gathers"] == 1
+        assert r["counters"]["stage_fallbacks"] == 0
     assert "save.best_copy" in recs[0]["spans"]
 
 
