@@ -18,7 +18,12 @@ swap is undone by :meth:`Recorder.close`.
 - ``Rounds.map_init``: the last fresh round's record (``round``): its
   epoch, its drawn keys in the program's order, and device copies of the
   weights it was MAP-initialised from (the last round's table among them)
-  and of the table it made.
+  and of the table it made;
+- ``run_stream_epoch``: the streamed tier's source (``stream_source``),
+  and, once each epoch's steps have returned (the runner has synchronised
+  the device), the source's ``switch_waits()``, a list an epoch in
+  ``switches``: each chunk switch's host wait for the filler thread and
+  the device's wait for the slot's copy.
 """
 
 from __future__ import annotations
@@ -42,8 +47,9 @@ SPANS = {"device_dev_pass": "dev_pass", "dev_pass": "dev_pass",
 class Recorder:
     """Spans ``(name, t0, t1)`` on the host clock, each call's epoch
     cursors, an ``on_epoch`` callback run at the start of every epoch
-    (before its steps and, in a hierarchical run, before its turnover), and
-    the last fresh round's record ``round``."""
+    (before its steps and, in a hierarchical run, before its turnover),
+    the last fresh round's record ``round``, and on the streamed tier its
+    source and each epoch's chunk switches."""
 
     def __init__(self, hierarchical: bool, traced: bool = False):
         self.hierarchical, self.traced = hierarchical, traced
@@ -52,6 +58,8 @@ class Recorder:
         self.cursors: list = []
         self.on_epoch = None
         self.round: dict | None = None
+        self.stream_source = None
+        self.switches: list = []
         self._epoch = None
         self._undo: list = []
         loop = importlib.import_module(LOOP)
@@ -72,6 +80,16 @@ class Recorder:
             self._swap(loop, name, self._timed(span, getattr(loop, name)))
         self._swap(graphs.StepBundle, "capture",
                    self._timed("capture", graphs.StepBundle.capture))
+        timed_stream = loop.run_stream_epoch
+
+        @functools.wraps(timed_stream)
+        def run_stream_epoch(state, optimizer, source, *args, **kw):
+            rec.stream_source = source
+            stats = timed_stream(state, optimizer, source, *args, **kw)
+            rec.switches.append(source.switch_waits())
+            return stats
+
+        self._swap(loop, "run_stream_epoch", run_stream_epoch)
         real_loader_for = rounds.Rounds.loader_for
         real_map_init = rounds.Rounds.map_init
 

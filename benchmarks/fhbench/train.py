@@ -29,6 +29,13 @@ Set-up is everything before the window: imports, the corpus, the weights,
 calls 1-3 (the kernels' build on a checkout's first run, the graph
 captures, the staging). The reference runs after the window, once the
 peak memory is read and the program's state is freed.
+
+A mix of ``"kind": "stream"`` runs ``fhbench/stream.py``'s subclass: the
+same four calls on the streamed tier, the reference's batches in the
+stream's chunk order, each window epoch's chunk switches read from the
+program's source, and two calls more after the window, from call 2's
+checkpoint to the first chunk switch past it and on through it, for
+``switch_loss_gap``.
 """
 
 from __future__ import annotations
@@ -389,9 +396,7 @@ class Run:
             params["mu2_table"] = ref_train.round_table(
                 self.model, params, split, t.map_init_chunk_skip, MAP_SPB,
                 dev, prec)
-        batches = ref_train.first_batches(
-            split, self.seed, self.config.data.training_batch_size,
-            1 + 2 * self.k)
+        batches = self.first_batches(split)
 
         def after_step(n):
             if n == 1 and self.hier:
@@ -407,6 +412,13 @@ class Run:
                    params_after={n: p.cpu().numpy().copy()
                                  for n, p in params.items()})
         return out
+
+    def first_batches(self, split: common.Split) -> list:
+        """The window indices of the first ``1 + 2 K`` batches of
+        ``split``, in the loader's order of epoch 0."""
+        return ref_train.first_batches(
+            split, self.seed, self.config.data.training_batch_size,
+            1 + 2 * self.k)
 
     def optim(self) -> dict:
         o = self.config.optim

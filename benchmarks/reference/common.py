@@ -1,13 +1,14 @@
 """The plain reference's shared pieces: precision modes, Gaussian layers,
 the ELBO, the discriminative term, the loss, the clipped Adam step, the
-segment index, the batch order, the hierarchical round's draw and the MAP
-table.
+segment index, the batch order (the loader's, and the streamed tier's
+chunks and schedule), the hierarchical round's draw and the MAP table.
 
 Plain PyTorch in float32 with TF32 off, written from the model's published
 description (Hsu & Glass, "Scalable Factorized Hierarchical Variational
 Autoencoder Training", Interspeech 2018; BurnhamG/PyTorch-ScalableFHVAE) and
 from the training path's documented schedules (the loader's permutation, the
-round's draw, each step's noise seed). It imports nothing of the measured
+streamed tier's chunk partition and visit order, the round's draw, each
+step's noise seed). It imports nothing of the measured
 program and nothing of JAX: the benchmark hands it the same corpus and the
 same initial weights it hands the program.
 
@@ -204,6 +205,44 @@ def epoch_order(n_windows: int, loader_seed: int, epoch: int) -> np.ndarray:
     """The training loader's shuffled order of an epoch."""
     rng = np.random.default_rng(loader_seed + 1_000_003 * epoch)
     return rng.permutation(n_windows)
+
+
+def stream_chunks(lens: np.ndarray, nsegs: np.ndarray, row_bytes: int,
+                  chunk_bytes: int) -> list:
+    """The streamed tier's chunks: sequences in store order, a chunk closed
+    where the next sequence would take it past ``chunk_bytes`` (rows of
+    ``row_bytes``), so each chunk is whole sequences, one run of frames and
+    one run of windows. Each chunk is ``(frame_base, n_frames, seg_lo,
+    seg_hi)``."""
+    lens = np.asarray(lens, np.int64)
+    max_rows = max(chunk_bytes // row_bytes, 1)
+    frame_at = np.concatenate([[0], np.cumsum(lens)])
+    seg_at = np.concatenate([[0], np.cumsum(np.asarray(nsegs, np.int64))])
+    chunks, lo = [], 0
+    while lo < len(lens):
+        hi = lo
+        while hi < len(lens) and frame_at[hi + 1] - frame_at[lo] <= max_rows:
+            hi += 1
+        if hi == lo:
+            raise ValueError(f"sequence {lo} has more frames than a chunk "
+                             f"holds ({max_rows})")
+        chunks.append((int(frame_at[lo]), int(frame_at[hi] - frame_at[lo]),
+                       int(seg_at[lo]), int(seg_at[hi])))
+        lo = hi
+    return chunks
+
+
+def stream_schedule(chunks: list, loader_seed: int, epoch: int) -> list:
+    """The streamed tier's order of an epoch: one generator seeded as the
+    loader's shuffle of that epoch draws the chunks' visit order, then,
+    chunk by chunk in that order, a permutation of the chunk's windows.
+    ``[(chunk, window indices)]`` in the order trained."""
+    rng = np.random.default_rng(loader_seed + 1_000_003 * epoch)
+    out = []
+    for c in rng.permutation(len(chunks)):
+        _, _, lo, hi = chunks[c]
+        out.append((int(c), lo + rng.permutation(hi - lo)))
+    return out
 
 
 def round_draw(keys: list, k: int, seed: int, e0: int) -> list:

@@ -17,6 +17,14 @@ def first_batches(split: common.Split, loader_seed: int, batch: int,
     return [order[s * batch:(s + 1) * batch] for s in range(steps)]
 
 
+def stream_batches(schedule: list, batch: int) -> list:
+    """The window indices of every batch of a streamed epoch's schedule
+    (:func:`common.stream_schedule`), chunk after chunk; a chunk's last
+    batch may be short."""
+    return [order[at:at + batch] for _, order in schedule
+            for at in range(0, len(order), batch)]
+
+
 def round_table(model, params: dict, split: common.Split, skip: int,
                 spb: int, device, prec: dict | None = None) -> torch.Tensor:
     """A hierarchical round's MAP-initialised table: every ``skip``-th chunk
@@ -38,21 +46,14 @@ def follow(model, params: dict, split: common.Split, batches: list,
     steps are done. Returns each step's loss and the first step's clipped
     gradient. ``half_batch`` plants a fault for reading the limits: the
     loss is the mean over the batch's first half alone."""
-    cfg = model.cfg
     for p in params.values():
         p.requires_grad_(True)
     adam = common.Adam(params, optim["learning_rate"], optim["beta_one"],
                        optim["beta_two"], optim["grad_clip_norm"])
     losses, first = [], None
     for step, idx in enumerate(batches):
-        x, seq, nsegs = split.windows(idx, device)
-        weight = torch.ones(len(idx), device=device)
-        if half_batch:
-            weight[len(idx) // 2:] = 0.0
-        noise = common.step_noise(seed, step, len(idx), cfg["z1_dim"],
-                                  cfg["z2_dim"], device)
-        out = model.forward(params, x, seq, nsegs, None, noise, prec)
-        loss = common.training_loss(out, weight, optim["alpha_dis"])
+        loss = step_loss(model, params, split.windows(idx, device), seed,
+                         step, optim["alpha_dis"], device, prec, half_batch)
         names = list(params)
         grads = torch.autograd.grad(loss, [params[n] for n in names])
         clipped = adam.update(params, dict(zip(names, grads)))
@@ -64,3 +65,20 @@ def follow(model, params: dict, split: common.Split, batches: list,
     for p in params.values():
         p.requires_grad_(False)
     return {"losses": np.array(losses), "first_grads": first}
+
+
+def step_loss(model, params: dict, windows: tuple, seed: int, step: int,
+              alpha: float, device, prec: dict | None = None,
+              half_batch: bool = False) -> torch.Tensor:
+    """The training loss of step ``step`` (0 first) over ``windows``, ``(x,
+    seq, nsegs)`` of one batch, at ``params``, with the step's noise;
+    ``half_batch``: over the batch's first half alone (a planted fault)."""
+    x, seq, nsegs = windows
+    cfg = model.cfg
+    weight = torch.ones(len(seq), device=device)
+    if half_batch:
+        weight[len(seq) // 2:] = 0.0
+    noise = common.step_noise(seed, step, len(seq), cfg["z1_dim"],
+                              cfg["z2_dim"], device)
+    out = model.forward(params, x, seq, nsegs, None, noise, prec)
+    return common.training_loss(out, weight, alpha)

@@ -108,7 +108,9 @@ def read_seeds(Run, cell, args, device: str) -> int:
     the program's place) and of the reference in its place with a fault
     planted (half of each batch left out of the loss; the dev lower bound
     over half of the dev split; in rounds, the window's last table left as
-    the round before trained it), one JSON line a seed; no result line."""
+    the round before trained it; on the streamed tier, the first batch
+    after a chunk switch gathered from the chunk before's rows), one JSON
+    line a seed; no result line."""
     from fhbench.check import judge
 
     for seed in range(args.seed, args.seed + args.readings):
@@ -127,6 +129,8 @@ def read_seeds(Run, cell, args, device: str) -> int:
                                                            dev_half=True)
                 if run.hier:
                     read["stale_table"] = run.window_numbers(stale=True)
+                if hasattr(run, "switch_numbers"):
+                    read["stale_chunk"] = run.switch_numbers(stale=True)
             finally:
                 run.close()
         print(json.dumps({"cell": cell.name, "seed": seed, **read,

@@ -14,7 +14,7 @@ KEYS = ["correct", "attempted", "failed", "metrics", "device", "checks"]
 
 
 @pytest.mark.parametrize("cell", ["small_fhvae.k2", "small_simple.k2",
-                                  "small_fhvae.rounds"])
+                                  "small_fhvae.rounds", "small_fhvae.stream"])
 def test_sound_run_is_correct(small_root, capsys, cell):
     line = run_small(small_root, cell, capsys)
     assert line["correct"], line["checks"]
@@ -34,6 +34,17 @@ def test_traced_run_reports_per_layer_metrics(small_root, capsys):
             "turnover_s.hier"} <= got
     assert "idle_share.hier" not in got
     assert line["device"]["window_s"] > 0
+
+
+def test_traced_stream_run_reports_its_chunk_waits(small_root, capsys):
+    line = run_small(small_root, "small_fhvae.stream", capsys, "--trace",
+                     "1")
+    assert line["correct"], line["checks"]
+    got = set(line["metrics"])
+    assert {"step_ms.stream", "outside_steps_share.stream", "mfu.stream",
+            "chunk_wait_s.stream"} <= got
+    assert "idle_share.stream" not in got
+    assert line["metrics"]["chunk_wait_s.stream"]["value"] > 0
 
 
 @pytest.mark.parametrize("cell", ["small_fhvae.k2", "small_simple.k2"])
@@ -88,7 +99,7 @@ def _dev_bound_altered(monkeypatch):
 @pytest.mark.parametrize("fault", [_state_unchanged, _half_batch,
                                    _dev_bound_altered])
 @pytest.mark.parametrize("cell", ["small_fhvae.k2", "small_simple.k2",
-                                  "small_fhvae.rounds"])
+                                  "small_fhvae.rounds", "small_fhvae.stream"])
 def test_fault_is_not_correct(small_root, capsys, monkeypatch, fault, cell):
     fault(monkeypatch)
     line = run_small(small_root, cell, capsys)
@@ -136,3 +147,26 @@ def test_window_round_fault_is_not_correct(small_root, capsys, monkeypatch,
             > checks["window_draw_gap"]["limit"]
             or checks["window_table_gap"]["value"]
             > checks["window_table_gap"]["limit"])
+
+
+def _stale_chunk(monkeypatch):
+    """Every chunk a source fills after its first gets the first one's
+    rows: each chunk's plan after a switch trains on the chunk before."""
+    from pytorch_scalablefhvae_tpu_torch.data import stream_store
+
+    real = stream_store.StreamingDeviceSource._fill
+
+    def stale(self, spec, slot):
+        real(self, self.__dict__.setdefault("_first_spec", spec), slot)
+
+    monkeypatch.setattr(stream_store.StreamingDeviceSource, "_fill", stale)
+
+
+def test_stale_chunk_is_not_correct(small_root, capsys, monkeypatch):
+    """A switch that leaves the next chunk's slot holding the chunk before:
+    the check of the step after the switch sees it."""
+    _stale_chunk(monkeypatch)
+    line = run_small(small_root, "small_fhvae.stream", capsys)
+    assert not line["correct"], line["checks"]
+    check = line["checks"]["switch_loss_gap"]
+    assert check["value"] > check["limit"]
